@@ -1,0 +1,90 @@
+"""Build the CUDA sources under ``kernels/csrc/`` and load them with ctypes.
+
+Each ``<name>.cu`` there has a plain C interface (no PyTorch headers, so
+it compiles in seconds).  ``load_library(name)`` compiles it once with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into ``build/lib<name>-<hash>.so`` (the hash covers the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused) and
+returns the ``ctypes.CDLL``.  Nothing is compiled when this module is
+imported; the first launch of a kernel pays for the build.
+
+A failed build raises :class:`KernelBuildError` carrying the compiler's
+output.  There is no fallback: a caller holding a CUDA tensor either
+gets the kernel or the error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["CSRC_DIR", "KernelBuildError", "NVCC_FLAGS", "build_dir",
+           "find_nvcc", "library_path", "load_library"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "kernels" / "csrc"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a source; the message has its output."""
+
+
+def build_dir() -> Path:
+    """``build/`` at the root of the checkout (``src/``'s parent)."""
+    return Path(__file__).resolve().parents[2] / "build"
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise KernelBuildError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the CUDA kernels cannot be built here")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    if not src.exists():
+        raise KernelBuildError(f"no kernel source {src}")
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``kernels/csrc/<name>.cu`` if needed and load it."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    out = library_path(name)
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,349 @@
+"""repro_torch.tune.kernels: registry, timed parity evaluator, cache
+round-trips (0 measurements on repeat), graceful fallback when the store
+has no entry — the port's twin of ``tests/test_kernel_tuning.py``, on
+``device="cpu"`` (the kernels' plain versions) with exact integer parity.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from repro.tune.kernels import kernel_workload as ref_kernel_workload
+from repro_torch.core.space import ConfigSpace, Param
+from repro_torch.kernels import KernelLaunchError
+from repro_torch.kernels.dna_automaton import ops as dna_ops
+from repro_torch.runtime.store import TuningStore
+from repro_torch.tune import kernels as ktune
+from repro_torch.tune.kernels import KernelTimer
+from repro_torch.tune.kernels.specs import BLOCK_THREADS, TEXT_CHUNKS
+
+
+@pytest.fixture
+def tuned_path_disabled():
+    """Ensure the global tuned-path state never leaks across tests."""
+    yield
+    ktune.disable()
+
+
+def smoke_timer(**kw):
+    spec = ktune.get_kernel("dna_automaton")
+    return spec, KernelTimer(spec, spec.smoke_shape, "uint8", device="cpu",
+                             repeats=1, **kw)
+
+
+# -- registry ------------------------------------------------------------------------
+
+def test_dna_space_is_redrawn_for_the_card():
+    spec = ktune.get_kernel("dna_automaton")
+    assert ktune.list_kernels() == ["dna_automaton"]
+    space = spec.space(spec.default_shape)
+    assert space.names == ("map_chunk", "count_chunk", "block_threads")
+    assert space.size() == 500 >= 64
+    assert space["block_threads"].values == BLOCK_THREADS == (64, 128, 256, 512, 1024)
+    assert space["map_chunk"].values == TEXT_CHUNKS
+    assert all(p.ordinal for p in space.params)
+    assert spec.default_shape == {"t": 3 * 2 ** 30, "s": 7}
+    assert spec.smoke_shape == {"t": 4096, "s": 7}
+    assert dict(spec.defaults) == dna_ops.DEFAULTS
+    assert dna_ops.DEFAULTS["block_threads"] == 256
+    assert (spec.atol, spec.rtol) == (0.0, 0.0)
+    assert ktune.SMEM_LIMIT_BYTES == 232448
+
+
+@pytest.mark.parametrize("shape", ["smoke_shape", "default_shape"])
+def test_space_has_valid_default_and_invalid_candidates(shape):
+    spec = ktune.get_kernel("dna_automaton")
+    meta = getattr(spec, shape)
+    space = spec.space(meta)
+    default = spec.default_config(space, meta)
+    assert spec.validate(default, meta) is None
+    invalid = [c for c in space.enumerate() if spec.validate(c, meta)]
+    assert invalid and len(invalid) < space.size()
+    reasons = {spec.validate(c, meta).split("=")[0] for c in invalid}
+    assert "count_chunk" in reasons or "map_chunk" in reasons
+
+
+def test_default_config_moves_to_nearest_valid_point():
+    spec = ktune.get_kernel("dna_automaton")
+    meta = {"t": 1024, "s": 7}                    # 2048 exceeds the text
+    cfg = spec.default_config(spec.space(meta), meta)
+    assert spec.validate(cfg, meta) is None
+    assert cfg == {"map_chunk": 1024, "count_chunk": 1024, "block_threads": 256}
+    with pytest.raises(ValueError, match="no valid config"):
+        spec.default_config(spec.space({"t": 100, "s": 7}), {"t": 100, "s": 7})
+
+
+def test_validation_reasons():
+    spec = ktune.get_kernel("dna_automaton")
+    meta = spec.smoke_shape
+    ok = {"map_chunk": 256, "count_chunk": 512, "block_threads": 64}
+    assert spec.validate(ok, meta) is None
+    assert "exceeds" in spec.validate(dict(ok, map_chunk=8192), meta)
+    assert "not a multiple" in spec.validate(
+        dict(ok, map_chunk=512, count_chunk=256), meta)
+    assert "does not divide" in spec.validate(ok, {"t": 4096 + 256 * 3, "s": 7})
+    assert "shared-memory" in spec.validate(ok, {"t": 4096, "s": 4000})
+
+
+def test_unknown_kernel_raises():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        ktune.get_kernel("nope")
+
+
+@pytest.mark.parametrize("dtype", ["uint8", np.uint8, np.dtype("uint8"),
+                                   torch.uint8])
+def test_kernel_workload_spells_dtype_like_the_reference(dtype):
+    meta = {"t": 4096, "s": 7}
+    got = ktune.kernel_workload("dna_automaton", meta, dtype)
+    assert got["dtype"] == "uint8"
+    assert got == ref_kernel_workload("dna_automaton", meta, "uint8")
+
+
+# -- timed parity evaluator ----------------------------------------------------------
+
+def test_default_and_random_config_parity():
+    spec, timer = smoke_timer(seed=0)
+    space = spec.space(spec.smoke_shape)
+    assert np.isfinite(timer(spec.default_config(space, spec.smoke_shape)))
+    rng = np.random.default_rng(1)
+    n = 0
+    for _ in range(200):
+        cfg = space.random(rng)
+        if spec.validate(cfg, spec.smoke_shape) is None:
+            assert np.isfinite(timer(cfg)), cfg
+            n += 1
+            if n == 3:
+                break
+    assert n == 3 and timer.n_launch_failed == 0
+
+
+def test_timer_inputs_share_the_reference_numpy_stream():
+    _, timer = smoke_timer(seed=5)
+    text, table, accept = timer.inputs
+    want = np.random.default_rng(5).integers(0, 4, 4096).astype(np.uint8)
+    np.testing.assert_array_equal(text.numpy(), want)
+    assert text.dtype == torch.uint8 and table.dtype == accept.dtype == torch.int32
+    assert (timer.atol, timer.rtol) == (0.0, 0.0)   # exact, also for uint8
+
+
+def test_invalid_config_scores_inf_without_measuring():
+    _, timer = smoke_timer()
+    bad = {"map_chunk": 8192, "count_chunk": 8192, "block_threads": 256}
+    assert timer(bad) == float("inf")
+    assert timer.n_measured == 0
+    assert "exceed" in next(iter(timer.rejected.values()))
+
+
+def test_measurements_deduplicate():
+    spec, timer = smoke_timer()
+    cfg = dict(spec.defaults)
+    first = timer(cfg)
+    assert timer(dict(cfg)) == first and timer.n_measured == 1
+
+
+def with_run(spec, run):
+    return dataclasses.replace(spec, run=run)
+
+
+def test_only_a_refused_launch_scores_inf(monkeypatch):
+    spec = ktune.get_kernel("dna_automaton")
+    cfg = dict(spec.defaults)
+
+    def refused(cfg, inputs):
+        raise KernelLaunchError("too many resources requested for launch")
+
+    timer = KernelTimer(with_run(spec, refused), spec.smoke_shape, "uint8",
+                        device="cpu", repeats=1)
+    assert timer(cfg) == float("inf")
+    assert timer.n_launch_failed == 1 and timer.n_measured == 0
+    assert "launch failed" in next(iter(timer.rejected.values()))
+
+    def faulted(cfg, inputs):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    timer = KernelTimer(with_run(spec, faulted), spec.smoke_shape, "uint8",
+                        device="cpu", repeats=1)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        timer(cfg)
+    assert timer.n_launch_failed == 0
+
+
+def test_parity_failure_is_fatal_at_the_default_only():
+    spec = ktune.get_kernel("dna_automaton")
+
+    def wrong(cfg, inputs):
+        return spec.run(cfg, inputs) + 1
+
+    timer = KernelTimer(with_run(spec, wrong), spec.smoke_shape, "uint8",
+                        device="cpu", repeats=1)
+    other = {"map_chunk": 256, "count_chunk": 256, "block_threads": 64}
+    assert timer(other) == float("inf") and timer.n_measured == 0
+    assert "parity" in next(iter(timer.rejected.values()))
+    with pytest.raises(RuntimeError, match="default configuration"):
+        timer(dict(spec.defaults))
+
+
+def test_timer_observer_is_not_silently_ignored():
+    spec = ktune.get_kernel("dna_automaton")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        KernelTimer(spec, spec.smoke_shape, "uint8", device="cpu",
+                    observer=object())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            KernelTimer(spec, spec.smoke_shape, "uint8")
+
+
+# -- tune + cache round trip -----------------------------------------------------------
+
+def tune(store, **kw):
+    kw = {"strategy": "random", "iterations": 3, "smoke": True, "repeats": 1,
+          "seed": 0, "device": "cpu", **kw}
+    return ktune.tune_kernel("dna_automaton", store=store, **kw)
+
+
+def test_cache_round_trip_zero_measurements(tmp_path):
+    store = TuningStore(tmp_path / "kernels.json", devices="pinned")
+    first = tune(store)
+    assert first.n_measured > 0 and not first.result.from_cache
+    again = tune(store)
+    assert again.result.from_cache
+    assert again.n_measured == 0                 # the acceptance bar
+    assert again.best_config == first.best_config
+
+
+def test_saml_tunes_within_budget(tmp_path):
+    store = TuningStore(tmp_path / "kernels.json", devices="pinned")
+    out = tune(store, strategy="saml", iterations=60)
+    spec = ktune.get_kernel("dna_automaton")
+    assert spec.validate(out.best_config, out.shape) is None
+    assert np.isfinite(out.best_time())
+    assert out.n_measured <= 25 and out.measured_fraction <= 0.05
+    assert out.result.n_training_experiments > 0
+    assert out.timer.n_launch_failed == 0
+    assert out.best_time() <= out.default_time()
+    assert out.dtype == "uint8" and out.shape == {"t": 4096, "s": 7}
+
+
+def test_too_few_valid_measurements_raises(tmp_path):
+    with pytest.raises(ValueError, match="too few valid"):
+        ktune.tune_kernel("dna_automaton", {"t": 256}, device="cpu",
+                          n_train=1, repeats=1)
+
+
+def test_best_record_spans_strategies(tmp_path):
+    store = TuningStore(tmp_path / "kernels.json", devices="pinned")
+    tune(store, iterations=2)
+    tune(store, strategy="hillclimb", iterations=2, seed=1)
+    spec = ktune.get_kernel("dna_automaton")
+    space = spec.space(spec.smoke_shape)
+    workload = ktune.kernel_workload("dna_automaton", spec.smoke_shape, "uint8")
+    best = store.best_record(space, workload)
+    by_strategy = [store.lookup(space, workload, s)
+                   for s in ("RANDOM", "HILLCLIMB")]
+    assert all(r is not None for r in by_strategy)
+    assert best.best_energy_measured == min(
+        r.best_energy_measured for r in by_strategy)
+
+
+def test_space_change_forces_retune(tmp_path):
+    """Editing a kernel's ConfigSpace must invalidate its cached tune:
+    the store key hashes the space fingerprint, so the narrowed space
+    misses and fresh measurements happen (no stale winner is served)."""
+    store = TuningStore(tmp_path / "kernels.json", devices="pinned")
+    assert tune(store, iterations=2).n_measured > 0
+    again = tune(store, iterations=2)
+    assert again.result.from_cache and again.n_measured == 0
+    spec = ktune.get_kernel("dna_automaton")
+
+    def narrowed(meta):
+        space = spec.space_fn(meta)
+        return ConfigSpace([
+            Param(p.name, p.values[:-1], ordinal=p.ordinal)
+            if p.name == "block_threads" else p for p in space.params])
+
+    try:
+        ktune.register_kernel(dataclasses.replace(spec, space_fn=narrowed))
+        redo = tune(store, iterations=2)
+        assert not redo.result.from_cache and redo.n_measured > 0
+    finally:
+        ktune.register_kernel(spec)
+
+
+# -- the ops tuned= path -----------------------------------------------------------------
+
+def test_tuned_true_falls_back_gracefully(tmp_path, tuned_path_disabled):
+    """tuned=True with an empty store (or none) must run the defaults."""
+    table, accept = dna_ops.build_motif_dfa("ACGTAC")
+    text = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 4, 4096).astype(np.uint8))
+    base = dna_ops.fa_match(text, table, accept)
+    assert int(dna_ops.fa_match(text, table, accept, tuned=True)) == int(base)
+    ktune.configure(str(tmp_path / "empty.json"), enabled=False, device="cpu")
+    assert not ktune.tuning_enabled()
+    assert ktune.resolve_config("dna_automaton", {"t": 4096, "s": 7},
+                                "uint8", device="cpu") == {}
+    assert int(dna_ops.fa_match(text, table, accept, tuned=True)) == int(base)
+
+
+def test_tuned_path_resolves_recorded_config(tmp_path, tuned_path_disabled):
+    """After tuning, ops called with the global enable resolve the cached
+    best config (zero measurements) and still match the oracle."""
+    from repro_torch.kernels.dna_automaton import ref as dna_ref
+
+    spec = ktune.get_kernel("dna_automaton")
+    meta = spec.smoke_shape
+    store = TuningStore(tmp_path / "kernels.json", device="cpu")  # live topology
+    out = tune(store, iterations=4)
+    ktune.configure(store)
+    assert ktune.tuning_enabled()
+    resolved = ktune.resolve_config("dna_automaton", dict(meta), torch.uint8,
+                                    device="cpu")
+    assert resolved == out.best_config
+    # a record tuned on the CPU never serves a call on the card
+    assert ktune.resolve_config("dna_automaton", dict(meta), "uint8",
+                                device="cuda") == {}
+    # unknown kernels and other shapes miss
+    assert ktune.resolve_config("nope", dict(meta), "uint8", device="cpu") == {}
+    assert ktune.resolve_config("dna_automaton", {"t": 8192, "s": 7}, "uint8",
+                                device="cpu") == {}
+
+    table, accept = dna_ops.build_motif_dfa("ACGTAC")
+    text = np.random.default_rng(3).integers(0, 4, meta["t"]).astype(np.uint8)
+    n_measured = out.timer.n_measured
+    got = int(dna_ops.fa_match(torch.from_numpy(text), table, accept))
+    assert got == dna_ref.fa_match_ref(text, table, accept)[0]
+    assert out.timer.n_measured == n_measured
+
+
+def test_hand_edited_stale_config_is_dropped(tmp_path, tuned_path_disabled):
+    """A store entry whose best_config is no longer a point of the
+    current space (hand-edited file, renamed launch param) must resolve
+    to {} — the ops layer keeps its defaults rather than crashing."""
+    path = tmp_path / "kernels.json"
+    out = tune(TuningStore(path, devices="pinned"), iterations=2)
+    spec = ktune.get_kernel("dna_automaton")
+    meta = dict(spec.smoke_shape)
+    ktune.configure(TuningStore(path, devices="pinned"), enabled=False)
+    assert ktune.resolve_config("dna_automaton", meta, "uint8",
+                                device="cpu") == out.best_config
+
+    data = json.loads(path.read_text())["entries"]
+    for entry in data.values():
+        for report in entry["reports"].values():
+            report["best_config"]["block_threads"] = 999   # out of the domain
+    path.write_text(json.dumps(data))
+    ktune.configure(TuningStore(path, devices="pinned"), enabled=False)
+    assert ktune.resolve_config("dna_automaton", meta, "uint8",
+                                device="cpu") == {}
+
+    for entry in data.values():
+        for report in entry["reports"].values():
+            report["best_config"].update(map_chunk=512, count_chunk=256,
+                                         block_threads=64)  # does not nest
+    path.write_text(json.dumps(data))
+    ktune.configure(TuningStore(path, devices="pinned"), enabled=False)
+    assert ktune.resolve_config("dna_automaton", meta, "uint8",
+                                device="cpu") == {}
