@@ -3,14 +3,29 @@
 
     python3 chip_smoke.py [--t SYMBOLS] [--seed N]
 
-Drives the port's main path once, at full width, through the entry
-points a user would call: build a motif DFA, ``tune_kernel`` the DNA
-automaton's launch parameters on a text of 3 * 2^30 symbols resident on
-the card (the paper's human genome is 3.17 GB), store the winner, then
-``configure`` the store and answer five motif-count requests through
-``fa_match(tuned=True)``.  Before that it builds the CUDA kernels from
-``src/repro_torch/kernels/csrc/`` into ``build/`` and holds each kernel
-against its plain PyTorch version on the same full-width inputs.
+Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
+into ``build/`` (one ``nvcc`` per source, all started together), then
+drives the port's two paths once each, at full width, through the entry
+points a user would call:
+
+* DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
+  automaton's launch parameters on a text of 3 * 2^30 symbols resident on
+  the card (the paper's human genome is 3.17 GB), store the winner, then
+  ``configure`` the store and answer five motif-count requests through
+  ``fa_match(tuned=True)``;
+* LM serving: ``tune_kernel`` the flash-attention and decode-attention
+  kernels at Qwen2.5-3B's serving shapes into one store, ``configure`` it,
+  then ``serve_session`` a batch of 8 random 2048-token prompts and decode
+  128 tokens greedily with the full-width model (36 layers, random weights
+  from ``--seed``, bfloat16), prefill through the flash-attention kernel
+  and every decoded token through the split-KV decode kernel.
+
+Before each path it holds each of the path's kernels against its plain
+PyTorch version on the same inputs at the path's shapes; after the LM
+path it runs the same weights with the kernels and with the plain
+versions, teacher-forced on the generated tokens, and compares logits.
+Each path's launch counters are set to 0 just before it and read just
+after it.
 
 Each phase prints one JSON line; any failing phase raises, so the script
 exits non-zero and prints no result line.  It needs one CUDA device and
@@ -20,11 +35,13 @@ exits non-zero without one.  The last line of standard output is
 
 ``bound_ms`` in the kernels line is the least time the card could take:
 the larger of (bytes each input is read once + each output written once)
-/ 3.35e12 B/s (H100 SXM HBM3 bandwidth, NVIDIA data sheet) and (one
-integer table lookup per symbol and start state) / 33.5e12 op/s (the
-data sheet's 67 TFLOP/s of non-tensor float32 counts a fused multiply-add
-as two, so 33.5e12 instructions per second; the same rate is taken for
-int32 instructions).
+/ 3.35e12 B/s (H100 SXM HBM3 bandwidth, NVIDIA data sheet) and the
+operations over the data sheet's peak rate for their type: one integer
+table lookup per symbol and start state over 33.5e12 op/s for the DNA
+kernels (the sheet's 67 TFLOP/s of non-tensor float32 counts a fused
+multiply-add as two, so 33.5e12 instructions per second; the same rate is
+taken for int32 instructions), and the attention's flops over 989e12
+FLOP/s (dense bfloat16 tensor cores) for the attention kernels.
 """
 
 from __future__ import annotations
@@ -45,7 +62,11 @@ sys.path.insert(0, str(ROOT / "src"))
 FULL_T = 3 * 2 ** 30
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
+BF16_FLOPS_PER_S = 989e12
 SERVE_MOTIFS = ("ACGTAC", "GATTAC", "TTAGGG", "CCGGAA", "ACGTACGT")
+LIBRARIES = ("dna_automaton", "flash_attention", "decode_attention")
+# the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
 
 
 def emit(**fields) -> None:
@@ -58,15 +79,16 @@ def check(cond: bool, what: str) -> None:
 
 
 def device_ms(fn, repeats: int) -> float:
-    """Mean device time of ``fn`` over ``repeats`` launches (CUDA events)."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(repeats):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / repeats
+    """Mean device time of ``fn`` over ``repeats`` back-to-back calls: CUDA
+    events, the card held by a spin while the host enqueues the calls (the
+    tuner's timing, ``repro_torch.tune.kernels.evaluate``), so a call of
+    short launches is not timed at the host's pace.  Calls ``fn`` once
+    more first, to measure the host's enqueue time."""
+    from repro_torch.tune.kernels.evaluate import (device_seconds,
+                                                   probe_seconds)
+
+    host_s, _ = probe_seconds(fn, torch.device("cuda"))
+    return device_seconds(fn, repeats, host_s) * 1e3
 
 
 def max_abs_err(got, want) -> int:
@@ -86,10 +108,15 @@ def phase_build() -> None:
     from repro_torch import _build
 
     t0 = time.perf_counter()
-    _build.load_library("dna_automaton")
-    emit(phase="build", seconds=round(time.perf_counter() - t0, 3),
-         library=str(_build.library_path("dna_automaton").relative_to(ROOT)),
-         flags=" ".join(_build.NVCC_FLAGS))
+    _build.load_libraries(LIBRARIES)
+    seconds = time.perf_counter() - t0
+    ptxas = {name: [line.strip() for line in _build.build_log(name)
+                    .splitlines() if "registers" in line or "spill" in line]
+             for name in LIBRARIES}
+    emit(phase="build", seconds=round(seconds, 3),
+         libraries=[str(_build.library_path(n).relative_to(ROOT))
+                    for n in LIBRARIES],
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
 
 def phase_oracle(seed: int) -> None:
@@ -259,6 +286,347 @@ def phase_serve(text, store_path: Path, tuned) -> None:
     emit(phase="serve", ok=True, requests=requests)
 
 
+# -- the LM-serving path ------------------------------------------------------------
+
+def attention_bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def timed_pair(kernel_fn, plain_fn, repeats: int):
+    """(kernel output, plain output, kernel ms, plain ms): each warmed once,
+    then timed by CUDA events, kernel first, then plain."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    ms = device_ms(kernel_fn, repeats)
+    plain_ms = device_ms(plain_fn, max(1, repeats // 5))
+    return got, want, ms, plain_ms
+
+
+def float_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase_attention_parity(seed: int) -> list[dict]:
+    """B3 at the prefill shape and B4 at the decode shape against their
+    plain versions, plus one float32 case each with TF32 off."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention.ops import DEFAULTS as DA
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ops import DEFAULTS as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(LM_ARCH)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, t, s_len = LM_BATCH, LM_PROMPT, LM_PROMPT + LM_GEN
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # -- B3: prefill shape, bf16, causal; gate 2e-2 (bf16 output, the
+    # reference's rule for sub-4-byte floats); lse in float32 to 1e-3
+    q, k, v = (randn(b, t, h, hd) for _ in range(3))
+    (o, lse), (o_p, lse_p), ms, plain_ms = timed_pair(
+        lambda: fak.flash_attention_fwd(q, k, v, causal=True, **FA),
+        lambda: fak.flash_attention_fwd_plain(q, k, v, causal=True), 10)
+    ok = (torch.allclose(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+          and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 10)
+    elem = q.element_size()
+    n_bytes = 4 * b * t * h * hd * elem + b * h * t * 4
+    n_flops = 4 * b * h * hd * t * (t + 1) / 2
+    bound_ms, bound_by = attention_bound(n_bytes, n_flops)
+    flash = {"name": "flash_attention_fwd", "ok": ok, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+             "launches": 0, "max_abs_err": float_err(o, o_p), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    flash_case = {"shape": [b, t, h, hd], "dtype": "bfloat16",
+                  "launch": dict(FA), "lse_max_abs_err": float_err(lse, lse_p),
+                  "tflops": n_flops / ms / 1e9}
+    del q, k, v, o, lse, o_p, lse_p, qt, kt, vt
+
+    # float32 at a smaller shape, gate 2e-4 (the reference's float32 gate)
+    q32, k32, v32 = (randn(2, 512, 4, 64, dtype=torch.float32)
+                     for _ in range(3))
+    o32, _ = fak.flash_attention_fwd(q32, k32, v32, causal=True, **FA)
+    o32_p, _ = fak.flash_attention_fwd_plain(q32, k32, v32, causal=True)
+    f32_err = float_err(o32, o32_p)
+    check(torch.allclose(o32, o32_p, atol=2e-4, rtol=2e-4),
+          f"flash_attention_fwd float32: max abs err {f32_err}")
+    flash_case["float32"] = {"shape": [2, 512, 4, 64], "max_abs_err": f32_err}
+
+    # bfloat16 at ragged shapes (T a multiple of no block), a decode-style
+    # q_offset and blocks of 8 (padded to the mma's 16): same gates
+    ragged = []
+    for tq, tk, q_offset in ((333, 333, 0), (77, 333, 256)):
+        qr, kr, vr = (randn(2, n, 4, 64) for n in (tq, tk, tk))
+        o_p, lse_p = fak.flash_attention_fwd_plain(qr, kr, vr, causal=True,
+                                                   q_offset=q_offset)
+        for bq, bk, nt in ((64, 64, 256), (8, 8, 32), (16, 128, 128),
+                           (128, 32, 512)):
+            o, lse = fak.flash_attention_fwd(
+                qr, kr, vr, causal=True, q_offset=q_offset, block_q=bq,
+                block_k=bk, block_threads=nt)
+            err, lse_err = float_err(o, o_p), float_err(lse, lse_p)
+            ragged.append({"tq": tq, "tk": tk, "q_offset": q_offset,
+                           "launch": [bq, bk, nt], "max_abs_err": err,
+                           "lse_max_abs_err": lse_err})
+            check(torch.allclose(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+                  and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3),
+                  f"flash_attention_fwd bfloat16 ragged: {ragged[-1]}")
+    flash_case["bfloat16_ragged"] = ragged
+
+    # -- B4: decode shape (cache S = prompt + gen), bf16 cache, float32 out
+    rep = h // kv
+    q = randn(b, kv, rep, hd)
+    k, v = randn(b, s_len, kv, hd), randn(b, s_len, kv, hd)
+    cases = []
+    for length in (LM_PROMPT + 1, s_len):
+        got, want, ms, plain_ms = timed_pair(
+            lambda: dak.decode_attention(q, k, v, length, **DA),
+            lambda: dak.decode_attention_plain(q, k, v, length), 50)
+        kernel_ms = device_ms(lambda: dak.decode_partials(q, k, v, length,
+                                                          **DA), 50)
+        qh = q.reshape(b, h, 1, hd)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)     # (b, kv, s, hd)
+        mask = (torch.arange(s_len, device="cuda") < length)[None, None, None]
+        sdpa = lambda: F.scaled_dot_product_attention(      # noqa: E731
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        sdpa()
+        library_ms = device_ms(sdpa, 50)
+        n_bytes = (2 * b * length * kv * hd * k.element_size()
+                   + q.numel() * q.element_size() + b * h * hd * 4)
+        n_flops = 4 * b * h * hd * length
+        bound_ms, bound_by = attention_bound(n_bytes, n_flops)
+        cases.append({"length": length, "ok": torch.allclose(
+            got, want, atol=2e-4, rtol=2e-4), "max_abs_err": float_err(got, want),
+            "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "gbytes_per_s": n_bytes / ms / 1e6})
+    acc, m, l = dak.decode_partials(q, k, v, s_len, **DA)
+    combine_ms = device_ms(lambda: dak.combine_splits(acc, m, l), 50)
+    full = cases[-1]
+    decode = {"name": "decode_attention", "ok": all(c["ok"] for c in cases),
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+              "replaces": "src/repro/kernels/decode_attention/kernel.py:107",
+              "launches": 0,
+              "max_abs_err": max(c["max_abs_err"] for c in cases),
+              **{key: full[key] for key in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+    del q, k, v, acc, m, l
+
+    # float32 cache at a smaller shape, gate 2e-4
+    q32 = randn(2, 2, 4, 64, dtype=torch.float32)
+    k32, v32 = (randn(2, 1000, 2, 64, dtype=torch.float32) for _ in range(2))
+    got = dak.decode_attention(q32, k32, v32, 777, **DA)
+    want = dak.decode_attention_plain(q32, k32, v32, 777)
+    d32_err = float_err(got, want)
+    check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
+          f"decode_attention float32: max abs err {d32_err}")
+
+    emit(phase="attention_parity",
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         flash=flash_case,
+         decode={"shape": [b, kv, rep, hd, s_len], "dtype": "bfloat16",
+                 "launch": dict(DA), "combine_ms": combine_ms,
+                 "cases": cases,
+                 "float32": {"shape": [2, 2, 4, 64, 1000], "length": 777,
+                             "max_abs_err": d32_err}},
+         results=[{key: r[key] for key in ("name", "ok", "max_abs_err", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "library_ms")}
+                  for r in (flash, decode)])
+    for r in (flash, decode):
+        check(r["ok"], f"{r['name']} disagrees with its plain version "
+                       f"(max abs err {r['max_abs_err']})")
+    return [flash, decode]
+
+
+def lm_metas() -> dict:
+    from repro_torch import configs
+
+    cfg = configs.get(LM_ARCH)
+    return {
+        "flash_attention": {"bh": LM_BATCH * cfg.n_heads, "tq": LM_PROMPT,
+                            "tk": LM_PROMPT, "hd": cfg.head_dim,
+                            "causal": True},
+        "decode_attention": {"b": LM_BATCH, "kv": cfg.n_kv_heads,
+                             "rep": cfg.n_heads // cfg.n_kv_heads,
+                             "hd": cfg.head_dim, "s": LM_PROMPT + LM_GEN},
+    }
+
+
+def phase_lm_tune(seed: int, store_path: Path) -> dict:
+    from repro_torch.tune import kernels as ktune
+
+    outs, report = {}, []
+    for name, meta in lm_metas().items():
+        t0 = time.perf_counter()
+        out = ktune.tune_kernel(name, meta, dtype="bfloat16",
+                                store=store_path, seed=seed)
+        seconds = time.perf_counter() - t0
+        default_s, best_s = out.default_time(), out.best_time()
+        check(not out.result.from_cache, f"{name}: first tune from the cache")
+        check(out.measured_fraction <= 0.05,
+              f"{name}: measured {out.n_measured} of {out.space_size}")
+        check(out.timer.n_launch_failed == 0,
+              f"{name}: {out.timer.n_launch_failed} launches refused: "
+              f"{out.timer.rejected}")
+        again = ktune.tune_kernel(name, meta, dtype="bfloat16",
+                                  store=store_path, seed=seed)
+        check(again.result.from_cache and again.n_measured == 0,
+              f"{name}: repeat was not a zero-measurement cache hit")
+        check(again.best_config == out.best_config,
+              f"{name}: cached config differs")
+        outs[name] = out
+        report.append({
+            "kernel": name, "shape": meta, "seconds": round(seconds, 3),
+            "space_size": out.space_size, "n_measured": out.n_measured,
+            "measured_fraction": out.measured_fraction,
+            "n_launch_failed": out.timer.n_launch_failed,
+            "n_parity_rejected": sum("parity" in r for r in
+                                     out.timer.rejected.values()),
+            "default_config": out.default_config, "default_ms": default_s * 1e3,
+            "best_config": out.best_config, "best_ms": best_s * 1e3,
+            "best_over_default": best_s / default_s,
+            "repeat_from_cache": again.result.from_cache,
+            "repeat_n_measured": again.n_measured})
+    emit(phase="lm_tune", ok=True, tunes=report)
+    return outs
+
+
+def phase_lm_serve(seed: int, store_path: Path, tunes: dict):
+    """The LM path: its launch counters go to 0 just before
+    ``serve_session`` and are read just after."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import build_model
+    from repro_torch.tune import kernels as ktune
+
+    cfg = configs.get(LM_ARCH)
+    check(cfg.compute_dtype == "bfloat16", f"{LM_ARCH} computes in "
+                                           f"{cfg.compute_dtype}")
+    ktune.configure(store_path)
+    measured = {name: tuned.timer.n_measured
+                for name, tuned in tunes.items()}
+    resolved = {name: ktune.resolve_config(name, meta, "bfloat16",
+                                           device="cuda")
+                for name, meta in lm_metas().items()}
+    for name, tuned in tunes.items():
+        check(resolved[name] == tuned.best_config,
+              f"lm_serve: {name} resolved {resolved[name]}")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed).cast_for_serving()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    fak.flash_attention_fwd.launches = 0
+    dak.decode_partials.launches = 0
+    out = serve_session(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                        gen=LM_GEN, seed=seed, model=model)
+    launches = {"flash_attention_fwd": fak.flash_attention_fwd.launches,
+                "decode_attention": dak.decode_partials.launches}
+    want = {"flash_attention_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (LM_GEN - 1)}
+    check(launches == want, f"lm_serve: launches {launches}, want {want}")
+    check(all(tuned.timer.n_measured == measured[name]
+              for name, tuned in tunes.items()),
+          "lm_serve: serving measured new configurations")
+    generated = out["generated"]
+    check(generated.shape == (LM_BATCH, LM_GEN)
+          and ((0 <= generated) & (generated < cfg.vocab_size)).all(),
+          f"lm_serve: generated tokens {generated.shape}")
+    ktune.disable()
+    emit(phase="lm_serve", ok=True, arch=LM_ARCH, batch=LM_BATCH,
+         prompt_len=LM_PROMPT, gen=LM_GEN, params=cfg.param_count(),
+         build_s=build_s, prefill_s=out["prefill_s"],
+         decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+         resolved=resolved, launches=launches,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         first_tokens=generated[:, :8].tolist())
+    return model, generated, launches
+
+
+def phase_lm_parity(model, generated, seed: int) -> None:
+    """The same weights with the kernels and with the plain versions, on
+    the card, teacher-forced on the generated tokens.
+
+    Tolerance: the largest logit difference of any step at most 5 % of
+    that step's largest logit magnitude.  Both runs compute in bfloat16
+    (8 mantissa bits, 0.4 % per rounding) and round each layer's attention
+    output from float32 sums taken in another order, so single-ulp flips
+    enter every one of the 36 residual layers; a wrong mask, position or
+    cache slot instead moves the logits by their own size.
+    """
+    import numpy as np
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def plain_flash(q, k, v, *, causal, q_offset, **launch):
+        return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             q_offset=q_offset)
+
+    def plain_decode(q, k, v, length, **launch):
+        return dak.decode_attention_plain(q, k, v, length)
+
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device="cuda")
+    feed = torch.as_tensor(generated, device="cuda")
+
+    def run() -> list[torch.Tensor]:
+        logits, state = model.prefill(prompt, max_len=LM_PROMPT + LM_GEN)
+        steps = [logits]
+        for i in range(LM_GEN - 1):
+            logits, state = model.decode_step(state, feed[:, i:i + 1],
+                                              LM_PROMPT + i)
+            steps.append(logits)
+        del state
+        return steps
+
+    with_kernels = run()
+    with mock.patch.object(fa_ops, "flash_attention_fwd", plain_flash), \
+            mock.patch.object(da_ops, "decode_attention_kernel", plain_decode):
+        with_plain = run()
+    rel = [float((a - p).abs().max() / p.abs().max())
+           for a, p in zip(with_kernels, with_plain)]
+    agree = float(np.mean([
+        float((a.argmax(-1) == p.argmax(-1)).float().mean())
+        for a, p in zip(with_kernels, with_plain)]))
+    first = with_kernels[0]
+    check(bool(torch.isfinite(torch.stack(with_kernels)).all()),
+          "lm_parity: non-finite logits")
+    check(first.shape == (LM_BATCH, 1, model.cfg.vocab_size),
+          f"lm_parity: prefill logits {tuple(first.shape)}")
+    check(max(rel) <= 0.05, f"lm_parity: relative logit error {max(rel)}")
+    emit(phase="lm_parity", ok=True, steps=len(rel), tolerance=0.05,
+         prefill_rel_err=rel[0], decode_rel_err_max=max(rel[1:]),
+         decode_rel_err_mean=float(np.mean(rel[1:])),
+         argmax_agreement=agree,
+         logit_abs_max=float(first.abs().max()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -278,7 +646,7 @@ def main() -> int:
     text = ops.random_dna_text(args.t, seed=args.seed, device="cuda")
     records = phase_kernels(text)
 
-    # the main path: every launch counter starts from 0 just before it
+    # the DNA path: its launch counters start from 0 just before it
     kernel.state_map.launches = 0
     kernel.count_hits.launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -287,10 +655,24 @@ def main() -> int:
         phase_serve(text, store_path, tuned)
     launches = {"dna_state_map": kernel.state_map.launches,
                 "dna_count_hits": kernel.count_hits.launches}
+    del text
+    torch.cuda.empty_cache()
+
+    # the LM path
+    attention = phase_attention_parity(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        store_path = Path(tmp) / "kernels.json"
+        tunes = phase_lm_tune(args.seed, store_path)
+        model, generated, lm_launches = phase_lm_serve(args.seed, store_path,
+                                                       tunes)
+    launches.update(lm_launches)
+    phase_lm_parity(model, generated, args.seed)
+
+    records += attention
     for r in records:
         r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} was never launched on the "
-                                 "main path")
+        check(r["launches"] > 0, f"{r['name']} was never launched on its "
+                                 "path")
     torch.cuda.synchronize()
 
     emit(kernels=records)

@@ -1,11 +1,11 @@
 """State carried across from the JAX reference package.
 
-There are no model weights on the tuning/matching path; what the two
-packages share is (a) a motif DFA, (b) a fitted BDTR surrogate and (c) a
-``TuningStore`` file.  The store needs no converter: both packages write
-the same checksummed JSON envelope, so a file written by one loads in
-the other (keys differ by device topology by design).  The other two are
-handed over as numpy arrays:
+What the two packages share is (a) a motif DFA, (b) a fitted BDTR
+surrogate, (c) a ``TuningStore`` file and (d) a language model's weights.
+The store needs no converter: both packages write the same checksummed
+JSON envelope, so a file written by one loads in the other (keys differ by
+device topology by design).  The others are handed over as numpy arrays:
+``dfa_to_device``, ``bdtr_from_arrays`` and ``lm_from_jax_params``.
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core.bdtr import BoostedTreesRegressor, Tree
 
-__all__ = ["bdtr_from_arrays", "dfa_to_device"]
+__all__ = ["bdtr_from_arrays", "dfa_to_device", "lm_from_jax_params"]
 
 
 def dfa_to_device(table, accept, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,4 +64,51 @@ def bdtr_from_arrays(trees: Sequence[Mapping[str, Any]], base: float,
                                   max_depth=int(max_depth), **params)
     model.base_ = float(base)
     model.trees_ = out
+    return model
+
+
+def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
+    """The port's ``LM`` holding the reference's weights.
+
+    ``params`` is the reference's parameter tree with numpy leaves (what
+    ``jax.tree.map(np.asarray, LM(cfg).init(key))`` gives): nested dicts,
+    the layers stacked on a leading scan-group axis under
+    ``params["layers"]["slot<i>"]``.  Layer ``g * len(group_pattern) + i``
+    of the port takes group ``g`` of slot ``i``.  Every leaf must be used
+    and match its parameter's shape, or ``ValueError`` says which does not.
+    """
+    from .models import LM
+
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta").to_empty(device=dev)
+    period = len(cfg.group_pattern)
+
+    def put(dst: Mapping[str, torch.nn.Parameter], src: Mapping[str, Any],
+            where: str, group: int | None = None) -> None:
+        if set(dst) != set(src):
+            raise ValueError(f"{where}: reference leaves {sorted(src)} vs "
+                             f"port parameters {sorted(dst)}")
+        for name, p in dst.items():
+            arr = np.asarray(src[name], dtype=np.float32)
+            if group is not None:
+                if arr.shape[:1] != (cfg.n_groups,):
+                    raise ValueError(f"{where}.{name}: {arr.shape[:1]} "
+                                     f"groups, config has {cfg.n_groups}")
+                arr = arr[group]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{where}.{name}: shape {arr.shape} vs "
+                                 f"{tuple(p.shape)}")
+            with torch.no_grad():
+                p.copy_(torch.tensor(arr))
+
+    put(model.embed, params["embed"], "embed")
+    put(model.final_norm, params["final_norm"], "final_norm")
+    for i, layer in enumerate(model.layers):
+        group, slot = divmod(i, period)
+        src = params["layers"][f"slot{slot}"]
+        if set(src) != set(layer):
+            raise ValueError(f"layers.slot{slot}: {sorted(src)} vs "
+                             f"{sorted(layer)}")
+        for part, dst in layer.items():
+            put(dst, src[part], f"layers.slot{slot}.{part}", group)
     return model

@@ -33,8 +33,12 @@ from __future__ import annotations
 import sys
 from typing import Any, Mapping
 
-__all__ = ["KernelLaunchError", "largest_aligned_divisor",
+__all__ = ["KernelLaunchError", "SMEM_LIMIT_BYTES", "largest_aligned_divisor",
            "resolve_launch_params"]
+
+# Shared memory one block can use on Hopper (227 KB of the SM's 256 KB;
+# above 48 KB only as dynamic shared memory the kernel opts in to).
+SMEM_LIMIT_BYTES = 232448
 
 
 class KernelLaunchError(RuntimeError):

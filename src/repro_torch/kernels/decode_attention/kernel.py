@@ -1,0 +1,203 @@
+"""Split-KV decode attention: the CUDA kernel's wrapper and its plain version.
+
+``decode_attention`` replaces the Pallas kernel ``decode_attention_kernel``
+(``repro/kernels/decode_attention/kernel.py``: ``_kernel`` plus the combine
+after its ``pallas_call``).  One query token per (batch, head) attends to a
+fixed-capacity cache ``(B, S, KV, hd)``; the ``rep = H / KV`` heads that
+share a kv head form one group, so each cached row is read once for all of
+them.  The cache is cut into ``splits`` segments of ``ceil(S / splits)``
+positions; each (batch, kv head, segment) yields an unnormalised partial
+``(acc, m, l)`` over its positions below ``length``, and
+:func:`combine_splits` merges the partials with one logsumexp rescale.  A
+segment that lies wholly at or beyond ``length`` yields ``m = -1e30,
+l = 0, acc = 0`` and weighs exactly 0 in the combine.
+
+The partials come from the CUDA C++ kernel in
+``kernels/csrc/decode_attention.cu`` (float32 and bfloat16 caches; hd in
+{32, 64, 128}; rep <= 16), compiled at first use and bound with
+``ctypes``; the combine is plain PyTorch, as it is plain JAX in the
+reference.  ``length`` is a plain integer handed to the kernel, so one
+build serves every fill level.
+
+The kernel's wrapper, ``decode_partials``, launches it for a CUDA tensor,
+or raises; it takes the plain PyTorch version (``decode_partials_plain``,
+which materialises the float32 scores) only for tensors on the CPU.
+Launches are counted in ``decode_partials.launches``;
+``decode_attention`` is the wrapper followed by the combine.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+
+__all__ = ["DTYPES", "HEAD_DIMS", "MAX_REP", "NEG_INF", "combine_splits",
+           "decode_attention", "decode_attention_plain", "decode_partials",
+           "decode_partials_plain", "segment_length", "smem_bytes"]
+
+NEG_INF = -1e30
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+HEAD_DIMS = (32, 64, 128)
+MAX_REP = 16
+MAX_THREADS = 512
+
+_lib: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("decode_attention")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for suffix in DTYPES.values():
+            fn = getattr(lib, f"decode_attention_{suffix}")
+            fn.argtypes = [ptr] * 6 + [i32] * 9 + [ctypes.c_float, ptr]
+            fn.restype = ctypes.c_int
+        lib.decode_attention_error_string.argtypes = [ctypes.c_int]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(rep: int, hd: int, block_s: int, block_threads: int) -> int:
+    """Shared memory one block asks for (the kernel's ``smem_floats``):
+    scaled queries, a tile of scores, three per-head carries and one
+    accumulator per warp, all float32."""
+    return 4 * (rep * hd + rep * block_s + 3 * rep
+                + (block_threads // 32) * rep * hd)
+
+
+def segment_length(s_len: int, splits: int) -> int:
+    return -(-s_len // splits)
+
+
+def _check(q, k, v, length, splits: int, block_s: int,
+           block_threads: int) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(x, torch.Tensor) or x.dtype not in DTYPES:
+            raise TypeError(f"{name} must be a float32 or bfloat16 tensor")
+        if x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
+                             f"{q.dtype} on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device.type == "cuda" and x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, KV, rep, hd), got {tuple(q.shape)}")
+    b, kv, rep, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[2:] != (kv, hd):
+        raise ValueError(f"k/v must be (B, S, KV, hd) = ({b}, S, {kv}, {hd}), "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if not 1 <= rep <= MAX_REP:
+        raise ValueError(f"rep={rep} query heads per kv head outside "
+                         f"[1, {MAX_REP}]")
+    if isinstance(length, bool) or not isinstance(length, int) or length < 1:
+        raise ValueError(f"length must be a positive int, got {length!r}")
+    s_len = k.shape[1]
+    if not 1 <= splits <= s_len:
+        raise ValueError(f"splits={splits} outside [1, S={s_len}]")
+    if block_s < 1:
+        raise ValueError(f"block_s={block_s} must be positive")
+    if not 32 <= block_threads <= MAX_THREADS or block_threads % 32:
+        raise ValueError("block_threads must be a multiple of 32 in "
+                         f"[32, {MAX_THREADS}], got {block_threads}")
+    if smem_bytes(rep, hd, block_s, block_threads) > SMEM_LIMIT_BYTES:
+        raise ValueError(f"block_s={block_s}, block_threads={block_threads} "
+                         f"need {smem_bytes(rep, hd, block_s, block_threads)} "
+                         f"bytes of shared memory (limit {SMEM_LIMIT_BYTES})")
+
+
+def combine_splits(acc: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """Merge per-split partials with one logsumexp rescale.
+
+    acc: (B, splits, KV, rep, hd); m, l: (B, splits, KV, rep), all float32.
+    Returns (B, KV, rep, hd) float32.
+    """
+    m_tot = m.amax(dim=1)
+    w = torch.exp(m - m_tot[:, None])
+    l_tot = (l * w).sum(dim=1)
+    o = (acc * w[..., None]).sum(dim=1)
+    return o / l_tot.clamp_min(1e-30)[..., None]
+
+
+def decode_partials_plain(q, k, v, length: int, *, splits: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: the per-split partials ``(acc, m, l)``
+    from the materialised float32 scores, with the kernel's rule for
+    positions at or beyond ``length`` (they take no part)."""
+    b, kv, rep, hd = q.shape
+    s_len = k.shape[1]
+    seg = segment_length(s_len, splits)
+    pad = splits * seg - s_len
+    s = torch.einsum("bgrh,bsgh->bgrs", q.float() * hd ** -0.5, k.float())
+    valid = torch.arange(splits * seg, device=q.device) < min(length, s_len)
+    s = torch.nn.functional.pad(s, (0, pad)).masked_fill(~valid, NEG_INF)
+    s = s.view(b, kv, rep, splits, seg)
+    m = s.amax(dim=-1)                                   # (b, kv, rep, sp)
+    p = torch.exp(s - m[..., None]) * valid.view(splits, seg)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    acc = torch.einsum("bgrpj,bpjgh->bpgrh", p, vf.view(b, splits, seg, kv, hd))
+    return acc, m.permute(0, 3, 1, 2), p.sum(dim=-1).permute(0, 3, 1, 2)
+
+
+def decode_attention_plain(q, k, v, length: int, *,
+                           splits: int = 1) -> torch.Tensor:
+    """Plain version of :func:`decode_attention`: partials, then combine."""
+    return combine_splits(*decode_partials_plain(q, k, v, length,
+                                                 splits=splits))
+
+
+def decode_partials(q, k, v, length: int, *, splits: int = 16,
+                    block_s: int = 64, block_threads: int = 128
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel: q (B, KV, rep, hd); k, v (B, S, KV, hd) -> per-split
+    partials acc (B, splits, KV, rep, hd), m and l (B, splits, KV, rep),
+    float32, over positions ``< length``."""
+    splits, block_s = int(splits), int(block_s)
+    block_threads = int(block_threads)
+    _check(q, k, v, length, splits, block_s, block_threads)
+    if q.device.type == "cpu":
+        return decode_partials_plain(q, k, v, length, splits=splits)
+    b, kv, rep, hd = q.shape
+    s_len = k.shape[1]
+    acc = torch.empty((b, splits, kv, rep, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.empty((b, splits, kv, rep), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    lib = _library()
+    fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                m.data_ptr(), l.data_ptr(), b, s_len, kv, rep, hd, length,
+                splits, block_s, block_threads, hd ** -0.5, stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"decode_attention(splits={splits}, block_s={block_s}, "
+            f"block_threads={block_threads}): launch refused ({rc}: "
+            f"{lib.decode_attention_error_string(rc).decode()})")
+    decode_partials.launches += 1
+    return acc, m, l
+
+
+def decode_attention(q, k, v, length: int, *, splits: int = 16,
+                     block_s: int = 64, block_threads: int = 128
+                     ) -> torch.Tensor:
+    """q: (B, KV, rep, hd); k, v: (B, S, KV, hd); attends to positions
+    ``< length``.  Returns (B, KV, rep, hd) float32: the kernel's partials
+    merged by :func:`combine_splits`."""
+    return combine_splits(*decode_partials(q, k, v, length, splits=splits,
+                                           block_s=block_s,
+                                           block_threads=block_threads))
+
+
+decode_partials.launches = 0

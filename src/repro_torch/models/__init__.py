@@ -1,0 +1,19 @@
+"""Model zoo: the PyTorch twins of the reference's architectures.
+
+This slice runs the dense decoder-only family (``LM``); ``build_model``
+raises ``NotImplementedError``, naming the missing layer, for a family
+whose layers are not ported yet.
+"""
+
+from .config import ArchConfig, MambaConfig, MoEConfig, RwkvConfig
+from .lm import LM, missing_layer
+
+__all__ = ["ArchConfig", "LM", "MambaConfig", "MoEConfig", "RwkvConfig",
+           "build_model", "missing_layer"]
+
+
+def build_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> LM:
+    """The model for ``cfg`` with random weights from ``seed`` on
+    ``device`` (``None`` = the card); raises ``NotImplementedError`` for a
+    family the port cannot run yet (``missing_layer``)."""
+    return LM(cfg, seed=seed, device=device)

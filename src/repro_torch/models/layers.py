@@ -1,0 +1,156 @@
+"""Shared building blocks: initializers, norms, RoPE, MLPs, embeddings.
+
+The reference's parameter pytrees become ``nn.ParameterDict``s with the
+same keys, so ``p["w_in"]`` reads alike in both packages and the
+converter (``repro_torch.convert.lm_from_jax_params``) maps leaf to leaf.
+Parameters live in ``cfg.param_dtype``; compute runs in
+``cfg.compute_dtype``.  Every ``apply`` casts a weight with ``.to(dt)`` as
+the reference casts with ``.astype(dt)``: once the model has been cast
+for serving (``LM.cast_for_serving``) those casts are no-ops.
+
+Random initialisation draws from an explicit ``torch.Generator``; it gives
+other numbers than ``jax.random`` from the same seed, so tests that compare
+the packages carry the reference's weights across instead.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ArchConfig
+
+__all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
+           "embed_init", "embed_tokens", "init_embed", "init_mlp",
+           "init_norm", "param", "rope_frequencies", "torch_dtype"]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """``"bfloat16"`` -> ``torch.bfloat16`` (config fields name dtypes)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# -- initializers -------------------------------------------------------------
+
+def dense_init(gen: torch.Generator | None, shape, dtype: str, device,
+               in_axis: int = 0) -> torch.Tensor:
+    """Truncated-normal fan-in initializer (std = 1/sqrt(fan_in), cut at
+    +-2 std).  On the ``meta`` device only the shape is made."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if out.device.type != "meta":
+        torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        out.mul_(shape[in_axis] ** -0.5)
+    return out.to(torch_dtype(dtype))
+
+
+def embed_init(gen: torch.Generator | None, shape, dtype: str,
+               device) -> torch.Tensor:
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if out.device.type != "meta":
+        out.normal_(0.0, 0.02, generator=gen)
+    return out.to(torch_dtype(dtype))
+
+
+# -- norms --------------------------------------------------------------------
+
+def init_norm(cfg: ArchConfig, device,
+              with_bias: bool | None = None) -> nn.ParameterDict:
+    bias = cfg.norm_type == "layernorm" if with_bias is None else with_bias
+    dt = torch_dtype(cfg.param_dtype)
+    p = nn.ParameterDict({"scale": param(torch.ones(cfg.d_model, dtype=dt,
+                                                    device=device))})
+    if bias:
+        p["bias"] = param(torch.zeros(cfg.d_model, dtype=dt, device=device))
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    if cfg.norm_type == "rmsnorm" and "bias" not in p:
+        inv = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True)
+                          + cfg.norm_eps)
+        out = x32 * inv * p["scale"].float()
+    else:
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+        out = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].float()
+        if "bias" in p:
+            out = out + p["bias"].float()
+    return out.to(dt)
+
+
+# -- rotary embeddings ----------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, hd); positions: broadcastable to (..., T).  The
+    split-halves form, angles in float32."""
+    dt = x.dtype
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
+    angles = positions[..., :, None].float() * freqs            # (..., T, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                    # (..., T, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+# -- MLPs --------------------------------------------------------------------
+
+def init_mlp(gen, cfg: ArchConfig, device,
+             d_ff: int | None = None) -> nn.ParameterDict:
+    d_ff = d_ff or cfg.d_ff
+    d, dt = cfg.d_model, cfg.param_dtype
+    p = nn.ParameterDict({"w_in": param(dense_init(gen, (d, d_ff), dt, device)),
+                          "w_out": param(dense_init(gen, (d_ff, d), dt, device))})
+    if cfg.mlp_type == "swiglu":
+        p["w_gate"] = param(dense_init(gen, (d, d_ff), dt, device))
+    return p
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = torch_dtype(cfg.compute_dtype)
+    x = x.to(dt)
+    h = x @ p["w_in"].to(dt)
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * h
+    elif cfg.mlp_type == "squared_relu":
+        h = F.relu(h).square()
+    elif cfg.mlp_type == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(cfg.mlp_type)
+    return h @ p["w_out"].to(dt)
+
+
+# -- embeddings & heads ---------------------------------------------------------
+
+def init_embed(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
+    p = nn.ParameterDict({"tokens": param(embed_init(
+        gen, (cfg.vocab_size, cfg.d_model), cfg.param_dtype, device))})
+    if not cfg.tie_embeddings:
+        p["lm_head"] = param(dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                        cfg.param_dtype, device))
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    # gather, then cast: the reference's cast-then-take, without casting
+    # the rows no token uses
+    return p["tokens"][tokens].to(torch_dtype(cfg.compute_dtype))

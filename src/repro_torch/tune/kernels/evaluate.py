@@ -13,9 +13,18 @@ launch parameters.  :class:`KernelTimer` is the measurement oracle a
     oracle (the kernel's plain PyTorch path) within the spec's
     tolerance, else ``inf`` (a fast config that computes the wrong
     thing must never win);
-  * **then time** — best-of-``repeats`` device time between two CUDA
-    events around the call (the first call warms and builds; on
-    ``device="cpu"`` it is host wall time).
+  * **then time** — best-of-``repeats`` device time per call, each
+    repeat a batch of back-to-back calls between two CUDA events (the
+    first call warms and builds; on ``device="cpu"`` it is host wall time
+    of one call).  A probe call sizes the batch to about ``MIN_BATCH_S``
+    and measures how long the host takes to enqueue one call; before each
+    batch the card is held by a spin long enough for the host to enqueue
+    the whole batch, so the events bracket device work only.  Without the
+    spin, a call whose launches are shorter than the host's time to issue
+    them (the decode kernel and its five-launch split combine: ~0.09 ms of
+    device work, ~0.15 ms of host work) is timed at the host's pace, the
+    same for every configuration and 2x apart between runs, and the tune
+    ranks noise.
 
 Measurements are deduplicated per config (the paper's effort
 accounting: re-measuring a recorded experiment is free), and
@@ -33,6 +42,7 @@ configuration happens to survive.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Mapping
 
@@ -40,14 +50,53 @@ import numpy as np
 import torch
 
 from ... import resolve_device
-from ...kernels import KernelLaunchError
+from ...kernels import SMEM_LIMIT_BYTES, KernelLaunchError
 from .registry import KernelSpec, dtype_name
 
-__all__ = ["KernelTimer", "SMEM_LIMIT_BYTES"]
+__all__ = ["KernelTimer", "MAX_BATCH", "MIN_BATCH_S", "SMEM_LIMIT_BYTES",
+           "SPIN_CYCLES_PER_S", "device_seconds", "probe_seconds"]
 
-# Shared memory one block can use on Hopper (227 KB of the SM's 256 KB;
-# above 48 KB only as dynamic shared memory the kernel opts in to).
-SMEM_LIMIT_BYTES = 232448
+MIN_BATCH_S = 1e-3      # a timed batch of calls lasts about this long
+MAX_BATCH = 1000        # ... and holds at most this many calls
+# spin cycles per second of host enqueue time to cover: the H100's SM clock
+# is at most 1.98 GHz, so the spin lasts at least as long as asked
+SPIN_CYCLES_PER_S = 2e9
+
+
+def probe_seconds(fn, device: torch.device) -> tuple[float, float]:
+    """One call of ``fn``: (host seconds to enqueue it, seconds from an
+    event before it to one after it, host gaps included).  On the host the
+    two are one wall time."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        return host_s, host_s
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return host_s, start.elapsed_time(end) / 1e3
+
+
+def device_seconds(fn, calls: int, host_s: float) -> float:
+    """Device seconds per call of ``fn`` over ``calls`` back-to-back calls
+    between two CUDA events.  The card is first held by a spin long enough
+    for the host to enqueue all of them (``host_s``: its time to enqueue
+    one), so the events bracket device work only, not the host's pace."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (2 * calls * host_s + 1e-4)))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / calls
 
 
 def _leaves(out) -> list[torch.Tensor]:
@@ -143,19 +192,6 @@ class KernelTimer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _time_once(self, cfg: dict) -> float:
-        if self.device.type != "cuda":
-            t0 = time.perf_counter()
-            self.spec.run(cfg, self.inputs)
-            return time.perf_counter() - t0
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        self.spec.run(cfg, self.inputs)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
     def _measure(self, cfg: dict, key: tuple) -> float:
         out = self.spec.run(cfg, self.inputs)       # build + warm
         self._sync()
@@ -166,6 +202,14 @@ class KernelTimer:
                     f"at its default configuration {cfg!r}")
             self.rejected[key] = "parity vs oracle failed"
             return float("inf")
-        times = [self._time_once(cfg) for _ in range(self.repeats)]
+        run = functools.partial(self.spec.run, cfg, self.inputs)
+        if self.device.type != "cuda":
+            times = [probe_seconds(run, self.device)[0]
+                     for _ in range(self.repeats)]
+        else:
+            host_s, probe_s = probe_seconds(run, self.device)
+            calls = int(min(MAX_BATCH, max(1, np.ceil(MIN_BATCH_S / probe_s))))
+            times = [device_seconds(run, calls, host_s)
+                     for _ in range(self.repeats)]
         self.n_measured += 1
         return float(min(times))

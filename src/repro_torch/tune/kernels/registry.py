@@ -108,9 +108,12 @@ def list_kernels() -> list[str]:
 
 def dtype_name(dtype: Any) -> str:
     """A dtype spelled as numpy spells it (``"uint8"``), whether it was
-    given as a string, a numpy dtype or a ``torch.dtype``."""
+    given as a string, a numpy dtype or a ``torch.dtype``; ``bfloat16``,
+    which numpy lacks, is spelled as JAX spells it."""
     if isinstance(dtype, torch.dtype):
         return str(dtype).removeprefix("torch.")
+    if dtype == "bfloat16":
+        return dtype
     return str(np.dtype(dtype))
 
 

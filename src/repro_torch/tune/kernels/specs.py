@@ -14,8 +14,14 @@ launch parameters (never through the ``tuned=`` resolution path), and
 ``ref`` is the same function through the kernels' plain PyTorch
 versions.
 
-Only the ``dna_automaton`` spec exists so far; the other kernels' specs
-arrive with their kernels.
+Three specs exist: ``dna_automaton``, ``flash_attention`` and
+``decode_attention``.  The attention specs keep the reference's meta keys
+(``{bh, tq, tk, hd, causal}`` and ``{b, kv, rep, hd, s}``), so a store
+record resolves from the same shape description in both packages; their
+default shapes are the serving shapes of ``qwen2.5-3b`` at batch 8 with a
+2048-token prompt and 128 generated tokens.  Their kernels mask the
+ragged edge, so a block need not divide its extent, only not exceed it.
+The backward kernels' specs arrive with the training slice.
 """
 
 from __future__ import annotations
@@ -27,16 +33,26 @@ import torch
 
 from ...convert import dfa_to_device
 from ...core.space import ConfigSpace, Param
+from ...kernels.decode_attention import kernel as da_kernel
+from ...kernels.decode_attention.ops import DEFAULTS as DA_DEFAULTS
 from ...kernels.dna_automaton.ops import (DEFAULTS as DNA_DEFAULTS,
                                           build_motif_dfa, fa_match,
                                           fa_match_plain, random_dna_text)
+from ...kernels.flash_attention import kernel as fa_kernel
+from ...kernels.flash_attention.ops import DEFAULTS as FA_DEFAULTS
 from .evaluate import SMEM_LIMIT_BYTES
-from .registry import KernelSpec, register_kernel
+from .registry import KernelSpec, dtype_name, register_kernel
 
-__all__ = ["BLOCK_THREADS", "TEXT_CHUNKS"]
+__all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "DECODE_BLOCK_S",
+           "DECODE_SPLITS", "DECODE_THREADS", "TEXT_CHUNKS"]
 
 TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 BLOCK_THREADS = (64, 128, 256, 512, 1024)
+ATTN_BLOCKS = (8, 16, 32, 64, 128, 256)
+ATTN_THREADS = (32, 64, 128, 256, 512, 1024)
+DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
+DECODE_BLOCK_S = (16, 32, 64, 128, 256, 512)
+DECODE_THREADS = (32, 64, 128, 256, 512)
 
 # what a block gets without opting in to more dynamic shared memory
 SMEM_DEFAULT_BYTES = 48 * 1024
@@ -114,4 +130,130 @@ register_kernel(KernelSpec(
     smoke_shape={"t": 4096, "s": 7},
     dtype="uint8",
     atol=0.0, rtol=0.0,
+))
+
+
+# -- flash attention --------------------------------------------------------------
+
+def _not_above(extent: int, block: int, smallest: int, name: str) -> str | None:
+    """A masked block need not divide its extent, but a block larger than
+    the extent (past the smallest candidate) only computes padding."""
+    if block > extent and block > smallest:
+        return f"{name}={block} exceeds extent {extent}"
+    return None
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype_name(dtype))
+
+
+def _fa_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("block_q", ATTN_BLOCKS),
+        Param("block_k", ATTN_BLOCKS),
+        Param("block_threads", ATTN_THREADS),
+    ])
+
+
+def _fa_validate(cfg, meta) -> str | None:
+    bq, bk, hd = cfg["block_q"], cfg["block_k"], meta["hd"]
+    if hd % 4:
+        return f"head_dim={hd} is not a multiple of 4"
+    # the shape carries no dtype: a configuration must fit both builds
+    return (_not_above(meta["tq"], bq, ATTN_BLOCKS[0], "block_q")
+            or _not_above(meta["tk"], bk, ATTN_BLOCKS[0], "block_k")
+            or _smem(max(fa_kernel.smem_bytes(bq, bk, hd, dt)
+                         for dt in fa_kernel.DTYPES)))
+
+
+def _fa_inputs(meta, dtype, rng, device):
+    # the reference's numpy stream and (bh, t, hd) shapes; the port's
+    # kernel takes (B, T, H, hd), here with the heads as the batch
+    shapes = [(meta["bh"], meta["tq"], meta["hd"]),
+              (meta["bh"], meta["tk"], meta["hd"])]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s)).to(
+        device=device, dtype=_torch_dtype(dtype))[:, :, None]
+        for s in (shapes[0], shapes[1], shapes[1]))
+    return q, k, v, bool(meta["causal"])
+
+
+def _fa_run(cfg, inputs):
+    q, k, v, causal = inputs
+    o, _ = fa_kernel.flash_attention_fwd(
+        q, k, v, causal=causal, block_q=cfg["block_q"],
+        block_k=cfg["block_k"], block_threads=cfg["block_threads"])
+    return o
+
+
+def _fa_ref(inputs):
+    q, k, v, causal = inputs
+    return fa_kernel.flash_attention_fwd_plain(q, k, v, causal=causal)[0]
+
+
+register_kernel(KernelSpec(
+    name="flash_attention",
+    defaults=FA_DEFAULTS,
+    space_fn=_fa_space, validate_fn=_fa_validate,
+    make_inputs=_fa_inputs, run=_fa_run, ref=_fa_ref,
+    default_shape={"bh": 128, "tq": 2048, "tk": 2048, "hd": 128,
+                   "causal": True},
+    smoke_shape={"bh": 2, "tq": 128, "tk": 128, "hd": 32, "causal": True},
+    atol=2e-4, rtol=2e-4,
+))
+
+
+# -- decode attention ----------------------------------------------------------------
+
+def _da_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("splits", DECODE_SPLITS),
+        Param("block_s", DECODE_BLOCK_S),
+        Param("block_threads", DECODE_THREADS),
+    ])
+
+
+def _da_validate(cfg, meta) -> str | None:
+    sp, bs, nt = cfg["splits"], cfg["block_s"], cfg["block_threads"]
+    s, hd, rep = meta["s"], meta["hd"], meta["rep"]
+    if hd not in da_kernel.HEAD_DIMS:
+        return f"head_dim={hd} not in {da_kernel.HEAD_DIMS}"
+    if rep > da_kernel.MAX_REP:
+        return f"rep={rep} exceeds {da_kernel.MAX_REP}"
+    if sp > s:
+        return f"splits={sp} exceeds extent {s}"
+    seg = da_kernel.segment_length(s, sp)
+    if (sp - 1) * seg >= s:
+        return f"splits={sp} leaves segments past the cache ({s} positions)"
+    return (_not_above(seg, bs, DECODE_BLOCK_S[0], "block_s")
+            or _smem(da_kernel.smem_bytes(rep, hd, bs, nt)))
+
+
+def _da_inputs(meta, dtype, rng, device):
+    b, kv, rep, hd, s = (meta[k] for k in ("b", "kv", "rep", "hd", "s"))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(
+        device=device, dtype=_torch_dtype(dtype))
+        for shape in ((b, kv, rep, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    return q, k, v, s
+
+
+def _da_run(cfg, inputs):
+    q, k, v, length = inputs
+    return da_kernel.decode_attention(q, k, v, length, splits=cfg["splits"],
+                                      block_s=cfg["block_s"],
+                                      block_threads=cfg["block_threads"])
+
+
+def _da_ref(inputs):
+    q, k, v, length = inputs
+    return da_kernel.decode_attention_plain(q, k, v, length)
+
+
+register_kernel(KernelSpec(
+    name="decode_attention",
+    defaults=DA_DEFAULTS,
+    space_fn=_da_space, validate_fn=_da_validate,
+    make_inputs=_da_inputs, run=_da_run, ref=_da_ref,
+    default_shape={"b": 8, "kv": 2, "rep": 8, "hd": 128, "s": 2176},
+    smoke_shape={"b": 1, "kv": 2, "rep": 4, "hd": 32, "s": 512},
+    atol=2e-4, rtol=2e-4,
 ))

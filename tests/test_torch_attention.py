@@ -1,0 +1,310 @@
+"""Kernels B3 (flash-attention forward) and B4 (split-KV decode attention)
+of the port, on the CPU (their plain PyTorch versions), held against the
+JAX package's oracles on the same numpy-seeded inputs; plus their
+launch-parameter spaces and a CPU tune at the smoke shapes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.ref import decode_attention_ref
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.tune.kernels import kernel_workload as ref_kernel_workload
+from repro_torch.kernels.decode_attention import kernel as da_kernel
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.runtime.store import TuningStore
+from repro_torch.tune import kernels as ktune
+from repro_torch.tune.kernels import specs
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# tolerances of tests/test_kernels.py: f32 2e-5; bf16 2e-2 (one bf16 ulp of
+# an O(1) output is 2^-7 ~ 8e-3, and the two packages round the output
+# from differently ordered float32 sums)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def both(arr: np.ndarray, dtype: str = "float32"):
+    """One numpy array as a JAX array and a CPU tensor of the same dtype
+    (both round float64 -> bf16 to nearest even)."""
+    jdt, tdt = DTYPES[dtype]
+    return (jnp.asarray(arr, jdt),
+            torch.from_numpy(np.asarray(arr, np.float32)).to(tdt))
+
+
+def close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# -- B3: flash attention ----------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,h,hd,causal,dtype", [
+    (2, 256, 4, 64, True, "float32"),
+    (1, 128, 2, 128, False, "float32"),
+    (2, 384, 3, 64, True, "float32"),
+    (1, 256, 2, 64, True, "bfloat16"),
+])
+def test_flash_attention_matches_reference(b, t, h, hd, causal, dtype):
+    rng = np.random.default_rng(42)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal((b, t, h, hd)),
+                                         dtype) for _ in range(3))
+    got = fa_ops.flash_attention(qt, kt, vt, causal=causal)
+    want = attention_ref(qj, kj, vj, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == (b, t, h, hd)
+    close(got, want, TOL[dtype])
+
+
+def test_flash_attention_q_offset_prefill_continuation():
+    rng = np.random.default_rng(7)
+    qj, qt = both(rng.standard_normal((1, 128, 2, 64)))
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((1, 256, 2, 64)))
+                          for _ in range(2))
+    got = fa_ops.flash_attention(qt, kt, vt, causal=True, q_offset=128)
+    want = attention_ref(qj, kj, vj, causal=True, q_offset=128)
+    close(got, want, 2e-5)
+
+
+def test_flash_attention_lse_is_the_rows_logsumexp():
+    """``lse`` (kept for the backward kernels) is logsumexp of the scaled,
+    masked scores, as the reference kernel writes it (1e-5: float32)."""
+    rng = np.random.default_rng(3)
+    b, t, h, hd = 2, 96, 3, 32
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal((b, t, h, hd)))
+                                    for _ in range(3))
+    o, lse = fa_kernel.flash_attention_fwd(qt, kt, vt, causal=True)
+    s = jnp.einsum("bqhd,bkhd->bhqk", qj, kj) * hd ** -0.5
+    s = jnp.where(jnp.tril(jnp.ones((t, t), bool)), s, -1e30)
+    assert lse.shape == (b, h, t) and lse.dtype == torch.float32
+    close(lse, jax.nn.logsumexp(s, axis=-1), 1e-5)
+    close(o, attention_ref(qj, kj, vj, causal=True), 2e-5)
+
+
+def test_flash_attention_reads_strided_views_without_a_fold():
+    """A (B, T, H, hd) view whose heads are not adjacent in memory goes in
+    as it is (the kernel folds through strides)."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.standard_normal((2, 64, 3, 4, 32))
+                            .astype(np.float32))
+    q, k, v = base[:, :, 0], base[:, :, 1], base[:, :, 2]
+    assert not q.is_contiguous()
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    want = attention_ref(*(jnp.asarray(x.contiguous().numpy())
+                           for x in (q, k, v)), causal=True)
+    close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(block_q=6), "multiple of 4"),
+    (dict(block_threads=48), "block_threads"),
+    (dict(block_q=256, block_k=256), "shared memory"),
+])
+def test_flash_wrapper_refuses_bad_launch_parameters(bad, match):
+    q = torch.zeros((1, 16, 2, 128))
+    kw = {"block_q": 64, "block_k": 64, "block_threads": 256, **bad}
+    with pytest.raises(ValueError, match=match):
+        fa_kernel.flash_attention_fwd(q, q, q, **kw)
+
+
+@pytest.mark.parametrize("hd, block_q, block_k, offset, match", [
+    (24, 64, 64, 0, "head_dim 24 must be a multiple of 16"),
+    (32, 12, 64, 0, "block_q=12 must be a multiple of 8"),
+    (32, 64, 20, 0, "block_k=20 must be a multiple of 8"),
+    (32, 64, 64, 1, "4-byte aligned"),
+])
+def test_flash_bf16_build_refuses_what_its_tiles_cannot_take(hd, block_q,
+                                                            block_k, offset,
+                                                            match):
+    """The tensor-core build moves bf16 in pairs and tiles by the mma's
+    shape; the wrapper checks this before a launch on the card."""
+    flat = torch.zeros(offset + 16 * 2 * hd, dtype=torch.bfloat16)
+    q = flat[offset:].view(1, 16, 2, hd)
+    with pytest.raises(ValueError, match=match):
+        fa_kernel._check_mma(block_q, block_k, q, q, q)
+    fa_kernel._check_mma(64, 64, *(torch.zeros((1, 16, 2, 32),
+                                               dtype=torch.bfloat16),) * 3)
+
+
+def test_flash_smem_accounting_per_build():
+    """bf16 tiles are half the width but padded to the mma's 16 rows."""
+    f32 = fa_kernel.smem_bytes(64, 64, 128)
+    bf16 = fa_kernel.smem_bytes(64, 64, 128, torch.bfloat16)
+    assert f32 == 4 * (128 * 65 * 2 + 64 * 128 + 64 * 65 + 64 * 129 + 3 * 64)
+    assert bf16 == (2 * (64 * 136 * 2 + 128 * 72 + 64 * 72)
+                    + 4 * (64 * 68 + 64 * 132 + 3 * 64))
+    assert (fa_kernel.smem_bytes(8, 8, 32, torch.bfloat16)
+            == fa_kernel.smem_bytes(16, 8, 32, torch.bfloat16))
+
+
+def test_flash_wrapper_refuses_bad_tensors():
+    q = torch.zeros((1, 16, 2, 32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa_kernel.flash_attention_fwd(q.double(), q, q)
+    with pytest.raises(ValueError, match="already repeated"):
+        fa_kernel.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        fa_kernel.flash_attention_fwd(q, q.bfloat16(), q)
+
+
+# -- B4: decode attention ---------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,kv,rep,hd,length", [
+    (2, 1024, 4, 4, 64, 700),
+    (1, 512, 2, 8, 128, None),
+    (3, 256, 1, 4, 64, 100),
+    (2, 512, 8, 1, 64, 512),
+])
+def test_decode_attention_matches_reference(b, s, kv, rep, hd, length):
+    rng = np.random.default_rng(11)
+    qj, qt = both(rng.standard_normal((b, kv * rep, hd)))
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((b, s, kv, hd)))
+                          for _ in range(2))
+    got = da_ops.decode_attention(qt, kt, vt, length=length, block_s=128)
+    want = decode_attention_ref(qj, kj, vj, length=length)
+    assert got.dtype == torch.float32 and got.shape == (b, kv * rep, hd)
+    close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("splits", specs.DECODE_SPLITS)
+def test_fully_masked_splits_weigh_zero(splits):
+    """``length`` far below the capacity, S = 999 (no split count here
+    divides it): segments at or past ``length`` yield m = -1e30, l = 0,
+    acc = 0, and the combine gives the reference's answer for every split
+    count."""
+    rng = np.random.default_rng(13)
+    b, s, kv, rep, hd, length = 2, 999, 2, 4, 32, 37
+    qj, qt = both(rng.standard_normal((b, kv, rep, hd)))
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((b, s, kv, hd)))
+                          for _ in range(2))
+    acc, m, l = da_kernel.decode_partials_plain(qt, kt, vt, length,
+                                                splits=splits)
+    seg = da_kernel.segment_length(s, splits)
+    assert acc.shape == (b, splits, kv, rep, hd) and m.shape == l.shape
+    empty = torch.arange(splits) * seg >= length
+    assert empty.sum() == splits - -(-length // seg)
+    assert torch.all(m[:, empty] == -1e30) and torch.all(l[:, empty] == 0)
+    assert torch.all(acc[:, empty] == 0)
+    got = da_kernel.combine_splits(acc, m, l)
+    want = decode_attention_ref(qj.reshape(b, kv * rep, hd), kj, vj,
+                                length=length)
+    close(got.reshape(b, kv * rep, hd), want, 2e-5)
+    close(da_kernel.decode_attention(qt, kt, vt, length, splits=splits,
+                                     block_s=16, block_threads=32)
+          .reshape(b, kv * rep, hd), want, 2e-5)
+
+
+def test_decode_attention_bf16_cache():
+    rng = np.random.default_rng(17)
+    b, s, kv, rep, hd = 2, 300, 2, 8, 128
+    qj, qt = both(rng.standard_normal((b, kv * rep, hd)), "bfloat16")
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((b, s, kv, hd)),
+                               "bfloat16") for _ in range(2))
+    got = da_ops.decode_attention(qt, kt, vt, length=211)
+    close(got, decode_attention_ref(qj, kj, vj, length=211), 2e-2)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(length=0), "positive int"),
+    (dict(length=True), "positive int"),
+    (dict(splits=0), "splits"),
+    (dict(block_threads=1024), "block_threads"),
+    (dict(block_s=0), "block_s"),
+])
+def test_decode_wrapper_refuses_bad_arguments(bad, match):
+    q = torch.zeros((1, 2, 4, 32))
+    k = torch.zeros((1, 64, 2, 32))
+    kw = {"length": 8, "splits": 4, "block_s": 16,
+          "block_threads": 64, **bad}
+    length = kw.pop("length")
+    with pytest.raises(ValueError, match=match):
+        da_kernel.decode_attention(q, k, k, length, **kw)
+
+
+def test_decode_wrapper_refuses_unsupported_shapes():
+    with pytest.raises(ValueError, match="head_dim"):
+        da_kernel.decode_attention(torch.zeros((1, 1, 1, 48)),
+                                   torch.zeros((1, 8, 1, 48)),
+                                   torch.zeros((1, 8, 1, 48)), 8)
+    with pytest.raises(ValueError, match="rep=32"):
+        da_kernel.decode_attention(torch.zeros((1, 1, 32, 32)),
+                                   torch.zeros((1, 8, 1, 32)),
+                                   torch.zeros((1, 8, 1, 32)), 8)
+
+
+# -- launch-parameter spaces and tuning -------------------------------------------
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_attention_spaces_at_the_serve_shapes(name):
+    """At least 100 valid configurations at the serve shape, so a tune
+    that trains on max(4, 5 % - 1) of the space measures at most 5 %."""
+    spec = ktune.get_kernel(name)
+    meta = spec.default_shape
+    space = spec.space(meta)
+    valid = [c for c in space.enumerate() if spec.validate(c, meta) is None]
+    assert len(valid) >= 100 and len(valid) < space.size()
+    assert spec.validate(spec.default_config(space, meta), meta) is None
+    assert spec.default_config(space, meta) == dict(spec.defaults)
+    n_train = max(4, int(0.05 * space.size()) - 1)
+    assert (n_train + 1) / space.size() <= 0.05
+
+
+def test_serve_shapes_are_the_models():
+    """The specs' default shapes are what qwen2.5-3b at batch 8, prompt
+    2048 and 128 generated tokens hands the kernels."""
+    from repro_torch import configs
+    cfg = configs.get("qwen2.5-3b")
+    assert ktune.get_kernel("flash_attention").default_shape == {
+        "bh": 8 * cfg.n_heads, "tq": 2048, "tk": 2048, "hd": cfg.head_dim,
+        "causal": True}
+    assert ktune.get_kernel("decode_attention").default_shape == {
+        "b": 8, "kv": cfg.n_kv_heads, "rep": cfg.n_heads // cfg.n_kv_heads,
+        "hd": cfg.head_dim, "s": 2048 + 128}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", torch.bfloat16])
+def test_store_key_matches_the_reference(name, dtype):
+    meta = ktune.get_kernel(name).default_shape
+    spelled = dtype if isinstance(dtype, str) else "bfloat16"
+    assert ktune.kernel_workload(name, meta, dtype) == ref_kernel_workload(
+        name, meta, spelled)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention"])
+def test_smoke_tune_in_budget_then_from_cache(name, tmp_path):
+    store = TuningStore(tmp_path / "kernels.json", devices="pinned")
+    kw = dict(smoke=True, device="cpu", store=store, repeats=1,
+              iterations=60, seed=0)
+    out = ktune.tune_kernel(name, **kw)
+    assert 0 < out.n_measured and out.measured_fraction <= 0.05
+    assert out.timer.n_launch_failed == 0
+    assert ktune.get_kernel(name).validate(out.best_config, out.shape) is None
+    again = ktune.tune_kernel(name, **kw)
+    assert again.result.from_cache and again.n_measured == 0
+    assert again.best_config == out.best_config
+
+
+def test_port_oracles_equal_the_references():
+    """The port's ``ref.py`` oracles compute the reference's (float32,
+    2e-6: the same arithmetic, summed in another order)."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref as port_decode_ref)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref as port_attention_ref)
+
+    rng = np.random.default_rng(19)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal((2, 40, 2, 32)))
+                                    for _ in range(3))
+    close(port_attention_ref(qt, kt, vt, causal=True, q_offset=3),
+          attention_ref(qj, kj, vj, causal=True, q_offset=3), 2e-6)
+    qj, qt = both(rng.standard_normal((2, 8, 32)))
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((2, 50, 2, 32)))
+                          for _ in range(2))
+    close(port_decode_ref(qt, kt, vt, length=31),
+          decode_attention_ref(qj, kj, vj, length=31), 2e-6)

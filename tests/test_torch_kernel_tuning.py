@@ -38,7 +38,8 @@ def smoke_timer(**kw):
 
 def test_dna_space_is_redrawn_for_the_card():
     spec = ktune.get_kernel("dna_automaton")
-    assert ktune.list_kernels() == ["dna_automaton"]
+    assert ktune.list_kernels() == ["decode_attention", "dna_automaton",
+                                   "flash_attention"]
     space = spec.space(spec.default_shape)
     assert space.names == ("map_chunk", "count_chunk", "block_threads")
     assert space.size() == 500 >= 64
@@ -184,6 +185,53 @@ def test_parity_failure_is_fatal_at_the_default_only():
     assert "parity" in next(iter(timer.rejected.values()))
     with pytest.raises(RuntimeError, match="default configuration"):
         timer(dict(spec.defaults))
+
+
+@pytest.mark.parametrize("probe_s, calls", [
+    (1e-4, 10),            # a decode-sized call: a batch of >= 1 ms
+    (3e-4, 4),
+    (1.2e-2, 1),           # a DNA/prefill-sized call is its own batch
+    (1e-8, 1000),          # capped
+])
+def test_card_timer_times_batches_of_back_to_back_calls(monkeypatch, probe_s,
+                                                        calls):
+    """One call of a few short launches timed alone measures the host's
+    launch gaps; on the card each repeat is a batch of about MIN_BATCH_S,
+    sized from one probe call that also measures the host's enqueue time
+    (the spin that holds the card while the host enqueues the batch), and
+    the score is the best per-call mean."""
+    from repro_torch.tune.kernels import evaluate
+
+    spec, timer = smoke_timer()
+    timer.repeats = 3
+    batches = []
+
+    def device_seconds(fn, n, host_s):
+        batches.append((n, host_s))
+        return probe_s * (1 + len(batches))
+
+    monkeypatch.setattr(evaluate, "probe_seconds",
+                        lambda fn, device: (7e-5, probe_s))
+    monkeypatch.setattr(evaluate, "device_seconds", device_seconds)
+    monkeypatch.setattr(timer, "device", torch.device("cuda"))
+    monkeypatch.setattr(timer, "_sync", lambda: None)
+    assert evaluate.MIN_BATCH_S == 1e-3 and evaluate.MAX_BATCH == 1000
+    assert timer(dict(spec.defaults)) == pytest.approx(2 * probe_s)
+    assert batches == [(calls, 7e-5)] * 3 and timer.n_measured == 1
+
+
+def test_host_timer_times_single_calls():
+    spec = ktune.get_kernel("dna_automaton")
+    runs = []
+
+    def counted(cfg, inputs):
+        runs.append(1)
+        return spec.run(cfg, inputs)
+
+    timer = KernelTimer(with_run(spec, counted), spec.smoke_shape, "uint8",
+                        device="cpu", repeats=3)
+    assert 0 < timer(dict(spec.defaults)) < float("inf")
+    assert len(runs) == 1 + 3          # warm + one call per repeat
 
 
 def test_timer_observer_is_not_silently_ignored():

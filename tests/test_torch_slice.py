@@ -138,16 +138,27 @@ def test_no_source_imports_jax_or_repro(path):
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for f in files:
         assert not pat.search(f.read_text()), f
-    assert (PORT / "kernels" / "csrc" / "dna_automaton.cu").exists()
+    for name in ("dna_automaton", "flash_attention", "decode_attention"):
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
-def test_no_silent_fallback_in_the_wrappers():
+@pytest.mark.parametrize("package, plain", [
+    ("dna_automaton", ("state_map_plain", "count_hits_plain")),
+    ("flash_attention", ("flash_attention_fwd_plain",)),
+    ("decode_attention", ("decode_partials_plain",)),
+])
+def test_no_silent_fallback_in_the_wrappers(package, plain):
     """For a CUDA tensor the wrapper launches the kernel or raises: the
     plain version is reachable only through the CPU branch."""
-    src = (PORT / "kernels" / "dna_automaton" / "kernel.py").read_text()
+    src = (PORT / "kernels" / package / "kernel.py").read_text()
     assert "try:" not in src and "except" not in src
-    assert src.count("state_map_plain(") == 2       # its def + the CPU branch
-    assert src.count("count_hits_plain(") == 2
+    for name in plain:
+        # its def + the CPU branch (+ the plain decode_attention_plain,
+        # which is partials then combine)
+        want = 3 if name == "decode_partials_plain" else 2
+        assert src.count(f"{name}(") == want, name
+    assert src.count('.device.type == "cpu"') == len(
+        [line for line in src.splitlines() if "launches += 1" in line])
 
 
 def test_missing_compiler_raises_with_a_reason(tmp_path, monkeypatch):
