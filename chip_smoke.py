@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's two paths once each, at full width, through the entry
+drives the port's three paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -18,14 +18,26 @@ points a user would call:
   then ``serve_session`` a batch of 8 random 2048-token prompts and decode
   128 tokens greedily with the full-width model (36 layers, random weights
   from ``--seed``, bfloat16), prefill through the flash-attention kernel
-  and every decoded token through the split-KV decode kernel.
+  and every decoded token through the split-KV decode kernel;
+* LM training: ``train_loop`` takes four AdamW steps of the same model
+  at full width and depth (float32 parameters and moments, bf16 compute,
+  batch 2 x 2048 tokens from ``SyntheticPipeline(seed)``, each layer
+  recomputed in the backward pass), every attention layer's forward
+  through the flash-attention kernel and its gradient through the
+  flash-attention backward kernels.
 
 Before each path it holds each of the path's kernels against its plain
-PyTorch version on the same inputs at the path's shapes; after the LM
-path it runs the same weights with the kernels and with the plain
-versions, teacher-forced on the generated tokens, and compares logits.
-Each path's launch counters are set to 0 just before it and read just
-after it.
+PyTorch version on the same inputs at the path's shapes; after the
+serving path it runs the same weights with the kernels and with the plain
+versions, teacher-forced on the generated tokens, and compares logits;
+before the training path it compares the loss and every parameter's
+gradient the same way.  Each path's launch counters are set to 0 just
+before it and read just after it.  After training, the restart drill
+(``run_with_restarts`` with a failure injected at step 7, checkpoints
+every 4 steps) runs the smoke config on the card under
+``torch.use_deterministic_algorithms(True)`` and must end bitwise where an
+uninterrupted run does; ``CUBLAS_WORKSPACE_CONFIG`` is set for it before
+torch starts.
 
 Each phase prints one JSON line; any failing phase raises, so the script
 exits non-zero and prints no result line.  It needs one CUDA device and
@@ -41,20 +53,27 @@ table lookup per symbol and start state over 33.5e12 op/s for the DNA
 kernels (the sheet's 67 TFLOP/s of non-tensor float32 counts a fused
 multiply-add as two, so 33.5e12 instructions per second; the same rate is
 taken for int32 instructions), and the attention's flops over 989e12
-FLOP/s (dense bfloat16 tensor cores) for the attention kernels.
+FLOP/s (dense bfloat16 tensor cores) for the attention kernels, the
+backward counting the five products a backward needs.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-import torch
+# cuBLAS gives the same bits run to run only with a fixed workspace, and
+# deterministic mode refuses it without one: set before torch starts CUDA
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -64,9 +83,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 33.5e12
 BF16_FLOPS_PER_S = 989e12
 SERVE_MOTIFS = ("ACGTAC", "GATTAC", "TTAGGG", "CCGGAA", "ACGTACGT")
-LIBRARIES = ("dna_automaton", "flash_attention", "decode_attention")
+LIBRARIES = ("dna_automaton", "flash_attention", "flash_attention_bwd",
+             "decode_attention")
 # the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
+# the training path: the same model, batch 2 x 2048 tokens, 4 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 
 
 def emit(**fields) -> None:
@@ -627,6 +649,398 @@ def phase_lm_parity(model, generated, seed: int) -> None:
          logit_abs_max=float(first.abs().max()))
 
 
+# -- the LM-training path ---------------------------------------------------------
+
+def grad_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def phase_train_attention_parity(seed: int) -> dict:
+    """B5 at the training shape (bf16) against its plain version, plus a
+    float32 case with TF32 off, ragged T and a q_offset; bf16 within 2e-2
+    and float32 within 2e-4 of the largest |grad|."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ops import BWD_DEFAULTS as BWD
+    from repro_torch.kernels.flash_attention.ops import DEFAULTS as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(LM_ARCH)
+    b, t, h, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def case(tq, tk, q_offset, causal, dtype, launch):
+        q, do = (randn(b, tq, h, hd, dtype=dtype) for _ in range(2))
+        k, v = (randn(b, tk, h, hd, dtype=dtype) for _ in range(2))
+        o, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=q_offset, **FA)
+        args = (q, k, v, o, lse, do)
+        kw = dict(causal=causal, q_offset=q_offset)
+        return args, (lambda: fak.flash_attention_bwd(*args, **kw, **launch),
+                      lambda: fak.flash_attention_bwd_plain(*args, **kw))
+
+    # -- the training shape, bf16, causal, the defaults
+    args, (kernel_fn, plain_fn) = case(t, t, 0, True, torch.bfloat16, BWD)
+    got, want, ms, plain_ms = timed_pair(kernel_fn, plain_fn, 5)
+    errs = {n: grad_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                 want)}
+    abs_err = max(float_err(g, w) for g, w in zip(got, want))
+    again = kernel_fn()
+    deterministic = all(torch.equal(a, g) for a, g in zip(again, got))
+    q, k, v, o, lse, do = args
+    delta_ms = device_ms(lambda: fak._delta(o, do), 10)
+    del again, want, got
+    # SDPA's backward alone, as a yardstick (the port never calls it)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    del out, qt, kt, vt, dot
+    elem = q.element_size()
+    # q, k, v, o, do and lse read once; dq, dk, dv written once
+    n_bytes = 8 * b * t * h * hd * elem + b * h * t * 4
+    n_flops = 5 * 2 * b * h * hd * t * (t + 1) / 2
+    bound_ms, bound_by = attention_bound(n_bytes, n_flops)
+    record = {"name": "flash_attention_bwd", "ok": max(errs.values()) <= 2e-2,
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "replaces": "src/repro/kernels/flash_attention/kernel.py:180",
+              "launches": 0, "max_abs_err": abs_err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+    del args, q, k, v, o, lse, do
+    report = {"shape": [b, t, h, hd], "dtype": "bfloat16",
+              "launch": dict(BWD), "rel_err": errs, "delta_ms": delta_ms,
+              "deterministic": deterministic,
+              "tflops_5_products": n_flops / ms / 1e9,
+              "tflops_7_products": n_flops * 7 / 5 / ms / 1e9}
+
+    # float32 (TF32 off: the kernel never uses the tensor cores) and bf16
+    # at ragged shapes, a q_offset, no mask, and other launch shapes
+    cases = []
+    for tq, tk, q_offset, causal, dtype, launch, tol in (
+            (512, 512, 0, True, torch.float32, BWD, 2e-4),
+            (333, 333, 0, True, torch.float32, dict(block_q=16, block_k=32,
+                                                    block_threads=128), 2e-4),
+            (333, 333, 0, True, torch.bfloat16, BWD, 2e-2),
+            (77, 333, 256, True, torch.bfloat16, BWD, 2e-2),
+            (200, 333, 0, False, torch.bfloat16, dict(block_q=64, block_k=32,
+                                                      block_threads=512),
+             2e-2)):
+        _, (kernel_fn, plain_fn) = case(tq, tk, q_offset, causal, dtype,
+                                        launch)
+        got, want = kernel_fn(), plain_fn()
+        err = max(grad_err(g, w) for g, w in zip(got, want))
+        cases.append({"tq": tq, "tk": tk, "q_offset": q_offset,
+                      "causal": causal, "dtype": str(dtype)[6:],
+                      "launch": [launch[k] for k in ("block_q", "block_k",
+                                                     "block_threads")],
+                      "rel_err": err, "tol": tol})
+        check(err <= tol, f"flash_attention_bwd: {cases[-1]}")
+    report["cases"] = cases
+    emit(phase="train_attention_parity",
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32, flash_bwd=report,
+         result={key: record[key] for key in ("name", "ok", "max_abs_err",
+                                              "ms", "plain_ms", "bound_ms",
+                                              "library_ms")})
+    check(record["ok"], f"flash_attention_bwd disagrees with its plain "
+                        f"version: {errs}")
+    check(deterministic, "flash_attention_bwd: two runs gave other bits")
+    return record
+
+
+def train_batch(cfg, seed: int, step: int = 0) -> dict:
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.train import make_data_cfg
+
+    data = SyntheticPipeline(make_data_cfg(cfg, TRAIN_BATCH, TRAIN_SEQ, seed))
+    return {k: torch.as_tensor(v, device="cuda")
+            for k, v in data.batch_at(step).items()}
+
+
+# the relative L2 gate of each parameter's gradient, kernels against plain
+# versions.  The key biases are reported apart: a key bias's gradient is the
+# sum of its keys' gradients, which nearly cancels (a shift shared by every
+# key of a query cancels in the softmax; RoPE leaves a remainder), so bf16
+# rounding is a larger share of it than of any other leaf's.
+KEY_BIAS = "mixer.bk"
+GRAD_GATE = 0.05
+
+
+def plain_attention_fwd(q, k, v, *, causal, q_offset, **launch):
+    from repro_torch.kernels.flash_attention import kernel as fak
+
+    return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+
+
+def plain_attention_bwd(q, k, v, o, lse, do, *, causal, q_offset, **launch):
+    from repro_torch.kernels.flash_attention import kernel as fak
+
+    return fak.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         q_offset=q_offset)
+
+
+def lm_grads(model, batch, fwd=None, bwd=None):
+    """One loss-and-gradient pass (each layer recomputed) through the
+    attention kernels, or through ``fwd``/``bwd`` patched in their place."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    with contextlib.ExitStack() as stack:
+        for name, fn in (("flash_attention_fwd", fwd),
+                         ("flash_attention_bwd", bwd)):
+            if fn is not None:
+                stack.enter_context(mock.patch.object(fa_ops, name, fn))
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch, remat=True)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def grad_gaps(grads, want) -> dict:
+    """Each parameter's gradient against ``want``'s by relative L2: the
+    three worst key biases and the three worst other leaves, the largest
+    of each group, and the mean over all."""
+    rel = sorted(((n, float((grads[n].float() - want[n].float()).norm()
+                            / want[n].float().norm().clamp_min(1e-30)))
+                  for n in grads), key=lambda kv: -kv[1])
+    worst = {"key_bias": [kv for kv in rel if kv[0].endswith(KEY_BIAS)][:3],
+             "other": [kv for kv in rel if not kv[0].endswith(KEY_BIAS)][:3]}
+    return {"max": {g: kvs[0][1] for g, kvs in worst.items()},
+            "worst": worst, "mean": sum(v for _, v in rel) / len(rel)}
+
+
+def phase_lm_train_parity(seed: int, controls: dict | None = None):
+    """One loss-and-gradient pass at full width with the kernels, one with
+    the plain versions patched in; the loss within 1 % and each
+    parameter's gradient within ``GRAD_GATE`` relative L2 (bf16 compute
+    through 36 layers; a wrong mask, scale or dk/dv swap moves a gradient
+    by its own size).  Each of ``controls`` (name -> a wrong backward) is
+    run as well, and its gaps reported beside whether the gates catch it.
+    Returns the model, still without optimizer state, and the report."""
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    cfg = configs.get(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = train_batch(cfg, seed)
+
+    loss_k, grads_k = lm_grads(model, batch)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    loss_p, grads_p = lm_grads(model, batch, plain_attention_fwd,
+                               plain_attention_bwd)
+    gaps = grad_gaps(grads_k, grads_p)
+    del grads_k
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    report = {"seed": seed, "loss_kernels": float(loss_k),
+              "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+              "grad_rel_l2_max": gaps["max"],
+              "grad_rel_l2_worst": gaps["worst"],
+              "grad_rel_l2_mean": gaps["mean"], "tolerance": GRAD_GATE}
+    if controls:
+        report["controls"] = {}
+        for name, bwd in controls.items():
+            _, grads_c = lm_grads(model, batch, bwd=bwd)
+            caught = grad_gaps(grads_c, grads_p)
+            del grads_c
+            report["controls"][name] = {
+                "grad_rel_l2_max": caught["max"],
+                "caught": max(caught["max"].values()) > GRAD_GATE}
+    del grads_p
+    torch.cuda.empty_cache()
+    emit(phase="lm_train_parity", ok=True, arch=LM_ARCH,
+         params=sum(p.numel() for p in model.parameters()),
+         build_s=build_s, **report)
+    check(finite and bool(torch.isfinite(loss_k)),
+          "lm_train_parity: non-finite loss or gradient")
+    check(loss_rel <= 0.01, f"lm_train_parity: loss {float(loss_k)} vs "
+                            f"{float(loss_p)}")
+    check(max(gaps["max"].values()) <= GRAD_GATE,
+          f"lm_train_parity: gradients {gaps}")
+    return model, report
+
+
+# kernel names of cuBLAS's matrix products on the card
+MATMUL_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "cublas")
+
+
+def kernel_kind(name: str) -> str:
+    """The kind a card kernel belongs to in a device-time split."""
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_attention_fwd (B3)"
+    if "flash_bwd" in low:
+        return "flash_attention_bwd (B5)"
+    if "decode_kernel" in low:
+        return "decode_attention (B4)"
+    if any(mark in low for mark in MATMUL_MARKS):
+        return "matmul (cuBLAS)"
+    return "other"
+
+
+def device_time_us(evt, total: bool = False) -> float:
+    """A profiler event's device time, self or with its children, under
+    either of the attribute names torch releases use."""
+    attrs = (("device_time_total", "cuda_time_total") if total else
+             ("self_device_time_total", "self_cuda_time_total"))
+    for attr in attrs:
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_split(fn, trace: Path | None = None) -> dict:
+    """``fn`` once under ``torch.profiler``: the card's kernel time by
+    ``kernel_kind`` against the wall time, the device time of the host
+    range ``adamw`` (the optimizer) taken out of "other" where the trace
+    has one, and the longest kernels.  ``trace`` receives the Chrome
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
+    split: dict = {}
+    top = []
+    adamw_ms = None
+    for evt in prof.key_averages():
+        on_card = "cuda" in str(evt.device_type).lower()
+        if evt.key == "adamw":
+            if not on_card:
+                adamw_ms = device_time_us(evt, total=True) / 1e3
+            continue
+        us = device_time_us(evt)
+        if not on_card or us <= 0:
+            continue
+        kind = kernel_kind(evt.key)
+        split[kind] = split.get(kind, 0.0) + us / 1e3
+        top.append((us / 1e3, evt.count, evt.key[:90]))
+    busy = sum(split.values())
+    if adamw_ms is not None:
+        if 0 < adamw_ms <= split.get("other", 0.0):
+            split["AdamW"] = adamw_ms
+            split["other"] -= adamw_ms
+        else:
+            split["AdamW"] = "not measured (inside other)"
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "idle_share": 1 - busy / wall_ms if busy > 0 else "not measured",
+            "split_ms": split, "top": sorted(top, reverse=True)[:12]}
+
+
+def phase_lm_train(model, seed: int) -> dict:
+    """The training path: its launch counters go to 0 just before
+    ``train_loop`` and are read just after."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    bwd = fak.flash_attention_bwd
+    fak.flash_attention_fwd.launches = 0
+    bwd.launches = 0
+    bwd.program_launches = {"dq": 0, "dkv": 0}
+    out = train_loop(cfg, steps_total=TRAIN_STEPS, batch=TRAIN_BATCH,
+                     seq_len=TRAIN_SEQ, seed=seed, remat=True, log_every=0,
+                     model=model)
+    launches = {"flash_attention_fwd": fak.flash_attention_fwd.launches,
+                "flash_attention_bwd": bwd.launches,
+                "flash_attention_bwd_dq": bwd.program_launches["dq"],
+                "flash_attention_bwd_dkv": bwd.program_launches["dkv"]}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = cfg.n_layers * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd": n,
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+    losses = out["losses"]
+    warm = sorted(out["step_seconds"][1:])
+    warm_s = warm[len(warm) // 2]
+
+    # one more warm step, outside the counted run, under the profiler
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    batch = train_batch(cfg, seed, TRAIN_STEPS)
+    split = device_split(lambda: train_step(model, out["state"]["opt"], batch,
+                                            opt_cfg, remat=True))
+    emit(phase="lm_train", ok=True, arch=LM_ARCH, batch=TRAIN_BATCH,
+         seq_len=TRAIN_SEQ, steps=TRAIN_STEPS, remat=True,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         losses=losses, ln_vocab=math.log(cfg.vocab_size),
+         step_seconds=out["step_seconds"], warm_step_s=warm_s,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / warm_s, launches=launches,
+         peak_gib=peak_gib, profiled_step=split)
+    check(launches == want, f"lm_train: launches {launches}, want {want}")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"lm_train: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"lm_train: first loss {losses[0]}, ln V {math.log(cfg.vocab_size)}")
+    return launches
+
+
+def phase_train_restart(seed: int) -> None:
+    """The restart drill on the card at the smoke config: a failure at
+    step 7, checkpoints every 4 steps, resumed from step 4, bitwise equal
+    to an uninterrupted run, under deterministic algorithms."""
+    from repro_torch import configs
+    from repro_torch.dist import run_with_restarts
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.launch.train import train_loop
+
+    cfg = configs.get(LM_ARCH).smoke()
+    kw = dict(steps_total=12, batch=4, seq_len=32, ckpt_every=4, log_every=0,
+              seed=seed, device="cuda")
+    before = fak.flash_attention_bwd.launches
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            clean = train_loop(cfg, ckpt_dir=Path(tmp) / "clean", **kw)
+            report = run_with_restarts(train_loop, cfg=cfg,
+                                       ckpt_dir=Path(tmp) / "restart",
+                                       fail_at_step=7, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got, want = report.result["state"]["params"], clean["state"]["params"]
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    emit(phase="train_restart", ok=True, arch=cfg.name,
+         attempts=report.attempts, failures=report.failures,
+         resumed_from=report.result["resumed_from"],
+         params_differing=differ, losses=clean["losses"],
+         resumed_losses=report.result["losses"],
+         bwd_launches=fak.flash_attention_bwd.launches - before)
+    check(report.attempts == 2 and report.result["resumed_from"] == 4,
+          f"train_restart: attempts {report.attempts}, resumed from "
+          f"{report.result['resumed_from']}")
+    check(not differ, f"train_restart: parameters differ: {differ[:5]}")
+    check(report.result["losses"] == clean["losses"][4:],
+          "train_restart: losses after the restart differ")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -667,10 +1081,27 @@ def main() -> int:
                                                        tunes)
     launches.update(lm_launches)
     phase_lm_parity(model, generated, args.seed)
+    del model
+    torch.cuda.empty_cache()
 
-    records += attention
+    # the LM-training path
+    backward = phase_train_attention_parity(args.seed)
+    model, _ = phase_lm_train_parity(args.seed)
+    train_launches = phase_lm_train(model, args.seed)
+    del model
+    torch.cuda.empty_cache()
+    phase_train_restart(args.seed)
+
+    records += attention + [backward]
+    by_path = {"flash_attention_fwd": {
+        "lm_serve": launches["flash_attention_fwd"],
+        "lm_train": train_launches["flash_attention_fwd"]}}
+    launches["flash_attention_fwd"] += train_launches["flash_attention_fwd"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     for r in records:
         r["launches"] = launches[r["name"]]
+        if r["name"] in by_path:
+            r["launches_by_path"] = by_path[r["name"]]
         check(r["launches"] > 0, f"{r['name']} was never launched on its "
                                  "path")
     torch.cuda.synchronize()

@@ -9,7 +9,8 @@ decode-attention kernels into a store exactly as ``chip_smoke.py``'s
 ``lm_tune`` phase does, ``configure``s the store, builds the full-width
 model on the card (random weights, bfloat16), and traces one prefill of
 the batch and one decode step at the last position with ``torch.profiler``.
-It sums the card's kernel time by kind: the port's attention kernels,
+It sums the card's kernel time by kind (``chip_smoke.device_split``, the
+classifier the training phase uses too): the port's attention kernels,
 matrix products (cuBLAS), and everything else (norms, RoPE, residual adds,
 cache writes, the split combine, the casts).  The LM head's share is timed
 apart by ``chip_smoke.device_ms`` on the same shapes.  Host time is the
@@ -37,64 +38,23 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-MATMUL_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "cublas")
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    if "flash_fwd" in low:
-        return "attention_flash (B3)"
-    if "decode_kernel" in low:
-        return "attention_decode (B4)"
-    if any(mark in low for mark in MATMUL_MARKS):
-        return "matmul"
-    return "other"
-
-
-def device_time_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
 
 def profile(fn, label: str, out: Path) -> dict:
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    import chip_smoke as smoke
 
     fn()                                        # warm
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kind: dict[str, float] = {}
-    top = []
-    for evt in prof.key_averages():
-        if evt.device_type is None or "cuda" not in str(evt.device_type).lower():
-            continue
-        us = device_time_us(evt)
-        if us <= 0:
-            continue
-        kind = kind_of(evt.key)
-        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
-        top.append((us / 1e3, evt.count, evt.key[:90]))
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"lm_profile_{label}.json"))
-    busy = sum(by_kind.values())
+    row = smoke.device_split(fn, trace=out / f"lm_profile_{label}.json")
     # the same step again without the profiler: its wall time
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    return {"step": label, "wall_ms_profiled": wall_ms,
-            "wall_ms": plain_wall_ms,
-            "device_busy_ms": busy if busy > 0 else "not measured",
-            "by_kind_ms": by_kind,
-            "idle_share": (1 - busy / wall_ms) if busy > 0 else "not measured",
-            "top": sorted(top, reverse=True)[:12]}
+    return {"step": label, "wall_ms_profiled": row["wall_ms"],
+            "wall_ms": plain_wall_ms, "device_busy_ms": row["device_busy_ms"],
+            "by_kind_ms": row["split_ms"], "idle_share": row["idle_share"],
+            "top": row["top"]}
 
 
 def main() -> int:

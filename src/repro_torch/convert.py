@@ -1,11 +1,14 @@
 """State carried across from the JAX reference package.
 
 What the two packages share is (a) a motif DFA, (b) a fitted BDTR
-surrogate, (c) a ``TuningStore`` file and (d) a language model's weights.
+surrogate, (c) a ``TuningStore`` file, (d) a language model's weights and
+(e) a training state (weights and AdamW moments).
 The store needs no converter: both packages write the same checksummed
 JSON envelope, so a file written by one loads in the other (keys differ by
 device topology by design).  The others are handed over as numpy arrays:
-``dfa_to_device``, ``bdtr_from_arrays`` and ``lm_from_jax_params``.
+``dfa_to_device``, ``bdtr_from_arrays``, ``lm_from_jax_params`` and
+``train_state_from_jax``.  Checkpoints are not shared: the reference keys
+leaves by a JAX treedef, the port by name.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 from . import resolve_device
 from .core.bdtr import BoostedTreesRegressor, Tree
 
-__all__ = ["bdtr_from_arrays", "dfa_to_device", "lm_from_jax_params"]
+__all__ = ["bdtr_from_arrays", "dfa_to_device", "lm_from_jax_params",
+           "train_state_from_jax"]
 
 
 def dfa_to_device(table, accept, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,3 +116,56 @@ def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
         for part, dst in layer.items():
             put(dst, src[part], f"layers.slot{slot}.{part}", group)
     return model
+
+
+def _reference_leaf(tree: Mapping[str, Any], name: str, cfg) -> Any:
+    """The leaf of a reference tree shaped like its parameters (the
+    parameters, or an AdamW moment tree) for the port's parameter
+    ``name``: layer ``g * len(group_pattern) + i`` is group ``g`` of
+    ``tree["layers"]["slot<i>"]``.  An int8 moment's leaf is the dict of
+    its codes and scales, each cut to the group."""
+    parts = name.split(".")
+    group = None
+    node = tree
+    if parts[0] == "layers":
+        group, slot = divmod(int(parts[1]), len(cfg.group_pattern))
+        node, parts = tree["layers"][f"slot{slot}"], parts[2:]
+    for key in parts:
+        node = node[key]
+    if group is None:
+        return node
+    if isinstance(node, Mapping):
+        return {k: np.asarray(v)[group] for k, v in node.items()}
+    return np.asarray(node)[group]
+
+
+def train_state_from_jax(state: Mapping[str, Any], cfg, device=None):
+    """The port's ``(LM, opt_state)`` holding the reference's training
+    state ``{"params", "opt", "step"}`` with numpy leaves.
+
+    The moments are float32 arrays or, for int8 moments, the reference's
+    ``{"q", "scale"[, "minv"]}`` dicts; each is keyed here by the port's
+    parameter name, as ``repro_torch.optim.adamw.init_opt_state`` keys
+    them.  With the same batch both packages then compute the same step.
+    """
+    dev = resolve_device(device)
+    model = lm_from_jax_params(state["params"], cfg, dev)
+    opt = {"m": {}, "v": {},
+           "count": torch.tensor(int(np.asarray(state["opt"]["count"])),
+                                 dtype=torch.int32)}
+
+    def tensor(arr) -> torch.Tensor:
+        return torch.from_numpy(np.array(arr)).to(dev)
+
+    for name, p in model.named_parameters():
+        for part in ("m", "v"):
+            leaf = _reference_leaf(state["opt"][part], name, cfg)
+            if isinstance(leaf, Mapping):
+                opt[part][name] = {k: tensor(v) for k, v in leaf.items()}
+                continue
+            t = tensor(np.asarray(leaf, dtype=np.float32))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"opt.{part}.{name}: shape "
+                                 f"{tuple(t.shape)} vs {tuple(p.shape)}")
+            opt[part][name] = t
+    return model, opt

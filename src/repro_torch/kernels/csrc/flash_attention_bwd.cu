@@ -1,0 +1,504 @@
+// FlashAttention-2 backward for NVIDIA Hopper (sm_90a), float32 or bfloat16.
+//
+// Replaces the Pallas TPU kernel flash_attention_bwd (_dq_kernel and
+// _dkv_kernel) of src/repro/kernels/flash_attention/kernel.py.
+//
+// What it computes, per (batch, head), with scale = hd^-0.5, the forward's
+// lse = m + log l and delta_i = sum_d do_id * o_id (computed by the caller,
+// as the reference computes it outside its Pallas calls):
+//     s_ij  = (scale * q_i) . k_j,  causal: masked where q_offset + i < j
+//     p_ij  = exp(s_ij - lse_i)     (0 where masked)
+//     dp_ij = do_i . v_j
+//     ds_ij = p_ij * (dp_ij - delta_i)
+//     dq_i  = scale * sum_j ds_ij k_j
+//     dk_j  = sum_i ds_ij (scale * q_i)
+//     dv_j  = sum_i p_ij do_i
+// as two programs, the reference's two grids:
+//
+//   * dq:  one block per (batch * head, query block).  It loops over the key
+//     blocks up to the causal diagonal (blocks wholly above it are skipped,
+//     as B3 skips them), recomputes p and ds for the tile, and adds ds @ k
+//     into its float32 accumulator.
+//   * dkv: one block per (batch * head, key block).  It loops over the query
+//     blocks from the first one that reaches the diagonal, recomputes p and
+//     ds, and adds p^T @ do and ds^T @ (scale * q) into its accumulators.
+//     A key block that no query reaches writes zeros.
+//
+// Every output tile is owned by one block and written once, with no atomics,
+// so the result does not depend on the order in which blocks run: two runs
+// on the same inputs give the same bits (training restarts rely on it).
+//
+// What bounds it on the H100: operations.  At the training shape (B*H = 32,
+// T = 2048, hd = 128, causal) the five products a backward needs come to
+// 5 * 2 * 32 * 2048^2 / 2 * 128 = 86 GFLOP (0.087 ms at the bf16 tensor-core
+// rate); the two programs do seven (s and dp are recomputed by both), and
+// this first kernel does them on the CUDA cores in float32 for both input
+// types, so it is far from that bound.  The float32 build has to be: the
+// float32 parity gate (2e-4) rules out TF32.  Each product runs as 4 x 4
+// register micro-tiles fed from transposed shared-memory tiles: the score
+// pass computes s and dp of one micro-tile together (16 loads per 32 FMAs)
+// and turns them into p and ds in registers; the accumulation pass walks the
+// tile's rows (dq) or keys (dk, dv) with 16 loads per 32 FMAs.  One padding
+// word per transposed row keeps the strided reads of a warp on 32 banks.
+//
+// Shared memory is the constraint: at hd 128 the dkv program holds k, v, q
+// and do transposed, p and ds, and both accumulators, all float32 (see
+// smem_floats_dkv); 64 x 64 blocks would need 232,448 bytes, all the card
+// gives a block, so the wrapper's defaults take 32 query rows.
+//
+// Heads fold into the grid through the (batch, seq, head) strides of every
+// tensor, as in B3.  Ragged edges are masked: T need not be a multiple of a
+// block.
+//
+// Plain C interface: flash_attention_bwd_{dq,dkv}_{f32,bf16} launch on the
+// given stream, do not synchronise, allocate nothing, and return
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int MAX_THREADS = 512;
+
+typedef __nv_bfloat16 bf16;
+
+struct Strides {            // element strides of a (B, T, H, hd) view
+    int64_t b, t, h;
+};
+
+struct AllStrides {         // q, k, v, do, dq, dk, dv
+    Strides q, k, v, d, dq, dk, dv;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+    return __float2bfloat16(x);
+}
+
+// Shared memory, in floats, of the two programs (must match the
+// Python-side kernel.smem_bytes_bwd).
+__host__ __device__ inline int64_t smem_floats_dq(int bq, int bk, int hd) {
+    return 2LL * hd * (bq + 1)          // qt (scaled q), dt (do): transposed
+         + 2LL * hd * (bk + 1)          // kt, vt: transposed
+         + (int64_t)bq * (bk + 1)       // ds
+         + (int64_t)bq * hd             // dq accumulator
+         + 2LL * bq;                    // lse, delta
+}
+
+__host__ __device__ inline int64_t smem_floats_dkv(int bq, int bk, int hd) {
+    return 2LL * hd * (bk + 1)          // kt, vt: transposed
+         + 2LL * hd * (bq + 1)          // qt (scaled q), dt (do): transposed
+         + 2LL * bq * (bk + 1)          // p, ds
+         + 2LL * bk * hd                // dk, dv accumulators
+         + 2LL * bq;                    // lse, delta
+}
+
+// Stage rows [t0, t0 + rows) of a (T, hd) slice, transposed, into
+// dst[d * ld + i], times `mul`; rows past `t_end` are zero.
+template <typename T>
+__device__ __forceinline__ void stage_t(float* dst, int ld, const T* src,
+                                        int64_t stride_t, int t0, int rows,
+                                        int t_end, int hd, float mul) {
+    for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
+        const int i = e / hd, d = e - i * hd;
+        const int t = t0 + i;
+        dst[d * ld + i] = t < t_end ? to_f32(src[(int64_t)t * stride_t + d]) * mul
+                                    : 0.f;
+    }
+}
+
+// The score pass shared by both programs: for each 4 x 4 micro-tile of the
+// (bq, bk) block, s = qt^T kt and dp = dt^T vt over hd, then
+// p = exp(s - lse) (0 where masked) and ds = p * (dp - delta).  Writes ds,
+// and p too when `ps` is not null.
+__device__ __forceinline__ void score_pass(const float* qt, const float* dt,
+                                           const float* kt, const float* vt,
+                                           const float* lse_s, const float* dl_s,
+                                           float* ps, float* ds, int bq, int bk,
+                                           int hd, int q0, int k0, int tq, int tk,
+                                           int causal, int q_offset) {
+    const int ldq = bq + 1, ldk = bk + 1;
+    const int tiles_i = bq / 4, tiles_j = bk / 4;
+    for (int tile = threadIdx.x; tile < tiles_i * tiles_j; tile += blockDim.x) {
+        const int ti = tile / tiles_j, tj = tile - ti * tiles_j;
+        float s[4][4] = {}, dp[4][4] = {};
+        for (int d = 0; d < hd; ++d) {
+            const float* qrow = qt + d * ldq + ti;
+            const float* drow = dt + d * ldq + ti;
+            const float* krow = kt + d * ldk + tj;
+            const float* vrow = vt + d * ldk + tj;
+            float qv[4], dv[4], kv[4], vv[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                qv[r] = qrow[r * tiles_i];
+                dv[r] = drow[r * tiles_i];
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                kv[c] = krow[c * tiles_j];
+                vv[c] = vrow[c * tiles_j];
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+                    dp[r][c] = fmaf(dv[r], vv[c], dp[r][c]);
+                }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int i = ti + r * tiles_i;
+            const int qpos = q_offset + q0 + i;
+            const float lse_i = lse_s[i], delta_i = dl_s[i];
+            const bool row_in = q0 + i < tq;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int j = tj + c * tiles_j;
+                const int kpos = k0 + j;
+                const bool ok = row_in && kpos < tk && (!causal || qpos >= kpos);
+                const float p = ok ? expf(s[r][c] - lse_i) : 0.f;
+                if (ps != nullptr) ps[i * ldk + j] = p;
+                ds[i * ldk + j] = p * (dp[r][c] - delta_i);
+            }
+        }
+    }
+}
+
+// Load lse and delta of query rows [q0, q0 + bq) of head `bh` (0 past tq).
+__device__ __forceinline__ void stage_rows(float* lse_s, float* dl_s,
+                                           const float* lse, const float* delta,
+                                           int bh, int q0, int bq, int tq) {
+    for (int i = threadIdx.x; i < bq; i += blockDim.x) {
+        const int t = q0 + i;
+        const bool in = t < tq;
+        lse_s[i] = in ? lse[(int64_t)bh * tq + t] : 0.f;
+        dl_s[i] = in ? delta[(int64_t)bh * tq + t] : 0.f;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dq program
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, AllStrides st, int n_bh, int n_heads,
+                    int tq, int tk, int hd, int bq, int bk, int causal,
+                    int q_offset, float scale) {
+    extern __shared__ float smem[];
+    const int ldq = bq + 1, ldk = bk + 1;
+    float* qt = smem;
+    float* dt = qt + (size_t)hd * ldq;
+    float* kt = dt + (size_t)hd * ldq;
+    float* vt = kt + (size_t)hd * ldk;
+    float* ds = vt + (size_t)hd * ldk;
+    float* acc = ds + (size_t)bq * ldk;
+    float* lse_s = acc + (size_t)bq * hd;
+    float* dl_s = lse_s + bq;
+
+    // heaviest query blocks (the most key blocks under the diagonal) first
+    const int n_qb = (tq + bq - 1) / bq;
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int qb = n_qb - 1 - (int)(blockIdx.x / n_bh);
+    const int b = bh / n_heads, h = bh - b * n_heads;
+    const int q0 = qb * bq;
+    const int tid = threadIdx.x, nt = blockDim.x;
+
+    stage_t(qt, ldq, q + b * st.q.b + h * st.q.h, st.q.t, q0, bq, tq, hd, scale);
+    stage_t(dt, ldq, dout + b * st.d.b + h * st.d.h, st.d.t, q0, bq, tq, hd, 1.f);
+    stage_rows(lse_s, dl_s, lse, delta, bh, q0, bq, tq);
+    for (int e = tid; e < bq * hd; e += nt) acc[e] = 0.f;
+
+    int n_kb = (tk + bk - 1) / bk;
+    if (causal) {
+        const int last_q = q_offset + min(q0 + bq, tq) - 1;
+        n_kb = min(n_kb, last_q / bk + 1);
+    }
+    const T* kg = k + b * st.k.b + h * st.k.h;
+    const T* vg = v + b * st.v.b + h * st.v.h;
+    const int tiles_i = bq / 4, tiles_d = hd / 4;
+
+    for (int kb = 0; kb < n_kb; ++kb) {
+        const int k0 = kb * bk;
+        __syncthreads();            // the previous block's readers are done
+        stage_t(kt, ldk, kg, st.k.t, k0, bk, tk, hd, 1.f);
+        stage_t(vt, ldk, vg, st.v.t, k0, bk, tk, hd, 1.f);
+        __syncthreads();
+        score_pass(qt, dt, kt, vt, lse_s, dl_s, nullptr, ds, bq, bk, hd, q0, k0,
+                   tq, tk, causal, q_offset);
+        __syncthreads();
+
+        // acc += ds @ k: 4 x 4 micro-tiles over (row, d)
+        for (int tile = tid; tile < tiles_i * tiles_d; tile += nt) {
+            const int ti = tile / tiles_d, td = tile - ti * tiles_d;
+            float a[4][4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    a[r][c] = acc[(ti + r * tiles_i) * hd + td + c * tiles_d];
+            for (int j = 0; j < bk; ++j) {
+                float dsv[4], kv[4];
+#pragma unroll
+                for (int r = 0; r < 4; ++r) dsv[r] = ds[(ti + r * tiles_i) * ldk + j];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) kv[c] = kt[(td + c * tiles_d) * ldk + j];
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) a[r][c] = fmaf(dsv[r], kv[c], a[r][c]);
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    acc[(ti + r * tiles_i) * hd + td + c * tiles_d] = a[r][c];
+        }
+    }
+    __syncthreads();
+
+    T* dqg = dq + b * st.dq.b + h * st.dq.h;
+    for (int e = tid; e < bq * hd; e += nt) {
+        const int i = e / hd, d = e - i * hd;
+        const int t = q0 + i;
+        if (t < tq) dqg[(int64_t)t * st.dq.t + d] = from_f32<T>(acc[e] * scale);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv program
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, AllStrides st,
+                     int n_bh, int n_heads, int tq, int tk, int hd, int bq,
+                     int bk, int causal, int q_offset, float scale) {
+    extern __shared__ float smem[];
+    const int ldq = bq + 1, ldk = bk + 1;
+    float* kt = smem;
+    float* vt = kt + (size_t)hd * ldk;
+    float* qt = vt + (size_t)hd * ldk;
+    float* dt = qt + (size_t)hd * ldq;
+    float* ps = dt + (size_t)hd * ldq;
+    float* ds = ps + (size_t)bq * ldk;
+    float* dka = ds + (size_t)bq * ldk;
+    float* dva = dka + (size_t)bk * hd;
+    float* lse_s = dva + (size_t)bk * hd;
+    float* dl_s = lse_s + bq;
+
+    // heaviest key blocks (the most query blocks under the diagonal) first
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int kb = (int)(blockIdx.x / n_bh);
+    const int b = bh / n_heads, h = bh - b * n_heads;
+    const int k0 = kb * bk;
+    const int tid = threadIdx.x, nt = blockDim.x;
+
+    stage_t(kt, ldk, k + b * st.k.b + h * st.k.h, st.k.t, k0, bk, tk, hd, 1.f);
+    stage_t(vt, ldk, v + b * st.v.b + h * st.v.h, st.v.t, k0, bk, tk, hd, 1.f);
+    for (int e = tid; e < bk * hd; e += nt) {
+        dka[e] = 0.f;
+        dva[e] = 0.f;
+    }
+
+    // the first query block with a row at or past the diagonal of key k0
+    const int n_qb = (tq + bq - 1) / bq;
+    int qb0 = 0;
+    if (causal && k0 - q_offset > 0) qb0 = (k0 - q_offset) / bq;
+    const T* qg = q + b * st.q.b + h * st.q.h;
+    const T* dg = dout + b * st.d.b + h * st.d.h;
+    const int tiles_j = bk / 4, tiles_d = hd / 4;
+
+    for (int qb = qb0; qb < n_qb; ++qb) {
+        const int q0 = qb * bq;
+        __syncthreads();            // the previous block's readers are done
+        stage_t(qt, ldq, qg, st.q.t, q0, bq, tq, hd, scale);
+        stage_t(dt, ldq, dg, st.d.t, q0, bq, tq, hd, 1.f);
+        stage_rows(lse_s, dl_s, lse, delta, bh, q0, bq, tq);
+        __syncthreads();
+        score_pass(qt, dt, kt, vt, lse_s, dl_s, ps, ds, bq, bk, hd, q0, k0,
+                   tq, tk, causal, q_offset);
+        __syncthreads();
+
+        // dv += p^T @ do, dk += ds^T @ (scale * q): micro-tiles over (key, d)
+        for (int tile = tid; tile < tiles_j * tiles_d; tile += nt) {
+            const int tj = tile / tiles_d, td = tile - tj * tiles_d;
+            float ak[4][4], av[4][4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int at = (tj + r * tiles_j) * hd + td + c * tiles_d;
+                    ak[r][c] = dka[at];
+                    av[r][c] = dva[at];
+                }
+            for (int i = 0; i < bq; ++i) {
+                float pv[4], dsv[4], qv[4], dov[4];
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    pv[r] = ps[i * ldk + tj + r * tiles_j];
+                    dsv[r] = ds[i * ldk + tj + r * tiles_j];
+                }
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    qv[c] = qt[(td + c * tiles_d) * ldq + i];
+                    dov[c] = dt[(td + c * tiles_d) * ldq + i];
+                }
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        av[r][c] = fmaf(pv[r], dov[c], av[r][c]);
+                        ak[r][c] = fmaf(dsv[r], qv[c], ak[r][c]);
+                    }
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int at = (tj + r * tiles_j) * hd + td + c * tiles_d;
+                    dka[at] = ak[r][c];
+                    dva[at] = av[r][c];
+                }
+        }
+    }
+    __syncthreads();
+
+    T* dkg = dk + b * st.dk.b + h * st.dk.h;
+    T* dvg = dv + b * st.dv.b + h * st.dv.h;
+    for (int e = tid; e < bk * hd; e += nt) {
+        const int j = e / hd, d = e - j * hd;
+        const int t = k0 + j;
+        if (t < tk) {
+            dkg[(int64_t)t * st.dk.t + d] = from_f32<T>(dka[e]);
+            dvg[(int64_t)t * st.dv.t + d] = from_f32<T>(dva[e]);
+        }
+    }
+}
+
+AllStrides unpack(const int64_t* s) {
+    AllStrides st;
+    Strides* dst[7] = {&st.q, &st.k, &st.v, &st.d, &st.dq, &st.dk, &st.dv};
+    for (int i = 0; i < 7; ++i) *dst[i] = Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+    return st;
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq,
+              const int64_t* strides, int batch, int n_heads, int tq, int tk,
+              int hd, int bq, int bk, int threads, int causal, int q_offset,
+              float scale, void* stream) {
+    if (batch <= 0 || n_heads <= 0 || tq <= 0) return 0;
+    const size_t smem = (size_t)smem_floats_dq(bq, bk, hd) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_bh = batch * n_heads;
+    const int64_t blocks = (int64_t)n_bh * ((tq + bq - 1) / bq);
+    flash_bwd_dq_kernel<T><<<(unsigned)blocks, threads, smem,
+                             (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dq, unpack(strides), n_bh,
+        n_heads, tq, tk, hd, bq, bk, causal, q_offset, scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               const int64_t* strides, int batch, int n_heads, int tq, int tk,
+               int hd, int bq, int bk, int threads, int causal, int q_offset,
+               float scale, void* stream) {
+    if (batch <= 0 || n_heads <= 0 || tk <= 0) return 0;
+    const size_t smem = (size_t)smem_floats_dkv(bq, bk, hd) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_bh = batch * n_heads;
+    const int64_t blocks = (int64_t)n_bh * ((tk + bk - 1) / bk);
+    flash_bwd_dkv_kernel<T><<<(unsigned)blocks, threads, smem,
+                              (cudaStream_t)stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+        (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+        unpack(strides), n_bh, n_heads, tq, tk, hd, bq, bk, causal, q_offset,
+        scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, do: (B, Tq, H, hd); k, v: (B, Tk, H, hd); dq, dk, dv likewise; all
+// views with unit stride along hd.  `strides` holds 21 int64: the (batch,
+// seq, head) element strides of q, k, v, do, dq, dk, dv in that order.
+// lse and delta: (B, H, Tq) float32, contiguous.  bq, bk and hd multiples
+// of 4; threads a multiple of 32 in [32, 512].
+
+int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq,
+                               const int64_t* strides, int batch, int n_heads,
+                               int tq, int tk, int hd, int bq, int bk,
+                               int threads, int causal, int q_offset,
+                               float scale, void* stream) {
+    return launch_dq<float>(q, k, v, dout, lse, delta, dq, strides, batch,
+                            n_heads, tq, tk, hd, bq, bk, threads, causal,
+                            q_offset, scale, stream);
+}
+
+int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq,
+                                const int64_t* strides, int batch, int n_heads,
+                                int tq, int tk, int hd, int bq, int bk,
+                                int threads, int causal, int q_offset,
+                                float scale, void* stream) {
+    return launch_dq<bf16>(q, k, v, dout, lse, delta, dq, strides, batch,
+                           n_heads, tq, tk, hd, bq, bk, threads, causal,
+                           q_offset, scale, stream);
+}
+
+int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv,
+                                const int64_t* strides, int batch, int n_heads,
+                                int tq, int tk, int hd, int bq, int bk,
+                                int threads, int causal, int q_offset,
+                                float scale, void* stream) {
+    return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, strides, batch,
+                             n_heads, tq, tk, hd, bq, bk, threads, causal,
+                             q_offset, scale, stream);
+}
+
+int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv,
+                                 const int64_t* strides, int batch,
+                                 int n_heads, int tq, int tk, int hd, int bq,
+                                 int bk, int threads, int causal, int q_offset,
+                                 float scale, void* stream) {
+    return launch_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, strides, batch,
+                            n_heads, tq, tk, hd, bq, bk, threads, causal,
+                            q_offset, scale, stream);
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -1,7 +1,9 @@
-"""FlashAttention-2 forward (prefill attention)."""
+"""FlashAttention-2 forward (prefill) and backward (training) attention."""
 
-from .kernel import flash_attention_fwd, flash_attention_fwd_plain
-from .ops import DEFAULTS, flash_attention
+from .kernel import (flash_attention_bwd, flash_attention_bwd_plain,
+                     flash_attention_fwd, flash_attention_fwd_plain)
+from .ops import BWD_DEFAULTS, DEFAULTS, FlashAttention, flash_attention
 
-__all__ = ["DEFAULTS", "flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_plain"]
+__all__ = ["BWD_DEFAULTS", "DEFAULTS", "FlashAttention", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_fwd", "flash_attention_fwd_plain"]

@@ -1,4 +1,5 @@
-"""FlashAttention-2 forward: the CUDA kernel's wrapper and its plain version.
+"""FlashAttention-2 forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
 ``flash_attention_fwd`` replaces the Pallas kernel of the same name
 (``repro/kernels/flash_attention/kernel.py``, ``_fwd_kernel``): per (batch,
@@ -16,10 +17,21 @@ contiguous; the kernel folds by index arithmetic through the views'
 strides, so nothing is copied.  ``o`` is ``(B, Tq, H, hd)`` and ``lse`` is
 ``(B, H, Tq)`` (the reference's ``(B*H, Tq)`` unflattened).
 
+``flash_attention_bwd`` replaces the reference's ``flash_attention_bwd``
+(``_dq_kernel`` and ``_dkv_kernel``): two programs in
+``kernels/csrc/flash_attention_bwd.cu``, one per (batch, head) and query
+block for dq, one per (batch, head) and key block for dk and dv, each
+recomputing ``p = exp(s - lse)`` from the forward's ``lse``.  Both builds
+(float32, bfloat16) compute in float32 on the CUDA cores.  ``delta =
+rowsum(do * o)`` is plain PyTorch, as the reference computes it outside its
+Pallas calls.
+
 A wrapper launches its kernel for a CUDA tensor, or raises; it takes the
-plain PyTorch version (``flash_attention_fwd_plain``, which materialises
-the scores in float32) only for tensors on the CPU.  Launches are counted
-in ``flash_attention_fwd.launches``.
+plain PyTorch version (``flash_attention_fwd_plain``,
+``flash_attention_bwd_plain``, which materialise the scores in float32)
+only for tensors on the CPU.  Launches are counted in
+``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` (the
+latter per program too: ``program_launches["dq"]``, ``["dkv"]``).
 """
 
 from __future__ import annotations
@@ -31,13 +43,18 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["DTYPES", "NEG_INF", "flash_attention_fwd",
-           "flash_attention_fwd_plain", "smem_bytes"]
+__all__ = ["DTYPES", "MAX_BWD_THREADS", "NEG_INF", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "smem_bytes", "smem_bytes_bwd"]
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the backward kernels are compiled for at most 512 threads a block, which
+# leaves each thread 128 registers for its two 4 x 4 micro-tiles
+MAX_BWD_THREADS = 512
 
 _lib: ctypes.CDLL | None = None
+_lib_bwd: ctypes.CDLL | None = None
 
 
 def _library() -> ctypes.CDLL:
@@ -53,6 +70,25 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _library_bwd() -> ctypes.CDLL:
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load_library("flash_attention_bwd")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for suffix in DTYPES.values():
+            getattr(lib, f"flash_attention_bwd_dq_{suffix}").argtypes = (
+                [ptr] * 8 + [i32] * 10 + [ctypes.c_float, ptr])
+            getattr(lib, f"flash_attention_bwd_dkv_{suffix}").argtypes = (
+                [ptr] * 9 + [i32] * 10 + [ctypes.c_float, ptr])
+            for prog in ("dq", "dkv"):
+                getattr(lib, f"flash_attention_bwd_{prog}_{suffix}"
+                        ).restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
 
 
 def _pad16(x: int) -> int:
@@ -79,7 +115,21 @@ def smem_bytes(block_q: int, block_k: int, hd: int,
                 + bq * (hd + 1) + 3 * bq)
 
 
-def _check(q, k, v, block_q: int, block_k: int, block_threads: int) -> None:
+def smem_bytes_bwd(block_q: int, block_k: int, hd: int) -> int:
+    """Shared memory one block of the larger backward program asks for
+    (``smem_floats_dq``/``smem_floats_dkv``; the same for both builds, whose
+    tiles are float32).  dq: q (scaled) and do transposed, k and v
+    transposed, ds, the dq accumulator, lse and delta.  dk/dv: k, v, q and
+    do transposed, p and ds, both accumulators, lse and delta.  Transposed
+    rows are padded by one word."""
+    bq, bk = block_q, block_k
+    dq = 2 * hd * (bq + 1) + 2 * hd * (bk + 1) + bq * (bk + 1) + bq * hd + 2 * bq
+    dkv = (2 * hd * (bk + 1) + 2 * hd * (bq + 1) + 2 * bq * (bk + 1)
+           + 2 * bk * hd + 2 * bq)
+    return 4 * max(dq, dkv)
+
+
+def _check_tensors(q, k, v) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor) or x.dtype not in DTYPES:
             raise TypeError(f"{name} must be a float32 or bfloat16 tensor")
@@ -100,12 +150,22 @@ def _check(q, k, v, block_q: int, block_k: int, block_threads: int) -> None:
         raise ValueError("q and k must hold at least one position each")
     if hd % 4:
         raise ValueError(f"head_dim {hd} must be a multiple of 4")
+
+
+def _check_launch(block_q: int, block_k: int, block_threads: int,
+                  max_threads: int) -> None:
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
         if blk < 4 or blk % 4:
             raise ValueError(f"{name}={blk} must be a positive multiple of 4")
-    if not 32 <= block_threads <= 1024 or block_threads % 32:
+    if not 32 <= block_threads <= max_threads or block_threads % 32:
         raise ValueError("block_threads must be a multiple of 32 in "
-                         f"[32, 1024], got {block_threads}")
+                         f"[32, {max_threads}], got {block_threads}")
+
+
+def _check(q, k, v, block_q: int, block_k: int, block_threads: int) -> None:
+    _check_tensors(q, k, v)
+    _check_launch(block_q, block_k, block_threads, 1024)
+    hd = q.shape[-1]
     need = smem_bytes(block_q, block_k, hd, q.dtype)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"block_q={block_q}, block_k={block_k}, hd={hd} need "
@@ -190,3 +250,111 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
 
 flash_attention_fwd.launches = 0
+
+
+# -- backward ---------------------------------------------------------------------
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(do * o) in float32 from the inputs' dtype, as (B, H, Tq)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _check_bwd(q, k, v, o, lse, do, block_q: int, block_k: int,
+               block_threads: int) -> None:
+    _check_tensors(q, k, v)
+    b, tq, h, hd = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if not isinstance(x, torch.Tensor) or x.shape != q.shape \
+                or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must be like q: {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+        if hd > 1 and x.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along hd")
+    if not isinstance(lse, torch.Tensor) or lse.shape != (b, h, tq) \
+            or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {tq}) float32 on "
+                         f"{q.device}, as flash_attention_fwd returns it")
+    _check_launch(block_q, block_k, block_threads, MAX_BWD_THREADS)
+    need = smem_bytes_bwd(block_q, block_k, hd)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"backward: block_q={block_q}, block_k={block_k}, "
+                         f"hd={hd} need {need} bytes of shared memory (limit "
+                         f"{SMEM_LIMIT_BYTES})")
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              q_offset: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of :func:`flash_attention_bwd`: the same float32
+    arithmetic with the whole ``(B, H, Tq, Tk)`` score tensor materialised."""
+    tq, hd = q.shape[1], q.shape[-1]
+    tk = k.shape[1]
+    scale = hd ** -0.5
+    qs, kf, vf, dof = q.float() * scale, k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    p = torch.exp(s - lse[..., None])
+    del s
+    if causal:
+        qpos = q_offset + torch.arange(tq, device=q.device)
+        kpos = torch.arange(tk, device=q.device)
+        p = p.masked_fill(qpos[:, None] < kpos[None, :], 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p.mul_(ds.sub_(_delta(o, do)[..., None]))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        q_offset: int = 0, block_q: int = 32,
+                        block_k: int = 64, block_threads: int = 256
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``o = attention(q, k, v)`` for the cotangent ``do``.
+
+    q, o, do: (B, Tq, H, hd); k, v: (B, Tk, H, hd), kv heads already
+    repeated; ``lse`` (B, H, Tq) float32 as :func:`flash_attention_fwd`
+    returns it.  Returns dq, dk, dv in the inputs' dtype, each written by
+    exactly one block (no atomics: the same inputs give the same bits).
+    """
+    block_q, block_k = int(block_q), int(block_k)
+    block_threads, q_offset = int(block_threads), int(q_offset)
+    _check_bwd(q, k, v, o, lse, do, block_q, block_k, block_threads)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         q_offset=q_offset)
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    delta = _delta(o, do)
+    lse = lse.contiguous()
+    dq = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, tk, h, hd), dtype=v.dtype, device=q.device)
+    strides = (ctypes.c_int64 * 21)(*(x.stride(i)
+                                      for x in (q, k, v, do, dq, dk, dv)
+                                      for i in range(3)))
+    lib = _library_bwd()
+    suffix = DTYPES[q.dtype]
+    tail = (ctypes.addressof(strides), b, h, tq, tk, hd, block_q, block_k,
+            block_threads, int(causal), q_offset, hd ** -0.5)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for prog, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
+            fn = getattr(lib, f"flash_attention_bwd_{prog}_{suffix}")
+            rc = fn(*inputs, *(x.data_ptr() for x in outs), *tail, stream)
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"flash_attention_bwd {prog} (block_q={block_q}, "
+                    f"block_k={block_k}, block_threads={block_threads}): "
+                    f"launch refused ({rc}: "
+                    f"{lib.flash_attention_bwd_error_string(rc).decode()})")
+            flash_attention_bwd.program_launches[prog] += 1
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.program_launches = {"dq": 0, "dkv": 0}

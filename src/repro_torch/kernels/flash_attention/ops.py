@@ -7,8 +7,17 @@ explicit keyword overrides.  The meta keys ``{bh, tq, tk, hd, causal}`` are
 the reference's, so one shape description names a store record in both
 packages.
 
-Forward only: the backward kernels (the reference's
-``flash_attention_bwd``) arrive with the training slice.
+Differentiable, as the reference's ``jax.custom_vjp`` is: when autograd
+records (grad mode on and an input requiring grad), the call goes through
+``FlashAttention``, a ``torch.autograd.Function`` whose forward runs the
+forward kernel and saves ``q, k, v, o, lse`` and whose backward runs the
+backward kernels (``flash_attention_bwd``).  Gradients reach the repeated
+k/v heads; autograd sums them back through the caller's repeat.  The
+backward's launch parameters are its own, ``BWD_DEFAULTS``: the reference
+reuses the forward's blocks, but the two CUDA kernels' shared-memory needs
+differ (the tuned forward 64/128/1024 does not fit the float32 dk/dv
+program), and there is no backward tuning space yet.  Other backward blocks
+are reached through ``flash_attention_bwd``'s own keywords.
 """
 
 from __future__ import annotations
@@ -16,9 +25,34 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import flash_attention_fwd
+from .kernel import flash_attention_bwd, flash_attention_fwd
 
 DEFAULTS = {"block_q": 64, "block_k": 64, "block_threads": 256}
+# 32 query rows: the dk/dv program's float32 tiles at hd 128 then take
+# 183 KB of shared memory (64 x 64 would take all 227 KB a block can have)
+BWD_DEFAULTS = {"block_q": 32, "block_k": 64, "block_threads": 256}
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) through the forward kernel; its backward
+    through the backward kernels, from the saved ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, fwd: dict):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     q_offset=q_offset, **fwd)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        # do arrives as a view of the output projection's gradient
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset, **BWD_DEFAULTS)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -43,7 +77,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         overrides={"block_q": block_q, "block_k": block_k,
                    "block_threads": block_threads},
         tuned=tuned, device=q.device)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, bool(causal), int(q_offset), p)
     out, _ = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
-                                 block_q=p["block_q"], block_k=p["block_k"],
-                                 block_threads=p["block_threads"])
+                                 **p)
     return out

@@ -41,6 +41,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.inference_mode()
 def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
                   seed: int = 0, greedy: bool = True, model: LM | None = None,
                   device=None) -> dict:
@@ -49,7 +50,9 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     ``model`` takes an already-built ``LM`` (its device is used); otherwise
     one is built from ``seed`` on ``device`` (``None`` = the card) and cast
     for serving.  Times are host clock readings taken after a device
-    synchronize, so they cover the device's work.
+    synchronize, so they cover the device's work.  Runs under
+    ``torch.inference_mode()``: the parameters require grad, and nothing
+    here needs a graph.
     """
     if model is None:
         model = build_model(cfg, seed=seed,

@@ -1,0 +1,187 @@
+"""Training entry point: data pipeline -> train step -> checkpoint/restart.
+
+    python -m repro_torch.launch.train --arch qwen2.5-3b          # the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --smoke --steps 3 --device cpu
+
+The port of the reference's ``launch/train.py`` on one card.  Fault
+tolerance is the reference's: checkpoints every ``ckpt_every`` steps
+(async, atomic), auto-resume from the latest complete checkpoint, and a
+data pipeline that regenerates its stream from the step counter, so a run
+restarted by ``dist.run_with_restarts`` ends bitwise where an uninterrupted
+one does (on the card, with ``torch.use_deterministic_algorithms(True)``).
+``remat`` and ``microbatches`` are the reference's ``ShardingConfig``
+fields; its mesh has no counterpart on one card.  Logging goes through
+``logging`` until the port has ``obs/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from pathlib import Path
+
+import torch
+
+from .. import configs, resolve_device
+from ..ckpt.manager import CheckpointManager
+from ..data.pipeline import DataConfig, SyntheticPipeline
+from ..models import LM, build_model
+from ..optim.adamw import AdamWConfig, init_opt_state
+from ..optim.schedule import warmup_cosine
+from .steps import train_step
+
+__all__ = ["main", "make_data_cfg", "train_loop"]
+
+log = logging.getLogger("repro_torch.train")
+
+
+def make_data_cfg(cfg, batch: int, seq_len: int, seed: int = 0) -> DataConfig:
+    return DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=batch,
+        seed=seed, frontend=cfg.frontend, d_model=cfg.d_model,
+        n_patches=cfg.n_patches, decoder_len=cfg.decoder_len)
+
+
+def _restore(mgr: CheckpointManager, model: LM, opt_cfg: AdamWConfig,
+             dev: torch.device) -> tuple[int, dict]:
+    """Load the latest checkpoint into ``model``; returns (step, opt
+    state).  Raises ``ValueError``/``KeyError`` when it does not fit."""
+    step, state, _ = mgr.restore(device=dev)
+    params = dict(model.named_parameters())
+    saved = state["params"]
+    if set(saved) != set(params):
+        raise KeyError(f"checkpoint holds {len(saved)} parameters, the "
+                       f"model {len(params)}")
+    for name, p in params.items():
+        if saved[name].shape != p.shape or saved[name].dtype != p.dtype:
+            raise ValueError(f"{name}: checkpoint {tuple(saved[name].shape)} "
+                             f"{saved[name].dtype}, model {tuple(p.shape)} "
+                             f"{p.dtype}")
+    fresh = init_opt_state(params, opt_cfg)
+    for part in ("m", "v"):
+        if set(state["opt"][part]) != set(fresh[part]) or any(
+                isinstance(state["opt"][part][n], dict)
+                != isinstance(fresh[part][n], dict) for n in params):
+            raise ValueError(f"checkpoint's optimizer {part!r} does not fit "
+                             f"moments_dtype={opt_cfg.moments_dtype!r}")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(saved[name])
+    opt = state["opt"]
+    opt["count"] = opt["count"].cpu()
+    return step, opt
+
+
+def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
+               ckpt_dir: str | Path | None = None, ckpt_every: int = 50,
+               opt_cfg: AdamWConfig | None = None, log_every: int = 10,
+               seed: int = 0, fail_at_step: int | None = None,
+               remat: bool | str = False, microbatches: int = 1,
+               model: LM | None = None, device=None) -> dict:
+    """Train ``cfg`` for ``steps_total`` steps; returns ``{"losses",
+    "resumed_from", "final_loss", "state", "step_seconds"}``.
+
+    ``model`` carries weights in (its device is used); otherwise one is
+    built from ``seed`` on ``device`` (``None`` = the card).  ``state`` is
+    ``{"params": {name: tensor}, "opt": ..., "step": int32}``, the
+    parameters being the model's own.  ``step_seconds`` is each step's
+    host-clock time, which ends with reading its loss (a synchronize).
+    """
+    if model is None:
+        model = build_model(cfg, seed=seed, device=resolve_device(device))
+    elif device is not None \
+            and torch.device(device).type != model.device.type:
+        raise ValueError(f"model lies on {model.device}, device={device!r}")
+    dev = model.device
+    opt_cfg = opt_cfg or AdamWConfig(
+        learning_rate=warmup_cosine(3e-4, 20, steps_total))
+    data = SyntheticPipeline(make_data_cfg(cfg, batch, seq_len, seed))
+    params = dict(model.named_parameters())
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step, resumed_from, opt = 0, None, None
+    if mgr and mgr.latest_step() is not None:
+        try:
+            start_step, opt = _restore(mgr, model, opt_cfg, dev)
+            resumed_from = start_step
+        except (KeyError, ValueError) as e:
+            log.warning(f"WARNING: checkpoint in {ckpt_dir} is incompatible "
+                        f"with this model ({type(e).__name__}: {e}); "
+                        "starting fresh")
+    if opt is None:
+        opt = init_opt_state(params, opt_cfg)
+
+    def state(step: int) -> dict:
+        return {"params": params, "opt": opt,
+                "step": torch.tensor(step, dtype=torch.int32)}
+
+    losses: list[float] = []
+    step_seconds: list[float] = []
+    t0 = time.time()
+    try:
+        for step, host_batch in data.iterate(start_step):
+            if step >= steps_total:
+                break
+            if fail_at_step is not None and step == fail_at_step:
+                raise RuntimeError(f"injected failure at step {step}")
+            t_step = time.perf_counter()
+            dev_batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in host_batch.items()}
+            metrics = train_step(model, opt, dev_batch, opt_cfg,
+                                 microbatches=microbatches, remat=remat)
+            loss = float(metrics["loss"])
+            step_seconds.append(time.perf_counter() - t_step)
+            losses.append(loss)
+            if log_every and step % log_every == 0:
+                log.info(f"step {step:5d}  loss {loss:7.4f}  "
+                         f"gnorm {float(metrics['gnorm']):7.3f}  "
+                         f"{time.time() - t0:6.1f}s")
+            if mgr and ckpt_every and (step + 1) % ckpt_every == 0:
+                mgr.save(step + 1, state(step + 1), extra={"loss": loss})
+    except BaseException:
+        # flush in-flight async saves so a supervised restart
+        # (dist.run_with_restarts) sees every completed checkpoint —
+        # otherwise resume races the writer thread
+        if mgr:
+            mgr.wait()
+        raise
+    final = state(max(steps_total, start_step))
+    if mgr:
+        mgr.save(steps_total, final, extra={"final": True})
+        mgr.wait()
+    return {"losses": losses, "resumed_from": resumed_from,
+            "final_loss": losses[-1] if losses else None, "state": final,
+            "step_seconds": step_seconds}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                    "kernels' plain PyTorch versions)")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    cfg = configs.get(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    dev = resolve_device(args.device)
+    out = train_loop(cfg, steps_total=args.steps, batch=args.batch,
+                     seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
+                     ckpt_every=args.ckpt_every, seed=args.seed, device=dev)
+    log.info(f"final loss: {out['final_loss']:.4f} "
+             f"(first: {out['losses'][0]:.4f}) on {dev}")
+
+
+if __name__ == "__main__":
+    main()

@@ -18,7 +18,7 @@ from .attention import (decode_attention, full_attention, init_attention,
 from .config import ArchConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
-__all__ = ["decode_layer", "init_layer", "init_layer_state",
+__all__ = ["apply_layer", "decode_layer", "init_layer", "init_layer_state",
            "prefill_layer"]
 
 
@@ -35,6 +35,16 @@ def init_layer(gen, cfg: ArchConfig, kind: str, is_moe: bool,
                           "norm2": init_norm(cfg, device),
                           "mixer": init_attention(gen, cfg, device),
                           "channel": init_mlp(gen, cfg, device)})
+
+
+def apply_layer(p, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """Training path. Returns (x, aux loss); a dense layer's aux is 0."""
+    h = apply_norm(p["norm1"], x, cfg)
+    x = x + full_attention(p["mixer"], h, cfg, positions=positions,
+                           causal=True)
+    h = apply_norm(p["norm2"], x, cfg)
+    return x + apply_mlp(p["channel"], h, cfg), 0.0
 
 
 def init_layer_state(cfg: ArchConfig, batch: int, max_len: int,

@@ -8,6 +8,9 @@ Parameters live in ``cfg.param_dtype``; compute runs in
 the reference casts with ``.astype(dt)``: once the model has been cast
 for serving (``LM.cast_for_serving``) those casts are no-ops.
 
+Parameters are trainable (``requires_grad``), the PyTorch idiom; serving
+runs under ``torch.inference_mode()`` so that no graph is recorded.
+
 Random initialisation draws from an explicit ``torch.Generator``; it gives
 other numbers than ``jax.random`` from the same seed, so tests that compare
 the packages carry the reference's weights across instead.
@@ -35,7 +38,7 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 # -- initializers -------------------------------------------------------------

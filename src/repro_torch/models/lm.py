@@ -1,27 +1,61 @@
-"""Decoder-only language model for serving: embed -> layers -> norm -> head.
+"""Decoder-only language model: embed -> layers -> norm -> loss or head.
 
 The reference stacks each scan group's parameters along a leading axis
 (``jax.vmap`` of ``init_group``) and scans over them; here the layers are
 an ``nn.ModuleList`` walked by a Python loop, and the decode state is a
 list with one KV cache per layer, updated in place.
 
-Serving only in this slice: ``loss`` and ``chunked_xent`` arrive with the
-training slice, as do the families whose layers are not ported yet
-(MoE, mamba, rwkv, encoder-decoder, the VLM patch frontend).
+Training: ``loss`` runs ``backbone`` (optionally with each layer under
+``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` remat with
+nothing saved) and ``chunked_xent``, which never holds the full
+(B, T, V) logits in one piece.  Serving (``prefill``, ``decode_step``)
+runs under ``torch.inference_mode()``: the parameters require grad, and
+the KV caches are written in place.
+
+Not ported yet: the families whose layers the port lacks (MoE, mamba,
+rwkv, encoder-decoder, the VLM patch frontend).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .blocks import decode_layer, init_layer, init_layer_state, prefill_layer
+from .blocks import (apply_layer, decode_layer, init_layer, init_layer_state,
+                     prefill_layer)
 from .config import ArchConfig
 from .layers import (apply_norm, embed_tokens, init_embed, init_norm,
                      torch_dtype)
 
-__all__ = ["LM", "missing_layer"]
+__all__ = ["LM", "chunked_xent", "missing_layer"]
+
+
+def chunked_xent(h: torch.Tensor, head_w: torch.Tensor,
+                 targets: torch.Tensor, mask: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """Mean cross-entropy over masked positions, chunked along T.
+
+    h: (B, T, D); head_w: (D, V); targets/mask: (B, T).  The chunk is the
+    largest divisor of T up to ``cfg.logit_chunk``; each chunk's logits are
+    a ``compute_dtype`` product taken to float32 for the logsumexp.
+    """
+    t = h.shape[1]
+    c = min(cfg.logit_chunk, t)
+    while t % c:
+        c -= 1
+    dtc = torch_dtype(cfg.compute_dtype)
+    w = head_w.to(dtc)                  # cast once, not once per chunk
+    targets = targets.long()
+    mask = mask.float()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, t, c):
+        logits = (h[:, i:i + c].to(dtc) @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, targets[:, i:i + c, None])[..., 0]
+        loss_sum = loss_sum + ((lse - ll) * mask[:, i:i + c]).sum()
+    return loss_sum / mask.sum().clamp_min(1.0)
 
 
 def missing_layer(cfg: ArchConfig) -> str | None:
@@ -80,13 +114,79 @@ class LM(nn.Module):
                 p.data = p.data.to(dt)
         return self
 
+    def decay_mask(self) -> dict[str, bool]:
+        """Which parameters AdamW decays, by name: those the reference's
+        rule (``ndim >= 2``) decays in its tree, where every layer
+        parameter carries a leading scan-group axis.  So each layer's norm
+        scales are decayed too, and of the 1-D parameters only the final
+        norm's are not."""
+        return {name: p.dim() + name.startswith("layers.") >= 2
+                for name, p in self.named_parameters()}
+
+    def _head_w(self) -> torch.Tensor:
+        return (self.embed["tokens"].T if self.cfg.tie_embeddings
+                else self.embed["lm_head"])
+
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         dtc = torch_dtype(self.cfg.compute_dtype)
-        head_w = (self.embed["tokens"].T if self.cfg.tie_embeddings
-                  else self.embed["lm_head"])
-        return (h.to(dtc) @ head_w.to(dtc)).float()
+        return (h.to(dtc) @ self._head_w().to(dtc)).float()
+
+    # -- training --------------------------------------------------------------
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor,
+                 remat: bool | str = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layers and the final norm; returns (h, summed aux loss).
+
+        ``remat`` True or ``"full"`` recomputes each layer in the backward
+        pass from its input (``torch.utils.checkpoint``, nothing saved
+        inside the layer: the reference's default policy).
+        """
+        if remat == "save_dots":
+            raise NotImplementedError(
+                "remat='save_dots' (the reference's save_only_these_names "
+                "policy) is not ported; use remat=True")
+        if remat not in (False, True, "full"):
+            raise ValueError(f"remat={remat!r}")
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in self.layers:
+            if remat:
+                x, a = checkpoint(apply_layer, layer, x, cfg, positions,
+                                  use_reentrant=False)
+            else:
+                x, a = apply_layer(layer, x, cfg, positions)
+            aux = aux + a
+        return apply_norm(self.final_norm, x, cfg), aux
+
+    def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor, torch.Tensor]:
+        """Returns (x, positions, targets, loss_mask)."""
+        tokens = batch["tokens"]
+        x = embed_tokens(self.embed, tokens, self.cfg)
+        targets = batch["labels"]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        return x, positions, targets, mask
+
+    def loss(self, batch: dict, *, remat: bool | str = False
+             ) -> tuple[torch.Tensor, dict]:
+        """Mean next-token cross-entropy of ``batch`` (``tokens``,
+        ``labels``, optional ``loss_mask``, all (B, T)) plus the weighted
+        aux loss; returns (loss, {"xent", "aux"})."""
+        cfg = self.cfg
+        x, positions, targets, mask = self.embed_inputs(batch)
+        h, aux = self.backbone(x, positions, remat=remat)
+        xent = chunked_xent(h, self._head_w(), targets, mask, cfg)
+        aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+        total = xent + aux_w * aux / max(cfg.n_layers, 1)
+        return total, {"xent": xent, "aux": aux}
 
     # -- prefill ---------------------------------------------------------------
+    @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, max_len: int = 0
                 ) -> tuple[torch.Tensor, list[dict]]:
         """Process a full prompt (B, S); returns (last-position logits
@@ -112,6 +212,7 @@ class LM(nn.Module):
         return [init_layer_state(self.cfg, batch, max_len, self.device)
                 for _ in self.layers]
 
+    @torch.inference_mode()
     def decode_step(self, state: list[dict], tokens: torch.Tensor,
                     pos: int) -> tuple[torch.Tensor, list[dict]]:
         """tokens: (B, 1) at position ``pos`` -> (logits (B, 1, V),

@@ -138,13 +138,15 @@ def test_no_source_imports_jax_or_repro(path):
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for f in files:
         assert not pat.search(f.read_text()), f
-    for name in ("dna_automaton", "flash_attention", "decode_attention"):
+    for name in ("dna_automaton", "flash_attention", "flash_attention_bwd",
+                 "decode_attention"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
 @pytest.mark.parametrize("package, plain", [
     ("dna_automaton", ("state_map_plain", "count_hits_plain")),
-    ("flash_attention", ("flash_attention_fwd_plain",)),
+    ("flash_attention", ("flash_attention_fwd_plain",
+                         "flash_attention_bwd_plain")),
     ("decode_attention", ("decode_partials_plain",)),
 ])
 def test_no_silent_fallback_in_the_wrappers(package, plain):
