@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's three paths once each, at full width, through the entry
+drives the port's five paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -24,12 +24,26 @@ points a user would call:
   batch 2 x 2048 tokens from ``SyntheticPipeline(seed)``, each layer
   recomputed in the backward pass), every attention layer's forward
   through the flash-attention kernel and its gradient through the
-  flash-attention backward kernels.
+  flash-attention backward kernels;
+* RWKV-6 serving: ``tune_kernel`` the wkv kernel at RWKV-6 1.6B's prefill
+  shape and the selective-scan kernel at Jamba's into one store,
+  ``configure`` it, then ``serve_session`` RWKV-6 1.6B at full width and
+  depth (24 layers, random weights from ``--seed``, bfloat16): a batch of 8
+  random 2048-token prompts and 128 greedy tokens, every layer's time mix
+  through the wkv kernel in prefill and at every decode step;
+* Jamba serving: the same on Jamba-v0.1 at full width, cut to its first
+  8-layer period (its 103 GB of bf16 weights do not fit one 80 GB card):
+  seven Mamba layers through the selective-scan kernel in prefill (decode
+  steps them in plain PyTorch, as the reference does), the attention layer
+  through the flash-attention kernel in prefill and the decode kernel at
+  every step, and four MoE layers in plain PyTorch.
 
 Before each path it holds each of the path's kernels against its plain
-PyTorch version on the same inputs at the path's shapes; after the
+PyTorch version on the same inputs at the path's shapes; after each
 serving path it runs the same weights with the kernels and with the plain
-versions, teacher-forced on the generated tokens, and compares logits;
+versions, teacher-forced on the generated tokens, and compares logits (the
+recurrent paths also in float32, where the gate sits, with the MoE
+choices pinned to the kernel run's);
 before the training path it compares the loss and every parameter's
 gradient the same way.  Each path's launch counters are set to 0 just
 before it and read just after it.  After training, the restart drill
@@ -52,9 +66,15 @@ operations over the data sheet's peak rate for their type: one integer
 table lookup per symbol and start state over 33.5e12 op/s for the DNA
 kernels (the sheet's 67 TFLOP/s of non-tensor float32 counts a fused
 multiply-add as two, so 33.5e12 instructions per second; the same rate is
-taken for int32 instructions), and the attention's flops over 989e12
+taken for int32 instructions), the attention's flops over 989e12
 FLOP/s (dense bfloat16 tensor cores) for the attention kernels, the
-backward counting the five products a backward needs.
+backward counting the five products a backward needs, three float32
+instructions per (token, head, i, j) state cell over 33.5e12/s for the wkv
+kernel, and for the selective scan the larger of one exp per (token,
+channel, state) cell on the special-function units (16 a clock per SM,
+the CUDA C++ Programming Guide's throughput table for compute capability
+9.0, on 132 SMs at the 1.98 GHz boost clock: 4.18e12/s) and four float32
+instructions per cell over 33.5e12/s.
 """
 
 from __future__ import annotations
@@ -80,15 +100,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 FULL_T = 3 * 2 ** 30
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 33.5e12
+INSTR_PER_S = 33.5e12
 BF16_FLOPS_PER_S = 989e12
 SERVE_MOTIFS = ("ACGTAC", "GATTAC", "TTAGGG", "CCGGAA", "ACGTACGT")
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 LIBRARIES = ("dna_automaton", "flash_attention", "flash_attention_bwd",
-             "decode_attention")
+             "decode_attention", "mamba_scan", "rwkv6_wkv")
 # the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
 # the training path: the same model, batch 2 x 2048 tokens, 4 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# the recurrent serving paths: batch 8, a 2048-token prompt, 128 new tokens;
+# Jamba cut to its first 8-layer period
+RWKV_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "rwkv6-1.6b", "jamba-v0.1-52b", 8
+SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
+
+
+def roofline_ms(n_bytes: float, n_ops: float, ops_per_s: float
+                ) -> tuple[float, str]:
+    """The least time (ms) for the work and what sets it: the bytes over the
+    HBM rate or the operations over ``ops_per_s``."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
 
 
 def emit(**fields) -> None:
@@ -177,10 +212,7 @@ def phase_kernels(text) -> list[dict]:
     source = "src/repro_torch/kernels/csrc/dna_automaton.cu"
 
     def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
-        by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        by_ops = n_ops / INT_OPS_PER_S * 1e3
-        return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                       else "operations")
+        return roofline_ms(n_bytes, n_ops, INSTR_PER_S)
 
     # -- dna_state_map
     maps = kernel.state_map(text, table, chunk=chunk, block_threads=bt)
@@ -311,10 +343,7 @@ def phase_serve(text, store_path: Path, tuned) -> None:
 # -- the LM-serving path ------------------------------------------------------------
 
 def attention_bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_flops / BF16_FLOPS_PER_S * 1e3
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
-                                   else "operations")
+    return roofline_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
 
 
 def timed_pair(kernel_fn, plain_fn, repeats: int):
@@ -599,40 +628,13 @@ def phase_lm_parity(model, generated, seed: int) -> None:
     cache slot instead moves the logits by their own size.
     """
     import numpy as np
-    from unittest import mock
-
-    from repro_torch.kernels.decode_attention import kernel as dak
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.flash_attention import kernel as fak
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
-    def plain_flash(q, k, v, *, causal, q_offset, **launch):
-        return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
-                                             q_offset=q_offset)
-
-    def plain_decode(q, k, v, length, **launch):
-        return dak.decode_attention_plain(q, k, v, length)
 
     prompt = torch.as_tensor(np.random.default_rng(seed).integers(
         0, model.cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device="cuda")
     feed = torch.as_tensor(generated, device="cuda")
-
-    def run() -> list[torch.Tensor]:
-        logits, state = model.prefill(prompt, max_len=LM_PROMPT + LM_GEN)
-        steps = [logits]
-        for i in range(LM_GEN - 1):
-            logits, state = model.decode_step(state, feed[:, i:i + 1],
-                                              LM_PROMPT + i)
-            steps.append(logits)
-        del state
-        return steps
-
-    with_kernels = run()
-    with mock.patch.object(fa_ops, "flash_attention_fwd", plain_flash), \
-            mock.patch.object(da_ops, "decode_attention_kernel", plain_decode):
-        with_plain = run()
-    rel = [float((a - p).abs().max() / p.abs().max())
-           for a, p in zip(with_kernels, with_plain)]
+    with_kernels, _, _ = teacher_forced(model, prompt, feed)
+    with_plain, _, _ = teacher_forced(model, prompt, feed, plain_patches())
+    rel = logit_gap(with_kernels, with_plain)
     agree = float(np.mean([
         float((a.argmax(-1) == p.argmax(-1)).float().mean())
         for a, p in zip(with_kernels, with_plain)]))
@@ -893,6 +895,10 @@ def kernel_kind(name: str) -> str:
         return "flash_attention_bwd (B5)"
     if "decode_kernel" in low:
         return "decode_attention (B4)"
+    if "scan_serial_kernel" in low or "scan_chunked_kernel" in low:
+        return "selective_scan (B6)"
+    if "wkv_serial_kernel" in low or "wkv_matrix_kernel" in low:
+        return "wkv6 (B8)"
     if any(mark in low for mark in MATMUL_MARKS):
         return "matmul (cuBLAS)"
     return "other"
@@ -1041,6 +1047,495 @@ def phase_train_restart(seed: int) -> None:
           "train_restart: losses after the restart differ")
 
 
+# -- the recurrent serving paths (RWKV-6, Jamba) ---------------------------------
+
+def scan_gate(got, want) -> tuple[bool, float]:
+    """float32 within atol 2e-4 / rtol 2e-3 (the reference's scan gate),
+    every output; returns (ok, max abs err)."""
+    ok = all(torch.allclose(g, w, atol=2e-4, rtol=2e-3)
+             for g, w in zip(got, want))
+    return ok, max(float_err(g, w) for g, w in zip(got, want))
+
+
+def ssm_metas() -> dict:
+    from repro_torch import configs
+
+    rwkv, jamba = configs.get(RWKV_ARCH), configs.get(JAMBA_ARCH)
+    return {
+        "rwkv6_wkv": {"b": SSM_BATCH, "t": SSM_PROMPT,
+                      "h": rwkv.d_model // rwkv.rwkv.head_dim,
+                      "hd": rwkv.rwkv.head_dim},
+        "mamba_scan": {"bt": SSM_BATCH, "t": SSM_PROMPT,
+                       "di": jamba.mamba.expand * jamba.d_model,
+                       "s": jamba.mamba.d_state},
+    }
+
+
+def phase_scan_parity(seed: int) -> list[dict]:
+    """B8 and B6 at their prefill shapes, in the serial program (the
+    defaults) and one chunked form, from a non-zero state; B8 also at T = 1
+    (a decode step) and each at a ragged T, all against their plain
+    versions in float32 (atol 2e-4 / rtol 2e-3)."""
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan.ops import DEFAULTS as MS
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv.ops import DEFAULTS as WKV
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    metas = ssm_metas()
+    cases, records = [], []
+
+    # -- B8: r, k, v ~ N(0, 0.25), w = sigmoid(N + 2), u ~ N(0, 0.01), s0 ~ N
+    b, t, h, hd = (metas["rwkv6_wkv"][k] for k in ("b", "t", "h", "hd"))
+    r, k, v = (randn(b, t, h, hd) * 0.5 for _ in range(3))
+    w = torch.sigmoid(randn(b, t, h, hd) + 2)
+    u = randn(h, hd) * 0.1
+    s0 = randn(b, h, hd, hd)
+    chunked = {"chunk": 32, "lanes": 4, "block_h": 1, "block_threads": 512}
+    got, want, ms, plain_ms = timed_pair(
+        lambda: wkk.wkv6_fwd(r, k, v, w, u, s0, **WKV),
+        lambda: wkk.wkv6_fwd_plain(r, k, v, w, u, s0), 5)
+    ok, err = scan_gate(got, want)
+    cases.append({"kernel": "wkv6", "t": t, "launch": dict(WKV), "ok": ok,
+                  "max_abs_err": err, "ms": ms})
+    chunked_ms = device_ms(lambda: wkk.wkv6_fwd(r, k, v, w, u, s0,
+                                                **chunked), 5)
+    ok_c, err_c = scan_gate(wkk.wkv6_fwd(r, k, v, w, u, s0, **chunked), want)
+    cases.append({"kernel": "wkv6", "t": t, "launch": chunked, "ok": ok_c,
+                  "max_abs_err": err_c, "ms": chunked_ms})
+    del got, want
+    cell = b * t * h * hd * hd
+    n_bytes = 4 * (5 * b * t * h * hd + h * hd + 2 * b * h * hd * hd)
+    bound_ms, bound_by = roofline_ms(n_bytes, 3 * cell, INSTR_PER_S)
+    records.append({
+        "name": "wkv6_fwd", "ok": ok and ok_c, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:160",
+        "launches": 0, "max_abs_err": max(err, err_c), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+    for tt, launch in ((1, WKV), (1, chunked), (1000, WKV), (1000, chunked)):
+        args = (r[:, :tt].contiguous(), k[:, :tt].contiguous(),
+                v[:, :tt].contiguous(), w[:, :tt].contiguous(), u, s0)
+        want = wkk.wkv6_fwd_plain(*args)
+        ok, err = scan_gate(wkk.wkv6_fwd(*args, **launch), want)
+        if tt == 1:
+            dms = device_ms(lambda: wkk.wkv6_fwd(*args, **launch), 50)
+        cases.append({"kernel": "wkv6", "t": tt, "launch": dict(launch),
+                      "ok": ok, "max_abs_err": err,
+                      **({"ms": dms} if tt == 1 else {})})
+    del r, k, v, w, u, s0, args, want
+
+    # -- B6: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0 ~ N
+    bt, t, di, s = (metas["mamba_scan"][k] for k in ("bt", "t", "di", "s"))
+    x = randn(bt, t, di)
+    dl = randn(bt, t, di).abs() * 0.1
+    a = -(randn(di, s).abs() + 0.5)
+    bm, cm = randn(bt, t, s), randn(bt, t, s)
+    d, h0 = randn(di), randn(bt, di, s)
+    chunked = {"block_d": 64, "chunk": 64, "lanes": 4}
+    got, want, ms, plain_ms = timed_pair(
+        lambda: msk.selective_scan_fwd(x, dl, a, bm, cm, d, h0, **MS),
+        lambda: msk.selective_scan_fwd_plain(x, dl, a, bm, cm, d, h0), 5)
+    ok, err = scan_gate(got, want)
+    cases.append({"kernel": "selective_scan", "t": t, "launch": dict(MS),
+                  "ok": ok, "max_abs_err": err, "ms": ms})
+    chunked_ms = device_ms(lambda: msk.selective_scan_fwd(
+        x, dl, a, bm, cm, d, h0, **chunked), 5)
+    ok_c, err_c = scan_gate(msk.selective_scan_fwd(x, dl, a, bm, cm, d, h0,
+                                                   **chunked), want)
+    cases.append({"kernel": "selective_scan", "t": t, "launch": chunked,
+                  "ok": ok_c, "max_abs_err": err_c, "ms": chunked_ms})
+    del got, want
+    cell = bt * t * di * s
+    n_bytes = 4 * (3 * bt * t * di + 2 * bt * t * s + di * s + di
+                   + 2 * bt * di * s)
+    by_sfu = roofline_ms(n_bytes, cell, SFU_OPS_PER_S)
+    by_fma = roofline_ms(n_bytes, 4 * cell, INSTR_PER_S)
+    bound_ms, bound_by = max(by_sfu, by_fma)
+    records.append({
+        "name": "selective_scan_fwd", "ok": ok and ok_c, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:166",
+        "launches": 0, "max_abs_err": max(err, err_c), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+    for tt, launch in ((1, MS), (1000, MS), (1000, chunked)):
+        args = (x[:, :tt].contiguous(), dl[:, :tt].contiguous(), a,
+                bm[:, :tt].contiguous(), cm[:, :tt].contiguous(), d, h0)
+        want = msk.selective_scan_fwd_plain(*args)
+        ok, err = scan_gate(msk.selective_scan_fwd(*args, **launch), want)
+        cases.append({"kernel": "selective_scan", "t": tt,
+                      "launch": dict(launch), "ok": ok, "max_abs_err": err})
+    del x, dl, a, bm, cm, d, h0, args, want
+    torch.cuda.empty_cache()
+
+    emit(phase="scan_parity", gate={"atol": 2e-4, "rtol": 2e-3},
+         shapes=metas, cases=cases,
+         results=[{key: rec[key] for key in ("name", "ok", "max_abs_err",
+                                             "ms", "plain_ms", "bound_ms",
+                                             "bound_by")}
+                  for rec in records])
+    for case in cases:
+        check(case["ok"], f"scan_parity: {case}")
+    return records
+
+
+def phase_ssm_tune(seed: int, store_path: Path) -> dict:
+    """B8 at the RWKV-6 prefill shape and B6 at the Jamba prefill shape,
+    tuned into one store: each at most 5 % of its space, no refused
+    launch, and a repeat from the cache with 0 measurements."""
+    from repro_torch.tune import kernels as ktune
+
+    outs, report = {}, []
+    for name, meta in ssm_metas().items():
+        t0 = time.perf_counter()
+        out = ktune.tune_kernel(name, meta, store=store_path, seed=seed)
+        seconds = time.perf_counter() - t0
+        default_s, best_s = out.default_time(), out.best_time()
+        check(not out.result.from_cache, f"{name}: first tune from the cache")
+        check(out.measured_fraction <= 0.05,
+              f"{name}: measured {out.n_measured} of {out.space_size}")
+        check(out.timer.n_launch_failed == 0,
+              f"{name}: {out.timer.n_launch_failed} launches refused: "
+              f"{out.timer.rejected}")
+        again = ktune.tune_kernel(name, meta, store=store_path, seed=seed)
+        check(again.result.from_cache and again.n_measured == 0,
+              f"{name}: repeat was not a zero-measurement cache hit")
+        check(again.best_config == out.best_config,
+              f"{name}: cached config differs")
+        outs[name] = out
+        report.append({
+            "kernel": name, "shape": meta, "seconds": round(seconds, 3),
+            "space_size": out.space_size, "n_measured": out.n_measured,
+            "measured_fraction": out.measured_fraction,
+            "n_launch_failed": out.timer.n_launch_failed,
+            "n_parity_rejected": sum("parity" in r for r in
+                                     out.timer.rejected.values()),
+            "default_config": out.default_config, "default_ms": default_s * 1e3,
+            "best_config": out.best_config, "best_ms": best_s * 1e3,
+            "best_over_default": best_s / default_s,
+            "repeat_from_cache": again.result.from_cache,
+            "repeat_n_measured": again.n_measured})
+        # the timer keeps its full-size inputs and oracle output (3.2 GB
+        # for the scan); the serving phases need only its count
+        out.timer.inputs, out.timer._expected = (), None
+        torch.cuda.empty_cache()
+    emit(phase="ssm_tune", ok=True, tunes=report)
+    return outs
+
+
+def ssm_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    if arch == JAMBA_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
+                                  layer_kinds=cfg.layer_kinds[:JAMBA_LAYERS])
+    return cfg
+
+
+def serve_split(model, seed: int) -> dict:
+    """One prefill of the batch and one decode step at the last position,
+    each under ``torch.profiler`` (``device_split``), after a warm run."""
+    import numpy as np
+
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")
+    _, state = model.prefill(prompt, max_len=SSM_PROMPT + SSM_GEN)
+    tok = prompt[:, -1:]
+    pos = SSM_PROMPT + SSM_GEN - 1
+
+    def prefill():
+        model.prefill(prompt, max_len=SSM_PROMPT + SSM_GEN)
+
+    def decode():
+        model.decode_step(state, tok, pos)
+
+    out = {}
+    for label, fn in (("prefill", prefill), ("decode_step", decode)):
+        fn()
+        row = device_split(fn)
+        out[label] = {k: row[k] for k in ("wall_ms", "device_busy_ms",
+                                          "idle_share", "split_ms")}
+        out[label]["top"] = row["top"][:6]
+    del state
+    return out
+
+
+def phase_ssm_serve(arch: str, seed: int, store_path: Path, tunes: dict):
+    """One recurrent serving path: its launch counters go to 0 just before
+    ``serve_session`` and are read just after; every counter of the path
+    must equal what its layers launch (prefill once per layer, decode per
+    step where the layer's decode runs a kernel)."""
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.models import build_model
+    from repro_torch.tune import kernels as ktune
+
+    cfg = ssm_cfg(arch)
+    check(cfg.compute_dtype == "bfloat16", f"{arch} computes in "
+                                           f"{cfg.compute_dtype}")
+    ktune.configure(store_path)
+    measured = {name: tuned.timer.n_measured
+                for name, tuned in tunes.items()}
+    resolved = {name: ktune.resolve_config(name, meta, "float32",
+                                           device="cuda")
+                for name, meta in ssm_metas().items()}
+    for name, tuned in tunes.items():
+        check(resolved[name] == tuned.best_config,
+              f"{arch}: {name} resolved {resolved[name]}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed).cast_for_serving()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+
+    kinds = cfg.layer_kinds
+    want = {"wkv6_fwd": kinds.count("rwkv") * SSM_GEN,
+            "selective_scan_fwd": kinds.count("mamba"),
+            "flash_attention_fwd": kinds.count("attn"),
+            "decode_attention": kinds.count("attn") * (SSM_GEN - 1)}
+    want = {name: n for name, n in want.items() if n}
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+
+    fns = {"wkv6_fwd": wkk.wkv6_fwd, "selective_scan_fwd":
+           msk.selective_scan_fwd, "flash_attention_fwd":
+           fak.flash_attention_fwd, "decode_attention": dak.decode_partials}
+    for name in want:
+        fns[name].launches = 0
+    out = serve_session(cfg, batch=SSM_BATCH, prompt_len=SSM_PROMPT,
+                        gen=SSM_GEN, seed=seed, model=model)
+    launches = {name: fns[name].launches for name in want}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == want, f"{arch}: launches {launches}, want {want}")
+    check(all(tuned.timer.n_measured == measured[name]
+              for name, tuned in tunes.items()),
+          f"{arch}: serving measured new configurations")
+    generated = out["generated"]
+    check(generated.shape == (SSM_BATCH, SSM_GEN)
+          and ((0 <= generated) & (generated < cfg.vocab_size)).all(),
+          f"{arch}: generated tokens {generated.shape}")
+    split = serve_split(model, seed)
+    ktune.disable()
+    phase = "rwkv_serve" if arch == RWKV_ARCH else "jamba_serve"
+    emit(phase=phase, ok=True, arch=arch, n_layers=cfg.n_layers,
+         layer_kinds=list(kinds), batch=SSM_BATCH, prompt_len=SSM_PROMPT,
+         gen=SSM_GEN, params=cfg.param_count(), build_s=build_s,
+         build_peak_gib=build_peak_gib, prefill_s=out["prefill_s"],
+         decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+         resolved=resolved, launches=launches, peak_gib=peak_gib,
+         profiled=split, first_tokens=generated[:, :8].tolist())
+    return model, generated, launches
+
+
+def plain_patches():
+    """Every kernel of the recurrent paths swapped for its plain version
+    where the ops call it."""
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def plain_decode(q, k, v, length, **launch):
+        return dak.decode_attention_plain(q, k, v, length)
+
+    def plain_wkv(r, k, v, w, u, s0, *, chunk, lanes, **launch):
+        return wkk.wkv6_fwd_plain(r, k, v, w, u, s0, chunk=chunk, lanes=lanes)
+
+    def plain_scan(x, dl, a, b, c, d, h0, *, chunk, lanes, **launch):
+        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0,
+                                            chunk=chunk, lanes=lanes)
+
+    return [mock.patch.object(fa_ops, "flash_attention_fwd",
+                              plain_attention_fwd),
+            mock.patch.object(da_ops, "decode_attention_kernel", plain_decode),
+            mock.patch.object(wkv_ops, "wkv6_fwd", plain_wkv),
+            mock.patch.object(ms_ops, "selective_scan_fwd", plain_scan)]
+
+
+def teacher_forced(model, prompt, feed, patches=(), routes=None
+                   ) -> tuple[list, list, int]:
+    """Prefill ``prompt``, then decode ``feed`` (the generated tokens, all but
+    the last) token by token; returns each
+    step's logits, the expert choices of every MoE call of each step, and
+    how many (token, choice) pairs the router would have chosen otherwise.
+
+    ``routes`` (another run's choices) pins every MoE call to them, as the
+    tokens are pinned: a router choosing among experts that tie to the
+    last bits flips on a rounding difference and moves that token's output
+    by O(1), which says nothing of the kernels.  ``patches`` are entered
+    around the run (kernels swapped for plain versions)."""
+    import contextlib
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    real_top_k = moe.top_k
+    seen: list[list[torch.Tensor]] = []
+    moved = [0]
+
+    def top_k(probs, k):
+        vals, idx = real_top_k(probs, k)
+        if routes is not None:
+            pinned = routes[len(seen) - 1][len(seen[-1])]
+            moved[0] += int((pinned != idx).sum())
+            idx = pinned
+            vals = torch.gather(probs, -1, idx)
+        seen[-1].append(idx)
+        return vals, idx
+
+    n = prompt.shape[1]
+    with contextlib.ExitStack() as stack:
+        for patch in (mock.patch.object(moe, "top_k", top_k), *patches):
+            stack.enter_context(patch)
+        seen.append([])
+        logits, state = model.prefill(prompt, max_len=n + feed.shape[1])
+        steps = [logits]
+        for i in range(feed.shape[1] - 1):
+            seen.append([])
+            logits, state = model.decode_step(state, feed[:, i:i + 1], n + i)
+            steps.append(logits)
+    del state
+    return steps, seen, moved[0]
+
+
+def logit_gap(got: list, want: list) -> list[float]:
+    """Each step's largest logit difference over its largest logit."""
+    return [float((a - p).abs().max() / p.abs().max())
+            for a, p in zip(got, want)]
+
+
+def chunked_plain_patches():
+    """The scans' plain versions in their chunked form (chunk 32, 4 lanes)
+    whatever the launch parameters: another float32 summation order of the
+    same function, which gives the bf16 model's own noise floor."""
+    from unittest import mock
+
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def wkv(r, k, v, w, u, s0, **launch):
+        return wkk.wkv6_fwd_plain(r, k, v, w, u, s0, chunk=32, lanes=4)
+
+    def scan(x, dl, a, b, c, d, h0, **launch):
+        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0, chunk=32,
+                                            lanes=4)
+
+    return [p for p in plain_patches()
+            if p.attribute not in ("wkv6_fwd", "selective_scan_fwd")] + [
+        mock.patch.object(wkv_ops, "wkv6_fwd", wkv),
+        mock.patch.object(ms_ops, "selective_scan_fwd", scan)]
+
+
+# the float32 parity gate: the largest logit difference of any step at most
+# this share of the step's largest logit
+F32_PARITY_GATE = 1e-3
+# the bf16 gate: lm_parity's 5 %, or this multiple of the bf16 noise floor
+# (the plain versions against their own chunked form) where that is larger
+BF16_FLOOR_MARGIN = 1.5
+
+
+def phase_ssm_parity(model, generated, seed: int) -> None:
+    """The same weights with the kernels and with the plain versions, on
+    the card, teacher-forced on the generated tokens, first as served
+    (bf16) and then in float32.
+
+    Every run after the first is pinned to the first's expert choices
+    (``teacher_forced``), and reports how many choices its own router
+    would have made otherwise.  bf16 is reported beside its own noise
+    floor, the plain versions against the plain versions' chunked form (the
+    same function summed in another float32 order): a random-weight RWKV-6
+    at 24 layers amplifies one bf16 ulp, flipped where two float32 sums
+    round apart, to ~5-7 % of the largest logit (measured on the CPU at d
+    1024 and on the card), so a 5 % gate alone would measure bf16: bf16 is
+    held to the larger of 5 % and ``BF16_FLOOR_MARGIN`` times that floor.
+    The tight gate is float32: the same architecture rebuilt in float32
+    from ``seed`` (compute in float32, TF32 off), kernels vs plain
+    versions, at most ``F32_PARITY_GATE`` of each step's largest logit
+    (float32 orders differ by ~1e-5 at 24 layers; a wrong state, mask or
+    cache slot moves logits by their own size).  Frees ``model``'s weights before the float32
+    build: the caller must hold no other reference."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")
+    feed = torch.as_tensor(generated, device="cuda")
+    phase = "rwkv_parity" if "rwkv" in cfg.layer_kinds else "jamba_parity"
+
+    kern, routes, _ = teacher_forced(model, prompt, feed)
+    plain, _, moved = teacher_forced(model, prompt, feed, plain_patches(),
+                                     routes)
+    floor, _, floor_moved = teacher_forced(model, prompt, feed,
+                                           chunked_plain_patches(), routes)
+    gap, floor_gap = logit_gap(kern, plain), logit_gap(floor, plain)
+    bf16 = {"rel_err_max": max(gap), "rel_err_mean": float(np.mean(gap)),
+            "floor_rel_err_max": max(floor_gap),
+            "floor_rel_err_mean": float(np.mean(floor_gap)),
+            "gate": max(0.05, BF16_FLOOR_MARGIN * max(floor_gap)),
+            "choices_pinned": moved, "floor_choices_pinned": floor_moved,
+            "argmax_agreement": float(np.mean([
+                float((a.argmax(-1) == p.argmax(-1)).float().mean())
+                for a, p in zip(kern, plain)])),
+            "logit_abs_max": float(kern[0].abs().max())}
+    finite = bool(torch.isfinite(torch.stack(kern)).all())
+    shape = tuple(kern[0].shape)
+    del kern, plain, floor
+    for p in model.parameters():
+        p.data = torch.empty(0, device="cuda")
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = build_model(cfg32, seed=seed)
+    kern, routes, _ = teacher_forced(model32, prompt, feed)
+    plain, _, moved = teacher_forced(model32, prompt, feed, plain_patches(),
+                                     routes)
+    rel = logit_gap(kern, plain)
+    f32 = {"rel_err_by_step": rel, "prefill_rel_err": rel[0],
+           "decode_rel_err_max": max(rel[1:]),
+           "decode_rel_err_mean": float(np.mean(rel[1:])),
+           "choices_pinned": moved,
+           "logit_abs_max": float(kern[0].abs().max()),
+           "gate": F32_PARITY_GATE}
+    finite = finite and bool(torch.isfinite(torch.stack(kern)).all())
+    del kern, plain, model32
+    torch.cuda.empty_cache()
+    emit(phase=phase, arch=cfg.name, steps=len(rel), bf16=bf16, float32=f32)
+    check(finite, f"{phase}: non-finite logits")
+    check(shape == (SSM_BATCH, 1, cfg.vocab_size),
+          f"{phase}: prefill logits {shape}")
+    check(max(rel) <= F32_PARITY_GATE,
+          f"{phase}: float32 relative logit error {max(rel)}")
+    check(bf16["rel_err_max"] <= bf16["gate"],
+          f"{phase}: bf16 relative logit error {bf16['rel_err_max']} over "
+          f"{bf16['gate']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -1092,12 +1587,40 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_restart(args.seed)
 
-    records += attention + [backward]
-    by_path = {"flash_attention_fwd": {
-        "lm_serve": launches["flash_attention_fwd"],
-        "lm_train": train_launches["flash_attention_fwd"]}}
-    launches["flash_attention_fwd"] += train_launches["flash_attention_fwd"]
+    # the recurrent serving paths
+    scans = phase_scan_parity(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
+        store_path = Path(tmp) / "kernels.json"
+        tunes = phase_ssm_tune(args.seed, store_path)
+        model, generated, rwkv_launches = phase_ssm_serve(
+            RWKV_ARCH, args.seed, store_path, tunes)
+        phase_ssm_parity(model, generated, args.seed)
+        del model
+        torch.cuda.empty_cache()
+        model, generated, jamba_launches = phase_ssm_serve(
+            JAMBA_ARCH, args.seed, store_path, tunes)
+    phase_ssm_parity(model, generated, args.seed)
+    del model
+    torch.cuda.empty_cache()
+
+    records += attention + [backward] + scans
+    by_path = {
+        "flash_attention_fwd": {
+            "lm_serve": launches["flash_attention_fwd"],
+            "lm_train": train_launches["flash_attention_fwd"],
+            "jamba_serve": jamba_launches["flash_attention_fwd"]},
+        "decode_attention": {
+            "lm_serve": launches["decode_attention"],
+            "jamba_serve": jamba_launches["decode_attention"]},
+        "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"]},
+        "selective_scan_fwd": {
+            "jamba_serve": jamba_launches["selective_scan_fwd"]}}
+    launches["flash_attention_fwd"] += (train_launches["flash_attention_fwd"]
+                                        + jamba_launches["flash_attention_fwd"])
+    launches["decode_attention"] += jamba_launches["decode_attention"]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    launches["wkv6_fwd"] = rwkv_launches["wkv6_fwd"]
+    launches["selective_scan_fwd"] = jamba_launches["selective_scan_fwd"]
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["name"] in by_path:

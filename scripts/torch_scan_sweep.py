@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""How close a 5 % tune of the scan kernels comes to the whole space.
+
+    python3 scripts/torch_scan_sweep.py [--out DIR]
+
+At the shapes ``chip_smoke.py`` serves (the wkv kernel at RWKV-6 1.6B's
+prefill, B 8, T 2048, H 32, hd 64; the selective scan at Jamba's, B 8,
+T 2048, dI 8192, S 16; float32), ``tune_kernel`` tunes each kernel as the
+``ssm_tune`` phase does, and then the same ``KernelTimer`` (parity-gated
+against the plain version, timed in batches of back-to-back calls)
+measures every other configuration of the spec's space.  Prints, per
+kernel, the tune's measurements, its winner, the default and the
+exhaustive best, the winner's rank, and the best time of each program
+(serial, chunked) and of each serial thread count; writes every
+configuration's time to ``scan_sweep.json`` in ``--out`` (default
+``results/``).  The last line names the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def best_by(valid, key) -> dict:
+    """The best time (ms) of each group of configurations."""
+    out: dict = {}
+    for s, cfg in valid:
+        group = str(key(cfg))
+        out[group] = min(out.get(group, math.inf), s * 1e3)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", type=Path, default=ROOT / "results")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as smoke
+    from repro_torch.tune import kernels as ktune
+
+    report = []
+    for name, meta in smoke.ssm_metas().items():
+        out = ktune.tune_kernel(name, meta, seed=0)
+        n_tune = out.n_measured
+        configs = out.timer.spec.space(out.shape).enumerate()
+        times = sorted(((out.timer(cfg), cfg) for cfg in configs),
+                       key=lambda item: item[0])
+        valid = [(s, cfg) for s, cfg in times if math.isfinite(s)]
+        winner_s = out.best_time()
+        serial = [(s, cfg) for s, cfg in valid if cfg["lanes"] < 2]
+        threads = ("block_threads" if name == "rwkv6_wkv" else "block_d")
+        report.append({
+            "kernel": name, "shape": meta, "space_size": out.space_size,
+            "n_valid": len(valid), "tune_n_measured": n_tune,
+            "n_launch_failed": out.timer.n_launch_failed,
+            "n_parity_rejected": sum("parity" in r for r in
+                                     out.timer.rejected.values()),
+            "default_config": out.default_config,
+            "default_ms": out.default_time() * 1e3,
+            "winner_config": out.best_config, "winner_ms": winner_s * 1e3,
+            "best_config": valid[0][1], "best_ms": valid[0][0] * 1e3,
+            "winner_over_best": winner_s / valid[0][0],
+            "winner_rank": 1 + sum(s < winner_s for s, _ in valid),
+            "best_ms_by_program": best_by(
+                valid, lambda c: "serial" if c["lanes"] < 2 else "chunked"),
+            "best_ms_by_lanes": best_by(valid, lambda c: c["lanes"]),
+            "serial_best_ms_by_threads": best_by(serial,
+                                                 lambda c: c[threads]),
+            "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
+        print(json.dumps({k: v for k, v in report[-1].items()
+                          if k != "all_ms"}), flush=True)
+        del out
+        torch.cuda.empty_cache()
+    args.out.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    (args.out / "scan_sweep.json").write_text(json.dumps(
+        {"kernels": report, "card": smi}, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

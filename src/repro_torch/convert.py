@@ -78,8 +78,12 @@ def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
     ``jax.tree.map(np.asarray, LM(cfg).init(key))`` gives): nested dicts,
     the layers stacked on a leading scan-group axis under
     ``params["layers"]["slot<i>"]``.  Layer ``g * len(group_pattern) + i``
-    of the port takes group ``g`` of slot ``i``.  Every leaf must be used
-    and match its parameter's shape, or ``ValueError`` says which does not.
+    of the port takes group ``g`` of slot ``i``, whatever its mixer (attn,
+    mamba, rwkv) and channel (MLP, MoE with its nested ``shared`` expert,
+    rwkv channel mix).  Every leaf must be used and match its parameter's
+    shape, or ``ValueError`` says which does not.  Each parameter keeps
+    its own dtype (a float32 leaf such as ``A_log`` stays float32 whatever
+    ``param_dtype`` is).
     """
     from .models import LM
 
@@ -87,12 +91,21 @@ def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
     model = LM(cfg, device="meta").to_empty(device=dev)
     period = len(cfg.group_pattern)
 
-    def put(dst: Mapping[str, torch.nn.Parameter], src: Mapping[str, Any],
-            where: str, group: int | None = None) -> None:
+    def put(dst: Mapping[str, Any], src: Mapping[str, Any], where: str,
+            group: int | None = None) -> None:
         if set(dst) != set(src):
             raise ValueError(f"{where}: reference leaves {sorted(src)} vs "
                              f"port parameters {sorted(dst)}")
         for name, p in dst.items():
+            if isinstance(src[name], Mapping):      # a nested dict (MoE shared)
+                if isinstance(p, torch.nn.Parameter):
+                    raise ValueError(f"{where}.{name}: the reference has a "
+                                     "dict where the port has a parameter")
+                put(p, src[name], f"{where}.{name}", group)
+                continue
+            if not isinstance(p, torch.nn.Parameter):
+                raise ValueError(f"{where}.{name}: the reference has a leaf "
+                                 "where the port has a dict")
             arr = np.asarray(src[name], dtype=np.float32)
             if group is not None:
                 if arr.shape[:1] != (cfg.n_groups,):

@@ -1,0 +1,200 @@
+"""Mamba-1 selective scan: the CUDA kernel's wrapper and its plain version.
+
+``selective_scan_fwd`` replaces the Pallas kernel ``selective_scan_kernel``
+(``repro/kernels/mamba_scan/kernel.py``: ``_serial_kernel`` and
+``_chunked_kernel``).  Per (batch, channel) it carries an S-entry float32
+state through the tokens:
+
+    h_t = exp(delta_t A) h_{t-1} + (delta_t x_t) B_t,   y_t = C_t . h_t + D x_t
+
+``lanes < 2`` is the serial program: one thread per (batch, channel), the
+state in registers.  ``lanes >= 2`` is the chunked form: spans of
+``lanes * chunk`` tokens, each lane scanning its chunk from a zero state
+(keeping its decay product and local state), a ``lanes``-step combine, and
+a re-scan of each chunk from its true entry state.  The kernel is CUDA C++
+in ``kernels/csrc/mamba_scan.cu``, compiled at first use and bound with
+``ctypes``; it computes in float32 on the CUDA cores.  T need not divide
+into chunks or spans: the ragged edge is masked where the reference clamps
+its chunk to a divisor of T.
+
+The wrapper launches the kernel for a CUDA tensor, or raises; it takes the
+plain PyTorch version (``selective_scan_fwd_plain``, which computes the
+same form with the state as a Python loop's carry and never holds a
+(B, T, dI, S) tensor) only for tensors on the CPU.  Launches are counted in
+``selective_scan_fwd.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+
+__all__ = ["MAX_THREADS", "STATE_SIZES", "selective_scan_fwd",
+           "selective_scan_fwd_plain", "smem_bytes", "threads"]
+
+MAX_THREADS = 512
+STATE_SIZES = (4, 8, 16)          # the kernel's templates
+
+_lib: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("mamba_scan")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mamba_scan_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+        lib.mamba_scan_fwd.restype = ctypes.c_int
+        lib.mamba_scan_error_string.argtypes = [ctypes.c_int]
+        lib.mamba_scan_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(s: int, block_d: int, chunk: int, lanes: int) -> int:
+    """Shared memory one block asks for (the kernel's ``scan_smem_floats``):
+    B_t and C_t of a span, and the lanes' summaries in the chunked form."""
+    span = chunk * (lanes if lanes >= 2 else 1)
+    floats = 2 * span * s + (2 * lanes * s * block_d if lanes >= 2 else 0)
+    return 4 * floats
+
+
+def threads(block_d: int, lanes: int) -> int:
+    return block_d * (lanes if lanes >= 2 else 1)
+
+
+def _check(x, delta, a, b, c, d, h0, block_d: int, chunk: int,
+           lanes: int) -> None:
+    for name, t in (("x", x), ("delta", delta), ("a", a), ("b", b), ("c", c),
+                    ("d", d), ("h0", h0)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 3 or delta.shape != x.shape:
+        raise ValueError(f"x and delta must be (B, T, dI), got "
+                         f"{tuple(x.shape)} and {tuple(delta.shape)}")
+    bt, t, di = x.shape
+    if a.dim() != 2 or a.shape[0] != di:
+        raise ValueError(f"a must be (dI, S) = ({di}, S), got {tuple(a.shape)}")
+    s = a.shape[1]
+    for name, m in (("b", b), ("c", c)):
+        if m.shape != (bt, t, s):
+            raise ValueError(f"{name} must be (B, T, S) = ({bt}, {t}, {s}), "
+                             f"got {tuple(m.shape)}")
+    if d.shape != (di,):
+        raise ValueError(f"d must be (dI,) = ({di},), got {tuple(d.shape)}")
+    if h0.shape != (bt, di, s):
+        raise ValueError(f"h0 must be (B, dI, S) = ({bt}, {di}, {s}), got "
+                         f"{tuple(h0.shape)}")
+    if s not in STATE_SIZES:
+        raise ValueError(f"state size {s} not in {STATE_SIZES}")
+    if chunk < 1 or block_d < 32 or block_d % 32:
+        raise ValueError(f"chunk={chunk} must be positive and block_d="
+                         f"{block_d} a multiple of 32")
+    n = threads(block_d, lanes)
+    if n > MAX_THREADS:
+        raise ValueError(f"block_d={block_d}, lanes={lanes}: {n} threads "
+                         f"(limit {MAX_THREADS})")
+    need = smem_bytes(s, block_d, chunk, lanes)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"block_d={block_d}, chunk={chunk}, lanes={lanes} "
+                         f"need {need} bytes of shared memory (limit "
+                         f"{SMEM_LIMIT_BYTES})")
+
+
+def _serial_plain(x, delta, a, b, c, d, h):
+    ys = []
+    for i in range(x.shape[1]):
+        d_t, x_t = delta[:, i], x[:, i]
+        h = (torch.exp(d_t[..., None] * a) * h
+             + (d_t * x_t)[..., None] * b[:, i, None, :])
+        ys.append(torch.einsum("bds,bs->bd", h, c[:, i]) + d * x_t)
+    return torch.stack(ys, dim=1), h
+
+
+def _chunked_plain(x, delta, a, b, c, d, h, chunk: int):
+    """Every chunk of the sequence in lockstep (lanes within a span and the
+    spans after one another give the same combine order): a scan from a
+    zero state keeping (P_end, Hl_end), the combine chunk after chunk, and
+    a re-scan from each chunk's entry state.  The carry is (B, n_chunks,
+    dI, S)."""
+    bt, t, di = x.shape
+    n = -(-t // chunk)
+    pad = n * chunk - t
+
+    def chunks(m):
+        m = torch.nn.functional.pad(m, (0, 0, 0, pad))
+        return m.view(bt, n, chunk, m.shape[-1])
+
+    xs, ds, bs, cs = chunks(x), chunks(delta), chunks(b), chunks(c)
+    p = torch.ones((bt, n, di, a.shape[1]), dtype=torch.float32,
+                   device=x.device)
+    hl = torch.zeros_like(p)
+    for tk in range(chunk):
+        da = torch.exp(ds[:, :, tk, :, None] * a)
+        hl = da * hl + (ds[:, :, tk] * xs[:, :, tk])[..., None] \
+            * bs[:, :, tk, None, :]
+        p = p * da
+    starts = []
+    for i in range(n):                                 # the combine
+        starts.append(h)
+        h = p[:, i] * h + hl[:, i]
+    hc = torch.stack(starts, 1)
+    ys = []
+    for tk in range(chunk):
+        d_t, x_t = ds[:, :, tk], xs[:, :, tk]
+        hc = torch.exp(d_t[..., None] * a) * hc \
+            + (d_t * x_t)[..., None] * bs[:, :, tk, None, :]
+        ys.append(torch.einsum("bnds,bns->bnd", hc, cs[:, :, tk]) + d * x_t)
+    return torch.stack(ys, dim=2).reshape(bt, n * chunk, di)[:, :t], h
+
+
+def selective_scan_fwd_plain(x, delta, a, b, c, d, h0, *, chunk: int = 64,
+                             lanes: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: the serial recurrence (``lanes < 2``)
+    or the chunked form over chunks of ``chunk`` tokens (``lanes >= 2``),
+    in float32."""
+    if lanes >= 2:
+        return _chunked_plain(x, delta, a, b, c, d, h0, chunk)
+    return _serial_plain(x, delta, a, b, c, d, h0)
+
+
+def selective_scan_fwd(x, delta, a, b, c, d, h0, *, block_d: int = 128,
+                       chunk: int = 64, lanes: int = 0
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: x, delta (B, T, dI); a (dI, S); b, c (B, T, S); d (dI,);
+    h0 (B, dI, S), all float32 -> (y (B, T, dI), h_T (B, dI, S))."""
+    block_d, chunk, lanes = int(block_d), int(chunk), int(lanes)
+    _check(x, delta, a, b, c, d, h0, block_d, chunk, lanes)
+    if x.device.type == "cpu":
+        return selective_scan_fwd_plain(x, delta, a, b, c, d, h0, chunk=chunk,
+                                        lanes=lanes)
+    bt, t, di = x.shape
+    y = torch.empty_like(x)
+    h_out = torch.empty_like(h0)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.mamba_scan_fwd(
+            x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            h_out.data_ptr(), bt, t, di, a.shape[1], block_d, chunk, lanes,
+            stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"mamba_scan(block_d={block_d}, chunk={chunk}, lanes={lanes}): "
+            f"launch refused ({rc}: "
+            f"{lib.mamba_scan_error_string(rc).decode()})")
+    selective_scan_fwd.launches += 1
+    return y, h_out
+
+
+selective_scan_fwd.launches = 0

@@ -1,0 +1,212 @@
+"""RWKV-6 wkv recurrence: the CUDA kernel's wrapper and its plain version.
+
+``wkv6_fwd`` replaces the Pallas kernel ``wkv6_kernel``
+(``repro/kernels/rwkv6_wkv/kernel.py``: ``_serial_kernel`` and
+``_chunked_kernel``).  Per (batch, head) it carries an (hd x hd) float32
+state S through the tokens:
+
+    y_t = r_t (S + diag(u) k_t v_t^T),    S <- diag(w_t) S + k_t v_t^T
+
+``lanes < 2`` is the serial program: a token loop with the state in
+registers, ``block_threads / (block_h * hd)`` threads per state column.
+``lanes >= 2`` is the matrix form: chunks of ``chunk <= 64`` tokens, each a
+masked (chunk x chunk) score product plus a product against its entry
+state, the chunk summaries threaded through a ``lanes``-step combine.  The
+kernel is CUDA C++ in ``kernels/csrc/rwkv6_wkv.cu``, compiled at first use
+and bound with ``ctypes``; it computes in float32 on the CUDA cores.
+
+T need not divide into chunks: the ragged edge is masked (tokens past T
+count as r = k = v = 0, w = 1, which leave the state as it is) where the
+reference clamps its chunk to a divisor of T.  T = 1 is a decode step.
+
+The wrapper launches the kernel for a CUDA tensor, or raises; it takes the
+plain PyTorch version (``wkv6_fwd_plain``, which computes the same form,
+serial or matrix, with the state as a Python loop's carry) only for
+tensors on the CPU.  Launches are counted in ``wkv6_fwd.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ... import _build
+from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+
+__all__ = ["MATRIX_MAX_CHUNK", "MATRIX_MAX_THREADS", "SERIAL_MAX_THREADS",
+           "SERIAL_ROWS", "serial_split", "smem_bytes", "wkv6_fwd",
+           "wkv6_fwd_plain"]
+
+SERIAL_MAX_THREADS = 512
+MATRIX_MAX_THREADS = 1024
+# state rows a serial thread holds in registers (the kernel's templates)
+SERIAL_ROWS = (4, 8, 16, 32, 64)
+# exp(-cumsum(log w)) overflows float32 past about this many tokens of small
+# decays: the reference's cap on matrix-form chunks
+MATRIX_MAX_CHUNK = 64
+
+_lib: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("rwkv6_wkv")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rwkv6_wkv_fwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
+        lib.rwkv6_wkv_fwd.restype = ctypes.c_int
+        lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
+        lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(chunk: int, lanes: int, block_h: int, hd: int) -> int:
+    """Shared memory one block asks for (the kernel's ``*_smem_floats``)."""
+    if lanes >= 2:
+        floats = (4 * chunk * hd + chunk * chunk + chunk
+                  + block_h * lanes * hd * hd + block_h * lanes * hd
+                  + block_h * hd * hd + block_h * hd)
+    else:
+        floats = 4 * chunk * block_h * hd + chunk * block_h + block_h * hd
+    return 4 * floats
+
+
+def serial_split(hd: int, block_h: int, block_threads: int) -> int | None:
+    """Threads per state column of the serial program, or None when
+    ``block_threads`` gives no split the kernel is built for."""
+    per = block_h * hd
+    if block_threads % per:
+        return None
+    split = block_threads // per
+    if split > 32 or split & (split - 1) or hd % split \
+            or hd // split not in SERIAL_ROWS:
+        return None
+    return split
+
+
+def _check(r, k, v, w, u, s0, chunk: int, lanes: int, block_h: int,
+           block_threads: int) -> None:
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor")
+        if x.device != r.device:
+            raise ValueError(f"{name} is on {x.device}, r on {r.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if r.dim() != 4:
+        raise ValueError(f"r must be (B, T, H, hd), got {tuple(r.shape)}")
+    b, t, h, hd = r.shape
+    for name, x in (("k", k), ("v", v), ("w", w)):
+        if x.shape != r.shape:
+            raise ValueError(f"{name} is {tuple(x.shape)}, r {tuple(r.shape)}")
+    if u.shape != (h, hd):
+        raise ValueError(f"u must be (H, hd) = ({h}, {hd}), got "
+                         f"{tuple(u.shape)}")
+    if s0.shape != (b, h, hd, hd):
+        raise ValueError(f"s0 must be (B, H, hd, hd) = ({b}, {h}, {hd}, "
+                         f"{hd}), got {tuple(s0.shape)}")
+    if chunk < 1 or block_h < 1 or h % block_h:
+        raise ValueError(f"chunk={chunk} must be positive and block_h="
+                         f"{block_h} must divide H={h}")
+    if block_threads % 32 or not 32 <= block_threads <= (
+            MATRIX_MAX_THREADS if lanes >= 2 else SERIAL_MAX_THREADS):
+        raise ValueError(f"block_threads={block_threads} must be a multiple "
+                         "of 32 up to the program's limit")
+    if lanes >= 2:
+        if chunk > MATRIX_MAX_CHUNK:
+            raise ValueError(f"chunk={chunk} exceeds the matrix form's "
+                             f"stability cap {MATRIX_MAX_CHUNK}")
+    elif serial_split(hd, block_h, block_threads) is None:
+        raise ValueError(
+            f"block_threads={block_threads} is not block_h * hd * split "
+            f"({block_h} * {hd} * split) with hd / split in {SERIAL_ROWS}")
+    need = smem_bytes(chunk, lanes, block_h, hd)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"chunk={chunk}, lanes={lanes}, block_h={block_h} "
+                         f"need {need} bytes of shared memory (limit "
+                         f"{SMEM_LIMIT_BYTES})")
+
+
+def _serial_plain(r, k, v, w, u, s):
+    ys = []
+    for i in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, i], k[:, i], v[:, i], w[:, i]
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        bonus = (r_t * u * k_t).sum(-1, keepdim=True) * v_t
+        ys.append(torch.einsum("bhi,bhij->bhj", r_t, s) + bonus)
+        s = w_t[..., :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def _matrix_plain(r, k, v, w, u, s, chunk: int):
+    b, t, h, hd = r.shape
+    n = -(-t // chunk)
+    pad = n * chunk - t
+
+    def chunks(x, fill):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad), value=fill)
+        return x.view(b, n, chunk, h, hd)
+
+    rr, kk, vv = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0)
+    logw = torch.log(chunks(w, 1.0))
+    g = torch.cumsum(logw, dim=2)                      # inclusive, in-chunk
+    aa = rr * torch.exp(g - logw)                      # r * exp(g_excl)
+    bb = kk * torch.exp(-g)
+    scores = torch.einsum("bnthi,bnshi->bnhts", aa, bb)
+    scores = torch.tril(scores, diagonal=-1)
+    bonus = (rr * u * kk).sum(-1, keepdim=True) * vv
+    y = torch.einsum("bnhts,bnshj->bnthj", scores, vv) + bonus
+    d_tot = torch.exp(g[:, :, -1])                     # (b, n, h, hd)
+    s_loc = torch.einsum("bnshi,bnshj->bnhij", bb, vv) * d_tot[..., None]
+    starts = []
+    for c in range(n):                                 # the combine
+        starts.append(s)
+        s = d_tot[:, c, ..., None] * s + s_loc[:, c]
+    y = y + torch.einsum("bnthi,bnhij->bnthj", aa, torch.stack(starts, 1))
+    return y.reshape(b, n * chunk, h, hd)[:, :t], s
+
+
+def wkv6_fwd_plain(r, k, v, w, u, s0, *, chunk: int = 64, lanes: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: the serial recurrence (``lanes < 2``)
+    or the matrix form over chunks of ``chunk`` tokens (``lanes >= 2``;
+    the combine runs chunk after chunk, as the kernel's lanes-step combine
+    and span carry do), in float32."""
+    if lanes >= 2:
+        return _matrix_plain(r, k, v, w, u, s0, chunk)
+    return _serial_plain(r, k, v, w, u, s0)
+
+
+def wkv6_fwd(r, k, v, w, u, s0, *, chunk: int = 64, lanes: int = 0,
+             block_h: int = 1, block_threads: int = 64
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: r, k, v, w (B, T, H, hd), u (H, hd), s0 (B, H, hd, hd),
+    all float32 -> (y (B, T, H, hd), s_T (B, H, hd, hd)) float32."""
+    chunk, lanes, block_h = int(chunk), int(lanes), int(block_h)
+    block_threads = int(block_threads)
+    _check(r, k, v, w, u, s0, chunk, lanes, block_h, block_threads)
+    if r.device.type == "cpu":
+        return wkv6_fwd_plain(r, k, v, w, u, s0, chunk=chunk, lanes=lanes)
+    b, t, h, hd = r.shape
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(s0)
+    lib = _library()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rwkv6_wkv_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t,
+            h, hd, chunk, lanes, block_h, block_threads, stream)
+    if rc != 0:
+        raise KernelLaunchError(
+            f"rwkv6_wkv(chunk={chunk}, lanes={lanes}, block_h={block_h}, "
+            f"block_threads={block_threads}): launch refused ({rc}: "
+            f"{lib.rwkv6_wkv_error_string(rc).decode()})")
+    wkv6_fwd.launches += 1
+    return y, s_out
+
+
+wkv6_fwd.launches = 0

@@ -1,8 +1,9 @@
 """Model zoo: the PyTorch twins of the reference's architectures.
 
-This slice runs the dense decoder-only family (``LM``); ``build_model``
-raises ``NotImplementedError``, naming the missing layer, for a family
-whose layers are not ported yet.
+``LM`` runs the decoder-only families: dense, MoE, the recurrent RWKV-6
+and the hybrid Mamba + attention stack (Jamba).  ``build_model`` raises
+``NotImplementedError``, naming the missing part, for a family the port
+lacks (the encoder-decoder model, the VLM patch frontend).
 """
 
 from .config import ArchConfig, MambaConfig, MoEConfig, RwkvConfig

@@ -1,11 +1,15 @@
 """Layer assembly: (norm -> mixer -> residual) + (norm -> channel -> residual).
 
-The port runs the dense decoder layer: a grouped-query attention mixer and
-a dense MLP.  The reference's other mixers (mamba, rwkv) and its MoE
-channel arrive with the slices that port their kernels; asking for one
-raises ``NotImplementedError``.  A dense stack has a group size of one, so
-the reference's per-group helpers become a plain list of layers
-(``LM.layers``).
+Mixer kinds: "attn" (GQA), "mamba" (selective SSM), "rwkv" (RWKV-6 time
+mix).  The channel path is an MLP, an MoE layer (per the arch's interleave
+mask), or the RWKV channel mix.  The reference groups a heterogeneous
+stack (Jamba) into its smallest repeating pattern and scans over stacked
+groups; the port keeps a flat list of layers (``LM.layers``), layer i
+taking ``cfg.layer_kinds[i]`` and ``cfg.moe_layer_mask()[i]``.
+
+Training runs attention and MoE layers only: the mamba and rwkv mixers
+need the backward kernels of their scans, which are not ported yet, so
+``apply_layer`` refuses them.
 """
 
 from __future__ import annotations
@@ -17,57 +21,113 @@ from .attention import (decode_attention, full_attention, init_attention,
                         init_kv_cache)
 from .config import ArchConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .mamba import apply_mamba, decode_mamba, init_mamba, init_mamba_state
+from .moe import apply_moe, init_moe
+from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
+                    init_rwkv_state, init_rwkv_tmix)
 
-__all__ = ["apply_layer", "decode_layer", "init_layer", "init_layer_state",
-           "prefill_layer"]
+__all__ = ["MIXERS", "UNTRAINABLE", "apply_layer", "decode_layer",
+           "init_layer", "init_layer_state", "prefill_layer"]
+
+MIXERS = ("attn", "mamba", "rwkv")
+# mixer kind -> the backward kernel its training needs (not ported yet)
+UNTRAINABLE = {"mamba": "B7, the selective-scan backward "
+                        "(mamba_scan/kernel.py::selective_scan_bwd)",
+               "rwkv": "B9, the wkv backward "
+                       "(rwkv6_wkv/kernel.py::wkv6_bwd)"}
 
 
 def init_layer(gen, cfg: ArchConfig, kind: str, is_moe: bool,
                device) -> nn.ModuleDict:
-    if kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind!r} mixer is not ported to repro_torch "
-            "yet (only 'attn' is)")
-    if is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE channel is not ported to repro_torch yet")
+    if kind not in MIXERS:
+        raise ValueError(f"{cfg.name}: unknown mixer kind {kind!r}")
+    mixer = {"attn": init_attention, "mamba": init_mamba,
+             "rwkv": init_rwkv_tmix}[kind](gen, cfg, device)
+    if kind == "rwkv":
+        channel = init_rwkv_cmix(gen, cfg, device)
+    elif is_moe:
+        channel = init_moe(gen, cfg, device)
+    else:
+        channel = init_mlp(gen, cfg, device)
     return nn.ModuleDict({"norm1": init_norm(cfg, device),
                           "norm2": init_norm(cfg, device),
-                          "mixer": init_attention(gen, cfg, device),
-                          "channel": init_mlp(gen, cfg, device)})
+                          "mixer": mixer, "channel": channel})
 
 
-def apply_layer(p, x: torch.Tensor, cfg: ArchConfig,
+def _channel(p, h: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
+             state: dict | None = None, return_state: bool = False):
+    """The channel path: (out, aux loss, rwkv channel-mix state or None)."""
+    if kind == "rwkv":
+        out, cstate = apply_rwkv_cmix(p["channel"], h, cfg, state=state,
+                                      return_state=return_state)
+        return out, 0.0, cstate
+    if is_moe:
+        out, aux = apply_moe(p["channel"], h, cfg)
+        return out, aux, None
+    return apply_mlp(p["channel"], h, cfg), 0.0, None
+
+
+def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
                 positions: torch.Tensor) -> tuple[torch.Tensor, float]:
-    """Training path. Returns (x, aux loss); a dense layer's aux is 0."""
+    """Training path. Returns (x, aux loss); only an MoE layer's aux is
+    not 0."""
+    if kind in UNTRAINABLE:
+        raise NotImplementedError(
+            f"{cfg.name}: training a {kind!r} layer needs "
+            f"{UNTRAINABLE[kind]}, which is not ported to repro_torch yet")
     h = apply_norm(p["norm1"], x, cfg)
     x = x + full_attention(p["mixer"], h, cfg, positions=positions,
                            causal=True)
     h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["channel"], h, cfg), 0.0
+    ch, aux, _ = _channel(p, h, cfg, kind, is_moe)
+    return x + ch, aux
 
 
-def init_layer_state(cfg: ArchConfig, batch: int, max_len: int,
+def init_layer_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device) -> dict:
-    return init_kv_cache(cfg, batch, max_len, device)
+    if kind == "attn":
+        return init_kv_cache(cfg, batch, max_len, device)
+    if kind == "mamba":
+        return init_mamba_state(cfg, batch, device)
+    return init_rwkv_state(cfg, batch, device)
 
 
-def prefill_layer(p, x: torch.Tensor, cfg: ArchConfig,
-                  positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward that also emits the layer's decode state."""
+def prefill_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                  is_moe: bool, positions: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that also emits the layer's decode state: the
+    prompt's keys and values (attention), the conv window and ssm state
+    (mamba), or the shifted tokens and wkv state (rwkv)."""
     h = apply_norm(p["norm1"], x, cfg)
-    mixed, state = full_attention(p["mixer"], h, cfg, positions=positions,
-                                  causal=True, return_kv=True)
+    if kind == "attn":
+        mixed, state = full_attention(p["mixer"], h, cfg, positions=positions,
+                                      causal=True, return_kv=True)
+    elif kind == "mamba":
+        mixed, state = apply_mamba(p["mixer"], h, cfg, return_state=True)
+    else:
+        mixed, state = apply_rwkv_tmix(p["mixer"], h, cfg, return_state=True)
     x = x + mixed
     h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["channel"], h, cfg), state
+    ch, _, cstate = _channel(p, h, cfg, kind, is_moe, return_state=True)
+    if cstate is not None:
+        state = {**state, **cstate}
+    return x + ch, state
 
 
-def decode_layer(p, x: torch.Tensor, state: dict, cfg: ArchConfig,
-                 pos: int) -> tuple[torch.Tensor, dict]:
+def decode_layer(p, x: torch.Tensor, state: dict, cfg: ArchConfig, kind: str,
+                 is_moe: bool, pos: int) -> tuple[torch.Tensor, dict]:
     """Single-token decode path. x: (B, 1, D)."""
     h = apply_norm(p["norm1"], x, cfg)
-    mixed, state = decode_attention(p["mixer"], h, state, cfg, pos=pos)
+    if kind == "attn":
+        mixed, state = decode_attention(p["mixer"], h, state, cfg, pos=pos)
+    elif kind == "mamba":
+        mixed, state = decode_mamba(p["mixer"], h, state, cfg)
+    else:
+        mixed, tstate = apply_rwkv_tmix(p["mixer"], h, cfg, state=state)
+        state = {**state, **tstate}
     x = x + mixed
     h = apply_norm(p["norm2"], x, cfg)
-    return x + apply_mlp(p["channel"], h, cfg), state
+    ch, _, cstate = _channel(p, h, cfg, kind, is_moe, state=state)
+    if cstate is not None:
+        state = {**state, **cstate}
+    return x + ch, state

@@ -25,8 +25,9 @@ from torch import nn
 from .config import ArchConfig
 
 __all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
-           "embed_init", "embed_tokens", "init_embed", "init_mlp",
-           "init_norm", "param", "rope_frequencies", "torch_dtype"]
+           "embed_init", "embed_tokens", "group_norm", "init_embed",
+           "init_mlp", "init_norm", "param", "rand_init", "rope_frequencies",
+           "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -62,6 +63,20 @@ def embed_init(gen: torch.Generator | None, shape, dtype: str,
     return out.to(torch_dtype(dtype))
 
 
+def rand_init(gen: torch.Generator | None, shape, dtype: str, device, *,
+              uniform: bool, scale: float) -> torch.Tensor:
+    """``scale`` times U[0, 1) (``uniform``) or N(0, 1) draws, in ``dtype``;
+    on the ``meta`` device only the shape is made."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if out.device.type != "meta":
+        if uniform:
+            out.uniform_(0.0, 1.0, generator=gen)
+        else:
+            out.normal_(0.0, 1.0, generator=gen)
+        out.mul_(scale)
+    return out.to(torch_dtype(dtype))
+
+
 # -- norms --------------------------------------------------------------------
 
 def init_norm(cfg: ArchConfig, device,
@@ -90,6 +105,19 @@ def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         if "bias" in p:
             out = out + p["bias"].float()
     return out.to(dt)
+
+
+def group_norm(x: torch.Tensor, n_groups: int,
+               eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the last dim, no affine (RWKV's per-head wkv
+    normalisation), in float32; returns x's dtype."""
+    dt = x.dtype
+    shape = x.shape
+    x32 = x.float().reshape(*shape[:-1], n_groups, -1)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return out.reshape(shape).to(dt)
 
 
 # -- rotary embeddings ----------------------------------------------------------

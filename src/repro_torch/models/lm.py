@@ -3,7 +3,9 @@
 The reference stacks each scan group's parameters along a leading axis
 (``jax.vmap`` of ``init_group``) and scans over them; here the layers are
 an ``nn.ModuleList`` walked by a Python loop, and the decode state is a
-list with one KV cache per layer, updated in place.
+list with one entry per layer: a KV cache (attention, written in place), a
+conv window and ssm state (mamba), or the shifted tokens and wkv state
+(rwkv).
 
 Training: ``loss`` runs ``backbone`` (optionally with each layer under
 ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` remat with
@@ -12,8 +14,10 @@ nothing saved) and ``chunked_xent``, which never holds the full
 runs under ``torch.inference_mode()``: the parameters require grad, and
 the KV caches are written in place.
 
-Not ported yet: the families whose layers the port lacks (MoE, mamba,
-rwkv, encoder-decoder, the VLM patch frontend).
+Serving runs every mixer kind and the MoE channel; training runs
+attention and MoE layers (the mamba and rwkv mixers wait for their scans'
+backward kernels).  Not ported yet: the encoder-decoder family and the VLM
+patch frontend.
 """
 
 from __future__ import annotations
@@ -23,13 +27,21 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .blocks import (apply_layer, decode_layer, init_layer, init_layer_state,
-                     prefill_layer)
+from .blocks import (MIXERS, apply_layer, decode_layer, init_layer,
+                     init_layer_state, prefill_layer)
 from .config import ArchConfig
 from .layers import (apply_norm, embed_tokens, init_embed, init_norm,
                      torch_dtype)
 
-__all__ = ["LM", "chunked_xent", "missing_layer"]
+__all__ = ["FLOAT32_LEAVES", "LM", "chunked_xent", "missing_layer",
+           "serving_dtype"]
+
+# leaves the reference reads in float32 whatever the compute dtype: the
+# mamba scan's A_log, D, dt_bias and dt_proj (models/mamba.py _ssm_inputs)
+# and the rwkv decay_base, bonus u and post-wkv norm's ln_scale/ln_bias
+# (models/rwkv6.py apply_rwkv_tmix)
+FLOAT32_LEAVES = frozenset({"A_log", "D", "dt_bias", "dt_proj", "decay_base",
+                            "u", "ln_scale", "ln_bias"})
 
 
 def chunked_xent(h: torch.Tensor, head_w: torch.Tensor,
@@ -64,14 +76,20 @@ def missing_layer(cfg: ArchConfig) -> str | None:
         return "the encoder-decoder model (models/encdec.py)"
     if cfg.frontend != "tokens":
         return f"the {cfg.frontend!r} frontend (VLM patch embeddings)"
-    if cfg.moe is not None:
-        return "the MoE layer (models/moe.py)"
     for kind in cfg.layer_kinds:
-        if kind != "attn":
+        if kind not in MIXERS:
             return f"the {kind!r} mixer"
-    if cfg.positions != "rope":
+    if cfg.positions not in ("rope", "none"):
         return f"{cfg.positions!r} positions"
     return None
+
+
+def serving_dtype(name: str, cfg: ArchConfig) -> torch.dtype:
+    """The dtype the reference reads parameter ``name`` in when it serves:
+    float32 for the norms and ``FLOAT32_LEAVES``, else ``compute_dtype``."""
+    if "norm" in name or name.rsplit(".", 1)[-1] in FLOAT32_LEAVES:
+        return torch.float32
+    return torch_dtype(cfg.compute_dtype)
 
 
 class LM(nn.Module):
@@ -91,10 +109,11 @@ class LM(nn.Module):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
         self.embed = init_embed(gen, cfg, dev)
-        moe_mask = cfg.moe_layer_mask()
+        self.kinds = tuple(cfg.layer_kinds)
+        self.moe_mask = cfg.moe_layer_mask()
         self.layers = nn.ModuleList(
-            init_layer(gen, cfg, kind, moe_mask[i], dev)
-            for i, kind in enumerate(cfg.layer_kinds))
+            init_layer(gen, cfg, kind, self.moe_mask[i], dev)
+            for i, kind in enumerate(self.kinds))
         self.final_norm = init_norm(cfg, dev)
 
     @property
@@ -102,16 +121,16 @@ class LM(nn.Module):
         return self.embed["tokens"].device
 
     def cast_for_serving(self) -> "LM":
-        """Cast every weight but the norms' to ``compute_dtype``, once.
+        """Cast every weight, once, to the dtype the reference reads it in
+        (``serving_dtype``): the compute dtype for the products' weights,
+        float32 for the norms and the recurrences' float32 leaves.
 
         The reference casts each weight at each use (``.astype(dt)``),
-        which gives the same numbers; the norms stay in ``param_dtype``
-        because the reference reads them in float32.
+        which gives the same numbers; a float32 leaf cast to bf16 once and
+        back at each use would not.
         """
-        dt = torch_dtype(self.cfg.compute_dtype)
         for name, p in self.named_parameters():
-            if "norm" not in name:
-                p.data = p.data.to(dt)
+            p.data = p.data.to(serving_dtype(name, self.cfg))
         return self
 
     def decay_mask(self) -> dict[str, bool]:
@@ -149,12 +168,13 @@ class LM(nn.Module):
             raise ValueError(f"remat={remat!r}")
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
+        for layer, kind, is_moe in zip(self.layers, self.kinds,
+                                       self.moe_mask):
             if remat:
-                x, a = checkpoint(apply_layer, layer, x, cfg, positions,
-                                  use_reentrant=False)
+                x, a = checkpoint(apply_layer, layer, x, cfg, kind, is_moe,
+                                  positions, use_reentrant=False)
             else:
-                x, a = apply_layer(layer, x, cfg, positions)
+                x, a = apply_layer(layer, x, cfg, kind, is_moe, positions)
             aux = aux + a
         return apply_norm(self.final_norm, x, cfg), aux
 
@@ -190,36 +210,42 @@ class LM(nn.Module):
     def prefill(self, tokens: torch.Tensor, *, max_len: int = 0
                 ) -> tuple[torch.Tensor, list[dict]]:
         """Process a full prompt (B, S); returns (last-position logits
-        (B, 1, V) float32, decode state).  KV caches are padded to
-        ``max_len`` positions (at least the prompt length)."""
+        (B, 1, V) float32, decode state).  Attention layers' KV caches are
+        padded to ``max_len`` positions (at least the prompt length); the
+        recurrent layers' states are their prefill's."""
         cfg = self.cfg
         b, s = tokens.shape
         max_len = max(max_len, s)
         x = embed_tokens(self.embed, tokens, cfg)
         positions = torch.arange(s, device=x.device).expand(b, s)
         states = []
-        for layer in self.layers:
-            x, kv = prefill_layer(layer, x, cfg, positions)
-            cache = init_layer_state(cfg, b, max_len, x.device)
-            cache["k"][:, :s] = kv["k"]
-            cache["v"][:, :s] = kv["v"]
-            states.append(cache)
+        for layer, kind, is_moe in zip(self.layers, self.kinds,
+                                       self.moe_mask):
+            x, state = prefill_layer(layer, x, cfg, kind, is_moe, positions)
+            if kind == "attn":
+                cache = init_layer_state(cfg, kind, b, max_len, x.device)
+                cache["k"][:, :s] = state["k"]
+                cache["v"][:, :s] = state["v"]
+                state = cache
+            states.append(state)
         x = apply_norm(self.final_norm, x, cfg)
         return self._logits(x[:, -1:]), states
 
     # -- decode ----------------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int) -> list[dict]:
-        return [init_layer_state(self.cfg, batch, max_len, self.device)
-                for _ in self.layers]
+        return [init_layer_state(self.cfg, kind, batch, max_len, self.device)
+                for kind in self.kinds]
 
     @torch.inference_mode()
     def decode_step(self, state: list[dict], tokens: torch.Tensor,
                     pos: int) -> tuple[torch.Tensor, list[dict]]:
         """tokens: (B, 1) at position ``pos`` -> (logits (B, 1, V),
-        state); each layer's cache is written at ``pos`` in place."""
+        state); each attention layer's cache is written at ``pos`` in
+        place, each recurrent layer's state replaced by its next."""
         cfg = self.cfg
         x = embed_tokens(self.embed, tokens, cfg)
         for i, layer in enumerate(self.layers):
-            x, state[i] = decode_layer(layer, x, state[i], cfg, int(pos))
+            x, state[i] = decode_layer(layer, x, state[i], cfg, self.kinds[i],
+                                       self.moe_mask[i], int(pos))
         x = apply_norm(self.final_norm, x, cfg)
         return self._logits(x), state

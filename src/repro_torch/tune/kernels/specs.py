@@ -14,14 +14,20 @@ launch parameters (never through the ``tuned=`` resolution path), and
 ``ref`` is the same function through the kernels' plain PyTorch
 versions.
 
-Three specs exist: ``dna_automaton``, ``flash_attention`` and
-``decode_attention``.  The attention specs keep the reference's meta keys
-(``{bh, tq, tk, hd, causal}`` and ``{b, kv, rep, hd, s}``), so a store
-record resolves from the same shape description in both packages; their
-default shapes are the serving shapes of ``qwen2.5-3b`` at batch 8 with a
-2048-token prompt and 128 generated tokens.  Their kernels mask the
-ragged edge, so a block need not divide its extent, only not exceed it.
-The backward kernels' specs arrive with the training slice.
+Five specs exist: ``dna_automaton``, ``flash_attention``,
+``decode_attention``, ``mamba_scan`` and ``rwkv6_wkv``.  The attention
+specs keep the reference's meta keys (``{bh, tq, tk, hd, causal}`` and
+``{b, kv, rep, hd, s}``), so a store record resolves from the same shape
+description in both packages; their default shapes are the serving shapes
+of ``qwen2.5-3b`` at batch 8 with a 2048-token prompt and 128 generated
+tokens.  The scan specs keep the reference's ``{bt, t, di, s}`` and
+``{b, t, h, hd}``; their default shapes are the prefill shapes of
+``jamba-v0.1-52b`` and ``rwkv6-1.6b`` at batch 8 with a 2048-token prompt,
+and their spaces keep the reference's ``lanes`` switch between the serial
+program (``lanes = 0``) and the chunked form, with the matrix form's
+``chunk <= 64`` cap.  These kernels mask the ragged edge, so a block or
+chunk need not divide its extent, only not exceed it.  The backward
+kernels' specs arrive with the training slices.
 """
 
 from __future__ import annotations
@@ -40,11 +46,16 @@ from ...kernels.dna_automaton.ops import (DEFAULTS as DNA_DEFAULTS,
                                           fa_match_plain, random_dna_text)
 from ...kernels.flash_attention import kernel as fa_kernel
 from ...kernels.flash_attention.ops import DEFAULTS as FA_DEFAULTS
+from ...kernels.mamba_scan import kernel as ms_kernel
+from ...kernels.mamba_scan.ops import DEFAULTS as MS_DEFAULTS
+from ...kernels.rwkv6_wkv import kernel as wkv_kernel
+from ...kernels.rwkv6_wkv.ops import DEFAULTS as WKV_DEFAULTS
 from .evaluate import SMEM_LIMIT_BYTES
 from .registry import KernelSpec, dtype_name, register_kernel
 
 __all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "DECODE_BLOCK_S",
-           "DECODE_SPLITS", "DECODE_THREADS", "TEXT_CHUNKS"]
+           "DECODE_SPLITS", "DECODE_THREADS", "SCAN_BLOCK_D", "SCAN_CHUNKS",
+           "SCAN_LANES", "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_THREADS"]
 
 TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 BLOCK_THREADS = (64, 128, 256, 512, 1024)
@@ -53,6 +64,11 @@ ATTN_THREADS = (32, 64, 128, 256, 512, 1024)
 DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
 DECODE_BLOCK_S = (16, 32, 64, 128, 256, 512)
 DECODE_THREADS = (32, 64, 128, 256, 512)
+SCAN_CHUNKS = (8, 16, 32, 64, 128, 256, 512, 1024)
+SCAN_LANES = (0, 2, 4, 8, 16)        # 0 = the serial program
+SCAN_BLOCK_D = (32, 64, 128, 256, 512)
+WKV_BLOCK_H = (1, 2, 4, 8)
+WKV_THREADS = (64, 128, 256, 512, 1024)
 
 # what a block gets without opting in to more dynamic shared memory
 SMEM_DEFAULT_BYTES = 48 * 1024
@@ -256,4 +272,151 @@ register_kernel(KernelSpec(
     default_shape={"b": 8, "kv": 2, "rep": 8, "hd": 128, "s": 2176},
     smoke_shape={"b": 1, "kv": 2, "rep": 4, "hd": 32, "s": 512},
     atol=2e-4, rtol=2e-4,
+))
+
+
+# -- mamba selective scan ------------------------------------------------------------
+
+def _ms_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("block_d", SCAN_BLOCK_D),
+        Param("chunk", SCAN_CHUNKS),
+        Param("lanes", SCAN_LANES),
+    ])
+
+
+def _ms_validate(cfg, meta) -> str | None:
+    bd, chunk, lanes = cfg["block_d"], cfg["chunk"], cfg["lanes"]
+    if meta["s"] not in ms_kernel.STATE_SIZES:
+        return f"state size {meta['s']} not in {ms_kernel.STATE_SIZES}"
+    n = ms_kernel.threads(bd, lanes)
+    if n > ms_kernel.MAX_THREADS:
+        return f"{n} threads a block (limit {ms_kernel.MAX_THREADS})"
+    span = chunk * (lanes if lanes >= 2 else 1)
+    return (_not_above(meta["di"], bd, SCAN_BLOCK_D[0], "block_d")
+            or _not_above(meta["t"], span, SCAN_CHUNKS[0], "chunk*lanes")
+            or _smem(ms_kernel.smem_bytes(meta["s"], bd, chunk, lanes)))
+
+
+def _randn(rng, shape, device, gen=None) -> torch.Tensor:
+    """Standard normals: the reference's numpy stream on the CPU; on the
+    card drawn there (a full-size host copy would take seconds)."""
+    if device.type == "cpu":
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def _card_generator(rng, device):
+    if device.type == "cpu":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2 ** 31)))
+    return gen
+
+
+def _ms_inputs(meta, dtype, rng, device):
+    # the reference's distributions (repro/tune/kernels/specs.py _ms_inputs)
+    bt, t, di, s = (meta[k] for k in ("bt", "t", "di", "s"))
+    gen = _card_generator(rng, device)
+    x = _randn(rng, (bt, t, di), device, gen)
+    delta = _randn(rng, (bt, t, di), device, gen).abs() * 0.1
+    a = -(_randn(rng, (di, s), device, gen).abs() + 0.5)
+    b = _randn(rng, (bt, t, s), device, gen)
+    c = _randn(rng, (bt, t, s), device, gen)
+    d = _randn(rng, (di,), device, gen)
+    h0 = torch.zeros((bt, di, s), dtype=torch.float32, device=device)
+    return tuple(m.to(device) for m in (x, delta, a, b, c, d, h0))
+
+
+def _ms_run(cfg, inputs):
+    return ms_kernel.selective_scan_fwd(*inputs, block_d=cfg["block_d"],
+                                        chunk=cfg["chunk"],
+                                        lanes=cfg["lanes"])
+
+
+def _ms_ref(inputs):
+    return ms_kernel.selective_scan_fwd_plain(*inputs)
+
+
+register_kernel(KernelSpec(
+    name="mamba_scan",
+    defaults=MS_DEFAULTS,
+    space_fn=_ms_space, validate_fn=_ms_validate,
+    make_inputs=_ms_inputs, run=_ms_run, ref=_ms_ref,
+    default_shape={"bt": 8, "t": 2048, "di": 8192, "s": 16},
+    smoke_shape={"bt": 1, "t": 64, "di": 64, "s": 4},
+    atol=2e-4, rtol=2e-3,
+))
+
+
+# -- rwkv6 wkv ---------------------------------------------------------------------------
+
+def _wkv_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("chunk", SCAN_CHUNKS),
+        Param("lanes", SCAN_LANES),
+        Param("block_h", WKV_BLOCK_H),
+        Param("block_threads", WKV_THREADS),
+    ])
+
+
+def _wkv_validate(cfg, meta) -> str | None:
+    chunk, lanes = cfg["chunk"], cfg["lanes"]
+    bh, nt = cfg["block_h"], cfg["block_threads"]
+    t, h, hd = meta["t"], meta["h"], meta["hd"]
+    err = _divides(h, bh, "block_h")
+    if err:
+        return err
+    if lanes < 2:                       # the serial program
+        if nt > wkv_kernel.SERIAL_MAX_THREADS:
+            return (f"block_threads={nt} exceeds the serial program's "
+                    f"{wkv_kernel.SERIAL_MAX_THREADS}")
+        if wkv_kernel.serial_split(hd, bh, nt) is None:
+            return (f"block_threads={nt} is not block_h * hd * split with "
+                    f"hd / split in {wkv_kernel.SERIAL_ROWS}")
+        span = chunk
+    else:
+        if chunk > wkv_kernel.MATRIX_MAX_CHUNK:
+            # the matrix form computes k * exp(-cumsum(log w)); past ~64
+            # tokens the inverse decay product can overflow float32 (the
+            # tuner's parity gate also refuses any configuration that
+            # diverges)
+            return (f"chunk={chunk} exceeds matrix-form stability cap "
+                    f"{wkv_kernel.MATRIX_MAX_CHUNK}")
+        span = chunk * lanes
+    return (_not_above(t, span, SCAN_CHUNKS[0], "chunk*lanes")
+            or _smem(wkv_kernel.smem_bytes(chunk, lanes, bh, hd)))
+
+
+def _wkv_inputs(meta, dtype, rng, device):
+    # the reference's distributions (repro/tune/kernels/specs.py
+    # _wkv_inputs): decays w = sigmoid(N(0, 1) + 2)
+    b, t, h, hd = (meta[k] for k in ("b", "t", "h", "hd"))
+    gen = _card_generator(rng, device)
+    r, k, v = (_randn(rng, (b, t, h, hd), device, gen) * 0.5
+               for _ in range(3))
+    w = torch.sigmoid(_randn(rng, (b, t, h, hd), device, gen) + 2)
+    u = _randn(rng, (h, hd), device, gen) * 0.1
+    s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=device)
+    return tuple(m.to(device) for m in (r, k, v, w, u, s0))
+
+
+def _wkv_run(cfg, inputs):
+    return wkv_kernel.wkv6_fwd(*inputs, chunk=cfg["chunk"],
+                               lanes=cfg["lanes"], block_h=cfg["block_h"],
+                               block_threads=cfg["block_threads"])
+
+
+def _wkv_ref(inputs):
+    return wkv_kernel.wkv6_fwd_plain(*inputs)
+
+
+register_kernel(KernelSpec(
+    name="rwkv6_wkv",
+    defaults=WKV_DEFAULTS,
+    space_fn=_wkv_space, validate_fn=_wkv_validate,
+    make_inputs=_wkv_inputs, run=_wkv_run, ref=_wkv_ref,
+    default_shape={"b": 8, "t": 2048, "h": 32, "hd": 64},
+    smoke_shape={"b": 1, "t": 64, "h": 1, "hd": 16},
+    atol=2e-4, rtol=2e-3,
 ))

@@ -39,7 +39,8 @@ def smoke_timer(**kw):
 def test_dna_space_is_redrawn_for_the_card():
     spec = ktune.get_kernel("dna_automaton")
     assert ktune.list_kernels() == ["decode_attention", "dna_automaton",
-                                   "flash_attention"]
+                                   "flash_attention", "mamba_scan",
+                                   "rwkv6_wkv"]
     space = spec.space(spec.default_shape)
     assert space.names == ("map_chunk", "count_chunk", "block_threads")
     assert space.size() == 500 >= 64
