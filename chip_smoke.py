@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's five paths once each, at full width, through the entry
+drives the port's seven paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -36,7 +36,19 @@ points a user would call:
   seven Mamba layers through the selective-scan kernel in prefill (decode
   steps them in plain PyTorch, as the reference does), the attention layer
   through the flash-attention kernel in prefill and the decode kernel at
-  every step, and four MoE layers in plain PyTorch.
+  every step, and four MoE layers in plain PyTorch;
+* RWKV-6 training: ``tune_kernel`` the wkv backward at RWKV-6's training
+  shape and the selective-scan backward at Jamba's into the recurrent
+  paths' store, then ``train_loop`` takes four AdamW steps of RWKV-6 1.6B at
+  full width and depth (float32 parameters and moments, bf16 compute,
+  batch 8 x 2048 from ``SyntheticPipeline(seed)``, each layer recomputed in
+  the backward pass), every time mix's forward through the wkv kernel and
+  its gradient through the wkv backward kernel;
+* Jamba training: the same on Jamba-v0.1's first period at full width
+  without experts (every channel the dense SwiGLU: with its experts the
+  period's 13.3e9 parameters need 213 GB of training state), batch 2 x
+  2048: seven Mamba layers through the selective-scan kernel and its
+  backward kernel, the attention layer through the flash-attention kernels.
 
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes; after each
@@ -44,11 +56,14 @@ serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
 recurrent paths also in float32, where the gate sits, with the MoE
 choices pinned to the kernel run's);
-before the training path it compares the loss and every parameter's
-gradient the same way.  Each path's launch counters are set to 0 just
-before it and read just after it.  After training, the restart drill
-(``run_with_restarts`` with a failure injected at step 7, checkpoints
-every 4 steps) runs the smoke config on the card under
+before each training path it compares the loss and every parameter's
+gradient the same way (the recurrent ones in float32 compute, each held
+against a float64 pass by its parameter's gate, with one wrong backward
+per new kernel run as a control).  Each path's launch
+counters are set to 0 just before it and read just after it.  After the
+Qwen training path, the restart drill (``run_with_restarts`` with a
+failure injected at step 7, checkpoints every 4 steps) runs the Qwen2.5-3B
+and RWKV-6 smoke configs on the card under
 ``torch.use_deterministic_algorithms(True)`` and must end bitwise where an
 uninterrupted run does; ``CUBLAS_WORKSPACE_CONFIG`` is set for it before
 torch starts.
@@ -74,7 +89,11 @@ kernel, and for the selective scan the larger of one exp per (token,
 channel, state) cell on the special-function units (16 a clock per SM,
 the CUDA C++ Programming Guide's throughput table for compute capability
 9.0, on 132 SMs at the 1.98 GHz boost clock: 4.18e12/s) and four float32
-instructions per cell over 33.5e12/s.
+instructions per cell over 33.5e12/s.  The backward kernels: the wkv
+backward eight float32 instructions per state cell (the state recompute,
+three row sums, the dv product, the adjoint update) over 33.5e12/s, the
+selective-scan backward the larger of one exp per cell on the SFUs and
+eight float32 instructions per cell.
 """
 
 from __future__ import annotations
@@ -83,6 +102,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,7 +125,8 @@ BF16_FLOPS_PER_S = 989e12
 SERVE_MOTIFS = ("ACGTAC", "GATTAC", "TTAGGG", "CCGGAA", "ACGTACGT")
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 LIBRARIES = ("dna_automaton", "flash_attention", "flash_attention_bwd",
-             "decode_attention", "mamba_scan", "rwkv6_wkv")
+             "decode_attention", "mamba_scan", "mamba_scan_bwd", "rwkv6_wkv",
+             "rwkv6_wkv_bwd")
 # the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
 # the training path: the same model, batch 2 x 2048 tokens, 4 steps
@@ -114,6 +135,15 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # Jamba cut to its first 8-layer period
 RWKV_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "rwkv6-1.6b", "jamba-v0.1-52b", 8
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
+# the recurrent training paths: RWKV-6 1.6B at batch 8 x 2048 (B.H = 256
+# recurrences, the serving shape) and Jamba's first period without experts
+# at batch 2 x 2048, 4 steps each.  Their kernels-vs-plain gradient passes
+# run at batch 2: Jamba at its training sequence, RWKV-6 at 1024 tokens (the
+# plain versions are Python loops over the tokens, the parity phase runs
+# them three times, and RWKV-6 has 24 recurrent layers to Jamba's 7)
+RWKV_TRAIN_BATCH, JAMBA_TRAIN_BATCH = 8, 2
+SSM_PARITY_BATCH = 2
+SSM_PARITY_SEQ = {"rwkv6-1.6b": 1024, "jamba-v0.1-52b": 2048}
 
 
 def roofline_ms(n_bytes: float, n_ops: float, ops_per_s: float
@@ -161,15 +191,21 @@ def phase_env() -> str:
     return smi
 
 
+def ptxas_report(name: str) -> list[str]:
+    """What ptxas reported of a library's registers and spills."""
+    from repro_torch import _build
+
+    return [line.strip() for line in _build.build_log(name).splitlines()
+            if "registers" in line or "spill" in line]
+
+
 def phase_build() -> None:
     from repro_torch import _build
 
     t0 = time.perf_counter()
     _build.load_libraries(LIBRARIES)
     seconds = time.perf_counter() - t0
-    ptxas = {name: [line.strip() for line in _build.build_log(name)
-                    .splitlines() if "registers" in line or "spill" in line]
-             for name in LIBRARIES}
+    ptxas = {name: ptxas_report(name) for name in LIBRARIES}
     emit(phase="build", seconds=round(seconds, 3),
          libraries=[str(_build.library_path(n).relative_to(ROOT))
                     for n in LIBRARIES],
@@ -763,11 +799,12 @@ def phase_train_attention_parity(seed: int) -> dict:
     return record
 
 
-def train_batch(cfg, seed: int, step: int = 0) -> dict:
+def train_batch(cfg, seed: int, step: int = 0, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> dict:
     from repro_torch.data import SyntheticPipeline
     from repro_torch.launch.train import make_data_cfg
 
-    data = SyntheticPipeline(make_data_cfg(cfg, TRAIN_BATCH, TRAIN_SEQ, seed))
+    data = SyntheticPipeline(make_data_cfg(cfg, batch, seq, seed))
     return {k: torch.as_tensor(v, device="cuda")
             for k, v in data.batch_at(step).items()}
 
@@ -895,6 +932,10 @@ def kernel_kind(name: str) -> str:
         return "flash_attention_bwd (B5)"
     if "decode_kernel" in low:
         return "decode_attention (B4)"
+    if "scan_bwd_spans_kernel" in low or "scan_bwd_sweep_kernel" in low:
+        return "selective_scan_bwd (B7)"
+    if "wkv_bwd_spans_kernel" in low or "wkv_bwd_sweep_kernel" in low:
+        return "wkv6_bwd (B9)"
     if "scan_serial_kernel" in low or "scan_chunked_kernel" in low:
         return "selective_scan (B6)"
     if "wkv_serial_kernel" in low or "wkv_matrix_kernel" in low:
@@ -1010,41 +1051,52 @@ def phase_lm_train(model, seed: int) -> dict:
 
 
 def phase_train_restart(seed: int) -> None:
-    """The restart drill on the card at the smoke config: a failure at
-    step 7, checkpoints every 4 steps, resumed from step 4, bitwise equal
-    to an uninterrupted run, under deterministic algorithms."""
+    """The restart drill on the card at the smoke configs of Qwen2.5-3B
+    (B3/B5) and RWKV-6 1.6B (B8/B9): a failure at step 7, checkpoints
+    every 4 steps, resumed from step 4, bitwise equal to an uninterrupted
+    run, under deterministic algorithms (the backward kernels write every
+    element from one thread, with no atomics)."""
     from repro_torch import configs
     from repro_torch.dist import run_with_restarts
     from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
     from repro_torch.launch.train import train_loop
 
-    cfg = configs.get(LM_ARCH).smoke()
-    kw = dict(steps_total=12, batch=4, seq_len=32, ckpt_every=4, log_every=0,
-              seed=seed, device="cuda")
-    before = fak.flash_attention_bwd.launches
-    torch.use_deterministic_algorithms(True)
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-            clean = train_loop(cfg, ckpt_dir=Path(tmp) / "clean", **kw)
-            report = run_with_restarts(train_loop, cfg=cfg,
-                                       ckpt_dir=Path(tmp) / "restart",
-                                       fail_at_step=7, **kw)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    got, want = report.result["state"]["params"], clean["state"]["params"]
-    differ = [n for n in want if not torch.equal(got[n], want[n])]
-    emit(phase="train_restart", ok=True, arch=cfg.name,
-         attempts=report.attempts, failures=report.failures,
-         resumed_from=report.result["resumed_from"],
-         params_differing=differ, losses=clean["losses"],
-         resumed_losses=report.result["losses"],
-         bwd_launches=fak.flash_attention_bwd.launches - before)
-    check(report.attempts == 2 and report.result["resumed_from"] == 4,
-          f"train_restart: attempts {report.attempts}, resumed from "
-          f"{report.result['resumed_from']}")
-    check(not differ, f"train_restart: parameters differ: {differ[:5]}")
-    check(report.result["losses"] == clean["losses"][4:],
-          "train_restart: losses after the restart differ")
+    for arch in (LM_ARCH, RWKV_ARCH):
+        cfg = configs.get(arch).smoke()
+        kw = dict(steps_total=12, batch=4, seq_len=32, ckpt_every=4,
+                  log_every=0, seed=seed, device="cuda")
+        bwd = {"flash_attention_bwd": fak.flash_attention_bwd,
+               "wkv6_bwd": wkk.wkv6_bwd}
+        before = {name: fn.launches for name, fn in bwd.items()}
+        torch.use_deterministic_algorithms(True)
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+                clean = train_loop(cfg, ckpt_dir=Path(tmp) / "clean", **kw)
+                report = run_with_restarts(train_loop, cfg=cfg,
+                                           ckpt_dir=Path(tmp) / "restart",
+                                           fail_at_step=7, **kw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        got, want = report.result["state"]["params"], clean["state"]["params"]
+        differ = [n for n in want if not torch.equal(got[n], want[n])]
+        emit(phase="train_restart", ok=True, arch=cfg.name,
+             attempts=report.attempts, failures=report.failures,
+             resumed_from=report.result["resumed_from"],
+             params_differing=differ, losses=clean["losses"],
+             resumed_losses=report.result["losses"],
+             bwd_launches={name: fn.launches - before[name]
+                           for name, fn in bwd.items()})
+        check(report.attempts == 2 and report.result["resumed_from"] == 4,
+              f"train_restart {arch}: attempts {report.attempts}, resumed "
+              f"from {report.result['resumed_from']}")
+        check(not differ, f"train_restart {arch}: parameters differ: "
+                          f"{differ[:5]}")
+        check(report.result["losses"] == clean["losses"][4:],
+              f"train_restart {arch}: losses after the restart differ")
+        name = "wkv6_bwd" if arch == RWKV_ARCH else "flash_attention_bwd"
+        check(bwd[name].launches > before[name],
+              f"train_restart {arch}: {name} never ran")
 
 
 # -- the recurrent serving paths (RWKV-6, Jamba) ---------------------------------
@@ -1186,14 +1238,16 @@ def phase_scan_parity(seed: int) -> list[dict]:
     return records
 
 
-def phase_ssm_tune(seed: int, store_path: Path) -> dict:
-    """B8 at the RWKV-6 prefill shape and B6 at the Jamba prefill shape,
-    tuned into one store: each at most 5 % of its space, no refused
-    launch, and a repeat from the cache with 0 measurements."""
+def phase_ssm_tune(seed: int, store_path: Path, metas: dict | None = None,
+                   phase: str = "ssm_tune") -> dict:
+    """B8 at the RWKV-6 prefill shape and B6 at the Jamba prefill shape
+    (or the kernels of ``metas`` at theirs), tuned into one store: each at
+    most 5 % of its space, no refused launch, and a repeat from the cache
+    with 0 measurements."""
     from repro_torch.tune import kernels as ktune
 
     outs, report = {}, []
-    for name, meta in ssm_metas().items():
+    for name, meta in (metas or ssm_metas()).items():
         t0 = time.perf_counter()
         out = ktune.tune_kernel(name, meta, store=store_path, seed=seed)
         seconds = time.perf_counter() - t0
@@ -1226,7 +1280,7 @@ def phase_ssm_tune(seed: int, store_path: Path) -> dict:
         # for the scan); the serving phases need only its count
         out.timer.inputs, out.timer._expected = (), None
         torch.cuda.empty_cache()
-    emit(phase="ssm_tune", ok=True, tunes=report)
+    emit(phase=phase, ok=True, tunes=report)
     return outs
 
 
@@ -1536,6 +1590,556 @@ def phase_ssm_parity(model, generated, seed: int) -> None:
           f"{bf16['gate']}")
 
 
+# -- the recurrent training paths (RWKV-6, Jamba's first period) -----------------
+
+# kernels against plain versions in float32 compute: the loss's relative
+# error; each parameter's gradient against the float64 gradient by relative
+# L2, within this gate, or, where that is larger, within this multiple of
+# the plain versions' largest distance from the float64 gradient over the
+# leaves of the same parameter (the same name in every layer)
+SSM_LOSS_GATE, SSM_GRAD_GATE, GRAD_FLOOR_MARGIN = 1e-4, 1e-3, 1.5
+
+
+def ssm_train_metas() -> dict:
+    """The backward kernels' shapes on the training paths (the specs'
+    default shapes)."""
+    from repro_torch import configs
+
+    rwkv, jamba = configs.get(RWKV_ARCH), configs.get(JAMBA_ARCH)
+    return {
+        "rwkv6_wkv_bwd": {"b": RWKV_TRAIN_BATCH, "t": TRAIN_SEQ,
+                          "h": rwkv.d_model // rwkv.rwkv.head_dim,
+                          "hd": rwkv.rwkv.head_dim},
+        "mamba_scan_bwd": {"bt": JAMBA_TRAIN_BATCH, "t": TRAIN_SEQ,
+                           "di": jamba.mamba.expand * jamba.d_model,
+                           "s": jamba.mamba.d_state},
+    }
+
+
+def phase_scan_bwd_parity(seed: int) -> list[dict]:
+    """B9 and B7 at their training shapes, at a ragged T (1000) and at
+    T = 1, from non-zero states with non-zero cotangents, against their
+    plain versions in float32 (atol 2e-4 / rtol 2e-3, the reference's
+    ``*_bwd`` specs); each run twice for the same bits."""
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan.ops import BWD_DEFAULTS as MSB
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv.ops import BWD_DEFAULTS as WKVB
+
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    metas = ssm_train_metas()
+    cases, records = [], []
+
+    def run(name, kernel_fn, plain_fn, t, launch, timed):
+        if timed:
+            got, want, ms, plain_ms = timed_pair(kernel_fn, plain_fn, 5)
+        else:
+            got, want, ms, plain_ms = kernel_fn(), plain_fn(), None, None
+        ok, err = scan_gate(got, want)
+        same = all(torch.equal(a, g) for a, g in zip(kernel_fn(), got))
+        cases.append({"kernel": name, "t": t, "launch": dict(launch),
+                      "ok": ok and same, "deterministic": same,
+                      "max_abs_err": err, **({"ms": ms} if timed else {})})
+        return ok and same, err, ms, plain_ms
+
+    # -- B9: r, k, v ~ N(0, 0.25), w = sigmoid(N + 2), u ~ N(0, 0.01); s0,
+    # dy, ds_T ~ N(0, 1)
+    b, t, h, hd = (metas["rwkv6_wkv_bwd"][k] for k in ("b", "t", "h", "hd"))
+    r, k, v = (randn(b, t, h, hd) * 0.5 for _ in range(3))
+    w = torch.sigmoid(randn(b, t, h, hd) + 2)
+    u = randn(h, hd) * 0.1
+    s0, dy, ds = randn(b, h, hd, hd), randn(b, t, h, hd), randn(b, h, hd, hd)
+    plain_kw = {"chunk": WKVB["chunk"], "span_chunks": WKVB["span_chunks"]}
+    oks, errs = [], []
+    for tt in (t, 1000, 1):
+        args = [m[:, :tt].contiguous() if m.dim() == 4 and m.shape[1] == t
+                else m for m in (r, k, v, w, u, s0, dy, ds)]
+        ok, err, ms_t, plain_t = run(
+            "wkv6_bwd", lambda: wkk.wkv6_bwd(*args, **WKVB),
+            lambda: wkk.wkv6_bwd_plain(*args, **plain_kw), tt, WKVB,
+            tt == t)
+        oks.append(ok)
+        errs.append(err)
+        if tt == t:
+            ms, plain_ms = ms_t, plain_t
+    del r, k, v, w, u, s0, dy, ds, args
+    cell = b * t * h * hd * hd
+    # r, k, v, w, dy read and dr, dk, dv, dw written; u, du; s0, ds_T, ds0
+    n_bytes = 4 * (9 * b * t * h * hd + 2 * h * hd + 3 * b * h * hd * hd)
+    bound_ms, bound_by = roofline_ms(n_bytes, 8 * cell, INSTR_PER_S)
+    records.append({
+        "name": "wkv6_bwd", "ok": all(oks), "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:255",
+        "launches": 0, "max_abs_err": max(errs), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+    torch.cuda.empty_cache()
+
+    # -- B7: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0, dy,
+    # dh_T ~ N
+    bt, t, di, s = (metas["mamba_scan_bwd"][k] for k in ("bt", "t", "di", "s"))
+    x = randn(bt, t, di)
+    dl = randn(bt, t, di).abs() * 0.1
+    a = -(randn(di, s).abs() + 0.5)
+    bm, cm = randn(bt, t, s), randn(bt, t, s)
+    d, h0, dy, dh = randn(di), randn(bt, di, s), randn(bt, t, di), randn(bt, di, s)
+    oks, errs = [], []
+    for tt in (t, 1000, 1):
+        args = [m[:, :tt].contiguous() if m.dim() == 3 and m.shape[1] == t
+                and m is not h0 and m is not dh else m
+                for m in (x, dl, a, bm, cm, d, h0, dy, dh)]
+        ok, err, ms_t, plain_t = run(
+            "selective_scan_bwd",
+            lambda: msk.selective_scan_bwd(*args, **MSB),
+            lambda: msk.selective_scan_bwd_plain(*args, chunk=MSB["chunk"]),
+            tt, MSB, tt == t)
+        oks.append(ok)
+        errs.append(err)
+        if tt == t:
+            ms, plain_ms = ms_t, plain_t
+    del x, dl, a, bm, cm, d, h0, dy, dh, args
+    torch.cuda.empty_cache()
+    cell = bt * t * di * s
+    # x, delta, dy read and dx, ddelta written; B, C and dB, dC; A, dA; D,
+    # dD; h0, dh_T, dh0
+    n_bytes = 4 * (5 * bt * t * di + 4 * bt * t * s + 2 * di * s + 2 * di
+                   + 3 * bt * di * s)
+    by_sfu = roofline_ms(n_bytes, cell, SFU_OPS_PER_S)
+    by_fma = roofline_ms(n_bytes, 8 * cell, INSTR_PER_S)
+    bound_ms, bound_by = max(by_sfu, by_fma)
+    records.append({
+        "name": "selective_scan_bwd", "ok": all(oks), "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba_scan/kernel.py:263",
+        "launches": 0, "max_abs_err": max(errs), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None})
+
+    emit(phase="scan_bwd_parity", gate={"atol": 2e-4, "rtol": 2e-3},
+         shapes=metas, cases=cases,
+         ptxas={name: ptxas_report(name)
+                for name in ("mamba_scan_bwd", "rwkv6_wkv_bwd")},
+         results=[{key: rec[key] for key in ("name", "ok", "max_abs_err",
+                                             "ms", "plain_ms", "bound_ms",
+                                             "bound_by")}
+                  for rec in records])
+    for case in cases:
+        check(case["ok"], f"scan_bwd_parity: {case}")
+    return records
+
+
+def ssm_train_cfg(arch: str, compute_dtype: str):
+    """The training configuration: RWKV-6 1.6B whole; Jamba cut to its
+    first period (``ssm_cfg``) without experts, every channel the dense
+    SwiGLU (its 13.3e9 parameters with experts are 213 GB of training
+    state)."""
+    import dataclasses
+
+    cfg = ssm_cfg(arch)
+    if arch == JAMBA_ARCH:
+        cfg = dataclasses.replace(cfg, moe=None)
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype)
+
+
+def train_plain_patches():
+    """Every kernel of the recurrent training paths, forward and backward,
+    swapped for its plain version where the ops call it."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def plain_wkv_bwd(*args, chunk, span_chunks, **launch):
+        return wkk.wkv6_bwd_plain(*args, chunk=chunk, span_chunks=span_chunks)
+
+    def plain_scan_bwd(*args, chunk, **launch):
+        return msk.selective_scan_bwd_plain(*args, chunk=chunk)
+
+    return plain_patches() + [
+        mock.patch.object(fa_ops, "flash_attention_bwd", plain_attention_bwd),
+        mock.patch.object(wkv_ops, "wkv6_bwd", plain_wkv_bwd),
+        mock.patch.object(ms_ops, "selective_scan_bwd", plain_scan_bwd)]
+
+
+class Plain64(torch.autograd.Function):
+    """``fwd`` of the operands in float64, its gradient by ``bwd`` (a plain
+    backward version) in float64."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *args):
+        args = [a.double().contiguous() for a in args]
+        ctx.save_for_backward(*args)
+        ctx.bwd = bwd
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        grads = ctx.bwd(*ctx.saved_tensors,
+                        *(c.double().contiguous() for c in cts))
+        return (None, None, *grads)
+
+
+def float64_patches():
+    """The recurrences and attention in float64: the scans' plain
+    versions forward and backward, attention by autograd of its
+    materialised softmax."""
+    from functools import partial
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def wkv64(r, k, v, w, u, s0=None, **launch):
+        b, _, h, hd = r.shape
+        if s0 is None:
+            s0 = torch.zeros((b, h, hd, hd), dtype=torch.float64,
+                             device=r.device)
+        return Plain64.apply(wkk.wkv6_fwd_plain,
+                             partial(wkk.wkv6_bwd_plain, chunk=8,
+                                     span_chunks=4), r, k, v, w, u, s0)
+
+    def scan64(x, delta, a, b, c, d, h0=None, **launch):
+        if h0 is None:
+            h0 = torch.zeros((x.shape[0], x.shape[2], a.shape[1]),
+                             dtype=torch.float64, device=x.device)
+        return Plain64.apply(msk.selective_scan_fwd_plain,
+                             partial(msk.selective_scan_bwd_plain, chunk=16),
+                             x, delta, a, b, c, d, h0)
+
+    def attn64(q, k, v, *, causal=True, q_offset=0, **launch):
+        tq, tk, hd = q.shape[1], k.shape[1], q.shape[-1]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) \
+            * hd ** -0.5
+        if causal:
+            qpos = q_offset + torch.arange(tq, device=q.device)
+            kpos = torch.arange(tk, device=q.device)
+            s = s.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                            v.double())
+
+    return [mock.patch.object(wkv_ops, "wkv6", wkv64),
+            mock.patch.object(ms_ops, "selective_scan", scan64),
+            mock.patch.object(fa_ops, "flash_attention", attn64)]
+
+
+def float64_grads(model, batch):
+    """The loss and the gradient with the parameters, the products, the
+    recurrences and attention in float64 (the model's own float32 casts
+    around the scans aside), cast to float32; the model is restored."""
+    import dataclasses
+
+    cfg = model.cfg
+    for p in model.parameters():
+        p.data = p.data.double()
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float64")
+    try:
+        loss, grads = ssm_grads(model, batch, float64_patches())
+        grads = {n: g.float() for n, g in grads.items()}
+    finally:
+        for p in model.parameters():
+            p.data = p.data.float()
+        model.cfg = cfg
+    return loss.float(), grads
+
+
+def wrong_backward_controls() -> dict:
+    """One wrong backward per new kernel: B7 with dB and dC swapped, B9
+    with du dropped; each still runs the kernel."""
+    from unittest import mock
+
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def scan_db_dc_swapped(*args, **launch):
+        dx, ddt, da, db, dc, dd, dh0 = msk.selective_scan_bwd(*args, **launch)
+        return dx, ddt, da, dc, db, dd, dh0
+
+    def wkv_without_du(*args, **launch):
+        dr, dk, dv, dw, du, ds0 = wkk.wkv6_bwd(*args, **launch)
+        return dr, dk, dv, dw, torch.zeros_like(du), ds0
+
+    return {"B7 dB/dC swapped": mock.patch.object(
+                ms_ops, "selective_scan_bwd", scan_db_dc_swapped),
+            "B9 without du": mock.patch.object(
+                wkv_ops, "wkv6_bwd", wkv_without_du)}
+
+
+def ssm_grads(model, batch, patches=()):
+    """One loss-and-gradient pass (each layer recomputed), with
+    ``patches`` entered around it."""
+    import contextlib
+
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch, remat=True)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def rel_l2_leaves(grads, want) -> dict:
+    """Each parameter's gradient against ``want``'s by relative L2."""
+    return {n: float((grads[n].float() - want[n].float()).norm()
+                     / want[n].float().norm().clamp_min(1e-30))
+            for n in grads}
+
+
+def summary(rel: dict) -> dict:
+    """The largest of per-leaf readings, the three worst, the mean."""
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    return {"max": worst[0][1], "worst": worst[:3],
+            "mean": sum(rel.values()) / len(rel)}
+
+
+def rel_l2(grads, want) -> dict:
+    return summary(rel_l2_leaves(grads, want))
+
+
+def leaf_kind(name: str) -> str:
+    """A parameter's name with its layer index left out: the leaves of one
+    parameter in every layer."""
+    return re.sub(r"^layers\.\d+\.", "layers.*.", name)
+
+
+def leaf_gates(plain: dict) -> dict:
+    """Each parameter's gradient gate (``SSM_GRAD_GATE``, or
+    ``GRAD_FLOOR_MARGIN`` times the plain float32 path's largest distance
+    from float64 over the same parameter's leaves where that is larger),
+    keyed by ``leaf_kind``.  One leaf's own reading is a single draw of
+    float32 rounding noise; the same parameter's leaves in every layer
+    are draws of one size."""
+    worst: dict[str, float] = {}
+    for n, e in plain.items():
+        worst[leaf_kind(n)] = max(worst.get(leaf_kind(n), 0.0), e)
+    return {k: max(SSM_GRAD_GATE, GRAD_FLOOR_MARGIN * e)
+            for k, e in worst.items()}
+
+
+def over_gate(rel: dict, gates: dict) -> dict:
+    """The leaves whose reading exceeds their parameter's gate, each with
+    its reading and gate."""
+    return {n: [e, gates[leaf_kind(n)]] for n, e in rel.items()
+            if e > gates[leaf_kind(n)]}
+
+
+def phase_ssm_train_parity(arch: str, seed: int):
+    """One loss-and-gradient pass at full width with the kernels and one
+    with the plain versions patched in, in float32 compute (TF32 off), each
+    held against the float64 gradient (``float64_grads``): the loss within
+    ``SSM_LOSS_GATE`` of the plain versions', and each parameter's gradient
+    within its gate (``leaf_gates``) of the float64 one by relative L2.  A
+    random-weight RWKV-6 computes most of its gradients in float32 only to
+    ~1e-2 whatever the kernels (the plain path too; only the decay's, the
+    head's and the final norm's reach ~1e-4), so for such a parameter the
+    kernels are held to be as close to the float64 gradient as the plain
+    float32 path is over the same parameter's leaves; every other
+    parameter keeps ``SSM_GRAD_GATE``.  bf16 turns one ulp into ~7 %
+    of the largest logit and would swamp any gradient gate; a wrong adjoint
+    moves a gradient by its own size.  Each wrong backward of
+    ``wrong_backward_controls`` runs too, against the same gates, reported
+    beside whether they catch it; the bf16 gaps are reported beside the
+    gates.  Returns the model, float32 parameters, set to bf16 compute for
+    training, and the report, with every leaf's readings under
+    ``leaves``."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ssm_train_cfg(arch, "float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    seq = SSM_PARITY_SEQ[arch]
+    batch = train_batch(cfg, seed, batch=SSM_PARITY_BATCH, seq=seq)
+
+    loss_64, truth = float64_grads(model, batch)
+    torch.cuda.empty_cache()
+    loss_k, grads = ssm_grads(model, batch)
+    finite = bool(torch.isfinite(loss_k)) and all(
+        bool(torch.isfinite(g).all()) for g in grads.values())
+    err_k = rel_l2_leaves(grads, truth)
+    loss_p, grads_p = ssm_grads(model, batch, train_plain_patches())
+    gaps = rel_l2(grads, grads_p)
+    del grads
+    err_p = rel_l2_leaves(grads_p, truth)
+    del grads_p
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    gates = leaf_gates(err_p)
+    failed = over_gate(err_k, gates)
+    # the parameters held to more than SSM_GRAD_GATE: each gate with the
+    # kernels' and the plain path's largest distance over its leaves
+    loosened = {kind: {"gate": g, "kernels_max": max(
+        e for n, e in err_k.items() if leaf_kind(n) == kind),
+        "plain_max": max(e for n, e in err_p.items() if leaf_kind(n) == kind)}
+        for kind, g in sorted(gates.items()) if g > SSM_GRAD_GATE}
+    controls = {}
+    for name, patch in wrong_backward_controls().items():
+        kinds = set(cfg.layer_kinds)
+        if ("B7" in name) != ("mamba" in kinds):
+            continue
+        _, grads_c = ssm_grads(model, batch, [patch])
+        err_c = rel_l2_leaves(grads_c, truth)
+        del grads_c
+        caught = over_gate(err_c, gates)
+        controls[name] = {"grad_rel_l2_max": max(err_c.values()),
+                          "leaves_over_gate": len(caught),
+                          "worst_over_gate": sorted(
+                              caught.items(), key=lambda kv: -kv[1][0])[:1],
+                          "caught": bool(caught)}
+    del truth
+    torch.cuda.empty_cache()
+
+    # bf16 compute, the same weights: reported, not gated
+    model.cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    bl_k, bg_k = ssm_grads(model, batch)
+    bl_p, bg_p = ssm_grads(model, batch, train_plain_patches())
+    bf16 = rel_l2(bg_k, bg_p)
+    del bg_k, bg_p
+    torch.cuda.empty_cache()
+    phase = "rwkv_train_parity" if arch == RWKV_ARCH else "jamba_train_parity"
+    report = dict(
+        phase=phase, arch=arch, seed=seed, n_layers=cfg.n_layers,
+        layer_kinds=list(cfg.layer_kinds), moe=cfg.moe is not None,
+        params=sum(p.numel() for p in model.parameters()), build_s=build_s,
+        batch=SSM_PARITY_BATCH, seq_len=seq, float32={
+            "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+            "loss_float64": float(loss_64), "loss_rel_err": loss_rel,
+            "loss_gate": SSM_LOSS_GATE,
+            "kernels_vs_float64": summary(err_k),
+            "plain_vs_float64": summary(err_p),
+            "kernels_vs_plain": gaps, "grad_gate": SSM_GRAD_GATE,
+            "grad_gates_above": loosened, "leaves_over_gate": failed},
+        bf16={"loss_kernels": float(bl_k), "loss_plain": float(bl_p),
+              "loss_rel_err": float((bl_k - bl_p).abs() / bl_p.abs()),
+              "grad_rel_l2_max": bf16["max"],
+              "grad_rel_l2_worst": bf16["worst"],
+              "grad_rel_l2_mean": bf16["mean"]},
+        controls=controls)
+    emit(**report)
+    report["leaves"] = {"kernels_vs_float64": err_k, "plain_vs_float64": err_p}
+    check(finite, f"{phase}: non-finite loss or gradient")
+    check(loss_rel <= SSM_LOSS_GATE,
+          f"{phase}: loss {float(loss_k)} vs {float(loss_p)}")
+    check(not failed, f"{phase}: gradients over their gates: {failed}")
+    check(controls and all(c["caught"] for c in controls.values()),
+          f"{phase}: a wrong backward passed the gate: {controls}")
+    return model, report
+
+
+def phase_ssm_train(model, seed: int, store_path: Path, tunes: dict) -> dict:
+    """One recurrent training path: ``train_loop`` takes TRAIN_STEPS steps
+    with the tuned store configured; its launch counters go to 0 just
+    before and are read just after, and must be exact (remat runs each
+    forward twice, each backward once).  The store must serve the backward
+    kernels' tuned parameters with no new measurement."""
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.tune import kernels as ktune
+
+    cfg = model.cfg
+    arch = RWKV_ARCH if "rwkv" in cfg.layer_kinds else JAMBA_ARCH
+    batch = RWKV_TRAIN_BATCH if arch == RWKV_ARCH else JAMBA_TRAIN_BATCH
+    check(cfg.compute_dtype == "bfloat16" and cfg.param_dtype == "float32",
+          f"{arch}: trains {cfg.param_dtype} in {cfg.compute_dtype}")
+    ktune.configure(store_path)
+    measured = {name: tuned.timer.n_measured for name, tuned in tunes.items()}
+    resolved = {name: ktune.resolve_config(name, meta, "float32",
+                                           device="cuda")
+                for name, meta in ssm_train_metas().items()}
+    for name in resolved:
+        check(resolved[name] == tunes[name].best_config,
+              f"{arch}: {name} resolved {resolved[name]}")
+
+    fns = {"wkv6_fwd": wkk.wkv6_fwd, "wkv6_bwd": wkk.wkv6_bwd,
+           "selective_scan_fwd": msk.selective_scan_fwd,
+           "selective_scan_bwd": msk.selective_scan_bwd,
+           "flash_attention_fwd": fak.flash_attention_fwd,
+           "flash_attention_bwd": fak.flash_attention_bwd}
+    programs = {"wkv6_bwd": ("spans", "sweep"),
+                "selective_scan_bwd": ("spans", "sweep"),
+                "flash_attention_bwd": ("dq", "dkv")}
+    for name, fn in fns.items():
+        fn.launches = 0
+        if name in programs:
+            fn.program_launches = {p: 0 for p in programs[name]}
+    torch.cuda.reset_peak_memory_stats()
+    out = train_loop(cfg, steps_total=TRAIN_STEPS, batch=batch,
+                     seq_len=TRAIN_SEQ, seed=seed, remat=True, log_every=0,
+                     model=model)
+    launches = {}
+    for name, fn in fns.items():
+        launches[name] = fn.launches
+        for prog in programs.get(name, ()):
+            launches[f"{name}_{prog}"] = fn.program_launches[prog]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    kinds = cfg.layer_kinds
+    n = {kind: kinds.count(kind) * TRAIN_STEPS
+         for kind in ("rwkv", "mamba", "attn")}
+    want = {"wkv6_fwd": 2 * n["rwkv"], "wkv6_bwd": n["rwkv"],
+            "selective_scan_fwd": 2 * n["mamba"],
+            "selective_scan_bwd": n["mamba"],
+            "flash_attention_fwd": 2 * n["attn"],
+            "flash_attention_bwd": n["attn"]}
+    for name, progs in programs.items():
+        for prog in progs:
+            want[f"{name}_{prog}"] = want[name]
+    losses, step_seconds = out["losses"], out["step_seconds"]
+    warm = sorted(step_seconds[1:])
+    warm_s = warm[len(warm) // 2]
+
+    # one more warm step, outside the counted run, under the profiler
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 20, TRAIN_STEPS))
+    step_batch = train_batch(cfg, seed, TRAIN_STEPS, batch=batch)
+    split = device_split(lambda: train_step(model, out["state"]["opt"],
+                                            step_batch, opt_cfg, remat=True))
+    unmeasured = all(tuned.timer.n_measured == measured[name]
+                     for name, tuned in tunes.items())
+    ktune.disable()
+    del out
+    phase = "rwkv_train" if arch == RWKV_ARCH else "jamba_train"
+    emit(phase=phase, ok=True, arch=arch, n_layers=cfg.n_layers,
+         layer_kinds=list(kinds), moe=cfg.moe is not None,
+         params=cfg.param_count(), batch=batch, seq_len=TRAIN_SEQ,
+         steps=TRAIN_STEPS, remat=True, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, losses=losses,
+         ln_vocab=math.log(cfg.vocab_size), step_seconds=step_seconds,
+         warm_step_s=warm_s, tokens_per_s=batch * TRAIN_SEQ / warm_s,
+         resolved=resolved, launches=launches, peak_gib=peak_gib,
+         profiled_step=split)
+    check(launches == want, f"{phase}: launches {launches}, want {want}")
+    check(unmeasured, f"{phase}: the training path measured new "
+                      "configurations")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          f"{phase}: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"{phase}: first loss {losses[0]}, ln V {math.log(cfg.vocab_size)}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -1587,7 +2191,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_restart(args.seed)
 
-    # the recurrent serving paths
+    # the recurrent serving paths, then their training paths on the same
+    # store (RWKV-6 trains at the serving shape, where B8 is tuned)
     scans = phase_scan_parity(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssm_") as tmp:
         store_path = Path(tmp) / "kernels.json"
@@ -1599,28 +2204,46 @@ def main() -> int:
         torch.cuda.empty_cache()
         model, generated, jamba_launches = phase_ssm_serve(
             JAMBA_ARCH, args.seed, store_path, tunes)
-    phase_ssm_parity(model, generated, args.seed)
-    del model
-    torch.cuda.empty_cache()
+        phase_ssm_parity(model, generated, args.seed)
+        del model
+        torch.cuda.empty_cache()
 
-    records += attention + [backward] + scans
+        bwd_scans = phase_scan_bwd_parity(args.seed)
+        tunes.update(phase_ssm_tune(args.seed, store_path, ssm_train_metas(),
+                                    phase="ssm_bwd_tune"))
+        train_runs = {}
+        for arch in (RWKV_ARCH, JAMBA_ARCH):
+            model, _ = phase_ssm_train_parity(arch, args.seed)
+            train_runs[arch] = phase_ssm_train(model, args.seed, store_path,
+                                               tunes)
+            del model
+            torch.cuda.empty_cache()
+    rwkv_train, jamba_train = train_runs[RWKV_ARCH], train_runs[JAMBA_ARCH]
+
+    records += attention + [backward] + scans + bwd_scans
     by_path = {
+        "dna_state_map": {"dna_serve": launches["dna_state_map"]},
+        "dna_count_hits": {"dna_serve": launches["dna_count_hits"]},
         "flash_attention_fwd": {
             "lm_serve": launches["flash_attention_fwd"],
             "lm_train": train_launches["flash_attention_fwd"],
-            "jamba_serve": jamba_launches["flash_attention_fwd"]},
+            "jamba_serve": jamba_launches["flash_attention_fwd"],
+            "jamba_train": jamba_train["flash_attention_fwd"]},
+        "flash_attention_bwd": {
+            "lm_train": train_launches["flash_attention_bwd"],
+            "jamba_train": jamba_train["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "jamba_serve": jamba_launches["decode_attention"]},
-        "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"]},
+        "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
+                     "rwkv_train": rwkv_train["wkv6_fwd"]},
+        "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"]},
         "selective_scan_fwd": {
-            "jamba_serve": jamba_launches["selective_scan_fwd"]}}
-    launches["flash_attention_fwd"] += (train_launches["flash_attention_fwd"]
-                                        + jamba_launches["flash_attention_fwd"])
-    launches["decode_attention"] += jamba_launches["decode_attention"]
-    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
-    launches["wkv6_fwd"] = rwkv_launches["wkv6_fwd"]
-    launches["selective_scan_fwd"] = jamba_launches["selective_scan_fwd"]
+            "jamba_serve": jamba_launches["selective_scan_fwd"],
+            "jamba_train": jamba_train["selective_scan_fwd"]},
+        "selective_scan_bwd": {"jamba_train": jamba_train["selective_scan_bwd"]}}
+    launches.update({name: sum(paths.values())
+                     for name, paths in by_path.items()})
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["name"] in by_path:

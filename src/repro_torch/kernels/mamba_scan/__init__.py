@@ -1,7 +1,9 @@
 """The Mamba-1 selective scan (Jamba's state-space layers)."""
 
-from .kernel import selective_scan_fwd, selective_scan_fwd_plain
-from .ops import DEFAULTS, selective_scan
+from .kernel import (selective_scan_bwd, selective_scan_bwd_plain,
+                     selective_scan_fwd, selective_scan_fwd_plain)
+from .ops import BWD_DEFAULTS, DEFAULTS, SelectiveScan, selective_scan
 
-__all__ = ["DEFAULTS", "selective_scan", "selective_scan_fwd",
-           "selective_scan_fwd_plain"]
+__all__ = ["BWD_DEFAULTS", "DEFAULTS", "SelectiveScan", "selective_scan",
+           "selective_scan_bwd", "selective_scan_bwd_plain",
+           "selective_scan_fwd", "selective_scan_fwd_plain"]

@@ -22,6 +22,17 @@ plain PyTorch version (``selective_scan_fwd_plain``, which computes the
 same form with the state as a Python loop's carry and never holds a
 (B, T, dI, S) tensor) only for tensors on the CPU.  Launches are counted in
 ``selective_scan_fwd.launches``.
+
+``selective_scan_bwd`` replaces the Pallas backward ``selective_scan_bwd``
+(the spans pre-pass and the reverse sweep).  Its kernel is CUDA C++ in
+``kernels/csrc/mamba_scan_bwd.cu``, two programs: ``spans`` stores the state
+entering every span of ``chunk`` tokens, ``sweep`` walks the spans last to
+first, recomputing each span's states and stepping the state adjoint back
+through it, with ``split`` threads per channel.  The reduced operands (A,
+B, C, D) come back as partials that the wrapper sums, as the reference
+does.  ``selective_scan_bwd_plain`` computes the same scheme in PyTorch.
+Launches are counted in ``selective_scan_bwd.launches`` (calls) and
+``selective_scan_bwd.program_launches`` (each program).
 """
 
 from __future__ import annotations
@@ -33,13 +44,16 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["MAX_THREADS", "STATE_SIZES", "selective_scan_fwd",
-           "selective_scan_fwd_plain", "smem_bytes", "threads"]
+__all__ = ["MAX_THREADS", "STATE_SIZES", "bwd_splits", "selective_scan_bwd",
+           "selective_scan_bwd_plain", "selective_scan_fwd",
+           "selective_scan_fwd_plain", "smem_bytes", "smem_bytes_bwd",
+           "threads"]
 
 MAX_THREADS = 512
 STATE_SIZES = (4, 8, 16)          # the kernel's templates
 
 _lib: ctypes.CDLL | None = None
+_lib_bwd: ctypes.CDLL | None = None
 
 
 def _library() -> ctypes.CDLL:
@@ -53,6 +67,21 @@ def _library() -> ctypes.CDLL:
         lib.mamba_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _library_bwd() -> ctypes.CDLL:
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load_library("mamba_scan_bwd")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mamba_scan_bwd_spans.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+        lib.mamba_scan_bwd_spans.restype = ctypes.c_int
+        lib.mamba_scan_bwd_sweep.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
+        lib.mamba_scan_bwd_sweep.restype = ctypes.c_int
+        lib.mamba_scan_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.mamba_scan_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
 
 
 def smem_bytes(s: int, block_d: int, chunk: int, lanes: int) -> int:
@@ -198,3 +227,139 @@ def selective_scan_fwd(x, delta, a, b, c, d, h0, *, block_d: int = 128,
 
 
 selective_scan_fwd.launches = 0
+
+
+# -- backward ---------------------------------------------------------------------
+
+def bwd_splits(s: int) -> tuple[int, ...]:
+    """Threads per channel the backward kernel is built for at state size
+    ``s``: the powers of two that divide it."""
+    return tuple(p for p in (1, 2, 4, 8, 16) if p <= s and s % p == 0)
+
+
+def smem_bytes_bwd(s: int, block_d: int, chunk: int, split: int) -> int:
+    """Shared memory one block of the backward sweep asks for (the kernel's
+    ``sweep_smem_floats``): every token's h_{t-1} of a span, B_t and C_t,
+    and the warps' dB/dC partials."""
+    warps = block_d * split // 32
+    return 4 * (chunk * s * block_d + 2 * chunk * s + warps * chunk * 2 * s)
+
+
+def _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d: int, chunk: int,
+               split: int) -> None:
+    _check(x, delta, a, b, c, d, h0, block_d, 1, 0)
+    for name, t, like in (("dy", dy, x), ("dh_t", dh_t, h0)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
+                or t.shape != like.shape or t.device != x.device:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    s = a.shape[1]
+    if split not in bwd_splits(s):
+        raise ValueError(f"split={split} not in {bwd_splits(s)} for S={s}")
+    if block_d * split > MAX_THREADS:
+        raise ValueError(f"block_d={block_d}, split={split}: "
+                         f"{block_d * split} threads (limit {MAX_THREADS})")
+    need = smem_bytes_bwd(s, block_d, chunk, split)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"backward: block_d={block_d}, chunk={chunk}, "
+                         f"split={split} need {need} bytes of shared memory "
+                         f"(limit {SMEM_LIMIT_BYTES})")
+
+
+def selective_scan_bwd_plain(x, delta, a, b, c, d, h0, dy, dh_t, *,
+                             chunk: int = 16):
+    """Plain version of :func:`selective_scan_bwd`: the same scheme (span
+    entry states, each span's states recomputed, the reverse recurrence) in
+    float32, with the (B, dI, S) state as a Python loop's carry."""
+    bt, t, di = x.shape
+    starts = []
+    h = h0
+    for i in range(t):                                 # the spans pre-pass
+        if i % chunk == 0:
+            starts.append(h)
+        h = (torch.exp(delta[:, i, :, None] * a) * h
+             + (delta[:, i] * x[:, i])[..., None] * b[:, i, None, :])
+    g = dh_t.clone()
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(h0)
+    dd = torch.zeros_like(x[:, 0])
+    for j in reversed(range(len(starts))):
+        t0, t1 = j * chunk, min((j + 1) * chunk, t)
+        h = starts[j]
+        hs = []
+        for i in range(t0, t1):                        # the span's states
+            hs.append(h)
+            h = (torch.exp(delta[:, i, :, None] * a) * h
+                 + (delta[:, i] * x[:, i])[..., None] * b[:, i, None, :])
+        for i in reversed(range(t0, t1)):
+            hp, dt, xv, dyv = hs[i - t0], delta[:, i], x[:, i], dy[:, i]
+            ea = torch.exp(dt[..., None] * a)
+            ht = ea * hp + (dt * xv)[..., None] * b[:, i, None, :]
+            g = g + dyv[..., None] * c[:, i, None, :]
+            dc[:, i] = torch.einsum("bds,bd->bs", ht, dyv)
+            db[:, i] = torch.einsum("bds,bd->bs", g, dt * xv)
+            dd += dyv * xv
+            dx[:, i] = d * dyv + dt * torch.einsum("bds,bs->bd", g, b[:, i])
+            q = g * ea * hp
+            ddt[:, i] = (q * a).sum(-1) + xv * torch.einsum("bds,bs->bd", g,
+                                                            b[:, i])
+            da += q * dt[..., None]
+            g = g * ea
+    return dx, ddt, da.sum(0), db, dc, dd.sum(0), g
+
+
+def selective_scan_bwd(x, delta, a, b, c, d, h0, dy, dh_t, *,
+                       block_d: int = 128, chunk: int = 16, split: int = 4):
+    """Gradients of ``(y, h_T) = selective_scan_fwd(x, delta, a, b, c, d,
+    h0)`` for the cotangents ``dy`` (B, T, dI) and ``dh_t`` (B, dI, S), all
+    float32: returns (dx, ddelta, dA, dB, dC, dD, dh0) in the operands'
+    shapes.  Every element is written by one thread and the partials are
+    summed here, so the same inputs give the same bits."""
+    block_d, chunk, split = int(block_d), int(chunk), int(split)
+    _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d, chunk, split)
+    if x.device.type == "cpu":
+        return selective_scan_bwd_plain(x, delta, a, b, c, d, h0, dy, dh_t,
+                                        chunk=chunk)
+    bt, t, di = x.shape
+    s = a.shape[1]
+    n_spans = -(-t // chunk)
+    n_db = -(-di // block_d)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hs = torch.empty((bt, n_spans, di, s), **f32)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    da = torch.empty((bt, di, s), **f32)
+    db = torch.empty((n_db, bt, t, s), **f32)
+    dc = torch.empty((n_db, bt, t, s), **f32)
+    dd = torch.empty((bt, di), **f32)
+    dh0 = torch.empty_like(h0)
+    lib = _library_bwd()
+    tail = (bt, t, di, s, block_d, chunk, split)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for prog in ("spans", "sweep"):
+            if prog == "spans":
+                rc = lib.mamba_scan_bwd_spans(
+                    x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
+                    h0.data_ptr(), hs.data_ptr(), *tail, stream)
+            else:
+                rc = lib.mamba_scan_bwd_sweep(
+                    x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
+                    c.data_ptr(), d.data_ptr(), hs.data_ptr(), dy.data_ptr(),
+                    dh_t.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                    da.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
+                    dh0.data_ptr(), *tail, stream)
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"mamba_scan_bwd {prog} (block_d={block_d}, chunk={chunk}, "
+                    f"split={split}): launch refused ({rc}: "
+                    f"{lib.mamba_scan_bwd_error_string(rc).decode()})")
+            selective_scan_bwd.program_launches[prog] += 1
+    selective_scan_bwd.launches += 1
+    return dx, ddt, da.sum(0), db.sum(0), dc.sum(0), dd.sum(0), dh0
+
+
+selective_scan_bwd.launches = 0
+selective_scan_bwd.program_launches = {"spans": 0, "sweep": 0}

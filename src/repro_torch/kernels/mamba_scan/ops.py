@@ -1,11 +1,20 @@
 """Public wrapper: the Mamba-1 selective scan, ``(y, h_T) = selective_scan(...)``.
 
-Launch parameters (``block_d``/``chunk``/``lanes``) resolve defaults <
-tuned store (``tuned=``, see ``repro_torch.tune.kernels``) < explicit
-overrides, under the reference's meta keys ``{bt, t, di, s}``.  Every
-operand is cast to float32, as the reference's ``ops.selective_scan`` casts
-them.  The backward kernel (the reference's ``selective_scan_bwd``) is not
-ported yet, so the result carries no gradient.
+Launch parameters resolve defaults < tuned store (``tuned=``, see
+``repro_torch.tune.kernels``) < explicit overrides, under the reference's
+meta keys ``{bt, t, di, s}``: the forward's (``block_d``/``chunk``/``lanes``)
+as ``mamba_scan``, the backward's (``block_d``/``chunk``/``split``) as
+``mamba_scan_bwd``, from its defaults and the tuned store only (the
+backward kernel's own keywords force a configuration).  Every operand is
+cast to float32, as the reference's ``ops.selective_scan`` casts them.
+
+Differentiable, as the reference's ``jax.custom_vjp`` is: when autograd
+records (grad mode on and an operand requiring grad), the call goes through
+``SelectiveScan``, a ``torch.autograd.Function`` whose forward runs the
+forward kernel and saves the operands ``(x, delta, a, b, c, d, h0)`` (the
+reference's residuals) and whose backward runs the backward kernel
+(``selective_scan_bwd``), which recomputes the states from them and returns
+a gradient for every operand, ``h0`` included.
 """
 
 from __future__ import annotations
@@ -13,26 +22,57 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import selective_scan_fwd
+from .kernel import selective_scan_bwd, selective_scan_fwd
 
 # the serial program, 128 channels a block
 DEFAULTS = {"block_d": 128, "chunk": 64, "lanes": 0}
+# 64 channels a block, eight threads a channel (512 threads), spans of 16
+# tokens (their states take 64 KB of shared memory at S 16): the fastest of
+# five points tried on the H100 at the Jamba training shape; a state of
+# S < 8 takes S threads a channel (``bwd_defaults``)
+BWD_DEFAULTS = {"block_d": 64, "chunk": 16, "split": 8}
+
+
+def bwd_defaults(s: int) -> dict:
+    """``BWD_DEFAULTS`` at state size ``s``: at most ``s`` threads a
+    channel, a power of two that divides every state size the kernel is
+    built for."""
+    return {**BWD_DEFAULTS, "split": min(BWD_DEFAULTS["split"], s)}
+
+
+class SelectiveScan(torch.autograd.Function):
+    """(y, h_T) through the forward kernel; the gradients of both through
+    the backward kernel, from the saved operands."""
+
+    @staticmethod
+    def forward(ctx, x, delta, a, b, c, d, h0, fwd: dict, bwd: dict):
+        y, h_t = selective_scan_fwd(x, delta, a, b, c, d, h0, **fwd)
+        ctx.save_for_backward(x, delta, a, b, c, d, h0)
+        ctx.bwd = bwd
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        grads = selective_scan_bwd(*ctx.saved_tensors, dy.contiguous(),
+                                   dh_t.contiguous(), **ctx.bwd)
+        return (*grads, None, None)
 
 
 def selective_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
                    h0: torch.Tensor | None = None, *,
                    block_d: int | None = None, chunk: int | None = None,
-                   lanes: int | None = None, tuned: bool | None = None
+                   lanes: int | None = None,
+                   tuned: bool | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """x, delta: (B, T, dI); a: (dI, S); b, c: (B, T, S); d: (dI,); h0:
     (B, dI, S) or None (zeros).  Returns (y (B, T, dI), h_T (B, dI, S)),
     float32.
 
-    ``tuned=True`` resolves the cached best launch parameters for this
-    (shape, dtype, device) with zero measurements; ``tuned=None`` does so
-    only when tuning was enabled globally
-    (``repro_torch.tune.kernels.configure``).
+    ``tuned=True`` resolves the cached best launch parameters, forward and
+    backward independently, for this (shape, dtype, device) with zero
+    measurements; ``tuned=None`` does so only when tuning was enabled
+    globally (``repro_torch.tune.kernels.configure``).
     """
     bt, t, di = x.shape
     s = a.shape[1]
@@ -47,6 +87,10 @@ def selective_scan(x: torch.Tensor, delta: torch.Tensor, a: torch.Tensor,
     def f32(m: torch.Tensor) -> torch.Tensor:
         return m.to(torch.float32).contiguous()
 
-    return selective_scan_fwd(f32(x), f32(delta), f32(a), f32(b), f32(c),
-                              f32(d), f32(h0), block_d=p["block_d"],
-                              chunk=p["chunk"], lanes=p["lanes"])
+    args = (f32(x), f32(delta), f32(a), f32(b), f32(c), f32(d), f32(h0))
+    if torch.is_grad_enabled() and any(m.requires_grad for m in args):
+        pb = resolve_launch_params(
+            "mamba_scan_bwd", meta, torch.float32, defaults=bwd_defaults(s),
+            tuned=tuned, device=x.device)
+        return SelectiveScan.apply(*args, p, pb)
+    return selective_scan_fwd(*args, **p)

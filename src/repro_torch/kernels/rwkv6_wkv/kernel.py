@@ -23,6 +23,18 @@ The wrapper launches the kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version (``wkv6_fwd_plain``, which computes the same form,
 serial or matrix, with the state as a Python loop's carry) only for
 tensors on the CPU.  Launches are counted in ``wkv6_fwd.launches``.
+
+``wkv6_bwd`` replaces the Pallas backward ``wkv6_bwd`` (the spans pre-pass
+and the reverse sweep).  Its kernel is CUDA C++ in
+``kernels/csrc/rwkv6_wkv_bwd.cu``, two programs: ``spans`` stores the state
+entering every span of ``span_chunks * chunk`` tokens, ``sweep`` walks the
+spans, and each span's chunks, last to first, recomputing the chunk's
+states and stepping the state adjoint back through it; a thread holds
+``hd / split`` columns of one row of the state and of its adjoint.  ``du``
+comes back as per-batch partials that the wrapper sums.
+``wkv6_bwd_plain`` computes the same scheme in PyTorch.  Launches are
+counted in ``wkv6_bwd.launches`` (calls) and ``wkv6_bwd.program_launches``
+(each program).
 """
 
 from __future__ import annotations
@@ -34,9 +46,10 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["MATRIX_MAX_CHUNK", "MATRIX_MAX_THREADS", "SERIAL_MAX_THREADS",
-           "SERIAL_ROWS", "serial_split", "smem_bytes", "wkv6_fwd",
-           "wkv6_fwd_plain"]
+__all__ = ["BWD_HEAD_SPLITS", "BWD_MAX_THREADS", "MATRIX_MAX_CHUNK",
+           "MATRIX_MAX_THREADS", "SERIAL_MAX_THREADS", "SERIAL_ROWS",
+           "serial_split", "smem_bytes", "smem_bytes_bwd", "wkv6_bwd",
+           "wkv6_bwd_plain", "wkv6_fwd", "wkv6_fwd_plain"]
 
 SERIAL_MAX_THREADS = 512
 MATRIX_MAX_THREADS = 1024
@@ -46,7 +59,14 @@ SERIAL_ROWS = (4, 8, 16, 32, 64)
 # decays: the reference's cap on matrix-form chunks
 MATRIX_MAX_CHUNK = 64
 
+# the backward kernel's builds: head size -> threads per row (a warp must
+# not span two heads, so hd * split is a multiple of 32)
+BWD_HEAD_SPLITS = {16: (2, 4, 8, 16), 32: (1, 2, 4, 8, 16, 32),
+                   64: (1, 2, 4, 8, 16, 32)}
+BWD_MAX_THREADS = 512
+
 _lib: ctypes.CDLL | None = None
+_lib_bwd: ctypes.CDLL | None = None
 
 
 def _library() -> ctypes.CDLL:
@@ -60,6 +80,21 @@ def _library() -> ctypes.CDLL:
         lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _library_bwd() -> ctypes.CDLL:
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load_library("rwkv6_wkv_bwd")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.rwkv6_wkv_bwd_spans.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        lib.rwkv6_wkv_bwd_spans.restype = ctypes.c_int
+        lib.rwkv6_wkv_bwd_sweep.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
+        lib.rwkv6_wkv_bwd_sweep.restype = ctypes.c_int
+        lib.rwkv6_wkv_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
 
 
 def smem_bytes(chunk: int, lanes: int, block_h: int, hd: int) -> int:
@@ -86,8 +121,7 @@ def serial_split(hd: int, block_h: int, block_threads: int) -> int | None:
     return split
 
 
-def _check(r, k, v, w, u, s0, chunk: int, lanes: int, block_h: int,
-           block_threads: int) -> None:
+def _check_operands(r, k, v, w, u, s0) -> None:
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
                     ("s0", s0)):
         if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
@@ -108,6 +142,12 @@ def _check(r, k, v, w, u, s0, chunk: int, lanes: int, block_h: int,
     if s0.shape != (b, h, hd, hd):
         raise ValueError(f"s0 must be (B, H, hd, hd) = ({b}, {h}, {hd}, "
                          f"{hd}), got {tuple(s0.shape)}")
+
+
+def _check(r, k, v, w, u, s0, chunk: int, lanes: int, block_h: int,
+           block_threads: int) -> None:
+    _check_operands(r, k, v, w, u, s0)
+    h, hd = r.shape[2], r.shape[3]
     if chunk < 1 or block_h < 1 or h % block_h:
         raise ValueError(f"chunk={chunk} must be positive and block_h="
                          f"{block_h} must divide H={h}")
@@ -210,3 +250,139 @@ def wkv6_fwd(r, k, v, w, u, s0, *, chunk: int = 64, lanes: int = 0,
 
 
 wkv6_fwd.launches = 0
+
+
+# -- backward ---------------------------------------------------------------------
+
+def smem_bytes_bwd(chunk: int, block_h: int, hd: int, split: int) -> int:
+    """Shared memory one block of the backward sweep asks for (the kernel's
+    ``sweep_smem_floats``): every token's state of a chunk, the chunk's r,
+    k, v, w, dy, two per-token sums, u, and the warps' dv partials."""
+    warps = block_h * hd * split // 32
+    return 4 * (chunk * block_h * hd * hd + 5 * chunk * block_h * hd
+                + 2 * chunk * block_h + block_h * hd + warps * chunk * hd)
+
+
+def _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk: int, span_chunks: int,
+               block_h: int, split: int) -> None:
+    _check_operands(r, k, v, w, u, s0)
+    for name, x, like in (("dy", dy, r), ("ds_t", ds_t, s0)):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
+                or x.shape != like.shape or x.device != r.device:
+            raise ValueError(f"{name} must be float32 {tuple(like.shape)} on "
+                             f"{r.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    h, hd = r.shape[2], r.shape[3]
+    if chunk < 1 or span_chunks < 1 or block_h < 1 or h % block_h:
+        raise ValueError(f"chunk={chunk} and span_chunks={span_chunks} must "
+                         f"be positive and block_h={block_h} divide H={h}")
+    if split not in BWD_HEAD_SPLITS.get(hd, ()):
+        raise ValueError(f"backward: split={split} not built for hd={hd} "
+                         f"({BWD_HEAD_SPLITS.get(hd, ())})")
+    if block_h * hd * split > BWD_MAX_THREADS:
+        raise ValueError(f"backward: block_h={block_h}, split={split}: "
+                         f"{block_h * hd * split} threads (limit "
+                         f"{BWD_MAX_THREADS})")
+    need = smem_bytes_bwd(chunk, block_h, hd, split)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"backward: chunk={chunk}, block_h={block_h}, "
+                         f"split={split} need {need} bytes of shared memory "
+                         f"(limit {SMEM_LIMIT_BYTES})")
+
+
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 8,
+                   span_chunks: int = 4):
+    """Plain version of :func:`wkv6_bwd`: the same scheme (span entry
+    states, each chunk's states recomputed from its span's, the reverse
+    recurrence) in float32, with the (B, H, hd, hd) state as a Python
+    loop's carry."""
+    t = r.shape[1]
+    span = chunk * span_chunks
+
+    def step(s, i):
+        return w[:, i, ..., None] * s + k[:, i, ..., None] * v[:, i, :, None, :]
+
+    starts = []
+    s = s0
+    for i in range(t):                                 # the spans pre-pass
+        if i % span == 0:
+            starts.append(s)
+        s = step(s, i)
+    g = ds_t.clone()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(r[:, 0])
+    for j in reversed(range(len(starts))):
+        for t0 in reversed(range(j * span, min((j + 1) * span, t), chunk)):
+            s = starts[j]
+            for i in range(j * span, t0):              # the chunk's entry
+                s = step(s, i)
+            ss = []
+            for i in range(t0, min(t0 + chunk, t)):    # the chunk's states
+                ss.append(s)
+                s = step(s, i)
+            for i in reversed(range(t0, min(t0 + chunk, t))):
+                sp = ss[i - t0]
+                r_t, k_t, v_t, w_t, dy_t = (m[:, i] for m in (r, k, v, w, dy))
+                vdy = (v_t * dy_t).sum(-1, keepdim=True)
+                dr[:, i] = torch.einsum("bhij,bhj->bhi", sp, dy_t) \
+                    + u * k_t * vdy
+                du += r_t * k_t * vdy
+                dk[:, i] = u * r_t * vdy + torch.einsum("bhij,bhj->bhi", g, v_t)
+                dv[:, i] = torch.einsum("bhij,bhi->bhj", g, k_t) \
+                    + (u * r_t * k_t).sum(-1, keepdim=True) * dy_t
+                dw[:, i] = (g * sp).sum(-1)
+                g = w_t[..., None] * g + r_t[..., None] * dy_t[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), g
+
+
+def wkv6_bwd(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 8,
+             span_chunks: int = 4, block_h: int = 1, split: int = 4):
+    """Gradients of ``(y, s_T) = wkv6_fwd(r, k, v, w, u, s0)`` for the
+    cotangents ``dy`` (B, T, H, hd) and ``ds_t`` (B, H, hd, hd), all float32:
+    returns (dr, dk, dv, dw, du, ds0) in the operands' shapes.  Every element
+    is written by one thread and ``du``'s partials are summed here, so the
+    same inputs give the same bits."""
+    chunk, span_chunks = int(chunk), int(span_chunks)
+    block_h, split = int(block_h), int(split)
+    _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk, span_chunks, block_h,
+               split)
+    if r.device.type == "cpu":
+        return wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, chunk=chunk,
+                              span_chunks=span_chunks)
+    b, t, h, hd = r.shape
+    n_spans = -(-t // (chunk * span_chunks))
+    ss = torch.empty((b, n_spans, h, hd, hd), dtype=torch.float32,
+                     device=r.device)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty_like(s0)
+    lib = _library_bwd()
+    tail = (b, t, h, hd, chunk, span_chunks, block_h, split)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for prog in ("spans", "sweep"):
+            if prog == "spans":
+                rc = lib.rwkv6_wkv_bwd_spans(
+                    k.data_ptr(), v.data_ptr(), w.data_ptr(), s0.data_ptr(),
+                    ss.data_ptr(), *tail, stream)
+            else:
+                rc = lib.rwkv6_wkv_bwd_sweep(
+                    r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), ss.data_ptr(), dy.data_ptr(),
+                    ds_t.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+                    ds0.data_ptr(), *tail, stream)
+            if rc != 0:
+                raise KernelLaunchError(
+                    f"rwkv6_wkv_bwd {prog} (chunk={chunk}, span_chunks="
+                    f"{span_chunks}, block_h={block_h}, split={split}): launch "
+                    f"refused ({rc}: "
+                    f"{lib.rwkv6_wkv_bwd_error_string(rc).decode()})")
+            wkv6_bwd.program_launches[prog] += 1
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dw, du.sum(0), ds0
+
+
+wkv6_bwd.launches = 0
+wkv6_bwd.program_launches = {"spans": 0, "sweep": 0}

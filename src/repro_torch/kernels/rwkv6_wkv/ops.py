@@ -1,11 +1,21 @@
 """Public wrapper: the RWKV-6 wkv recurrence, ``(y, s_T) = wkv6(...)``.
 
-Launch parameters (``chunk``/``lanes``/``block_h``/``block_threads``)
-resolve defaults < tuned store (``tuned=``, see
+Launch parameters resolve defaults < tuned store (``tuned=``, see
 ``repro_torch.tune.kernels``) < explicit overrides, under the reference's
-meta keys ``{b, t, h, hd}``.  Every operand is cast to float32, as the
-reference's ``ops.wkv6`` casts them.  The backward kernel (the reference's
-``wkv6_bwd``) is not ported yet, so the result carries no gradient.
+meta keys ``{b, t, h, hd}``: the forward's
+(``chunk``/``lanes``/``block_h``/``block_threads``) as ``rwkv6_wkv``, the
+backward's (``chunk``/``span_chunks``/``block_h``/``split``) as
+``rwkv6_wkv_bwd``, from its defaults and the tuned store only (the backward
+kernel's own keywords force a configuration).  Every operand is cast to
+float32, as the reference's ``ops.wkv6`` casts them.
+
+Differentiable, as the reference's ``jax.custom_vjp`` is: when autograd
+records (grad mode on and an operand requiring grad), the call goes through
+``Wkv6``, a ``torch.autograd.Function`` whose forward runs the forward
+kernel and saves the operands ``(r, k, v, w, u, s0)`` (the reference's
+residuals) and whose backward runs the backward kernel (``wkv6_bwd``), which
+recomputes the states from them and returns a gradient for every operand,
+``s0`` included.
 """
 
 from __future__ import annotations
@@ -13,12 +23,16 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import serial_split, wkv6_fwd
+from .kernel import serial_split, wkv6_bwd, wkv6_fwd
 
 # the serial program, four threads per state column of one head at hd 64:
 # 256 threads a block (one thread a column, 64 threads, takes ~4x as long
 # on the H100 at the RWKV-6 prefill shape)
 DEFAULTS = {"chunk": 32, "lanes": 0, "block_h": 1, "block_threads": 256}
+# one head a block, eight threads a state row, chunks of 8 tokens (their
+# states take 128 KB of shared memory at hd 64), spans of 4 chunks: the
+# fastest of five points tried on the H100 at the RWKV-6 training shape
+BWD_DEFAULTS = {"chunk": 8, "span_chunks": 4, "block_h": 1, "split": 8}
 
 
 def fit_threads(hd: int, block_h: int, block_threads: int) -> int:
@@ -33,6 +47,24 @@ def fit_threads(hd: int, block_h: int, block_threads: int) -> int:
     return max(under) if under else min(fits, default=block_threads)
 
 
+class Wkv6(torch.autograd.Function):
+    """(y, s_T) through the forward kernel; the gradients of both through
+    the backward kernel, from the saved operands."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, fwd: dict, bwd: dict):
+        y, s_t = wkv6_fwd(r, k, v, w, u, s0, **fwd)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.bwd = bwd
+        return y, s_t
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        grads = wkv6_bwd(*ctx.saved_tensors, dy.contiguous(),
+                         ds_t.contiguous(), **ctx.bwd)
+        return (*grads, None, None)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor | None = None, *,
          chunk: int | None = None, lanes: int | None = None,
@@ -41,10 +73,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     """r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd) or None
     (zeros).  Returns (y (B, T, H, hd), s_T (B, H, hd, hd)), float32.
 
-    ``tuned=True`` resolves the cached best launch parameters for this
-    (shape, dtype, device) with zero measurements; ``tuned=None`` does so
-    only when tuning was enabled globally
-    (``repro_torch.tune.kernels.configure``).
+    ``tuned=True`` resolves the cached best launch parameters, forward and
+    backward independently, for this (shape, dtype, device) with zero
+    measurements; ``tuned=None`` does so only when tuning was enabled
+    globally (``repro_torch.tune.kernels.configure``).
     """
     b, t, h, hd = r.shape
     meta = {"b": b, "t": t, "h": h, "hd": hd}
@@ -59,9 +91,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     def f32(x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.float32).contiguous()
 
-    threads = p["block_threads"]
     if p["lanes"] < 2:
-        threads = fit_threads(hd, p["block_h"], threads)
-    return wkv6_fwd(f32(r), f32(k), f32(v), f32(w), f32(u), f32(s0),
-                    chunk=p["chunk"], lanes=p["lanes"], block_h=p["block_h"],
-                    block_threads=threads)
+        p["block_threads"] = fit_threads(hd, p["block_h"], p["block_threads"])
+    args = (f32(r), f32(k), f32(v), f32(w), f32(u), f32(s0))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        pb = resolve_launch_params(
+            "rwkv6_wkv_bwd", meta, torch.float32, defaults=BWD_DEFAULTS,
+            tuned=tuned, device=r.device)
+        return Wkv6.apply(*args, p, pb)
+    return wkv6_fwd(*args, **p)

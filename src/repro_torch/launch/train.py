@@ -1,10 +1,11 @@
 """Training entry point: data pipeline -> train step -> checkpoint/restart.
 
     python -m repro_torch.launch.train --arch qwen2.5-3b          # the card
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --smoke --steps 3 --device cpu
 
-The port of the reference's ``launch/train.py`` on one card.  Fault
+The port of the reference's ``launch/train.py`` on one card, for every
+decoder-only family (dense, MoE, RWKV-6, Jamba).  Fault
 tolerance is the reference's: checkpoints every ``ckpt_every`` steps
 (async, atomic), auto-resume from the latest complete checkpoint, and a
 data pipeline that regenerates its stream from the step counter, so a run

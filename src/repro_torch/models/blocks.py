@@ -7,9 +7,9 @@ stack (Jamba) into its smallest repeating pattern and scans over stacked
 groups; the port keeps a flat list of layers (``LM.layers``), layer i
 taking ``cfg.layer_kinds[i]`` and ``cfg.moe_layer_mask()[i]``.
 
-Training runs attention and MoE layers only: the mamba and rwkv mixers
-need the backward kernels of their scans, which are not ported yet, so
-``apply_layer`` refuses them.
+Training (``apply_layer``) runs every mixer kind: the scans' gradients
+come from their backward kernels through the ``torch.autograd.Function``s
+of ``kernels/mamba_scan/ops.py`` and ``kernels/rwkv6_wkv/ops.py``.
 """
 
 from __future__ import annotations
@@ -26,15 +26,10 @@ from .moe import apply_moe, init_moe
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
                     init_rwkv_state, init_rwkv_tmix)
 
-__all__ = ["MIXERS", "UNTRAINABLE", "apply_layer", "decode_layer",
-           "init_layer", "init_layer_state", "prefill_layer"]
+__all__ = ["MIXERS", "apply_layer", "decode_layer", "init_layer",
+           "init_layer_state", "prefill_layer"]
 
 MIXERS = ("attn", "mamba", "rwkv")
-# mixer kind -> the backward kernel its training needs (not ported yet)
-UNTRAINABLE = {"mamba": "B7, the selective-scan backward "
-                        "(mamba_scan/kernel.py::selective_scan_bwd)",
-               "rwkv": "B9, the wkv backward "
-                       "(rwkv6_wkv/kernel.py::wkv6_bwd)"}
 
 
 def init_layer(gen, cfg: ArchConfig, kind: str, is_moe: bool,
@@ -71,13 +66,15 @@ def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
                 positions: torch.Tensor) -> tuple[torch.Tensor, float]:
     """Training path. Returns (x, aux loss); only an MoE layer's aux is
     not 0."""
-    if kind in UNTRAINABLE:
-        raise NotImplementedError(
-            f"{cfg.name}: training a {kind!r} layer needs "
-            f"{UNTRAINABLE[kind]}, which is not ported to repro_torch yet")
     h = apply_norm(p["norm1"], x, cfg)
-    x = x + full_attention(p["mixer"], h, cfg, positions=positions,
-                           causal=True)
+    if kind == "attn":
+        mixed = full_attention(p["mixer"], h, cfg, positions=positions,
+                               causal=True)
+    elif kind == "mamba":
+        mixed = apply_mamba(p["mixer"], h, cfg)
+    else:
+        mixed, _ = apply_rwkv_tmix(p["mixer"], h, cfg)
+    x = x + mixed
     h = apply_norm(p["norm2"], x, cfg)
     ch, aux, _ = _channel(p, h, cfg, kind, is_moe)
     return x + ch, aux

@@ -14,10 +14,8 @@ nothing saved) and ``chunked_xent``, which never holds the full
 runs under ``torch.inference_mode()``: the parameters require grad, and
 the KV caches are written in place.
 
-Serving runs every mixer kind and the MoE channel; training runs
-attention and MoE layers (the mamba and rwkv mixers wait for their scans'
-backward kernels).  Not ported yet: the encoder-decoder family and the VLM
-patch frontend.
+Serving and training run every mixer kind and the MoE channel.  Not
+ported yet: the encoder-decoder family and the VLM patch frontend.
 """
 
 from __future__ import annotations

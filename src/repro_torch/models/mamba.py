@@ -7,8 +7,9 @@ materialised.  Decode keeps a (conv window, ssm state) pair per layer and
 advances one token in O(d_inner * d_state) in plain PyTorch, as the
 reference computes it outside any Pallas kernel.  In the port
 ``attn_impl`` ``"auto"`` and ``"pallas"`` both mean the kernel, whose plain
-PyTorch version runs for tensors on the CPU.  Training through this mixer
-needs the scan's backward kernel, which is not ported yet.
+PyTorch version runs for tensors on the CPU.  Training runs the same
+``apply_mamba`` with autograd recording: the scan's gradient comes from its
+backward kernel (``SelectiveScan``).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ for prefill and for every decode step: decode is the same time mix at
 T = 1, carrying ``{"tmix_prev", "cmix_prev", "wkv"}``, as in the
 reference.  The reference's XLA ``wkv_scan`` has no counterpart: in the
 port ``attn_impl`` ``"auto"`` and ``"pallas"`` both mean the kernel, whose
-plain PyTorch version runs for tensors on the CPU.  Training through this
-mixer needs the wkv backward kernel, which is not ported yet.
+plain PyTorch version runs for tensors on the CPU.  Training runs the same
+``apply_rwkv_tmix`` and ``apply_rwkv_cmix`` with autograd recording: the
+recurrence's gradient comes from the wkv backward kernel (``Wkv6``).
 """
 
 from __future__ import annotations

@@ -14,20 +14,27 @@ launch parameters (never through the ``tuned=`` resolution path), and
 ``ref`` is the same function through the kernels' plain PyTorch
 versions.
 
-Five specs exist: ``dna_automaton``, ``flash_attention``,
-``decode_attention``, ``mamba_scan`` and ``rwkv6_wkv``.  The attention
-specs keep the reference's meta keys (``{bh, tq, tk, hd, causal}`` and
-``{b, kv, rep, hd, s}``), so a store record resolves from the same shape
-description in both packages; their default shapes are the serving shapes
-of ``qwen2.5-3b`` at batch 8 with a 2048-token prompt and 128 generated
-tokens.  The scan specs keep the reference's ``{bt, t, di, s}`` and
+Seven specs exist: ``dna_automaton``, ``flash_attention``,
+``decode_attention``, ``mamba_scan``, ``mamba_scan_bwd``, ``rwkv6_wkv`` and
+``rwkv6_wkv_bwd``.  The attention specs keep the reference's meta keys
+(``{bh, tq, tk, hd, causal}`` and ``{b, kv, rep, hd, s}``), so a store
+record resolves from the same shape description in both packages; their
+default shapes are the serving shapes of ``qwen2.5-3b`` at batch 8 with a
+2048-token prompt and 128 generated tokens.  The scan specs keep the reference's ``{bt, t, di, s}`` and
 ``{b, t, h, hd}``; their default shapes are the prefill shapes of
 ``jamba-v0.1-52b`` and ``rwkv6-1.6b`` at batch 8 with a 2048-token prompt,
 and their spaces keep the reference's ``lanes`` switch between the serial
 program (``lanes = 0``) and the chunked form, with the matrix form's
 ``chunk <= 64`` cap.  These kernels mask the ragged edge, so a block or
-chunk need not divide its extent, only not exceed it.  The backward
-kernels' specs arrive with the training slices.
+chunk need not divide its extent, only not exceed it.  The scans'
+backward specs keep the same names and meta keys as the reference's
+(``mamba_scan_bwd``, ``rwkv6_wkv_bwd``); their default shapes are the
+training shapes (Jamba batch 2 x 2048, RWKV-6 batch 8 x 2048), their
+inputs add the cotangents ``dy`` and ``dh_T`` / ``ds_T``, and their oracles
+are the plain backward versions.  Their spaces are chunk x block_d /
+block_h x threads per channel or state row (``split``), and for the wkv
+backward the chunks a stored span covers (``span_chunks``); a chunk is
+bounded by the shared memory its per-token states take.
 """
 
 from __future__ import annotations
@@ -47,15 +54,19 @@ from ...kernels.dna_automaton.ops import (DEFAULTS as DNA_DEFAULTS,
 from ...kernels.flash_attention import kernel as fa_kernel
 from ...kernels.flash_attention.ops import DEFAULTS as FA_DEFAULTS
 from ...kernels.mamba_scan import kernel as ms_kernel
+from ...kernels.mamba_scan.ops import BWD_DEFAULTS as MSB_DEFAULTS
 from ...kernels.mamba_scan.ops import DEFAULTS as MS_DEFAULTS
 from ...kernels.rwkv6_wkv import kernel as wkv_kernel
+from ...kernels.rwkv6_wkv.ops import BWD_DEFAULTS as WKVB_DEFAULTS
 from ...kernels.rwkv6_wkv.ops import DEFAULTS as WKV_DEFAULTS
 from .evaluate import SMEM_LIMIT_BYTES
 from .registry import KernelSpec, dtype_name, register_kernel
 
-__all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "DECODE_BLOCK_S",
-           "DECODE_SPLITS", "DECODE_THREADS", "SCAN_BLOCK_D", "SCAN_CHUNKS",
-           "SCAN_LANES", "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_THREADS"]
+__all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "BWD_SPLITS",
+           "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_THREADS",
+           "SCAN_BLOCK_D", "SCAN_BWD_CHUNKS", "SCAN_CHUNKS", "SCAN_LANES",
+           "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_SPAN_CHUNKS",
+           "WKV_THREADS"]
 
 TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 BLOCK_THREADS = (64, 128, 256, 512, 1024)
@@ -69,6 +80,10 @@ SCAN_LANES = (0, 2, 4, 8, 16)        # 0 = the serial program
 SCAN_BLOCK_D = (32, 64, 128, 256, 512)
 WKV_BLOCK_H = (1, 2, 4, 8)
 WKV_THREADS = (64, 128, 256, 512, 1024)
+SCAN_BWD_CHUNKS = (1, 2, 4, 8, 16, 32, 64)
+BWD_SPLITS = (1, 2, 4, 8, 16, 32)
+WKV_BWD_CHUNKS = (1, 2, 4, 8, 16)
+WKV_SPAN_CHUNKS = (1, 2, 4, 8)
 
 # what a block gets without opting in to more dynamic shared memory
 SMEM_DEFAULT_BYTES = 48 * 1024
@@ -349,6 +364,60 @@ register_kernel(KernelSpec(
 ))
 
 
+# -- mamba selective scan: backward ------------------------------------------------
+
+def _msb_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("block_d", SCAN_BLOCK_D),
+        Param("chunk", SCAN_BWD_CHUNKS),
+        Param("split", BWD_SPLITS),
+    ])
+
+
+def _msb_validate(cfg, meta) -> str | None:
+    bd, chunk, split, s = cfg["block_d"], cfg["chunk"], cfg["split"], meta["s"]
+    if s not in ms_kernel.STATE_SIZES:
+        return f"state size {s} not in {ms_kernel.STATE_SIZES}"
+    if split not in ms_kernel.bwd_splits(s):
+        return f"split={split} not in {ms_kernel.bwd_splits(s)} at S={s}"
+    if bd * split > ms_kernel.MAX_THREADS:
+        return f"{bd * split} threads a block (limit {ms_kernel.MAX_THREADS})"
+    # the span's per-token states: chunk x S x block_d floats
+    return (_not_above(meta["di"], bd, SCAN_BLOCK_D[0], "block_d")
+            or _not_above(meta["t"], chunk, SCAN_BWD_CHUNKS[0], "chunk")
+            or _smem(ms_kernel.smem_bytes_bwd(s, bd, chunk, split)))
+
+
+def _msb_inputs(meta, dtype, rng, device):
+    inputs = _ms_inputs(meta, dtype, rng, device)
+    bt, t, di, s = (meta[k] for k in ("bt", "t", "di", "s"))
+    gen = _card_generator(rng, device)
+    dy = _randn(rng, (bt, t, di), device, gen)
+    dh = _randn(rng, (bt, di, s), device, gen)
+    return inputs + (dy.to(device), dh.to(device))
+
+
+def _msb_run(cfg, inputs):
+    return ms_kernel.selective_scan_bwd(*inputs, block_d=cfg["block_d"],
+                                        chunk=cfg["chunk"],
+                                        split=cfg["split"])
+
+
+def _msb_ref(inputs):
+    return ms_kernel.selective_scan_bwd_plain(*inputs)
+
+
+register_kernel(KernelSpec(
+    name="mamba_scan_bwd",
+    defaults=MSB_DEFAULTS,
+    space_fn=_msb_space, validate_fn=_msb_validate,
+    make_inputs=_msb_inputs, run=_msb_run, ref=_msb_ref,
+    default_shape={"bt": 2, "t": 2048, "di": 8192, "s": 16},
+    smoke_shape={"bt": 1, "t": 64, "di": 64, "s": 4},
+    atol=2e-4, rtol=2e-3,
+))
+
+
 # -- rwkv6 wkv ---------------------------------------------------------------------------
 
 def _wkv_space(meta: Mapping[str, Any]) -> ConfigSpace:
@@ -416,6 +485,66 @@ register_kernel(KernelSpec(
     defaults=WKV_DEFAULTS,
     space_fn=_wkv_space, validate_fn=_wkv_validate,
     make_inputs=_wkv_inputs, run=_wkv_run, ref=_wkv_ref,
+    default_shape={"b": 8, "t": 2048, "h": 32, "hd": 64},
+    smoke_shape={"b": 1, "t": 64, "h": 1, "hd": 16},
+    atol=2e-4, rtol=2e-3,
+))
+
+
+# -- rwkv6 wkv: backward -----------------------------------------------------------------
+
+def _wkvb_space(meta: Mapping[str, Any]) -> ConfigSpace:
+    return ConfigSpace([
+        Param("chunk", WKV_BWD_CHUNKS),
+        Param("span_chunks", WKV_SPAN_CHUNKS),
+        Param("block_h", WKV_BLOCK_H),
+        Param("split", BWD_SPLITS),
+    ])
+
+
+def _wkvb_validate(cfg, meta) -> str | None:
+    chunk, span_chunks = cfg["chunk"], cfg["span_chunks"]
+    bh, split = cfg["block_h"], cfg["split"]
+    t, hd = meta["t"], meta["hd"]
+    err = _divides(meta["h"], bh, "block_h")
+    if err:
+        return err
+    splits = wkv_kernel.BWD_HEAD_SPLITS.get(hd, ())
+    if split not in splits:
+        return f"split={split} not built for hd={hd} ({splits})"
+    n = bh * hd * split
+    if n > wkv_kernel.BWD_MAX_THREADS:
+        return f"{n} threads a block (limit {wkv_kernel.BWD_MAX_THREADS})"
+    # a chunk's per-token states: chunk x block_h x hd x hd floats
+    return (_not_above(t, chunk * span_chunks, WKV_BWD_CHUNKS[0],
+                       "chunk*span_chunks")
+            or _smem(wkv_kernel.smem_bytes_bwd(chunk, bh, hd, split)))
+
+
+def _wkvb_inputs(meta, dtype, rng, device):
+    inputs = _wkv_inputs(meta, dtype, rng, device)
+    b, t, h, hd = (meta[k] for k in ("b", "t", "h", "hd"))
+    gen = _card_generator(rng, device)
+    dy = _randn(rng, (b, t, h, hd), device, gen)
+    ds = _randn(rng, (b, h, hd, hd), device, gen)
+    return inputs + (dy.to(device), ds.to(device))
+
+
+def _wkvb_run(cfg, inputs):
+    return wkv_kernel.wkv6_bwd(*inputs, chunk=cfg["chunk"],
+                               span_chunks=cfg["span_chunks"],
+                               block_h=cfg["block_h"], split=cfg["split"])
+
+
+def _wkvb_ref(inputs):
+    return wkv_kernel.wkv6_bwd_plain(*inputs)
+
+
+register_kernel(KernelSpec(
+    name="rwkv6_wkv_bwd",
+    defaults=WKVB_DEFAULTS,
+    space_fn=_wkvb_space, validate_fn=_wkvb_validate,
+    make_inputs=_wkvb_inputs, run=_wkvb_run, ref=_wkvb_ref,
     default_shape={"b": 8, "t": 2048, "h": 32, "hd": 64},
     smoke_shape={"b": 1, "t": 64, "h": 1, "hd": 16},
     atol=2e-4, rtol=2e-3,

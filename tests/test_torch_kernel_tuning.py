@@ -40,7 +40,8 @@ def test_dna_space_is_redrawn_for_the_card():
     spec = ktune.get_kernel("dna_automaton")
     assert ktune.list_kernels() == ["decode_attention", "dna_automaton",
                                    "flash_attention", "mamba_scan",
-                                   "rwkv6_wkv"]
+                                   "mamba_scan_bwd", "rwkv6_wkv",
+                                   "rwkv6_wkv_bwd"]
     space = spec.space(spec.default_shape)
     assert space.names == ("map_chunk", "count_chunk", "block_threads")
     assert space.size() == 500 >= 64

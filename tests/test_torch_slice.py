@@ -139,7 +139,8 @@ def test_no_source_imports_jax_or_repro(path):
     for f in files:
         assert not pat.search(f.read_text()), f
     for name in ("dna_automaton", "flash_attention", "flash_attention_bwd",
-                 "decode_attention", "mamba_scan", "rwkv6_wkv"):
+                 "decode_attention", "mamba_scan", "mamba_scan_bwd",
+                 "rwkv6_wkv", "rwkv6_wkv_bwd"):
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
@@ -148,8 +149,8 @@ def test_no_source_imports_jax_or_repro(path):
     ("flash_attention", ("flash_attention_fwd_plain",
                          "flash_attention_bwd_plain")),
     ("decode_attention", ("decode_partials_plain",)),
-    ("mamba_scan", ("selective_scan_fwd_plain",)),
-    ("rwkv6_wkv", ("wkv6_fwd_plain",)),
+    ("mamba_scan", ("selective_scan_fwd_plain", "selective_scan_bwd_plain")),
+    ("rwkv6_wkv", ("wkv6_fwd_plain", "wkv6_bwd_plain")),
 ])
 def test_no_silent_fallback_in_the_wrappers(package, plain):
     """For a CUDA tensor the wrapper launches the kernel or raises: the
