@@ -51,7 +51,11 @@ points a user would call:
   backward kernel, the attention layer through the flash-attention kernels.
 
 Before each path it holds each of the path's kernels against its plain
-PyTorch version on the same inputs at the path's shapes; after each
+PyTorch version on the same inputs at the path's shapes (the attention
+kernels also in both builds at hd 64 and 96 with ragged T, a q_offset and
+no mask, the backward run twice for the same bits, the decode kernel at
+phi3-mini's hd 96 and at hd 192; every tune must store a point no slower
+than the default it measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
 recurrent paths also in float32, where the gate sits, with the MoE
@@ -83,7 +87,8 @@ kernels (the sheet's 67 TFLOP/s of non-tensor float32 counts a fused
 multiply-add as two, so 33.5e12 instructions per second; the same rate is
 taken for int32 instructions), the attention's flops over 989e12
 FLOP/s (dense bfloat16 tensor cores) for the attention kernels, the
-backward counting the five products a backward needs, three float32
+backward counting the five products a backward needs (its two programs
+do seven: ``bound_7_products_ms`` in its phase line), three float32
 instructions per (token, head, i, j) state cell over 33.5e12/s for the wkv
 kernel, and for the selective scan the larger of one exp per (token,
 channel, state) cell on the special-function units (16 a clock per SM,
@@ -191,12 +196,42 @@ def phase_env() -> str:
     return smi
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_bf16_kernel<128,2>`` from a mangled kernel name: the
+    length-prefixed name ending in ``_kernel``, its element type where it
+    is a template argument, and its integer template arguments."""
+    base = mangled
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            cand = mangled[run.end():run.end() + n]
+            if len(cand) == n and cand.endswith("_kernel"):
+                base = cand
+                break
+        if base != mangled:
+            break
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    if base + "I13__nv_bfloat16" in mangled:
+        args.insert(0, "bf16")
+    elif base + "If" in mangled:
+        args.insert(0, "float")
+    return base + ("<" + ",".join(args) + ">" if args else "")
+
+
 def ptxas_report(name: str) -> list[str]:
-    """What ptxas reported of a library's registers and spills."""
+    """What ptxas reported of a library's registers and spills, one line a
+    kernel: its name with its template arguments (``<128,2>``), then the
+    registers and spill bytes."""
     from repro_torch import _build
 
-    return [line.strip() for line in _build.build_log(name).splitlines()
-            if "registers" in line or "spill" in line]
+    out, kernel = [], None
+    for line in _build.build_log(name).splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = kernel_name(entry.group(1))
+        elif "registers" in line or "spill" in line:
+            out.append(f"{kernel}: {line.strip().removeprefix('ptxas info    : ')}")
+    return out
 
 
 def phase_build() -> None:
@@ -399,7 +434,9 @@ def float_err(got, want) -> float:
 
 def phase_attention_parity(seed: int) -> list[dict]:
     """B3 at the prefill shape and B4 at the decode shape against their
-    plain versions, plus one float32 case each with TF32 off."""
+    plain versions, plus float32 cases with TF32 off; B3 in both builds at
+    hd 64 and 96 with ragged T and a q_offset, B4 at phi3-mini's hd 96
+    decode shape and at hd 192."""
     import torch.nn.functional as F
 
     from repro_torch import configs
@@ -407,6 +444,7 @@ def phase_attention_parity(seed: int) -> list[dict]:
     from repro_torch.kernels.decode_attention.ops import DEFAULTS as DA
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention.ops import DEFAULTS as FA
+    from repro_torch.kernels.flash_attention.ops import F32_DEFAULTS as FA32
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -449,33 +487,54 @@ def phase_attention_parity(seed: int) -> list[dict]:
     # float32 at a smaller shape, gate 2e-4 (the reference's float32 gate)
     q32, k32, v32 = (randn(2, 512, 4, 64, dtype=torch.float32)
                      for _ in range(3))
-    o32, _ = fak.flash_attention_fwd(q32, k32, v32, causal=True, **FA)
+    o32, _ = fak.flash_attention_fwd(q32, k32, v32, causal=True, **FA32)
     o32_p, _ = fak.flash_attention_fwd_plain(q32, k32, v32, causal=True)
     f32_err = float_err(o32, o32_p)
     check(torch.allclose(o32, o32_p, atol=2e-4, rtol=2e-4),
           f"flash_attention_fwd float32: max abs err {f32_err}")
     flash_case["float32"] = {"shape": [2, 512, 4, 64], "max_abs_err": f32_err}
 
-    # bfloat16 at ragged shapes (T a multiple of no block), a decode-style
-    # q_offset and blocks of 8 (padded to the mma's 16): same gates
+    # both builds at hd 64 and 96 (phi3-mini's), ragged T (a multiple of no
+    # block), a decode-style q_offset and no mask: bfloat16 over launch
+    # points with 16 and 32 rows a warp and ring depths 1-4 (2e-2, lse
+    # 1e-3), float32 at its launch point (2e-4)
     ragged = []
-    for tq, tk, q_offset in ((333, 333, 0), (77, 333, 256)):
-        qr, kr, vr = (randn(2, n, 4, 64) for n in (tq, tk, tk))
-        o_p, lse_p = fak.flash_attention_fwd_plain(qr, kr, vr, causal=True,
-                                                   q_offset=q_offset)
-        for bq, bk, nt in ((64, 64, 256), (8, 8, 32), (16, 128, 128),
-                           (128, 32, 512)):
-            o, lse = fak.flash_attention_fwd(
-                qr, kr, vr, causal=True, q_offset=q_offset, block_q=bq,
-                block_k=bk, block_threads=nt)
-            err, lse_err = float_err(o, o_p), float_err(lse, lse_p)
-            ragged.append({"tq": tq, "tk": tk, "q_offset": q_offset,
-                           "launch": [bq, bk, nt], "max_abs_err": err,
-                           "lse_max_abs_err": lse_err})
-            check(torch.allclose(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
-                  and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3),
-                  f"flash_attention_fwd bfloat16 ragged: {ragged[-1]}")
-    flash_case["bfloat16_ragged"] = ragged
+    bf16_launches = ((128, 64, 128, 2), (16, 16, 32, 1), (64, 128, 128, 3),
+                     (256, 256, 256, 1), (32, 32, 32, 4))
+    for hd_ in (64, 96):
+        for tq, tk, q_offset, causal in ((333, 333, 0, True),
+                                         (77, 333, 256, True),
+                                         (200, 333, 0, False)):
+            for dtype in (torch.bfloat16, torch.float32):
+                qr, kr, vr = (randn(2, n, 4, hd_, dtype=dtype)
+                              for n in (tq, tk, tk))
+                o_p, lse_p = fak.flash_attention_fwd_plain(
+                    qr, kr, vr, causal=causal, q_offset=q_offset)
+                tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+                launches = (bf16_launches if dtype == torch.bfloat16 else
+                            (tuple(FA32[k] for k in ("block_q", "block_k",
+                                                     "block_threads",
+                                                     "stages")),))
+                for bq, bk, nt, st in launches:
+                    o, lse = fak.flash_attention_fwd(
+                        qr, kr, vr, causal=causal, q_offset=q_offset,
+                        block_q=bq, block_k=bk, block_threads=nt, stages=st)
+                    err, lse_err = float_err(o, o_p), float_err(lse, lse_p)
+                    ragged.append({"hd": hd_, "dtype": str(dtype)[6:],
+                                   "tq": tq, "tk": tk, "q_offset": q_offset,
+                                   "causal": causal, "launch": [bq, bk, nt, st],
+                                   "max_abs_err": err,
+                                   "lse_max_abs_err": lse_err})
+                    check(torch.allclose(o.float(), o_p.float(), atol=tol,
+                                         rtol=tol)
+                          and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3),
+                          f"flash_attention_fwd ragged: {ragged[-1]}")
+    flash_case["ragged"] = {
+        "cases": len(ragged),
+        "max_abs_err": {dt: max(r["max_abs_err"] for r in ragged
+                                if r["dtype"] == dt)
+                        for dt in ("bfloat16", "float32")},
+        "lse_max_abs_err": max(r["lse_max_abs_err"] for r in ragged)}
 
     # -- B4: decode shape (cache S = prompt + gen), bf16 cache, float32 out
     rep = h // kv
@@ -526,6 +585,25 @@ def phase_attention_parity(seed: int) -> list[dict]:
     check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
           f"decode_attention float32: max abs err {d32_err}")
 
+    # hd 96 at phi3-mini's decode shape (32 kv heads, rep 1, batch 8, cache
+    # 2176), and hd 192 at nemotron4's grouping (8 kv heads, rep 12), bf16
+    # cache, gate 2e-4 (float32 output)
+    head_dims = []
+    for hd_, b_, kv_, rep_, length in ((96, 8, 32, 1, LM_PROMPT + 1),
+                                      (192, 1, 8, 12, 1000)):
+        q = randn(b_, kv_, rep_, hd_)
+        k, v = randn(b_, s_len, kv_, hd_), randn(b_, s_len, kv_, hd_)
+        got = dak.decode_attention(q, k, v, length, **DA)
+        want = dak.decode_attention_plain(q, k, v, length)
+        head_dims.append({"shape": [b_, kv_, rep_, hd_, s_len],
+                          "length": length,
+                          "max_abs_err": float_err(got, want),
+                          "ms": device_ms(lambda: dak.decode_attention(
+                              q, k, v, length, **DA), 50)})
+        check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
+              f"decode_attention hd {hd_}: {head_dims[-1]}")
+    del q, k, v
+
     emit(phase="attention_parity",
          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
@@ -534,7 +612,8 @@ def phase_attention_parity(seed: int) -> list[dict]:
                  "launch": dict(DA), "combine_ms": combine_ms,
                  "cases": cases,
                  "float32": {"shape": [2, 2, 4, 64, 1000], "length": 777,
-                             "max_abs_err": d32_err}},
+                             "max_abs_err": d32_err},
+                 "head_dims": head_dims},
          results=[{key: r[key] for key in ("name", "ok", "max_abs_err", "ms",
                                            "plain_ms", "bound_ms",
                                            "library_ms")}
@@ -591,9 +670,13 @@ def phase_lm_tune(seed: int, store_path: Path) -> dict:
                                      out.timer.rejected.values()),
             "default_config": out.default_config, "default_ms": default_s * 1e3,
             "best_config": out.best_config, "best_ms": best_s * 1e3,
+            "best_source": out.best_source,
             "best_over_default": best_s / default_s,
             "repeat_from_cache": again.result.from_cache,
             "repeat_n_measured": again.n_measured})
+        check(best_s <= default_s, f"{name}: the stored point "
+                                   f"{out.best_config} is slower than the "
+                                   "default it measured")
     emit(phase="lm_tune", ok=True, tunes=report)
     return outs
 
@@ -696,15 +779,18 @@ def grad_err(got, want) -> float:
 
 
 def phase_train_attention_parity(seed: int) -> dict:
-    """B5 at the training shape (bf16) against its plain version, plus a
-    float32 case with TF32 off, ragged T and a q_offset; bf16 within 2e-2
-    and float32 within 2e-4 of the largest |grad|."""
+    """B5 at the training shape (bf16) against its plain version, plus
+    float32 cases with TF32 off; both builds at hd 64, 96 and 128 with
+    ragged T, a q_offset and no mask; bf16 within 2e-2 and float32 within
+    2e-4 of the largest |grad|, and every bf16 case twice with the same
+    bits."""
     import torch.nn.functional as F
 
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention.ops import BWD_DEFAULTS as BWD
-    from repro_torch.kernels.flash_attention.ops import DEFAULTS as FA
+    from repro_torch.kernels.flash_attention.ops import \
+        BWD_F32_DEFAULTS as BWD32
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -716,11 +802,12 @@ def phase_train_attention_parity(seed: int) -> dict:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    def case(tq, tk, q_offset, causal, dtype, launch):
+    def case(tq, tk, q_offset, causal, dtype, launch, hd=hd, h=h):
         q, do = (randn(b, tq, h, hd, dtype=dtype) for _ in range(2))
         k, v = (randn(b, tk, h, hd, dtype=dtype) for _ in range(2))
+        # the forward at its build's launch point
         o, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
-                                         q_offset=q_offset, **FA)
+                                         q_offset=q_offset)
         args = (q, k, v, o, lse, do)
         kw = dict(causal=causal, q_offset=q_offset)
         return args, (lambda: fak.flash_attention_bwd(*args, **kw, **launch),
@@ -762,32 +849,62 @@ def phase_train_attention_parity(seed: int) -> dict:
     report = {"shape": [b, t, h, hd], "dtype": "bfloat16",
               "launch": dict(BWD), "rel_err": errs, "delta_ms": delta_ms,
               "deterministic": deterministic,
+              # the two programs recompute s and dp: seven products
+              "bound_7_products_ms": bound_ms * 7 / 5,
               "tflops_5_products": n_flops / ms / 1e9,
               "tflops_7_products": n_flops * 7 / 5 / ms / 1e9}
 
     # float32 (TF32 off: the kernel never uses the tensor cores) and bf16
-    # at ragged shapes, a q_offset, no mask, and other launch shapes
+    # at hd 64, 96 and 128, ragged shapes, a q_offset, no mask, and other
+    # launch shapes; each bf16 case run twice must give the same bits
     cases = []
-    for tq, tk, q_offset, causal, dtype, launch, tol in (
-            (512, 512, 0, True, torch.float32, BWD, 2e-4),
-            (333, 333, 0, True, torch.float32, dict(block_q=16, block_k=32,
-                                                    block_threads=128), 2e-4),
-            (333, 333, 0, True, torch.bfloat16, BWD, 2e-2),
-            (77, 333, 256, True, torch.bfloat16, BWD, 2e-2),
-            (200, 333, 0, False, torch.bfloat16, dict(block_q=64, block_k=32,
-                                                      block_threads=512),
-             2e-2)):
-        _, (kernel_fn, plain_fn) = case(tq, tk, q_offset, causal, dtype,
-                                        launch)
-        got, want = kernel_fn(), plain_fn()
-        err = max(grad_err(g, w) for g, w in zip(got, want))
-        cases.append({"tq": tq, "tk": tk, "q_offset": q_offset,
-                      "causal": causal, "dtype": str(dtype)[6:],
-                      "launch": [launch[k] for k in ("block_q", "block_k",
-                                                     "block_threads")],
-                      "rel_err": err, "tol": tol})
-        check(err <= tol, f"flash_attention_bwd: {cases[-1]}")
-    report["cases"] = cases
+    small = dict(block_q=16, block_k=16, block_threads=32)
+    mid = dict(block_q=64, block_k=64, block_threads=128)
+    # float32 at the training model's heads, T 512
+    _, (kernel_fn, plain_fn) = case(512, 512, 0, True, torch.float32, BWD32)
+    got = kernel_fn()
+    err = max(grad_err(g, w) for g, w in zip(got, plain_fn()))
+    cases.append({"hd": hd, "tq": 512, "tk": 512, "q_offset": 0,
+                  "causal": True, "dtype": "float32",
+                  "launch": [BWD32[k] for k in ("block_q", "block_k",
+                                                "block_threads")],
+                  "rel_err": err, "tol": 2e-4, "same_bits_twice": all(
+                      torch.equal(a, g) for a, g in zip(kernel_fn(), got))})
+    check(err <= 2e-4 and cases[-1]["same_bits_twice"],
+          f"flash_attention_bwd: {cases[-1]}")
+    for hd_, launches in ((128, ((torch.float32, BWD32),
+                                 (torch.float32, dict(block_q=16, block_k=32,
+                                                      block_threads=128)),
+                                 (torch.bfloat16, BWD),
+                                 (torch.bfloat16, small))),
+                          (96, ((torch.float32, BWD32), (torch.bfloat16, BWD),
+                                (torch.bfloat16, mid))),
+                          (64, ((torch.float32, BWD32), (torch.bfloat16, BWD),
+                                (torch.bfloat16, small)))):
+        for tq, tk, q_offset, causal in ((333, 333, 0, True),
+                                         (77, 333, 256, True),
+                                         (200, 333, 0, False)):
+            for dtype, launch in launches:
+                _, (kernel_fn, plain_fn) = case(tq, tk, q_offset, causal,
+                                                dtype, launch, hd=hd_, h=4)
+                got, want = kernel_fn(), plain_fn()
+                err = max(grad_err(g, w) for g, w in zip(got, want))
+                same = all(torch.equal(a, g) for a, g in zip(kernel_fn(), got))
+                tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+                cases.append({"hd": hd_, "tq": tq, "tk": tk,
+                              "q_offset": q_offset, "causal": causal,
+                              "dtype": str(dtype)[6:],
+                              "launch": [launch[k] for k in (
+                                  "block_q", "block_k", "block_threads")],
+                              "rel_err": err, "tol": tol,
+                              "same_bits_twice": same})
+                check(err <= tol and same, f"flash_attention_bwd: {cases[-1]}")
+    report["cases"] = {
+        "n": len(cases),
+        "rel_err_max": {dt: max(c["rel_err"] for c in cases
+                                if c["dtype"] == dt)
+                        for dt in ("bfloat16", "float32")},
+        "all_same_bits_twice": all(c["same_bits_twice"] for c in cases)}
     emit(phase="train_attention_parity",
          allow_tf32=torch.backends.cuda.matmul.allow_tf32, flash_bwd=report,
          result={key: record[key] for key in ("name", "ok", "max_abs_err",
@@ -1273,9 +1390,13 @@ def phase_ssm_tune(seed: int, store_path: Path, metas: dict | None = None,
                                      out.timer.rejected.values()),
             "default_config": out.default_config, "default_ms": default_s * 1e3,
             "best_config": out.best_config, "best_ms": best_s * 1e3,
+            "best_source": out.best_source,
             "best_over_default": best_s / default_s,
             "repeat_from_cache": again.result.from_cache,
             "repeat_n_measured": again.n_measured})
+        check(best_s <= default_s, f"{name}: the stored point "
+                                   f"{out.best_config} is slower than the "
+                                   "default it measured")
         # the timer keeps its full-size inputs and oracle output (3.2 GB
         # for the scan); the serving phases need only its count
         out.timer.inputs, out.timer._expected = (), None

@@ -11,7 +11,14 @@ batches of back-to-back calls) measures every other configuration of the
 spec's space.  Prints, per kernel, the tune's measurements, its winner,
 the default and the exhaustive best, and the winner's rank; writes every
 configuration's time to ``attention_sweep.json`` in ``--out`` (default
-``results/``).  The last line names the card.
+``results/``).
+
+The flash-attention backward has no tuning space (the reference has none):
+at the training shape (B*H = 32, T = 2048, hd 128, causal, bfloat16) its
+bfloat16 build is timed at each square block it takes (block_q = block_k =
+block_threads / 2 in 16, 32, 64, 128; ``chip_smoke.device_ms``), beside
+``BWD_DEFAULTS``, and each point is held against the plain version
+(2e-2 of the largest |grad|).  The last line names the card.
 """
 
 from __future__ import annotations
@@ -28,6 +35,35 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
+
+
+def backward_points(smoke) -> dict:
+    """B5's bfloat16 build at the training shape, at each block it takes."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention.ops import BWD_DEFAULTS
+
+    cfg = configs.get(smoke.LM_ARCH)
+    b, t, h, hd = smoke.TRAIN_BATCH, smoke.TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    q, k, v, do = (torch.randn((b, t, h, hd), generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    o, lse = fak.flash_attention_fwd(q, k, v, causal=True)
+    want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    points = []
+    for blk in (16, 32, 64, 128):
+        launch = {"block_q": blk, "block_k": blk, "block_threads": 2 * blk}
+        run = lambda: fak.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=True, **launch)
+        err = max(smoke.grad_err(g, w) for g, w in zip(run(), want))
+        points.append({"launch": launch, "ms": smoke.device_ms(run, 10),
+                       "rel_err": err, "default": launch == BWD_DEFAULTS})
+    best = min(points, key=lambda p: p["ms"])
+    return {"kernel": "flash_attention_bwd", "shape": [b, t, h, hd],
+            "default_config": dict(BWD_DEFAULTS),
+            "best_config": best["launch"], "best_ms": best["ms"],
+            "points": points}
 
 
 def main() -> int:
@@ -62,6 +98,8 @@ def main() -> int:
             "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
         print(json.dumps({k: v for k, v in report[-1].items()
                           if k != "all_ms"}), flush=True)
+    report.append(backward_points(smoke))
+    print(json.dumps(report[-1]), flush=True)
     args.out.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

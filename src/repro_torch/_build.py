@@ -6,8 +6,9 @@ it compiles in seconds).  ``load_library(name)`` compiles it once with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into ``build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused) and
+into ``build/lib<name>-<hash>.so`` (the hash covers the source, the
+headers beside it and the flags, so an edited source is rebuilt and an
+unchanged one is reused) and
 returns the ``ctypes.CDLL``; ptxas's report of registers, shared memory
 and spills is kept beside it (``build_log``).  ``load_libraries`` builds
 several sources at once, one ``nvcc`` each, all started together.
@@ -66,7 +67,10 @@ def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     if not src.exists():
         raise KernelBuildError(f"no kernel source {src}")
-    digest = hashlib.sha256(src.read_bytes()
+    # the headers a source may include live beside it: an edited header
+    # rebuilds every library
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 

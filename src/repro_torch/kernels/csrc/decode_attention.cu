@@ -59,13 +59,22 @@ template <> struct RawVec<4> { using type = unsigned int; };
 template <> struct RawVec<8> { using type = uint2; };
 template <> struct RawVec<16> { using type = uint4; };
 
+// A lane's slice of hd 96 or 192 (3 or 6 elements) is no power-of-two
+// width: it is loaded element by element (a warp still reads the row's
+// contiguous bytes).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* __restrict__ p, float out[N]) {
-    using V = typename RawVec<(int)(N * sizeof(T))>::type;
-    const V raw = *reinterpret_cast<const V*>(p);
-    const T* elem = reinterpret_cast<const T*>(&raw);
+    constexpr int BYTES = (int)(N * sizeof(T));
+    if constexpr (BYTES == 2 || BYTES == 4 || BYTES == 8 || BYTES == 16) {
+        using V = typename RawVec<BYTES>::type;
+        const V raw = *reinterpret_cast<const V*>(p);
+        const T* elem = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(elem[e]);
+        for (int e = 0; e < N; ++e) out[e] = to_f32(elem[e]);
+    } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) out[e] = to_f32(p[e]);
+    }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -260,6 +269,10 @@ int launch(const void* q, const void* k, const void* v, void* acc, void* m,
                                          length, splits, block_s, threads, scale, stream);
         case 128: return launch_hd<T, 128>(q, k, v, acc, m, l, batch, s_len, kv, rep,
                                            length, splits, block_s, threads, scale, stream);
+        case 96: return launch_hd<T, 96>(q, k, v, acc, m, l, batch, s_len, kv, rep,
+                                         length, splits, block_s, threads, scale, stream);
+        case 192: return launch_hd<T, 192>(q, k, v, acc, m, l, batch, s_len, kv, rep,
+                                           length, splits, block_s, threads, scale, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -270,7 +283,7 @@ extern "C" {
 
 // q: (B, KV, rep, hd); k, v: (B, S, KV, hd), all contiguous and 16-byte
 // aligned; acc: (B, splits, KV, rep, hd) float32; m, l: (B, splits, KV, rep)
-// float32.  hd in {32, 64, 128}; rep <= 16; threads a multiple of 32 in
+// float32.  hd in {32, 64, 96, 128, 192}; rep <= 16; threads a multiple of 32 in
 // [32, 512].
 int decode_attention_f32(const void* q, const void* k, const void* v,
                          void* acc, void* m, void* l, int batch, int s_len,

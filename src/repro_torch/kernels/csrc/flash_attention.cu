@@ -17,26 +17,35 @@
 // 137 GFLOP and moves 201 MB, so the card's bf16 tensor-core rate would
 // allow 0.14 ms.  Two builds, one per input type:
 //
-//   * bfloat16 (the serving path): both products on the tensor cores,
-//     mma.sync m16n8k16 with bf16 operands and float32 accumulation; the
-//     probabilities are rounded to bf16 for p @ v, the softmax statistics
-//     (m, l, lse) and the output accumulator stay float32.  Per key block:
-//     stage k (row-major) and v (transposed) as bf16 in shared memory; each
-//     warp takes 16 x 32 tiles of the scores (q from shared memory, staged
-//     once), scales and masks them into a float32 score tile; a warp per row
-//     does the online-softmax update; each warp takes 16 x 32 tiles of the
-//     output accumulator (float32, shared memory), rescales them and adds
-//     p @ v.  Rows of a tile are padded so that the 32-bit fragment loads of
-//     a warp hit 32 distinct banks.  Blocks of 8 rows or keys are padded to
-//     the mma's 16 with zeros.
+//   * bfloat16 (the serving and training path): FA-2's register-resident
+//     forward, both products on the tensor cores (mma.sync m16n8k16, bf16
+//     operands, float32 accumulators; flash_tiles.cuh).  A block owns bq
+//     query rows, a warp 16 * rt of them (rt = 2 * bq / block_threads, 1 or
+//     2): every k and v fragment a warp reads from shared memory feeds rt
+//     mma.  q is staged once in shared memory; k and v arrive through a
+//     ring of `stages` shared slots filled by 16-byte cp.async copies
+//     (rows past tk zero-filled), one barrier a key block.  Per 64 / rt keys
+//     a warp computes s = q k^T into registers (q's A and k's B fragments by
+//     ldmatrix), masks it only in a block that holds the causal diagonal or
+//     the ragged end, takes the row max over the quad of threads that share
+//     a row (two xor shuffles), rescales its output accumulator (registers)
+//     and row sums only when a row's max moved (a warp vote), and turns p's
+//     C fragments into bf16 A fragments in registers for acc += p v (v's B
+//     fragments by ldmatrix.trans: no transposed copy).  A warp stops at
+//     the first key past its last row.  At the end o = acc / max(l, 1e-30),
+//     lse = m + log(max(l, 1e-30)).  Templates for hd 32, 64, 96, 128 (rt 1
+//     and 2) and 192 (rt 1: rt 2's two accumulators would spill).  What
+//     holds it back (PERF.md): warps an SM can hold (registers), and the
+//     issue slots the softmax takes beside the mma.
 //   * float32 (the parity path): the float32 parity gate is 2e-4, which
 //     rules out TF32, so the arithmetic stays on the CUDA cores in float32:
 //     4 x 4 register micro-tiles of scores and of the output fed from
 //     transposed shared-memory tiles (8 loads per 16 FMAs; one padding word
-//     per row keeps the strided rows and columns free of bank conflicts).
+//     per row keeps the strided rows and columns free of bank conflicts);
+//     the carry (m, l, alpha per row, the output accumulator) in shared
+//     memory.
 //
-// Both: the TPU grid's sequential k axis is a loop inside one block, with
-// the carry (m, l, alpha per row, the output accumulator) in shared memory;
+// Both: the TPU grid's sequential k axis is a loop inside one block;
 // causal key blocks that lie wholly above the diagonal are skipped (the
 // Pallas grid visits them; skipping them changes no number) and the
 // heaviest query blocks are launched first; heads are folded into the grid
@@ -51,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -250,267 +261,274 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16, float32 accumulation)
+// bfloat16: FA-2's register-resident forward on the tensor cores
 
-typedef __nv_bfloat16 bf16;
+using flash::bf16;
 
-__host__ __device__ inline int pad16(int x) { return (x + 15) / 16 * 16; }
+// The largest block the bf16 kernel is built for (its registers: up to 255
+// a thread, so 8 warps fill the register file).
+constexpr int MMA_MAX_THREADS = 256;
 
-// Row pitches, in elements, of the shared tiles.  A bf16 pitch of
-// (multiple of 16) + 8 makes the 32-bit fragment loads of a warp (8 rows x
-// 4 words) fall on 32 distinct banks.
-struct MmaLayout {
-    int BQ, BK;                 // bq, bk padded to the mma's 16
-    int ldq, ldk, ldv, ldp;     // bf16 pitches: q, k, v^T, p
-    int lds, ldo;               // float32 pitches: scores, output accumulator
-    __host__ __device__ MmaLayout(int bq, int bk, int hd)
-        : BQ(pad16(bq)), BK(pad16(bk)), ldq(hd + 8), ldk(hd + 8),
-          ldv(pad16(bk) + 8), ldp(pad16(bk) + 8), lds(bk + 4), ldo(hd + 4) {}
-    __host__ __device__ int64_t bf16_elems(int bk, int hd) const {
-        return (int64_t)BQ * ldq + (int64_t)bk * ldk + (int64_t)hd * ldv
-             + (int64_t)BQ * ldp;
-    }
-    __host__ __device__ int64_t f32_elems() const {
-        return (int64_t)BQ * lds + (int64_t)BQ * ldo + 3LL * BQ;
-    }
-};
-
-// Shared memory, in bytes, for one block (must match kernel.smem_bytes).
-__host__ __device__ inline int64_t smem_bytes_bf16(int bq, int bk, int hd) {
-    const MmaLayout L(bq, bk, hd);
-    return 2 * L.bf16_elems(bk, hd) + 4 * L.f32_elems();
+// Shared memory, in bytes, for one block (must match kernel.smem_bytes):
+// the q tile, then a ring of `stages` slots, each a k and a v tile of bk
+// rows; rows at a pitch of hd + 8.
+__host__ __device__ inline int64_t smem_bytes_bf16(int bq, int bk, int hd,
+                                                   int stages) {
+    return ((int64_t)bq + (int64_t)stages * 2 * bk) * (hd + 8)
+           * (int64_t)sizeof(bf16);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) at rows r0.., columns k0.. of `base`.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base,
-                                       int ld, int r0, int k0, int lane) {
-    const bf16* p = base + (r0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * ld);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 x 8, "col"): element (k, n) at base[(n0 + n) * ld + k0 + k].
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const bf16* base,
-                                       int ld, int n0, int k0, int lane) {
-    const bf16* p = base + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    b[0] = ld32(p);
-    b[1] = ld32(p + 8);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-    return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-}
-
-__global__ void __launch_bounds__(MAX_THREADS)
-flash_fwd_mma_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, Strides sq, Strides sk,
-                          Strides sv, Strides so, int n_heads, int tq, int tk,
-                          int hd, int bq, int bk, int causal, int q_offset,
-                          float scale) {
+// A warp owns RT tiles of 16 query rows (block_threads = 2 * bq / RT):
+// every k and v fragment it reads from shared memory feeds RT mma.  q is
+// staged once in shared memory and its A fragments are read by ldmatrix
+// for each key block: held in registers they would cost 2 * RT * hd / 16
+// registers a thread, and with them a third of the warps an SM can hold.
+template <int HD, int RT>
+__global__ void __launch_bounds__(MMA_MAX_THREADS)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk,
+                      Strides sv, Strides so, int n_heads, int tq, int tk,
+                      int bq, int bk, int stages, int causal, int q_offset,
+                      float scale) {
+    using namespace flash;
+    constexpr int KT = HD / 16;           // k16 steps over hd
+    constexpr int DT = HD / 8;            // n8 tiles over hd
+    constexpr int LD = HD + 8;            // pitch of a shared row
+    constexpr int KS = 64 / RT;           // keys whose scores a warp holds
+    constexpr int NS = KS / 8;            // n8 tiles of scores a row tile
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const MmaLayout L(bq, bk, hd);
-    bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // BQ x ldq
-    bf16* ks = qs + (size_t)L.BQ * L.ldq;             // bk x ldk
-    bf16* vt = ks + (size_t)bk * L.ldk;               // hd x ldv (v transposed)
-    bf16* ps = vt + (size_t)hd * L.ldv;               // BQ x ldp
-    float* sc = reinterpret_cast<float*>(ps + (size_t)L.BQ * L.ldp);  // BQ x lds
-    float* oa = sc + (size_t)L.BQ * L.lds;            // BQ x ldo
-    float* m_s = oa + (size_t)L.BQ * L.ldo;
-    float* l_s = m_s + L.BQ;
-    float* a_s = l_s + L.BQ;
+    bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+    bf16* ring = qs + (size_t)bq * LD;
+    const int tile = bk * LD;
 
     const Block blk = block_of(tq, bq, n_heads);
-    const int q0 = blk.q0;
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int g = lane >> 2, t4 = lane & 3;
+    const int wr = 16 * RT * warp;                // the warp's first row in the block
+    const int r0 = blk.q0 + wr;
+    const bool live = r0 < tq;
     const bf16* qg = q + blk.b * sq.b + blk.h * sq.h;
     const bf16* kg = k + blk.b * sk.b + blk.h * sk.h;
     const bf16* vg = v + blk.b * sv.b + blk.h * sv.h;
-    const int hd2 = hd / 2;
-    const uint32_t zero2 = 0u;
 
-    // stage q (rows past bq or tq are zero) and clear the carry
-    for (int e = tid; e < L.BQ * hd2; e += nt) {
-        const int i = e / hd2, d = 2 * (e - i * hd2);
-        const int t = q0 + i;
-        *reinterpret_cast<uint32_t*>(qs + i * L.ldq + d) =
-            (i < bq && t < tq) ? ld32(qg + (int64_t)t * sq.t + d) : zero2;
+    // the block's q rows, staged once (they land with the first k/v block)
+    stage_rows_async<HD>(qs, qg, sq.t, blk.q0, bq, tq);
+
+    float acc[RT][DT][4];
+    // running max (log2 units) and this thread's share of the row sums,
+    // for rows g and g + 8 of each of the warp's row tiles
+    float m[RT][2], l[RT][2];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[rt][n][e] = 0.f;
+        m[rt][0] = m[rt][1] = NEG_INF;
+        l[rt][0] = l[rt][1] = 0.f;
     }
-    for (int e = tid; e < L.BQ * L.ldo; e += nt) oa[e] = 0.f;
-    for (int i = tid; i < L.BQ; i += nt) {
-        m_s[i] = NEG_INF;
-        l_s[i] = 0.f;
+    const float sl2 = scale * LOG2E;
+    const int warp_first = q_offset + r0, warp_last = warp_first + 16 * RT - 1;
+    const int b_off = nt_offset(lane, LD), t_off = kn_offset(lane, LD);
+
+    const int n_kb = key_blocks(tq, tk, blk.q0, bq, bk, causal, q_offset);
+    auto load = [&](int kb, int slot) {
+        bf16* ks = ring + (size_t)slot * 2 * tile;
+        stage_rows_async<HD>(ks, kg, sk.t, kb * bk, bk, tk);
+        stage_rows_async<HD>(ks + tile, vg, sv.t, kb * bk, bk, tk);
+    };
+
+    for (int s = 0; s + 1 < stages; ++s) {
+        if (s < n_kb) load(s, s);
+        cp_async_commit();
     }
-
-    const int n_kb = key_blocks(tq, tk, q0, bq, bk, causal, q_offset);
-    const int m_tiles = L.BQ / 16;
-    const int s_chunks = (bk + 31) / 32, o_chunks = (hd + 31) / 32;
-
     for (int kb = 0; kb < n_kb; ++kb) {
+        if (stages == 1) {
+            __syncthreads();                      // the slot's readers are done
+            load(kb, 0);
+            cp_async_commit();
+            cp_async_wait<0>();
+        } else {
+            cp_async_wait_upto(stages - 2);       // block kb has landed here
+        }
+        __syncthreads();                          // ... and for every thread
+        if (stages > 1) {                         // refill the slot read last
+            const int next = kb + stages - 1;
+            if (next < n_kb) load(next, next % stages);
+            cp_async_commit();
+        }
+        if (!live) continue;
+        const bf16* ks = ring + (size_t)(stages > 1 ? kb % stages : 0) * 2 * tile;
+        const bf16* vs = ks + tile;
         const int k0 = kb * bk;
-        __syncthreads();            // previous block's readers are done
-        // k row-major, v transposed; keys past bk (padding) or tk are zero
-        for (int e = tid; e < L.BK * hd2; e += nt) {
-            const int j = e / hd2, d = 2 * (e - j * hd2);
-            const int t = k0 + j;
-            const bool in = j < bk && t < tk;
-            if (j < bk)
-                *reinterpret_cast<uint32_t*>(ks + j * L.ldk + d) =
-                    in ? ld32(kg + (int64_t)t * sk.t + d) : zero2;
-            const __nv_bfloat162 vv = in
-                ? *reinterpret_cast<const __nv_bfloat162*>(vg + (int64_t)t * sv.t + d)
-                : __floats2bfloat162_rn(0.f, 0.f);
-            vt[d * L.ldv + j] = vv.x;
-            vt[(d + 1) * L.ldv + j] = vv.y;
-        }
-        __syncthreads();
 
-        // scores: each warp a 16 x 32 tile, q @ k^T on the tensor cores,
-        // then scaled and masked into the float32 score tile
-        for (int task = warp; task < m_tiles * s_chunks; task += n_warps) {
-            const int r0 = (task / s_chunks) * 16, c0 = (task % s_chunks) * 32;
-            const int nn = min(4, (bk - c0) / 8);
-            float acc[4][4] = {};
-            for (int kk = 0; kk < hd; kk += 16) {
-                uint32_t a[4];
-                load_a(a, qs, L.ldq, r0, kk, lane);
+        for (int c0 = 0; c0 < bk; c0 += KS) {
+            const int kbase = k0 + c0;
+            if (kbase >= tk || (causal && kbase > warp_last)) break;
+            // the sub-tile's n8 tiles (even: bk % 16 == 0) as a constant,
+            // so the unrolled products carry no run-time guard
+            for_even<NS>(min(KS, bk - c0) / 8, [&](auto tiles) {
+            constexpr int NN = decltype(tiles)::value;
+
+            // s = q k^T for 8 * NN keys
+            float s[RT][NN][4];
 #pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    if (n < nn) {
-                        uint32_t b[2];
-                        load_b(b, ks, L.ldk, c0 + 8 * n, kk, lane);
-                        mma_bf16(acc[n], a, b);
+            for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+                for (int n = 0; n < NN; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) s[rt][n][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KT; ++kk) {
+                uint32_t qa[RT][4];
+#pragma unroll
+                for (int rt = 0; rt < RT; ++rt)
+                    ldsm_x4(qa[rt], qs + (wr + 16 * rt) * LD + kk * 16 + t_off);
+#pragma unroll
+                for (int np = 0; np < NN / 2; ++np) {
+                    uint32_t b[4];
+                    ldsm_x4(b, ks + (c0 + 16 * np) * LD + kk * 16 + b_off);
+#pragma unroll
+                    for (int rt = 0; rt < RT; ++rt) {
+                        mma(s[rt][2 * np], qa[rt], b[0], b[1]);
+                        mma(s[rt][2 * np + 1], qa[rt], b[2], b[3]);
                     }
                 }
             }
+            // online softmax in log2 units; the mask only where the tile
+            // can hold a masked key (the ragged end, the causal diagonal)
+            const bool edge = kbase + 8 * NN > tk
+                           || (causal && kbase + 8 * NN - 1 > warp_first);
 #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                if (n >= nn) continue;
-                const int j = c0 + 8 * n + 2 * t4;
+            for (int rt = 0; rt < RT; ++rt) {
+                if (edge) {
+                    const int qpos0 = warp_first + 16 * rt + g, qpos1 = qpos0 + 8;
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int i = r0 + g + 8 * half;
-                    const int qpos = q_offset + q0 + i;
-                    float2 s;
-                    const int kp0 = k0 + j, kp1 = kp0 + 1;
-                    s.x = (kp0 < tk && (!causal || qpos >= kp0))
-                        ? acc[n][2 * half] * scale : NEG_INF;
-                    s.y = (kp1 < tk && (!causal || qpos >= kp1))
-                        ? acc[n][2 * half + 1] * scale : NEG_INF;
-                    *reinterpret_cast<float2*>(sc + i * L.lds + j) = s;
+                    for (int n = 0; n < NN; ++n)
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const int key = kbase + 8 * n + 2 * t4 + (e & 1);
+                            if (key >= tk || (causal && key > (e < 2 ? qpos0 : qpos1)))
+                                s[rt][n][e] = NEG_INF;
+                        }
+                }
+                float r0 = NEG_INF, r1 = NEG_INF;          // the raw row max
+#pragma unroll
+                for (int n = 0; n < NN; ++n) {
+                    r0 = fmaxf(r0, fmaxf(s[rt][n][0], s[rt][n][1]));
+                    r1 = fmaxf(r1, fmaxf(s[rt][n][2], s[rt][n][3]));
+                }
+                // the row max across the quad that shares a row
+                r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 1));
+                r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, 2));
+                r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 1));
+                r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, 2));
+                const float mx0 = fmaxf(m[rt][0], r0 * sl2);
+                const float mx1 = fmaxf(m[rt][1], r1 * sl2);
+                // rescale only when a row's max moved (less and less often
+                // as keys accumulate); the quad agrees, a warp votes
+                if (__any_sync(0xffffffffu, mx0 != m[rt][0] || mx1 != m[rt][1])) {
+                    const float a0 = ex2(m[rt][0] - mx0), a1 = ex2(m[rt][1] - mx1);
+                    m[rt][0] = mx0;
+                    m[rt][1] = mx1;
+                    l[rt][0] *= a0;
+                    l[rt][1] *= a1;
+#pragma unroll
+                    for (int n = 0; n < DT; ++n) {
+                        acc[rt][n][0] *= a0;
+                        acc[rt][n][1] *= a0;
+                        acc[rt][n][2] *= a1;
+                        acc[rt][n][3] *= a1;
+                    }
+                }
+#pragma unroll
+                for (int n = 0; n < NN; ++n) {
+                    s[rt][n][0] = ex2(fmaf(s[rt][n][0], sl2, -mx0));
+                    s[rt][n][1] = ex2(fmaf(s[rt][n][1], sl2, -mx0));
+                    s[rt][n][2] = ex2(fmaf(s[rt][n][2], sl2, -mx1));
+                    s[rt][n][3] = ex2(fmaf(s[rt][n][3], sl2, -mx1));
+                    l[rt][0] += s[rt][n][0] + s[rt][n][1];
+                    l[rt][1] += s[rt][n][2] + s[rt][n][3];
                 }
             }
-        }
-        __syncthreads();
-
-        // online softmax, a warp per row; p in bf16 (zero past bk)
-        for (int i = warp; i < L.BQ; i += n_warps) {
-            const float* row = sc + i * L.lds;
-            float mx = NEG_INF;
-            for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, row[j]);
-            mx = warp_max(mx);
-            const float m_old = m_s[i];
-            const float m_new = fmaxf(m_old, mx);
-            float sum = 0.f;
-            for (int j = lane; j < L.BK; j += 32) {
-                const float p = j < bk ? expf(row[j] - m_new) : 0.f;
-                ps[i * L.ldp + j] = __float2bfloat16(p);
-                sum += p;
-            }
-            sum = warp_sum(sum);
-            if (lane == 0) {
-                const float alpha = expf(m_old - m_new);
-                a_s[i] = alpha;
-                l_s[i] = l_s[i] * alpha + sum;
-                m_s[i] = m_new;
-            }
-        }
-        __syncthreads();
-
-        // o = o * alpha + p @ v: each warp a 16 x 32 tile of the accumulator
-        for (int task = warp; task < m_tiles * o_chunks; task += n_warps) {
-            const int r0 = (task / o_chunks) * 16, c0 = (task % o_chunks) * 32;
-            const int nn = min(4, (hd - c0) / 8);
-            const float alpha0 = a_s[r0 + g], alpha1 = a_s[r0 + g + 8];
-            float acc[4][4];
+            // acc += p v: p's C fragments are the A fragments, v through
+            // ldmatrix.trans
 #pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                if (n >= nn) continue;
-                const int j = c0 + 8 * n + 2 * t4;
-                const float2 lo = *reinterpret_cast<const float2*>(oa + (r0 + g) * L.ldo + j);
-                const float2 hi = *reinterpret_cast<const float2*>(oa + (r0 + g + 8) * L.ldo + j);
-                acc[n][0] = lo.x * alpha0;
-                acc[n][1] = lo.y * alpha0;
-                acc[n][2] = hi.x * alpha1;
-                acc[n][3] = hi.y * alpha1;
-            }
-            for (int kk = 0; kk < L.BK; kk += 16) {
-                uint32_t a[4];
-                load_a(a, ps, L.ldp, r0, kk, lane);
+            for (int j = 0; j < NN / 2; ++j) {
+                uint32_t a[RT][4];
 #pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                    if (n < nn) {
-                        uint32_t b[2];
-                        load_b(b, vt, L.ldv, c0 + 8 * n, kk, lane);
-                        mma_bf16(acc[n], a, b);
+                for (int rt = 0; rt < RT; ++rt)
+                    c_to_a(a[rt], s[rt][2 * j], s[rt][2 * j + 1]);
+                const bf16* vrow = vs + (c0 + 16 * j) * LD + t_off;
+#pragma unroll
+                for (int dp = 0; dp < DT / 2; ++dp) {
+                    uint32_t b[4];
+                    ldsm_x4_t(b, vrow + 16 * dp);
+#pragma unroll
+                    for (int rt = 0; rt < RT; ++rt) {
+                        mma(acc[rt][2 * dp], a[rt], b[0], b[1]);
+                        mma(acc[rt][2 * dp + 1], a[rt], b[2], b[3]);
                     }
                 }
             }
-#pragma unroll
-            for (int n = 0; n < 4; ++n) {
-                if (n >= nn) continue;
-                const int j = c0 + 8 * n + 2 * t4;
-                *reinterpret_cast<float2*>(oa + (r0 + g) * L.ldo + j) =
-                    make_float2(acc[n][0], acc[n][1]);
-                *reinterpret_cast<float2*>(oa + (r0 + g + 8) * L.ldo + j) =
-                    make_float2(acc[n][2], acc[n][3]);
-            }
+            });
         }
     }
-    __syncthreads();
+    cp_async_wait<0>();                           // no copy outlives the block
 
     // o = acc / max(l, 1e-30) in bf16; lse = m + log(max(l, 1e-30))
     bf16* og = o + blk.b * so.b + blk.h * so.h;
-    for (int e = tid; e < bq * hd2; e += nt) {
-        const int i = e / hd2, d = 2 * (e - i * hd2);
-        const int t = q0 + i;
-        if (t < tq) {
-            const float inv = 1.f / fmaxf(l_s[i], 1e-30f);
-            *reinterpret_cast<__nv_bfloat162*>(og + (int64_t)t * so.t + d) =
-                __floats2bfloat162_rn(oa[i * L.ldo + d] * inv,
-                                      oa[i * L.ldo + d + 1] * inv);
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+        float l0 = l[rt][0], l1 = l[rt][1];
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+        const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+        const int row0 = r0 + 16 * rt + g, row1 = row0 + 8;
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+            const int d = 8 * n + 2 * t4;
+            if (row0 < tq)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)row0 * so.t + d) =
+                    pack_bf16(acc[rt][n][0] * inv0, acc[rt][n][1] * inv0);
+            if (row1 < tq)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)row1 * so.t + d) =
+                    pack_bf16(acc[rt][n][2] * inv1, acc[rt][n][3] * inv1);
+        }
+        if (t4 == 0) {
+            if (row0 < tq)
+                lse[(int64_t)blk.bh * tq + row0] =
+                    m[rt][0] * LN2 + logf(fmaxf(l0, 1e-30f));
+            if (row1 < tq)
+                lse[(int64_t)blk.bh * tq + row1] =
+                    m[rt][1] * LN2 + logf(fmaxf(l1, 1e-30f));
         }
     }
-    for (int i = tid; i < bq; i += nt) {
-        const int t = q0 + i;
-        if (t < tq)
-            lse[(int64_t)blk.bh * tq + t] = m_s[i] + logf(fmaxf(l_s[i], 1e-30f));
-    }
+}
+
+template <int HD, int RT>
+int launch_bf16_hd(const void* q, const void* k, const void* v, void* o,
+                   void* lse, const int64_t* strides, int batch, int n_heads,
+                   int tq, int tk, int bq, int bk, int stages, int causal,
+                   int q_offset, float scale, void* stream) {
+    const size_t smem = (size_t)smem_bytes_bf16(bq, bk, HD, stages);
+    auto kernel = flash_fwd_bf16_kernel<HD, RT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const Strides sq{strides[0], strides[1], strides[2]};
+    const Strides sk{strides[3], strides[4], strides[5]};
+    const Strides sv{strides[6], strides[7], strides[8]};
+    const Strides so{strides[9], strides[10], strides[11]};
+    const int64_t blocks = (int64_t)batch * n_heads * ((tq + bq - 1) / bq);
+    kernel<<<(unsigned)blocks, 2 * bq / RT, smem, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+        sq, sk, sv, so, n_heads, tq, tk, bq, bk, stages, causal, q_offset,
+        scale);
+    return (int)cudaGetLastError();
 }
 
 template <typename T, typename Kernel>
@@ -539,10 +557,8 @@ extern "C" {
 
 // q, k, v, o: (B, T, H, hd) views with unit stride along hd; `strides`
 // holds 12 int64: (batch, seq, head) element strides of q, k, v, o.
-// lse: (B, H, Tq) float32, contiguous.  threads a multiple of 32 in
-// [32, 1024].  float32: bq, bk and hd multiples of 4.  bfloat16: bq, bk
-// multiples of 8, hd a multiple of 16, every stride even and every
-// pointer 4-byte aligned (the kernel moves bf16 in pairs).
+// lse: (B, H, Tq) float32, contiguous.  float32: threads a multiple of 32
+// in [32, 1024]; bq, bk and hd multiples of 4.
 int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                             void* o, void* lse, const int64_t* strides,
                             int batch, int n_heads, int tq, int tk, int hd,
@@ -554,15 +570,40 @@ int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                          q_offset, scale, stream);
 }
 
+// bfloat16: a block of 2 * bq / rt threads (a warp per rt tiles of 16 query
+// rows, rt in {1, 2}; at most 256 threads; rt = 2 up to hd 128), bq and bk
+// multiples of 16, stages in [1, 4], hd in {32, 64, 96, 128, 192}; every
+// stride a multiple of 8 and every pointer 16-byte aligned (q, k and v move
+// in 16-byte copies).
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                              void* o, void* lse, const int64_t* strides,
                              int batch, int n_heads, int tq, int tk, int hd,
-                             int bq, int bk, int threads, int causal,
-                             int q_offset, float scale, void* stream) {
-    const size_t smem = (size_t)smem_bytes_bf16(bq, bk, hd);
-    return launch<bf16>(flash_fwd_mma_bf16_kernel, smem, q, k, v, o, lse,
-                        strides, batch, n_heads, tq, tk, hd, bq, bk, threads,
-                        causal, q_offset, scale, stream);
+                             int bq, int bk, int threads, int stages,
+                             int causal, int q_offset, float scale,
+                             void* stream) {
+    if (batch <= 0 || n_heads <= 0 || tq <= 0) return 0;
+    const int rt = threads > 0 && (2 * bq) % threads == 0 ? 2 * bq / threads : 0;
+    if (bq % 16 || bk % 16 || bq < 16 || bk < 16 || threads > MMA_MAX_THREADS
+        || (rt != 1 && rt != 2) || (rt == 2 && hd > 128) || stages < 1
+        || stages > 4)
+        return (int)cudaErrorInvalidValue;
+#define FWD_BF16(HD, RT)                                                      \
+    return launch_bf16_hd<HD, RT>(q, k, v, o, lse, strides, batch, n_heads,  \
+                                  tq, tk, bq, bk, stages, causal, q_offset,   \
+                                  scale, stream);
+    switch (hd * 2 + rt - 1) {       // (hd, rt) as one key
+        case 32 * 2: FWD_BF16(32, 1)
+        case 32 * 2 + 1: FWD_BF16(32, 2)
+        case 64 * 2: FWD_BF16(64, 1)
+        case 64 * 2 + 1: FWD_BF16(64, 2)
+        case 96 * 2: FWD_BF16(96, 1)
+        case 96 * 2 + 1: FWD_BF16(96, 2)
+        case 128 * 2: FWD_BF16(128, 1)
+        case 128 * 2 + 1: FWD_BF16(128, 2)
+        case 192 * 2: FWD_BF16(192, 1)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef FWD_BF16
 }
 
 const char* flash_attention_error_string(int code) {

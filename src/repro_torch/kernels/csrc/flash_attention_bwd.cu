@@ -31,20 +31,42 @@
 // What bounds it on the H100: operations.  At the training shape (B*H = 32,
 // T = 2048, hd = 128, causal) the five products a backward needs come to
 // 5 * 2 * 32 * 2048^2 / 2 * 128 = 86 GFLOP (0.087 ms at the bf16 tensor-core
-// rate); the two programs do seven (s and dp are recomputed by both), and
-// this first kernel does them on the CUDA cores in float32 for both input
-// types, so it is far from that bound.  The float32 build has to be: the
-// float32 parity gate (2e-4) rules out TF32.  Each product runs as 4 x 4
-// register micro-tiles fed from transposed shared-memory tiles: the score
-// pass computes s and dp of one micro-tile together (16 loads per 32 FMAs)
-// and turns them into p and ds in registers; the accumulation pass walks the
-// tile's rows (dq) or keys (dk, dv) with 16 loads per 32 FMAs.  One padding
-// word per transposed row keeps the strided reads of a warp on 32 banks.
+// rate); the two programs do seven (s and dp are recomputed by both:
+// 0.122 ms).  Two builds, one per input type:
 //
-// Shared memory is the constraint: at hd 128 the dkv program holds k, v, q
-// and do transposed, p and ds, and both accumulators, all float32 (see
-// smem_floats_dkv); 64 x 64 blocks would need 232,448 bytes, all the card
-// gives a block, so the wrapper's defaults take 32 query rows.
+//   * bfloat16 (the training path): all seven products on the tensor cores,
+//     mma.sync m16n8k16 with bf16 operands and float32 accumulators in
+//     registers (flash_tiles.cuh); a block of 2 * block threads owns
+//     `block` rows, a warp 16 of them (block_q == block_k).
+//       dq: the warp's q and do rows are A fragments in registers, loaded
+//       once, with their lse and delta; k and v arrive through a two-slot
+//       ring of shared tiles filled by 16-byte cp.async copies, one barrier
+//       a key block.  Per 32 keys: s = q k^T and dp = do v^T into registers
+//       (k's and v's B fragments by ldmatrix), p = exp(s - lse) (masked only
+//       in a block that holds the diagonal or the ragged end), ds = p (dp -
+//       delta), ds's C fragments repacked as bf16 A fragments for dq += ds k
+//       (k's B fragments by ldmatrix.trans).
+//       dk/dv: the warp's k rows are A fragments in registers; its v rows
+//       stay in a shared tile read by ldmatrix (holding them too would
+//       take the registers past 255 at hd 128); q, do and their rows' lse
+//       and delta arrive through the ring.  Per 16 queries: s^T = k q^T and
+//       dp^T = v do^T, p^T and ds^T in registers, repacked as A fragments
+//       for dv += p^T do and dk += ds^T q (do's and q's B fragments by
+//       ldmatrix.trans): no transposed copy of anything.
+//     Templates for hd 32, 64, 96, 128; hd 192 is refused (the two
+//     accumulators and the fragments held in registers pass 255 registers).
+//   * float32 (the parity path): the float32 parity gate (2e-4) rules out
+//     TF32, so it stays on the CUDA cores in float32.  Each product runs as
+//     4 x 4 register micro-tiles fed from transposed shared-memory tiles: the
+//     score pass computes s and dp of one micro-tile together (16 loads per
+//     32 FMAs) and turns them into p and ds in registers; the accumulation
+//     pass walks the tile's rows (dq) or keys (dk, dv) with 16 loads per 32
+//     FMAs.  One padding word per transposed row keeps the strided reads of
+//     a warp on 32 banks.  Shared memory is its constraint: at hd 128 the
+//     dkv program holds k, v, q and do transposed, p and ds, and both
+//     accumulators, all float32 (see smem_floats_dkv); 64 x 64 blocks would
+//     need 232,448 bytes, all the card gives a block, so its launch point
+//     takes 32 query rows.
 //
 // Heads fold into the grid through the (batch, seq, head) strides of every
 // tensor, as in B3.  Ragged edges are masked: T need not be a multiple of a
@@ -58,11 +80,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
 constexpr int MAX_THREADS = 512;
 
-typedef __nv_bfloat16 bf16;
+using flash::bf16;
 
 struct Strides {            // element strides of a (B, T, H, hd) view
     int64_t b, t, h;
@@ -439,6 +463,403 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: both programs on the tensor cores (mma.sync m16n8k16, bf16
+// operands, float32 accumulators in registers; flash_tiles.cuh)
+
+// A warp owns 16 rows (dq: query rows; dk/dv: keys), so a block of
+// 2 * block threads owns `block` rows; 8 warps fill the register file.
+constexpr int MMA_MAX_THREADS = 256;
+constexpr int DQ_KSUB = 32;       // keys whose s and dp a dq warp holds at once
+
+__host__ __device__ inline int64_t pitch(int hd) { return hd + 8; }
+
+// Shared memory, in bytes, of the two bf16 programs (must match the
+// Python-side kernel.smem_bytes_bwd): dq, a two-slot ring of k and v
+// tiles; dk/dv, the block's v tile (read as A fragments) and a two-slot
+// ring of q and do tiles with their rows' lse and delta.
+__host__ __device__ inline int64_t smem_bytes_dq_bf16(int bk, int hd) {
+    return 2LL * 2 * bk * pitch(hd) * (int64_t)sizeof(bf16);
+}
+
+__host__ __device__ inline int64_t smem_bytes_dkv_bf16(int bq, int bk, int hd) {
+    return (int64_t)bk * pitch(hd) * sizeof(bf16)
+         + 2LL * (2LL * bq * pitch(hd) * sizeof(bf16) + 2LL * bq * sizeof(float));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_MAX_THREADS)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dq,
+                         AllStrides st, int n_bh, int n_heads, int tq, int tk,
+                         int bq, int bk, int causal, int q_offset, float scale) {
+    using namespace flash;
+    constexpr int KT = HD / 16, DT = HD / 8, LD = HD + 8, NS = DQ_KSUB / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // 2 x (k, v) tiles
+    const int tile = bk * LD;
+
+    // heaviest query blocks (the most key blocks under the diagonal) first
+    const int n_qb = (tq + bq - 1) / bq;
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int qb = n_qb - 1 - (int)(blockIdx.x / n_bh);
+    const int b = bh / n_heads, h = bh - b * n_heads;
+    const int q0 = qb * bq;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = q0 + 16 * warp;
+    const bool live = r0 < tq;
+    const int row0 = r0 + g, row1 = row0 + 8;
+
+    uint32_t qf[KT][4], df[KT][4];
+    load_a_rows<HD>(qf, q + b * st.q.b + h * st.q.h, st.q.t, r0, tq, lane);
+    load_a_rows<HD>(df, dout + b * st.d.b + h * st.d.h, st.d.t, r0, tq, lane);
+    const float* lse_h = lse + (int64_t)bh * tq;
+    const float* dl_h = delta + (int64_t)bh * tq;
+    const float lse0 = row0 < tq ? lse_h[row0] * LOG2E : 0.f;
+    const float lse1 = row1 < tq ? lse_h[row1] * LOG2E : 0.f;
+    const float dl0 = row0 < tq ? dl_h[row0] : 0.f;
+    const float dl1 = row1 < tq ? dl_h[row1] : 0.f;
+    float acc[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const float sl2 = scale * LOG2E;
+    const int qpos0 = q_offset + row0, qpos1 = qpos0 + 8;
+    const int warp_first = q_offset + r0, warp_last = warp_first + 15;
+    const int b_off = nt_offset(lane, LD), t_off = kn_offset(lane, LD);
+
+    int n_kb = (tk + bk - 1) / bk;
+    if (causal) {
+        const int last_q = q_offset + min(q0 + bq, tq) - 1;
+        n_kb = min(n_kb, last_q / bk + 1);
+    }
+    const bf16* kg = k + b * st.k.b + h * st.k.h;
+    const bf16* vg = v + b * st.v.b + h * st.v.h;
+    auto load = [&](int kb, int slot) {
+        bf16* ks = ring + (size_t)slot * 2 * tile;
+        stage_rows_async<HD>(ks, kg, st.k.t, kb * bk, bk, tk);
+        stage_rows_async<HD>(ks + tile, vg, st.v.t, kb * bk, bk, tk);
+    };
+
+    if (n_kb > 0) load(0, 0);
+    cp_async_commit();
+    for (int kb = 0; kb < n_kb; ++kb) {
+        cp_async_wait<0>();
+        __syncthreads();            // block kb landed; slot kb - 1 is free
+        if (kb + 1 < n_kb) load(kb + 1, (kb + 1) & 1);
+        cp_async_commit();
+        if (!live) continue;
+        const bf16* ks = ring + (size_t)(kb & 1) * 2 * tile;
+        const bf16* vs = ks + tile;
+        const int k0 = kb * bk;
+
+        for (int c0 = 0; c0 < bk; c0 += DQ_KSUB) {
+            const int kbase = k0 + c0;
+            if (kbase >= tk || (causal && kbase > warp_last)) break;
+            // the sub-tile's n8 tiles as a constant: no guard in the products
+            for_even<NS>(min(DQ_KSUB, bk - c0) / 8, [&](auto tiles) {
+            constexpr int NN = decltype(tiles)::value;
+            float s[NN][4], dp[NN][4];
+#pragma unroll
+            for (int n = 0; n < NN; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+            // s = q k^T, dp = do v^T
+#pragma unroll
+            for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+                for (int np = 0; np < NN / 2; ++np) {
+                    uint32_t bb[4];
+                    ldsm_x4(bb, ks + (c0 + 16 * np) * LD + kk * 16 + b_off);
+                    mma(s[2 * np], qf[kk], bb[0], bb[1]);
+                    mma(s[2 * np + 1], qf[kk], bb[2], bb[3]);
+                    ldsm_x4(bb, vs + (c0 + 16 * np) * LD + kk * 16 + b_off);
+                    mma(dp[2 * np], df[kk], bb[0], bb[1]);
+                    mma(dp[2 * np + 1], df[kk], bb[2], bb[3]);
+                }
+            }
+            // p = exp(s - lse) (0 where masked), ds = p (dp - delta), in place
+            const bool edge = kbase + 8 * NN > tk
+                           || (causal && kbase + 8 * NN - 1 > warp_first);
+#pragma unroll
+            for (int n = 0; n < NN; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool hi = e >= 2;
+                    float p = ex2(fmaf(s[n][e], sl2, -(hi ? lse1 : lse0)));
+                    if (edge) {
+                        const int key = kbase + 8 * n + 2 * t4 + (e & 1);
+                        if (key >= tk || (causal && key > (hi ? qpos1 : qpos0)))
+                            p = 0.f;
+                    }
+                    s[n][e] = p * (dp[n][e] - (hi ? dl1 : dl0));
+                }
+            }
+            // acc += ds k: ds's C fragments are the A fragments, k through
+            // ldmatrix.trans
+#pragma unroll
+            for (int j = 0; j < NN / 2; ++j) {
+                uint32_t a[4];
+                c_to_a(a, s[2 * j], s[2 * j + 1]);
+                const bf16* krow = ks + (c0 + 16 * j) * LD + t_off;
+#pragma unroll
+                for (int d2 = 0; d2 < DT / 2; ++d2) {
+                    uint32_t bb[4];
+                    ldsm_x4_t(bb, krow + 16 * d2);
+                    mma(acc[2 * d2], a, bb[0], bb[1]);
+                    mma(acc[2 * d2 + 1], a, bb[2], bb[3]);
+                }
+            }
+            });
+        }
+    }
+    cp_async_wait<0>();
+
+    bf16* dqg = dq + b * st.dq.b + h * st.dq.h;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+        const int d = 8 * n + 2 * t4;
+        if (row0 < tq)
+            *reinterpret_cast<uint32_t*>(dqg + (int64_t)row0 * st.dq.t + d) =
+                pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+        if (row1 < tq)
+            *reinterpret_cast<uint32_t*>(dqg + (int64_t)row1 * st.dq.t + d) =
+                pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(MMA_MAX_THREADS)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, AllStrides st, int n_bh,
+                          int n_heads, int tq, int tk, int bq, int bk,
+                          int causal, int q_offset, float scale) {
+    using namespace flash;
+    constexpr int KT = HD / 16, DT = HD / 8, LD = HD + 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    bf16* vs = reinterpret_cast<bf16*>(smem_raw);          // bk x LD
+    unsigned char* ring = smem_raw + (size_t)bk * LD * sizeof(bf16);
+    const size_t slot_bytes = 2 * (size_t)bq * LD * sizeof(bf16)
+                            + 2 * (size_t)bq * sizeof(float);
+
+    // heaviest key blocks (the most query blocks under the diagonal) first
+    const int bh = (int)(blockIdx.x % n_bh);
+    const int kb = (int)(blockIdx.x / n_bh);
+    const int b = bh / n_heads, h = bh - b * n_heads;
+    const int k0 = kb * bk;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int kr0 = k0 + 16 * warp;              // the warp's first key
+    const bool live = kr0 < tk;
+    const int key0 = kr0 + g, key1 = key0 + 8;
+
+    // the block's v rows for dp^T = v do^T (A fragments by ldmatrix), the
+    // warp's k rows as A fragments in registers
+    stage_rows_async<HD>(vs, v + b * st.v.b + h * st.v.h, st.v.t, k0, bk, tk);
+    uint32_t kf[KT][4];
+    load_a_rows<HD>(kf, k + b * st.k.b + h * st.k.h, st.k.t, kr0, tk, lane);
+    float dka[DT][4], dva[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    const float sl2 = scale * LOG2E;
+    const int b_off = nt_offset(lane, LD), t_off = kn_offset(lane, LD);
+
+    // the first query block with a row at or past the diagonal of key k0
+    const int n_qb = (tq + bq - 1) / bq;
+    int qb0 = 0;
+    if (causal && k0 - q_offset > 0) qb0 = min((k0 - q_offset) / bq, n_qb);
+    const bf16* qg = q + b * st.q.b + h * st.q.h;
+    const bf16* dg = dout + b * st.d.b + h * st.d.h;
+    const float* lse_h = lse + (int64_t)bh * tq;
+    const float* dl_h = delta + (int64_t)bh * tq;
+    auto slot_of = [&](int i) { return ring + (size_t)i * slot_bytes; };
+    auto load = [&](int qb, int slot) {
+        unsigned char* base = slot_of(slot);
+        bf16* qs = reinterpret_cast<bf16*>(base);
+        bf16* dos = qs + (size_t)bq * LD;
+        float* ls = reinterpret_cast<float*>(dos + (size_t)bq * LD);
+        const int t0 = qb * bq;
+        stage_rows_async<HD>(qs, qg, st.q.t, t0, bq, tq);
+        stage_rows_async<HD>(dos, dg, st.d.t, t0, bq, tq);
+        for (int i = threadIdx.x; i < bq; i += blockDim.x) {
+            const bool in = t0 + i < tq;
+            const int t = in ? t0 + i : 0;
+            cp_async4(ls + i, lse_h + t, in);
+            cp_async4(ls + bq + i, dl_h + t, in);
+        }
+    };
+
+    if (qb0 < n_qb) load(qb0, 0);
+    cp_async_commit();
+    for (int qb = qb0; qb < n_qb; ++qb) {
+        const int it = qb - qb0;
+        cp_async_wait<0>();
+        __syncthreads();            // block qb (and v) landed; the other slot is free
+        if (qb + 1 < n_qb) load(qb + 1, (it + 1) & 1);
+        cp_async_commit();
+        if (!live) continue;
+        const unsigned char* base = slot_of(it & 1);
+        const bf16* qs = reinterpret_cast<const bf16*>(base);
+        const bf16* dos = qs + (size_t)bq * LD;
+        const float* ls = reinterpret_cast<const float*>(dos + (size_t)bq * LD);
+        const float* dls = ls + bq;
+        const int q0 = qb * bq;
+
+        for (int c0 = 0; c0 < bq; c0 += 16) {
+            const int qbase = q0 + c0;
+            if (qbase >= tq) break;
+            if (causal && q_offset + qbase + 15 < kr0) continue;
+            // s^T = k q^T, dp^T = v do^T: 16 keys x 16 queries
+            float s[2][4], dp[2][4];
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KT; ++kk) {
+                uint32_t bb[4], va[4];
+                ldsm_x4(bb, qs + c0 * LD + kk * 16 + b_off);
+                mma(s[0], kf[kk], bb[0], bb[1]);
+                mma(s[1], kf[kk], bb[2], bb[3]);
+                ldsm_x4(va, vs + 16 * warp * LD + kk * 16 + t_off);
+                ldsm_x4(bb, dos + c0 * LD + kk * 16 + b_off);
+                mma(dp[0], va, bb[0], bb[1]);
+                mma(dp[1], va, bb[2], bb[3]);
+            }
+            // p^T = exp(s^T - lse) (0 where masked), ds^T = p^T (dp^T - delta)
+            const bool edge = qbase + 16 > tq || kr0 + 16 > tk
+                           || (causal && q_offset + qbase < kr0 + 15);
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+                const int qi = c0 + 8 * n + 2 * t4;       // within the tile
+                const float2 lv = *reinterpret_cast<const float2*>(ls + qi);
+                const float2 dl = *reinterpret_cast<const float2*>(dls + qi);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool odd = e & 1;
+                    float p = ex2(fmaf(s[n][e], sl2, -(odd ? lv.y : lv.x) * LOG2E));
+                    if (edge) {
+                        const int query = q0 + qi + odd;
+                        const int key = e < 2 ? key0 : key1;
+                        if (query >= tq || key >= tk
+                            || (causal && q_offset + query < key))
+                            p = 0.f;
+                    }
+                    dp[n][e] = p * (dp[n][e] - (odd ? dl.y : dl.x));
+                    s[n][e] = p;
+                }
+            }
+            // dv += p^T do, dk += ds^T q: do and q through ldmatrix.trans
+            uint32_t pa[4], sa[4];
+            c_to_a(pa, s[0], s[1]);
+            c_to_a(sa, dp[0], dp[1]);
+            const bf16* drow = dos + c0 * LD + t_off;
+            const bf16* qrow = qs + c0 * LD + t_off;
+#pragma unroll
+            for (int d2 = 0; d2 < DT / 2; ++d2) {
+                uint32_t bb[4];
+                ldsm_x4_t(bb, drow + 16 * d2);
+                mma(dva[2 * d2], pa, bb[0], bb[1]);
+                mma(dva[2 * d2 + 1], pa, bb[2], bb[3]);
+                ldsm_x4_t(bb, qrow + 16 * d2);
+                mma(dka[2 * d2], sa, bb[0], bb[1]);
+                mma(dka[2 * d2 + 1], sa, bb[2], bb[3]);
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    bf16* dkg = dk + b * st.dk.b + h * st.dk.h;
+    bf16* dvg = dv + b * st.dv.b + h * st.dv.h;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+        const int d = 8 * n + 2 * t4;
+        if (key0 < tk) {
+            *reinterpret_cast<uint32_t*>(dkg + (int64_t)key0 * st.dk.t + d) =
+                pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
+            *reinterpret_cast<uint32_t*>(dvg + (int64_t)key0 * st.dv.t + d) =
+                pack_bf16(dva[n][0], dva[n][1]);
+        }
+        if (key1 < tk) {
+            *reinterpret_cast<uint32_t*>(dkg + (int64_t)key1 * st.dk.t + d) =
+                pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
+            *reinterpret_cast<uint32_t*>(dvg + (int64_t)key1 * st.dv.t + d) =
+                pack_bf16(dva[n][2], dva[n][3]);
+        }
+    }
+}
+
+
+template <int HD>
+int launch_bf16_hd(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, void* dk, void* dv, const int64_t* strides,
+                   int batch, int n_heads, int tq, int tk, int bq, int bk,
+                   int causal, int q_offset, float scale, void* stream) {
+    const int n_bh = batch * n_heads;
+    const AllStrides st = unpack(strides);
+    if (dq != nullptr) {
+        const size_t smem = (size_t)smem_bytes_dq_bf16(bk, HD);
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_bwd_dq_bf16_kernel<HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        const int64_t blocks = (int64_t)n_bh * ((tq + bq - 1) / bq);
+        flash_bwd_dq_bf16_kernel<HD><<<(unsigned)blocks, 2 * bq, smem,
+                                       (cudaStream_t)stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            (const float*)lse, (const float*)delta, (bf16*)dq, st, n_bh,
+            n_heads, tq, tk, bq, bk, causal, q_offset, scale);
+    } else {
+        const size_t smem = (size_t)smem_bytes_dkv_bf16(bq, bk, HD);
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_bwd_dkv_bf16_kernel<HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        const int64_t blocks = (int64_t)n_bh * ((tk + bk - 1) / bk);
+        flash_bwd_dkv_bf16_kernel<HD><<<(unsigned)blocks, 2 * bk, smem,
+                                        (cudaStream_t)stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, st,
+            n_bh, n_heads, tq, tk, bq, bk, causal, q_offset, scale);
+    }
+    return (int)cudaGetLastError();
+}
+
+// One bf16 program: dq when `dq` is given, else dk/dv.
+int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, void* dq, void* dk,
+                void* dv, const int64_t* strides, int batch, int n_heads,
+                int tq, int tk, int hd, int bq, int bk, int threads,
+                int causal, int q_offset, float scale, void* stream) {
+    if (batch <= 0 || n_heads <= 0 || tq <= 0 || tk <= 0) return 0;
+    if (bq % 16 || bq < 16 || threads != 2 * bq || threads != 2 * bk
+        || threads > MMA_MAX_THREADS)
+        return (int)cudaErrorInvalidValue;
+#define BWD_BF16(HD)                                                          \
+    case HD:                                                                  \
+        return launch_bf16_hd<HD>(q, k, v, dout, lse, delta, dq, dk, dv,      \
+                                  strides, batch, n_heads, tq, tk, bq, bk,    \
+                                  causal, q_offset, scale, stream);
+    switch (hd) {
+        BWD_BF16(32)
+        BWD_BF16(64)
+        BWD_BF16(96)
+        BWD_BF16(128)
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef BWD_BF16
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,8 +867,10 @@ extern "C" {
 // q, do: (B, Tq, H, hd); k, v: (B, Tk, H, hd); dq, dk, dv likewise; all
 // views with unit stride along hd.  `strides` holds 21 int64: the (batch,
 // seq, head) element strides of q, k, v, do, dq, dk, dv in that order.
-// lse and delta: (B, H, Tq) float32, contiguous.  bq, bk and hd multiples
-// of 4; threads a multiple of 32 in [32, 512].
+// lse and delta: (B, H, Tq) float32, contiguous.  float32: bq, bk and hd
+// multiples of 4; threads a multiple of 32 in [32, 512].  bfloat16: bq ==
+// bk == threads / 2, a multiple of 16, threads <= 256; hd in {32, 64, 96,
+// 128}; every stride a multiple of 8 and every pointer 16-byte aligned.
 
 int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
@@ -468,9 +891,9 @@ int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                 int tq, int tk, int hd, int bq, int bk,
                                 int threads, int causal, int q_offset,
                                 float scale, void* stream) {
-    return launch_dq<bf16>(q, k, v, dout, lse, delta, dq, strides, batch,
-                           n_heads, tq, tk, hd, bq, bk, threads, causal,
-                           q_offset, scale, stream);
+    return launch_bf16(q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+                       strides, batch, n_heads, tq, tk, hd, bq, bk, threads,
+                       causal, q_offset, scale, stream);
 }
 
 int flash_attention_bwd_dkv_f32(const void* q, const void* k, const void* v,
@@ -492,9 +915,9 @@ int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                  int n_heads, int tq, int tk, int hd, int bq,
                                  int bk, int threads, int causal, int q_offset,
                                  float scale, void* stream) {
-    return launch_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, strides, batch,
-                            n_heads, tq, tk, hd, bq, bk, threads, causal,
-                            q_offset, scale, stream);
+    return launch_bf16(q, k, v, dout, lse, delta, nullptr, dk, dv, strides,
+                       batch, n_heads, tq, tk, hd, bq, bk, threads, causal,
+                       q_offset, scale, stream);
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -14,7 +14,7 @@ l = 0, acc = 0`` and weighs exactly 0 in the combine.
 
 The partials come from the CUDA C++ kernel in
 ``kernels/csrc/decode_attention.cu`` (float32 and bfloat16 caches; hd in
-{32, 64, 128}; rep <= 16), compiled at first use and bound with
+{32, 64, 96, 128, 192}; rep <= 16), compiled at first use and bound with
 ``ctypes``; the combine is plain PyTorch, as it is plain JAX in the
 reference.  ``length`` is a plain integer handed to the kernel, so one
 build serves every fill level.
@@ -41,7 +41,7 @@ __all__ = ["DTYPES", "HEAD_DIMS", "MAX_REP", "NEG_INF", "combine_splits",
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128, 192)
 MAX_REP = 16
 MAX_THREADS = 512
 

@@ -7,9 +7,13 @@ head) and query block it walks the key blocks with the running online-
 softmax state (acc, m, l), masks causally with ``q_offset``, and returns
 ``o`` in q's dtype and ``lse = m + log l`` in float32.  The kernel is CUDA
 C++ in ``kernels/csrc/flash_attention.cu``, compiled at first use and bound
-with ``ctypes``: its bfloat16 build multiplies on the tensor cores
-(``mma.sync``, float32 accumulation), its float32 build on the CUDA cores in
-float32 (no TF32, so it meets the float32 parity gate).
+with ``ctypes``: its bfloat16 build is FA-2's register-resident forward on
+the tensor cores (``mma.sync``, float32 accumulation; a warp per 16 or 32
+query rows, so ``block_threads`` is ``2 * block_q`` or ``block_q``; k and
+v through a ring of ``stages`` shared slots filled by ``cp.async``), its
+float32 build the
+parity path on the CUDA cores in float32 (no TF32, so it meets the
+float32 parity gate; it stages its tiles synchronously: ``stages = 1``).
 
 Layout: the TPU kernel takes heads folded into the batch, ``(B*H, T, hd)``.
 Here q, k and v are ``(B, T, H, hd)`` views whose last dimension is
@@ -21,10 +25,20 @@ strides, so nothing is copied.  ``o`` is ``(B, Tq, H, hd)`` and ``lse`` is
 (``_dq_kernel`` and ``_dkv_kernel``): two programs in
 ``kernels/csrc/flash_attention_bwd.cu``, one per (batch, head) and query
 block for dq, one per (batch, head) and key block for dk and dv, each
-recomputing ``p = exp(s - lse)`` from the forward's ``lse``.  Both builds
-(float32, bfloat16) compute in float32 on the CUDA cores.  ``delta =
-rowsum(do * o)`` is plain PyTorch, as the reference computes it outside its
-Pallas calls.
+recomputing ``p = exp(s - lse)`` from the forward's ``lse``.  The bfloat16
+build does all seven products on the tensor cores (``mma.sync``, float32
+accumulators in registers; a warp per 16 query rows or keys, so
+``block_q = block_k = block_threads / 2``); the float32 build, the parity
+path, computes in float32 on the CUDA cores.  ``delta = rowsum(do * o)``
+is plain PyTorch, as the reference computes it outside its Pallas calls.
+
+Each build has its own launch point (``FWD_LAUNCH``, ``BWD_LAUNCH``),
+taken for any launch parameter left ``None``, its own shared-memory
+layout (``smem_bytes``, ``smem_bytes_bwd``) and its own checks; the
+bfloat16 builds are compiled for the head_dims the repo's configs carry
+(``BF16_HEAD_DIMS``; the backward's registers do not hold hd 192,
+``BWD_BF16_HEAD_DIMS``), and an unbuilt head_dim is refused before any
+launch, on the CPU too.
 
 A wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version (``flash_attention_fwd_plain``,
@@ -43,15 +57,38 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["DTYPES", "MAX_BWD_THREADS", "NEG_INF", "flash_attention_bwd",
+__all__ = ["BF16_HEAD_DIMS", "BWD_BF16_HEAD_DIMS", "BWD_LAUNCH", "DTYPES",
+           "FWD_LAUNCH", "MAX_BWD_THREADS", "MAX_HD_TWO_TILES",
+           "MMA_MAX_THREADS", "NEG_INF", "STAGES", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "smem_bytes", "smem_bytes_bwd"]
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the backward kernels are compiled for at most 512 threads a block, which
-# leaves each thread 128 registers for its two 4 x 4 micro-tiles
+# the float32 backward kernels are compiled for at most 512 threads a
+# block, which leaves each thread 128 registers for its two 4 x 4
+# micro-tiles
 MAX_BWD_THREADS = 512
+# the bfloat16 kernels: a warp per 16 rows (the forward: or 32) with up to
+# 255 registers, so at most 8 warps a block; templates per head_dim (the
+# backward's q/do or k fragments and two accumulators do not fit 255
+# registers at hd 192, nor the forward's two row tiles)
+MMA_MAX_THREADS = 256
+MAX_HD_TWO_TILES = 128
+BF16_HEAD_DIMS = (32, 64, 96, 128, 192)
+BWD_BF16_HEAD_DIMS = (32, 64, 96, 128)
+STAGES = (1, 2, 3, 4)
+# each build's launch point, for launch parameters left None
+FWD_LAUNCH = {
+    torch.bfloat16: {"block_q": 128, "block_k": 64, "block_threads": 128,
+                     "stages": 2},
+    torch.float32: {"block_q": 64, "block_k": 64, "block_threads": 256,
+                    "stages": 1},
+}
+BWD_LAUNCH = {
+    torch.bfloat16: {"block_q": 128, "block_k": 128, "block_threads": 256},
+    torch.float32: {"block_q": 32, "block_k": 64, "block_threads": 256},
+}
 
 _lib: ctypes.CDLL | None = None
 _lib_bwd: ctypes.CDLL | None = None
@@ -62,9 +99,9 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library("flash_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for suffix in DTYPES.values():
+        for suffix, n_int in (("f32", 10), ("bf16", 11)):
             fn = getattr(lib, f"flash_attention_fwd_{suffix}")
-            fn.argtypes = [ptr] * 6 + [i32] * 10 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 6 + [i32] * n_int + [ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -91,38 +128,44 @@ def _library_bwd() -> ctypes.CDLL:
     return _lib_bwd
 
 
-def _pad16(x: int) -> int:
-    return -(-x // 16) * 16
-
-
 def smem_bytes(block_q: int, block_k: int, hd: int,
-               dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory one block of the kernel's ``dtype`` build asks for.
+               dtype: torch.dtype = torch.float32, stages: int = 2) -> int:
+    """Shared memory one block of the forward kernel's ``dtype`` build asks
+    for.
 
     float32 (``smem_floats_f32``): transposed q and k tiles, the v tile, the
     scores, the output accumulator and three per-row carries, all float32,
-    rows padded by one word.  bfloat16 (``MmaLayout``): q, k, v transposed
-    and p tiles in bf16 with rows padded by 8 elements, blocks padded to 16
-    rows/keys for the mma; scores, output accumulator and carries float32.
+    rows padded by one word.  bfloat16 (``smem_bytes_bf16``): the q tile
+    and the ring's ``stages`` slots, each a k and a v tile of ``block_k``
+    rows, bf16 at a pitch of ``hd + 8`` (the scores and the accumulator
+    live in registers).
     """
     bq, bk = block_q, block_k
     if dtype == torch.bfloat16:
-        BQ, BK = _pad16(bq), _pad16(bk)
-        bf16 = BQ * (hd + 8) + bk * (hd + 8) + hd * (BK + 8) + BQ * (BK + 8)
-        f32 = BQ * (bk + 4) + BQ * (hd + 4) + 3 * BQ
-        return 2 * bf16 + 4 * f32
+        return (bq + stages * 2 * bk) * (hd + 8) * 2
     return 4 * (hd * (bq + 1) + hd * (bk + 1) + bk * hd + bq * (bk + 1)
                 + bq * (hd + 1) + 3 * bq)
 
 
-def smem_bytes_bwd(block_q: int, block_k: int, hd: int) -> int:
-    """Shared memory one block of the larger backward program asks for
-    (``smem_floats_dq``/``smem_floats_dkv``; the same for both builds, whose
-    tiles are float32).  dq: q (scaled) and do transposed, k and v
-    transposed, ds, the dq accumulator, lse and delta.  dk/dv: k, v, q and
-    do transposed, p and ds, both accumulators, lse and delta.  Transposed
-    rows are padded by one word."""
+def smem_bytes_bwd(block_q: int, block_k: int, hd: int,
+                   dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory one block of the larger backward program asks for.
+
+    float32 (``smem_floats_dq``/``smem_floats_dkv``): dq, q (scaled) and do
+    transposed, k and v transposed, ds, the dq accumulator, lse and delta;
+    dk/dv, k, v, q and do transposed, p and ds, both accumulators, lse and
+    delta; transposed rows padded by one word.  bfloat16
+    (``smem_bytes_dq_bf16``/``smem_bytes_dkv_bf16``; the fragments and
+    accumulators live in registers): dq, a two-slot ring of k and v tiles;
+    dk/dv, the block's v tile and a two-slot ring of q and do tiles with
+    their rows' lse and delta; bf16 rows at a pitch of ``hd + 8``.
+    """
     bq, bk = block_q, block_k
+    if dtype == torch.bfloat16:
+        ld = hd + 8
+        dq = 2 * 2 * bk * ld * 2
+        dkv = bk * ld * 2 + 2 * (2 * bq * ld * 2 + 2 * bq * 4)
+        return max(dq, dkv)
     dq = 2 * hd * (bq + 1) + 2 * hd * (bk + 1) + bq * (bk + 1) + bq * hd + 2 * bq
     dkv = (2 * hd * (bk + 1) + 2 * hd * (bq + 1) + 2 * bq * (bk + 1)
            + 2 * bk * hd + 2 * bq)
@@ -162,30 +205,72 @@ def _check_launch(block_q: int, block_k: int, block_threads: int,
                          f"[32, {max_threads}], got {block_threads}")
 
 
-def _check(q, k, v, block_q: int, block_k: int, block_threads: int) -> None:
-    _check_tensors(q, k, v)
-    _check_launch(block_q, block_k, block_threads, 1024)
-    hd = q.shape[-1]
-    need = smem_bytes(block_q, block_k, hd, q.dtype)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"block_q={block_q}, block_k={block_k}, hd={hd} need "
-                         f"{need} bytes of shared memory (limit "
-                         f"{SMEM_LIMIT_BYTES})")
-
-
-def _check_mma(block_q: int, block_k: int, *tensors) -> None:
-    """What the bfloat16 (tensor-core) build needs beyond ``_check``: it
-    moves bf16 in pairs and tiles by the mma's 8 keys and 16 dims."""
-    hd = tensors[0].shape[-1]
-    if hd % 16:
-        raise ValueError(f"bfloat16: head_dim {hd} must be a multiple of 16")
+def _check_bf16_launch(hd: int, block_q: int, block_k: int,
+                       block_threads: int, head_dims: tuple,
+                       two_tiles: bool = False) -> None:
+    """What a bfloat16 (tensor-core) build takes: a template for ``hd``,
+    blocks of the mma's 16 rows, and a warp per 16 rows (the forward, with
+    ``two_tiles``: or per 32, up to hd 128)."""
+    if hd not in head_dims:
+        raise ValueError(f"bfloat16: head_dim {hd} is not built (the "
+                         f"templates are {head_dims})")
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
-        if blk % 8:
-            raise ValueError(f"bfloat16: {name}={blk} must be a multiple of 8")
+        if blk < 16 or blk % 16:
+            raise ValueError(f"bfloat16: {name}={blk} must be a positive "
+                             "multiple of 16")
+    allowed = [2 * block_q]
+    if two_tiles and hd <= MAX_HD_TWO_TILES:
+        allowed.append(block_q)
+    if block_threads not in allowed or block_threads > MMA_MAX_THREADS:
+        rule = ("2 * block_q or block_q (a warp per 16 or 32 rows)"
+                if len(allowed) == 2 else "2 * block_q (a warp per 16 rows)")
+        raise ValueError(f"bfloat16: block_threads={block_threads} must be "
+                         f"{rule} and at most {MMA_MAX_THREADS}")
+
+
+def _launch(table: dict, q, **given) -> dict:
+    """The launch point of ``q``'s build with the given (not None) values
+    put in; a bfloat16 block's threads follow from its rows unless given.
+    (A ``q`` of no build gets float32's; ``_check_tensors`` refuses it.)"""
+    dtype = getattr(q, "dtype", None)
+    if dtype not in table:
+        dtype = torch.float32
+    out = dict(table[dtype])
+    out.update({k: int(v) for k, v in given.items() if v is not None})
+    if (dtype == torch.bfloat16 and given.get("block_threads") is None
+            and given.get("block_q") is not None):
+        out["block_threads"] = 2 * out["block_q"]
+    return out
+
+
+def _check(q, k, v, block_q: int, block_k: int, block_threads: int,
+           stages: int) -> None:
+    _check_tensors(q, k, v)
+    hd = q.shape[-1]
+    if q.dtype == torch.bfloat16:
+        _check_bf16_launch(hd, block_q, block_k, block_threads,
+                           BF16_HEAD_DIMS, two_tiles=True)
+        if stages not in STAGES:
+            raise ValueError(f"bfloat16: stages={stages} not in {STAGES}")
+    else:
+        _check_launch(block_q, block_k, block_threads, 1024)
+        if stages != 1:
+            raise ValueError(f"float32: stages={stages}; the float32 build "
+                             "stages its tiles synchronously (stages=1)")
+    need = smem_bytes(block_q, block_k, hd, q.dtype, stages)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"block_q={block_q}, block_k={block_k}, hd={hd}, "
+                         f"stages={stages} need {need} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT_BYTES})")
+
+
+def _check_aligned(*tensors) -> None:
+    """The bfloat16 kernels move rows in 16-byte copies."""
     for x in tensors:
-        if x.data_ptr() % 4 or any(x.stride(i) % 2 for i in range(3)):
-            raise ValueError("bfloat16: q, k, v and o need even strides and "
-                             "4-byte aligned storage")
+        if x.data_ptr() % 16 or any(x.stride(i) % 8 for i in range(3)):
+            raise ValueError("bfloat16: q, k, v, o, do and the gradients "
+                             "need strides that are multiples of 8 and "
+                             "16-byte aligned storage")
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -210,26 +295,33 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                        block_q: int = 64, block_k: int = 64,
-                        block_threads: int = 256
+                        block_q: int | None = None,
+                        block_k: int | None = None,
+                        block_threads: int | None = None,
+                        stages: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: (B, Tq, H, hd); k, v: (B, Tk, H, hd), kv heads already repeated.
 
     Returns ``o`` (B, Tq, H, hd) in q's dtype and ``lse`` (B, H, Tq)
     float32.  Neither ``Tq`` nor ``Tk`` needs to be a multiple of a block:
-    the kernel masks the ragged edge.
+    the kernel masks the ragged edge.  Launch parameters left ``None``
+    take the build's (``FWD_LAUNCH``).
     """
-    block_q, block_k = int(block_q), int(block_k)
-    block_threads, q_offset = int(block_threads), int(q_offset)
-    _check(q, k, v, block_q, block_k, block_threads)
+    p = _launch(FWD_LAUNCH, q, block_q=block_q, block_k=block_k,
+                block_threads=block_threads, stages=stages)
+    block_q, block_k = p["block_q"], p["block_k"]
+    block_threads, stages = p["block_threads"], p["stages"]
+    q_offset = int(q_offset)
+    _check(q, k, v, block_q, block_k, block_threads, stages)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          q_offset=q_offset)
     b, tq, h, hd = q.shape
     o = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:
-        _check_mma(block_q, block_k, q, k, v, o)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_aligned(q, k, v, o)
     strides = (ctypes.c_int64 * 12)(*(x.stride(i) for x in (q, k, v, o)
                                       for i in range(3)))
     lib = _library()
@@ -238,13 +330,14 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), ctypes.addressof(strides), b, h, tq,
-                k.shape[1], hd, block_q, block_k, block_threads, int(causal),
-                q_offset, hd ** -0.5, stream)
+                k.shape[1], hd, block_q, block_k, block_threads,
+                *((stages,) if bf16 else ()), int(causal), q_offset,
+                hd ** -0.5, stream)
     if rc != 0:
         raise KernelLaunchError(
             f"flash_attention_fwd(block_q={block_q}, block_k={block_k}, "
-            f"block_threads={block_threads}): launch refused ({rc}: "
-            f"{lib.flash_attention_error_string(rc).decode()})")
+            f"block_threads={block_threads}, stages={stages}): launch "
+            f"refused ({rc}: {lib.flash_attention_error_string(rc).decode()})")
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -274,8 +367,16 @@ def _check_bwd(q, k, v, o, lse, do, block_q: int, block_k: int,
             or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be ({b}, {h}, {tq}) float32 on "
                          f"{q.device}, as flash_attention_fwd returns it")
-    _check_launch(block_q, block_k, block_threads, MAX_BWD_THREADS)
-    need = smem_bytes_bwd(block_q, block_k, hd)
+    if q.dtype == torch.bfloat16:
+        _check_bf16_launch(hd, block_q, block_k, block_threads,
+                           BWD_BF16_HEAD_DIMS)
+        if block_k != block_q:
+            raise ValueError(f"bfloat16 backward: block_k={block_k} must "
+                             f"equal block_q={block_q} (a warp per 16 "
+                             "query rows in dq, per 16 keys in dk/dv)")
+    else:
+        _check_launch(block_q, block_k, block_threads, MAX_BWD_THREADS)
+    need = smem_bytes_bwd(block_q, block_k, hd, q.dtype)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(f"backward: block_q={block_q}, block_k={block_k}, "
                          f"hd={hd} need {need} bytes of shared memory (limit "
@@ -308,8 +409,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        q_offset: int = 0, block_q: int = 32,
-                        block_k: int = 64, block_threads: int = 256
+                        q_offset: int = 0, block_q: int | None = None,
+                        block_k: int | None = None,
+                        block_threads: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of ``o = attention(q, k, v)`` for the cotangent ``do``.
 
@@ -317,9 +419,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     repeated; ``lse`` (B, H, Tq) float32 as :func:`flash_attention_fwd`
     returns it.  Returns dq, dk, dv in the inputs' dtype, each written by
     exactly one block (no atomics: the same inputs give the same bits).
+    Launch parameters left ``None`` take the build's (``BWD_LAUNCH``).
     """
-    block_q, block_k = int(block_q), int(block_k)
-    block_threads, q_offset = int(block_threads), int(q_offset)
+    p = _launch(BWD_LAUNCH, q, block_q=block_q, block_k=block_k,
+                block_threads=block_threads)
+    block_q, block_k, block_threads = (p["block_q"], p["block_k"],
+                                       p["block_threads"])
+    q_offset = int(q_offset)
     _check_bwd(q, k, v, o, lse, do, block_q, block_k, block_threads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
@@ -334,6 +440,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     strides = (ctypes.c_int64 * 21)(*(x.stride(i)
                                       for x in (q, k, v, do, dq, dk, dv)
                                       for i in range(3)))
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v, do, dq, dk, dv)
     lib = _library_bwd()
     suffix = DTYPES[q.dtype]
     tail = (ctypes.addressof(strides), b, h, tq, tk, hd, block_q, block_k,

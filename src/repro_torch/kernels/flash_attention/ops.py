@@ -12,12 +12,17 @@ records (grad mode on and an input requiring grad), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function`` whose forward runs the
 forward kernel and saves ``q, k, v, o, lse`` and whose backward runs the
 backward kernels (``flash_attention_bwd``).  Gradients reach the repeated
-k/v heads; autograd sums them back through the caller's repeat.  The
-backward's launch parameters are its own, ``BWD_DEFAULTS``: the reference
-reuses the forward's blocks, but the two CUDA kernels' shared-memory needs
-differ (the tuned forward 64/128/1024 does not fit the float32 dk/dv
-program), and there is no backward tuning space yet.  Other backward blocks
-are reached through ``flash_attention_bwd``'s own keywords.
+k/v heads; autograd sums them back through the caller's repeat.
+
+Each build has its own launch points.  The bfloat16 forward's
+(``DEFAULTS``) is the tuning space's default and what the store's records
+replace; the float32 forward, the parity path, keeps ``F32_DEFAULTS``
+(the space is the bfloat16 build's, and a float32 record is never
+written).  The backward's are ``BWD_DEFAULTS`` (bfloat16) and
+``BWD_F32_DEFAULTS``: the reference reuses the forward's blocks, but the
+backward programs own their rows differently and there is no backward
+tuning space.  Other backward blocks are reached through
+``flash_attention_bwd``'s own keywords.
 """
 
 from __future__ import annotations
@@ -25,12 +30,15 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import flash_attention_bwd, flash_attention_fwd
+from .kernel import (BWD_LAUNCH, FWD_LAUNCH, flash_attention_bwd,
+                     flash_attention_fwd)
 
-DEFAULTS = {"block_q": 64, "block_k": 64, "block_threads": 256}
+DEFAULTS = dict(FWD_LAUNCH[torch.bfloat16])
+F32_DEFAULTS = dict(FWD_LAUNCH[torch.float32])
+BWD_DEFAULTS = dict(BWD_LAUNCH[torch.bfloat16])
 # 32 query rows: the dk/dv program's float32 tiles at hd 128 then take
 # 183 KB of shared memory (64 x 64 would take all 227 KB a block can have)
-BWD_DEFAULTS = {"block_q": 32, "block_k": 64, "block_threads": 256}
+BWD_F32_DEFAULTS = dict(BWD_LAUNCH[torch.float32])
 
 
 class FlashAttention(torch.autograd.Function):
@@ -49,9 +57,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # do arrives as a view of the output projection's gradient
+        launch = (BWD_DEFAULTS if q.dtype == torch.bfloat16
+                  else BWD_F32_DEFAULTS)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          causal=ctx.causal,
-                                         q_offset=ctx.q_offset, **BWD_DEFAULTS)
+                                         q_offset=ctx.q_offset, **launch)
         return dq, dk, dv, None, None, None
 
 
@@ -59,6 +69,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0,
                     block_q: int | None = None, block_k: int | None = None,
                     block_threads: int | None = None,
+                    stages: int | None = None,
                     tuned: bool | None = None) -> torch.Tensor:
     """q/k/v: (B, T, H, hd), kv already head-repeated -> (B, Tq, H, hd).
 
@@ -73,9 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     meta = {"bh": b * h, "tq": t, "tk": k.shape[1], "hd": hd,
             "causal": bool(causal)}
     p = resolve_launch_params(
-        "flash_attention", meta, q.dtype, defaults=DEFAULTS,
+        "flash_attention", meta, q.dtype,
+        defaults=DEFAULTS if q.dtype == torch.bfloat16 else F32_DEFAULTS,
         overrides={"block_q": block_q, "block_k": block_k,
-                   "block_threads": block_threads},
+                   "block_threads": block_threads, "stages": stages},
         tuned=tuned, device=q.device)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, bool(causal), int(q_offset), p)

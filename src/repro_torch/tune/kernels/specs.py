@@ -62,7 +62,8 @@ from ...kernels.rwkv6_wkv.ops import DEFAULTS as WKV_DEFAULTS
 from .evaluate import SMEM_LIMIT_BYTES
 from .registry import KernelSpec, dtype_name, register_kernel
 
-__all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "BWD_SPLITS",
+__all__ = ["ATTN_BLOCKS", "ATTN_BLOCKS_Q", "ATTN_STAGES", "ATTN_THREADS",
+           "BLOCK_THREADS", "BWD_SPLITS",
            "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_THREADS",
            "SCAN_BLOCK_D", "SCAN_BWD_CHUNKS", "SCAN_CHUNKS", "SCAN_LANES",
            "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_SPAN_CHUNKS",
@@ -70,8 +71,13 @@ __all__ = ["ATTN_BLOCKS", "ATTN_THREADS", "BLOCK_THREADS", "BWD_SPLITS",
 
 TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 BLOCK_THREADS = (64, 128, 256, 512, 1024)
-ATTN_BLOCKS = (8, 16, 32, 64, 128, 256)
-ATTN_THREADS = (32, 64, 128, 256, 512, 1024)
+# flash attention (the bfloat16 build): key blocks, query blocks, threads
+# (a warp per 16 or 32 query rows, at most 8 warps), and the depth of the
+# ring that brings k and v in
+ATTN_BLOCKS = (16, 32, 64, 128, 256)
+ATTN_BLOCKS_Q = ATTN_BLOCKS
+ATTN_THREADS = (32, 64, 128, 256)
+ATTN_STAGES = fa_kernel.STAGES
 DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
 DECODE_BLOCK_S = (16, 32, 64, 128, 256, 512)
 DECODE_THREADS = (32, 64, 128, 256, 512)
@@ -180,24 +186,40 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 def _fa_space(meta: Mapping[str, Any]) -> ConfigSpace:
     return ConfigSpace([
-        Param("block_q", ATTN_BLOCKS),
+        Param("block_q", ATTN_BLOCKS_Q),
         Param("block_k", ATTN_BLOCKS),
         Param("block_threads", ATTN_THREADS),
+        Param("stages", ATTN_STAGES),
     ])
 
 
 def _fa_validate(cfg, meta) -> str | None:
+    """The space is the bfloat16 build's (the serving and training path):
+    a template for the head_dim, a warp per 16 or 32 query rows (32 up to
+    hd 128: two row tiles' accumulators do not fit the registers at hd
+    192), and the q tile and the ring's k and v tiles within the shared
+    memory a block may have.  The float32
+    build, the parity path, keeps its own launch point (``F32_DEFAULTS``)
+    and is not tuned: requiring that a point fit both builds would cut
+    the bfloat16 blocks to the float32 tiles' footprint."""
     bq, bk, hd = cfg["block_q"], cfg["block_k"], meta["hd"]
-    if hd % 4:
-        return f"head_dim={hd} is not a multiple of 4"
-    # the shape carries no dtype: a configuration must fit both builds
-    return (_not_above(meta["tq"], bq, ATTN_BLOCKS[0], "block_q")
+    try:                     # the wrapper's own rule for the bfloat16 build
+        fa_kernel._check_bf16_launch(hd, bq, bk, cfg["block_threads"],
+                                     fa_kernel.BF16_HEAD_DIMS, two_tiles=True)
+    except ValueError as exc:
+        return str(exc)
+    return (_not_above(meta["tq"], bq, ATTN_BLOCKS_Q[0], "block_q")
             or _not_above(meta["tk"], bk, ATTN_BLOCKS[0], "block_k")
-            or _smem(max(fa_kernel.smem_bytes(bq, bk, hd, dt)
-                         for dt in fa_kernel.DTYPES)))
+            or _smem(fa_kernel.smem_bytes(bq, bk, hd, torch.bfloat16,
+                                          cfg["stages"])))
 
 
 def _fa_inputs(meta, dtype, rng, device):
+    if _torch_dtype(dtype) != torch.bfloat16:
+        raise ValueError(
+            f"flash_attention: the launch space is the bfloat16 build's; "
+            f"the {dtype_name(dtype)} build keeps its own launch point "
+            "(ops.F32_DEFAULTS) and is not tuned")
     # the reference's numpy stream and (bh, t, hd) shapes; the port's
     # kernel takes (B, T, H, hd), here with the heads as the batch
     shapes = [(meta["bh"], meta["tq"], meta["hd"]),
@@ -212,7 +234,8 @@ def _fa_run(cfg, inputs):
     q, k, v, causal = inputs
     o, _ = fa_kernel.flash_attention_fwd(
         q, k, v, causal=causal, block_q=cfg["block_q"],
-        block_k=cfg["block_k"], block_threads=cfg["block_threads"])
+        block_k=cfg["block_k"], block_threads=cfg["block_threads"],
+        stages=cfg["stages"])
     return o
 
 
@@ -229,6 +252,7 @@ register_kernel(KernelSpec(
     default_shape={"bh": 128, "tq": 2048, "tk": 2048, "hd": 128,
                    "causal": True},
     smoke_shape={"bh": 2, "tq": 128, "tk": 128, "hd": 32, "causal": True},
+    dtype="bfloat16",
     atol=2e-4, rtol=2e-4,
 ))
 

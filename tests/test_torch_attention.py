@@ -112,34 +112,135 @@ def test_flash_wrapper_refuses_bad_launch_parameters(bad, match):
         fa_kernel.flash_attention_fwd(q, q, q, **kw)
 
 
-@pytest.mark.parametrize("hd, block_q, block_k, offset, match", [
-    (24, 64, 64, 0, "head_dim 24 must be a multiple of 16"),
-    (32, 12, 64, 0, "block_q=12 must be a multiple of 8"),
-    (32, 64, 20, 0, "block_k=20 must be a multiple of 8"),
-    (32, 64, 64, 1, "4-byte aligned"),
+@pytest.mark.parametrize("hd, launch, match", [
+    (48, {}, r"head_dim 48 is not built"),
+    (32, dict(block_q=24), "block_q=24 must be a positive multiple of 16"),
+    (32, dict(block_k=20), "block_k=20 must be a positive multiple of 16"),
+    (32, dict(block_q=64, block_threads=256), r"2 \* block_q or block_q"),
+    (192, dict(block_q=64, block_threads=64), r"2 \* block_q \(a warp per 16"),
+    (32, dict(block_q=256, block_threads=512), "at most 256"),
+    (32, dict(stages=5), "stages=5"),
+    (128, dict(block_k=256, stages=2), "shared memory"),
 ])
-def test_flash_bf16_build_refuses_what_its_tiles_cannot_take(hd, block_q,
-                                                            block_k, offset,
+def test_flash_bf16_build_refuses_what_its_tiles_cannot_take(hd, launch,
                                                             match):
-    """The tensor-core build moves bf16 in pairs and tiles by the mma's
-    shape; the wrapper checks this before a launch on the card."""
-    flat = torch.zeros(offset + 16 * 2 * hd, dtype=torch.bfloat16)
-    q = flat[offset:].view(1, 16, 2, hd)
+    """The tensor-core build has templates for the repo's head_dims, tiles
+    by the mma's 16 rows, gives a warp 16 or 32 query rows (32 up to hd
+    128) and fits its q tile and ring in shared memory; the wrapper refuses
+    anything else before the CPU branch, so the CPU sees what the card
+    would refuse."""
+    q = torch.zeros((1, 16, 2, hd), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=match):
-        fa_kernel._check_mma(block_q, block_k, q, q, q)
-    fa_kernel._check_mma(64, 64, *(torch.zeros((1, 16, 2, 32),
-                                               dtype=torch.bfloat16),) * 3)
+        fa_kernel.flash_attention_fwd(q, q, q, **launch)
 
 
-def test_flash_smem_accounting_per_build():
-    """bf16 tiles are half the width but padded to the mma's 16 rows."""
-    f32 = fa_kernel.smem_bytes(64, 64, 128)
-    bf16 = fa_kernel.smem_bytes(64, 64, 128, torch.bfloat16)
-    assert f32 == 4 * (128 * 65 * 2 + 64 * 128 + 64 * 65 + 64 * 129 + 3 * 64)
-    assert bf16 == (2 * (64 * 136 * 2 + 128 * 72 + 64 * 72)
-                    + 4 * (64 * 68 + 64 * 132 + 3 * 64))
-    assert (fa_kernel.smem_bytes(8, 8, 32, torch.bfloat16)
-            == fa_kernel.smem_bytes(16, 8, 32, torch.bfloat16))
+@pytest.mark.parametrize("offset, match", [(0, None), (1, "16-byte aligned"),
+                                           (8, None)])
+def test_flash_bf16_build_moves_rows_in_16_byte_copies(offset, match):
+    """On the card the bfloat16 kernels copy rows 16 bytes at a time: a
+    view that starts off a 16-byte boundary, or strides that are not
+    multiples of 8 elements, is refused before the launch."""
+    flat = torch.zeros(offset + 16 * 2 * 32, dtype=torch.bfloat16)
+    q = flat[offset:].view(1, 16, 2, 32)
+    if match is None:
+        fa_kernel._check_aligned(q, q, q)
+    else:
+        with pytest.raises(ValueError, match=match):
+            fa_kernel._check_aligned(q, q, q)
+    odd = torch.zeros((1, 16, 2, 36), dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_kernel._check_aligned(odd)
+
+
+@pytest.mark.parametrize("dtype, args, want", [
+    # float32: transposed q and k, v, scores, accumulator, carries
+    (torch.float32, (64, 64, 128),
+     4 * (128 * 65 * 2 + 64 * 128 + 64 * 65 + 64 * 129 + 3 * 64)),
+    (torch.float32, (16, 32, 64),
+     4 * (64 * 17 + 64 * 33 + 32 * 64 + 16 * 33 + 16 * 65 + 3 * 16)),
+    # bfloat16: the q tile and `stages` k/v slots at a pitch of hd + 8
+    (torch.bfloat16, (64, 64, 128, 2), (64 + 2 * 2 * 64) * 136 * 2),
+    (torch.bfloat16, (128, 32, 96, 4), (128 + 4 * 2 * 32) * 104 * 2),
+    (torch.bfloat16, (16, 256, 32, 1), (16 + 2 * 256) * 40 * 2),
+])
+def test_flash_smem_accounting_per_build(dtype, args, want):
+    """Each build's shared memory: float32 tiles padded by one word; the
+    bfloat16 q tile and ring padded by 8 elements a row (conflict-free
+    ldmatrix), the scores and the accumulator in registers."""
+    bq, bk, hd, *stages = args
+    assert fa_kernel.smem_bytes(bq, bk, hd, dtype, *stages) == want
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_flash_defaults_take_the_serving_and_training_shapes(hd):
+    """Each build's launch points are valid and fit the card's 232,448
+    bytes of shared memory at the prefill shape (B*H 128, T 2048) and the
+    training shape (B 2, T 2048, 16 heads), for the head_dims of the repo's
+    one-card configs (qwen2.5-3b and jamba 128, phi3-mini 96, 64)."""
+    from repro_torch.kernels import SMEM_LIMIT_BYTES
+
+    fwd, fwd32 = fa_ops.DEFAULTS, fa_ops.F32_DEFAULTS
+    bwd, bwd32 = fa_ops.BWD_DEFAULTS, fa_ops.BWD_F32_DEFAULTS
+    assert fa_kernel.smem_bytes(fwd["block_q"], fwd["block_k"], hd,
+                                torch.bfloat16, fwd["stages"]) <= SMEM_LIMIT_BYTES
+    assert fa_kernel.smem_bytes(fwd32["block_q"], fwd32["block_k"],
+                                hd) <= SMEM_LIMIT_BYTES
+    for dtype, launch in ((torch.bfloat16, bwd), (torch.float32, bwd32)):
+        assert fa_kernel.smem_bytes_bwd(launch["block_q"], launch["block_k"],
+                                        hd, dtype) <= SMEM_LIMIT_BYTES
+    spec = ktune.get_kernel("flash_attention")
+    for meta in ({"bh": 128, "tq": 2048, "tk": 2048, "hd": hd,
+                  "causal": True},
+                 {"bh": 2 * 16, "tq": 2048, "tk": 2048, "hd": hd,
+                  "causal": True}):
+        assert spec.validate(fwd, meta) is None
+    # the wrappers take them (their checks run before the CPU branch)
+    for dtype, f, b in ((torch.bfloat16, fwd, bwd),
+                        (torch.float32, fwd32, bwd32)):
+        q = torch.zeros((1, 40, 2, hd), dtype=dtype)
+        o, lse = fa_kernel.flash_attention_fwd(q, q, q, **f)
+        fa_kernel.flash_attention_bwd(q, q, q, o, lse, q, **b)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_flash_space_keeps_64_points(hd):
+    """The bfloat16 build's space at the prefill shape holds at least 64
+    valid points for every one-card head_dim, its default among them."""
+    spec = ktune.get_kernel("flash_attention")
+    meta = dict(spec.default_shape, hd=hd)
+    space = spec.space(meta)
+    assert space.names == ("block_q", "block_k", "block_threads", "stages")
+    valid = [c for c in space.enumerate() if spec.validate(c, meta) is None]
+    assert len(valid) >= 64
+    assert spec.default_config(space, meta) == dict(spec.defaults)
+    assert {c["block_threads"] * 16 // c["block_q"] for c in valid} == {
+        32, 16}                                  # 16 and 32 rows a warp
+
+
+@pytest.mark.parametrize("which, hd", [("fwd", 48), ("fwd", 80),
+                                       ("bwd", 192), ("bwd", 48)])
+def test_an_unbuilt_head_dim_is_refused_before_launch(which, hd,
+                                                      monkeypatch):
+    """A bfloat16 head_dim with no template is a ValueError that names it,
+    raised before the library is built or a launch is counted: on a tensor
+    off the CPU as on the CPU."""
+    def no_build(*a, **k):
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(fa_kernel, "_library", no_build)
+    monkeypatch.setattr(fa_kernel, "_library_bwd", no_build)
+    before = (fa_kernel.flash_attention_fwd.launches,
+              fa_kernel.flash_attention_bwd.launches)
+    for device in ("cpu", "meta"):
+        q = torch.zeros((1, 16, 2, hd), dtype=torch.bfloat16, device=device)
+        with pytest.raises(ValueError, match=f"head_dim {hd} is not built"):
+            if which == "fwd":
+                fa_kernel.flash_attention_fwd(q, q, q)
+            else:
+                lse = torch.zeros((1, 2, 16), device=device)
+                fa_kernel.flash_attention_bwd(q, q, q, q, lse, q)
+    assert (fa_kernel.flash_attention_fwd.launches,
+            fa_kernel.flash_attention_bwd.launches) == before
 
 
 def test_flash_wrapper_refuses_bad_tensors():
@@ -159,6 +260,8 @@ def test_flash_wrapper_refuses_bad_tensors():
     (1, 512, 2, 8, 128, None),
     (3, 256, 1, 4, 64, 100),
     (2, 512, 8, 1, 64, 512),
+    (2, 300, 4, 1, 96, 211),        # phi3-mini's head_dim
+    (1, 256, 2, 4, 192, None),      # nemotron4's head_dim
 ])
 def test_decode_attention_matches_reference(b, s, kv, rep, hd, length):
     rng = np.random.default_rng(11)
@@ -197,6 +300,35 @@ def test_fully_masked_splits_weigh_zero(splits):
     close(da_kernel.decode_attention(qt, kt, vt, length, splits=splits,
                                      block_s=16, block_threads=32)
           .reshape(b, kv * rep, hd), want, 2e-5)
+
+
+def test_phi3_mini_head_dim_96_serves_the_references_tokens():
+    """phi3-mini's smoke config at its own head_dim (``d_model=384,
+    n_heads=4, head_dim=96``): the port's ``serve_session`` on the CPU, on
+    the reference's weights carried across, greedily decodes the tokens
+    the reference's ``serve_session`` decodes from the same seed (float32
+    compute, as the LM slice's greedy test: bf16 argmax ties would flip)."""
+    import dataclasses
+
+    from repro import configs as ref_configs
+    from repro.launch.serve import serve_session as ref_serve_session
+    from repro.models import LM as RefLM
+    from repro_torch import configs
+    from repro_torch.convert import lm_from_jax_params
+    from repro_torch.launch.serve import serve_session
+
+    cut = dict(d_model=384, n_heads=4, head_dim=96, compute_dtype="float32")
+    ref_cfg = dataclasses.replace(ref_configs.get("phi3-mini-3.8b").smoke(),
+                                  **cut)
+    cfg = dataclasses.replace(configs.get("phi3-mini-3.8b").smoke(), **cut)
+    assert cfg.head_dim == 96 and cfg.n_kv_heads == 4
+    seed, kw = 3, dict(batch=2, prompt_len=8, gen=6)
+    want = ref_serve_session(ref_cfg, seed=seed, **kw)["generated"]
+    params = jax.tree.map(np.asarray,
+                          jax.jit(RefLM(ref_cfg).init)(jax.random.PRNGKey(seed)))
+    model = lm_from_jax_params(params, cfg, "cpu")
+    got = serve_session(cfg, seed=seed, model=model, **kw)["generated"]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_decode_attention_bf16_cache():

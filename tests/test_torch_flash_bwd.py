@@ -127,17 +127,29 @@ def bwd_inputs(b=1, t=16, h=2, hd=128, dtype=torch.float32):
     return q, q, q, q, lse, q
 
 
-@pytest.mark.parametrize("bad, match", [
-    (dict(block_q=6), "multiple of 4"),
-    (dict(block_threads=1024), r"\[32, 512\]"),
-    (dict(block_threads=48), "block_threads"),
-    (dict(block_q=64, block_k=128), "shared memory"),
-    (dict(block_q=128, block_k=128), "shared memory"),
+@pytest.mark.parametrize("dtype, bad, match", [
+    # float32 (the parity path): 4 x 4 micro-tiles, float32 tiles
+    (torch.float32, dict(block_q=6), "multiple of 4"),
+    (torch.float32, dict(block_threads=1024), r"\[32, 512\]"),
+    (torch.float32, dict(block_threads=48), "block_threads"),
+    (torch.float32, dict(block_q=64, block_k=128), "shared memory"),
+    (torch.float32, dict(block_q=128, block_k=128), "shared memory"),
+    # bfloat16 (the tensor cores): a warp per 16 rows in both programs
+    (torch.bfloat16, dict(block_q=24, block_k=24, block_threads=48),
+     "multiple of 16"),
+    (torch.bfloat16, dict(block_q=64, block_k=64, block_threads=256),
+     r"2 \* block_q"),
+    (torch.bfloat16, dict(block_q=32, block_k=64, block_threads=64),
+     "must equal block_q"),
+    (torch.bfloat16, dict(block_q=256, block_k=256, block_threads=512),
+     "at most 256"),
 ])
-def test_bwd_wrapper_refuses_bad_launch_parameters(bad, match):
-    kw = {**fa_ops.BWD_DEFAULTS, **bad}
+def test_bwd_wrapper_refuses_bad_launch_parameters(dtype, bad, match):
+    launch = (fa_ops.BWD_DEFAULTS if dtype == torch.bfloat16
+              else fa_ops.BWD_F32_DEFAULTS)
+    kw = {**launch, **bad}
     with pytest.raises(ValueError, match=match):
-        fa_kernel.flash_attention_bwd(*bwd_inputs(), **kw)
+        fa_kernel.flash_attention_bwd(*bwd_inputs(dtype=dtype), **kw)
 
 
 def test_bwd_wrapper_refuses_bad_tensors():
@@ -157,16 +169,35 @@ def test_bwd_wrapper_refuses_bad_tensors():
         fa_kernel.flash_attention_bwd(q, k[:, :, :1], v[:, :, :1], o, lse, do)
 
 
-def test_bwd_smem_accounting_and_defaults():
-    """The defaults fit the card at hd 128; 64 x 64 fills all of it."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_smem_accounting_and_defaults(dtype):
+    """Each build's layout at hd 128.  float32: its tiles are float32 in
+    shared memory; 32 x 64 fits and 64 x 64 fills all the card gives a
+    block.  bfloat16: the fragments and accumulators live in registers;
+    dq keeps a two-slot ring of k and v tiles, dk/dv its v tile and a
+    two-slot ring of q and do tiles with their lse and delta rows."""
     hd = 128
-    assert fa_kernel.smem_bytes_bwd(32, 64, hd) == 4 * (
-        2 * hd * 65 + 2 * hd * 33 + 2 * 32 * 65 + 2 * 64 * hd + 2 * 32)
-    assert fa_kernel.smem_bytes_bwd(**{k: fa_ops.BWD_DEFAULTS[k] for k in (
-        "block_q", "block_k")}, hd=hd) <= SMEM_LIMIT_BYTES
-    assert fa_kernel.smem_bytes_bwd(64, 64, hd) == SMEM_LIMIT_BYTES
-    # the tuned forward winner at the serving shape does not fit here
-    assert fa_kernel.smem_bytes_bwd(64, 128, hd) > SMEM_LIMIT_BYTES
+    launch = (fa_ops.BWD_DEFAULTS if dtype == torch.bfloat16
+              else fa_ops.BWD_F32_DEFAULTS)
+    assert fa_kernel.smem_bytes_bwd(launch["block_q"], launch["block_k"], hd,
+                                    dtype) <= SMEM_LIMIT_BYTES
+    if dtype == torch.float32:
+        assert launch == {"block_q": 32, "block_k": 64, "block_threads": 256}
+        assert fa_kernel.smem_bytes_bwd(32, 64, hd) == 4 * (
+            2 * hd * 65 + 2 * hd * 33 + 2 * 32 * 65 + 2 * 64 * hd + 2 * 32)
+        assert fa_kernel.smem_bytes_bwd(64, 64, hd) == SMEM_LIMIT_BYTES
+        # the forward's bfloat16 default does not fit here
+        assert fa_kernel.smem_bytes_bwd(64, 128, hd) > SMEM_LIMIT_BYTES
+    else:
+        assert launch["block_threads"] == 2 * launch["block_q"] \
+            == 2 * launch["block_k"]
+        ld = hd + 8
+        assert fa_kernel.smem_bytes_bwd(64, 64, hd, dtype) == max(
+            2 * 2 * 64 * ld * 2, 64 * ld * 2 + 2 * (2 * 64 * ld * 2 + 2 * 64 * 4))
+        # the largest block (8 warps) fits every built head_dim
+        for d in fa_kernel.BWD_BF16_HEAD_DIMS:
+            assert fa_kernel.smem_bytes_bwd(128, 128, d, dtype) \
+                <= SMEM_LIMIT_BYTES
 
 
 def test_a_tensor_off_the_cpu_takes_the_kernel_or_raises(monkeypatch):

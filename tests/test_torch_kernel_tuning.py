@@ -277,6 +277,66 @@ def test_saml_tunes_within_budget(tmp_path):
     assert out.dtype == "uint8" and out.shape == {"t": 4096, "s": 7}
 
 
+def test_tune_keeps_the_fastest_measured_point_over_a_wrong_pick(
+        tmp_path, monkeypatch):
+    """A surrogate that ranks wrongly (it steers the search to a point the
+    timer finds ten times slower than the default) must not be what the
+    tune returns or stores: the outcome and the store record hold the
+    fastest point measured, here the default, the training sample's best
+    and so the warm start."""
+    from repro_torch.tune.kernels import tuner
+
+    spec = ktune.get_kernel("dna_automaton")
+    meta = spec.smoke_shape
+    space = spec.space(meta)
+    default = spec.default_config(space, meta)
+    valid = [c for c in space.enumerate() if spec.validate(c, meta) is None]
+    trap = max(valid, key=lambda c: float(np.abs(
+        space.encode(c) - space.encode(default)).sum()))
+    trap_x = space.encode(trap)
+
+    def fake_measure(self, cfg, key):
+        self.n_measured += 1
+        return 0.1 if cfg == default else 1.0 if cfg == trap else 0.5
+
+    class WrongModel:
+        def __init__(self, **kw):
+            pass
+
+        def fit(self, X, y):
+            return self
+
+        def predict(self, X):          # the trap predicts fastest
+            return np.abs(np.asarray(X) - trap_x).sum(axis=1)
+
+    picks = []
+    run = tuner.TuningSession.run
+
+    def spy(self, *args, **kw):
+        result = run(self, *args, **kw)
+        picks.append(dict(result.best_config))
+        return result
+
+    monkeypatch.setattr(KernelTimer, "_measure", fake_measure)
+    monkeypatch.setattr(tuner, "BoostedTreesRegressor", WrongModel)
+    monkeypatch.setattr(tuner.TuningSession, "run", spy)
+    path = tmp_path / "kernels.json"
+    out = tune(TuningStore(path, devices="pinned"), strategy="saml",
+               iterations=200)
+    assert picks == [trap]                       # the search was misled
+    assert out.best_config == default and out.best_source == "warm_start"
+    assert out.best_time() == 0.1 == out.result.best_metrics["time"]
+    workload = ktune.kernel_workload("dna_automaton", meta, "uint8")
+    stored = TuningStore(path, devices="pinned").lookup(space, workload,
+                                                        "SAML")
+    assert stored.best_config == default
+    assert stored.best_energy_measured == 0.1
+    again = tune(TuningStore(path, devices="pinned"), strategy="saml",
+                 iterations=200)
+    assert again.result.from_cache and again.best_source == "cache"
+    assert again.best_config == default
+
+
 def test_too_few_valid_measurements_raises(tmp_path):
     with pytest.raises(ValueError, match="too few valid"):
         ktune.tune_kernel("dna_automaton", {"t": 256}, device="cpu",
