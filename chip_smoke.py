@@ -53,9 +53,12 @@ points a user would call:
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes (the attention
 kernels also in both builds at hd 64 and 96 with ragged T, a q_offset and
-no mask, the backward run twice for the same bits, the decode kernel at
-phi3-mini's hd 96 and at hd 192; every tune must store a point no slower
-than the default it measured); after each
+no mask, the backward run twice for the same bits, the decode kernel (one
+launch a call, its split combine inside) at length 37 where most segments
+lie past the fill, twice for the same bits, at phi3-mini's hd 96 and at hd
+192; the wkv backward also with a quarter of its decays below 1e-6 and at
+hd 48; every tune must store a point no slower than the default it
+measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
 recurrent paths also in float32, where the gate sits, with the MoE
@@ -95,10 +98,12 @@ channel, state) cell on the special-function units (16 a clock per SM,
 the CUDA C++ Programming Guide's throughput table for compute capability
 9.0, on 132 SMs at the 1.98 GHz boost clock: 4.18e12/s) and four float32
 instructions per cell over 33.5e12/s.  The backward kernels: the wkv
-backward eight float32 instructions per state cell (the state recompute,
-three row sums, the dv product, the adjoint update) over 33.5e12/s, the
-selective-scan backward the larger of one exp per cell on the SFUs and
-eight float32 instructions per cell.
+backward the FMAs of its chunked form over 33.5e12/s, 5 hd^2 + 6 chunk hd
+a token and head (the products with the chunk's entry state and exit
+adjoint, one a state cell in each scan, the in-chunk pairs; the serial
+form's eight instructions a state cell stand beside it in its phase line,
+``bound_8_per_cell_ms``), the selective-scan backward the larger of one
+exp per cell on the SFUs and eight float32 instructions per cell.
 """
 
 from __future__ import annotations
@@ -442,6 +447,7 @@ def phase_attention_parity(seed: int) -> list[dict]:
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import kernel as dak
     from repro_torch.kernels.decode_attention.ops import DEFAULTS as DA
+    from repro_torch.kernels.decode_attention.ops import fit_launch
     from repro_torch.kernels.flash_attention import kernel as fak
     from repro_torch.kernels.flash_attention.ops import DEFAULTS as FA
     from repro_torch.kernels.flash_attention.ops import F32_DEFAULTS as FA32
@@ -536,17 +542,19 @@ def phase_attention_parity(seed: int) -> list[dict]:
                         for dt in ("bfloat16", "float32")},
         "lse_max_abs_err": max(r["lse_max_abs_err"] for r in ragged)}
 
-    # -- B4: decode shape (cache S = prompt + gen), bf16 cache, float32 out
+    # -- B4: decode shape (cache S = prompt + gen), bf16 cache, float32 out;
+    # one launch a call (the split combine inside); the two serving fill
+    # levels and length 37, where most segments lie past `length` and must
+    # weigh exactly 0; the same bits twice
     rep = h // kv
     q = randn(b, kv, rep, hd)
     k, v = randn(b, s_len, kv, hd), randn(b, s_len, kv, hd)
     cases = []
-    for length in (LM_PROMPT + 1, s_len):
+    for length in (LM_PROMPT + 1, s_len, 37):
         got, want, ms, plain_ms = timed_pair(
             lambda: dak.decode_attention(q, k, v, length, **DA),
             lambda: dak.decode_attention_plain(q, k, v, length), 50)
-        kernel_ms = device_ms(lambda: dak.decode_partials(q, k, v, length,
-                                                          **DA), 50)
+        same = torch.equal(got, dak.decode_attention(q, k, v, length, **DA))
         qh = q.reshape(b, h, 1, hd)
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)     # (b, kv, s, hd)
         mask = (torch.arange(s_len, device="cuda") < length)[None, None, None]
@@ -559,13 +567,12 @@ def phase_attention_parity(seed: int) -> list[dict]:
         n_flops = 4 * b * h * hd * length
         bound_ms, bound_by = attention_bound(n_bytes, n_flops)
         cases.append({"length": length, "ok": torch.allclose(
-            got, want, atol=2e-4, rtol=2e-4), "max_abs_err": float_err(got, want),
-            "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "gbytes_per_s": n_bytes / ms / 1e6})
-    acc, m, l = dak.decode_partials(q, k, v, s_len, **DA)
-    combine_ms = device_ms(lambda: dak.combine_splits(acc, m, l), 50)
-    full = cases[-1]
+            got, want, atol=2e-4, rtol=2e-4) and same,
+            "deterministic": same, "max_abs_err": float_err(got, want),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "gbytes_per_s": n_bytes / ms / 1e6})
+    full = cases[1]
     decode = {"name": "decode_attention", "ok": all(c["ok"] for c in cases),
               "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -574,7 +581,7 @@ def phase_attention_parity(seed: int) -> list[dict]:
               "max_abs_err": max(c["max_abs_err"] for c in cases),
               **{key: full[key] for key in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
-    del q, k, v, acc, m, l
+    del q, k, v
 
     # float32 cache at a smaller shape, gate 2e-4
     q32 = randn(2, 2, 4, 64, dtype=torch.float32)
@@ -593,13 +600,14 @@ def phase_attention_parity(seed: int) -> list[dict]:
                                       (192, 1, 8, 12, 1000)):
         q = randn(b_, kv_, rep_, hd_)
         k, v = randn(b_, s_len, kv_, hd_), randn(b_, s_len, kv_, hd_)
-        got = dak.decode_attention(q, k, v, length, **DA)
+        launch = fit_launch(DA, rep_, hd_, q.dtype)
+        got = dak.decode_attention(q, k, v, length, **launch)
         want = dak.decode_attention_plain(q, k, v, length)
         head_dims.append({"shape": [b_, kv_, rep_, hd_, s_len],
-                          "length": length,
+                          "length": length, "launch": launch,
                           "max_abs_err": float_err(got, want),
                           "ms": device_ms(lambda: dak.decode_attention(
-                              q, k, v, length, **DA), 50)})
+                              q, k, v, length, **launch), 50)})
         check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
               f"decode_attention hd {hd_}: {head_dims[-1]}")
     del q, k, v
@@ -609,8 +617,7 @@ def phase_attention_parity(seed: int) -> list[dict]:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          flash=flash_case,
          decode={"shape": [b, kv, rep, hd, s_len], "dtype": "bfloat16",
-                 "launch": dict(DA), "combine_ms": combine_ms,
-                 "cases": cases,
+                 "launch": dict(DA), "cases": cases,
                  "float32": {"shape": [2, 2, 4, 64, 1000], "length": 777,
                              "max_abs_err": d32_err},
                  "head_dims": head_dims},
@@ -709,11 +716,11 @@ def phase_lm_serve(seed: int, store_path: Path, tunes: dict):
     build_s = time.perf_counter() - t0
 
     fak.flash_attention_fwd.launches = 0
-    dak.decode_partials.launches = 0
+    dak.decode_attention.launches = 0
     out = serve_session(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
                         gen=LM_GEN, seed=seed, model=model)
     launches = {"flash_attention_fwd": fak.flash_attention_fwd.launches,
-                "decode_attention": dak.decode_partials.launches}
+                "decode_attention": dak.decode_attention.launches}
     want = {"flash_attention_fwd": cfg.n_layers,
             "decode_attention": cfg.n_layers * (LM_GEN - 1)}
     check(launches == want, f"lm_serve: launches {launches}, want {want}")
@@ -1047,11 +1054,11 @@ def kernel_kind(name: str) -> str:
         return "flash_attention_fwd (B3)"
     if "flash_bwd" in low:
         return "flash_attention_bwd (B5)"
-    if "decode_kernel" in low:
+    if "decode_bf16_kernel" in low or "decode_f32_kernel" in low:
         return "decode_attention (B4)"
     if "scan_bwd_spans_kernel" in low or "scan_bwd_sweep_kernel" in low:
         return "selective_scan_bwd (B7)"
-    if "wkv_bwd_spans_kernel" in low or "wkv_bwd_sweep_kernel" in low:
+    if "wkv_bwd_scans_kernel" in low or "wkv_bwd_chunks_kernel" in low:
         return "wkv6_bwd (B9)"
     if "scan_serial_kernel" in low or "scan_chunked_kernel" in low:
         return "selective_scan (B6)"
@@ -1077,8 +1084,8 @@ def device_split(fn, trace: Path | None = None) -> dict:
     """``fn`` once under ``torch.profiler``: the card's kernel time by
     ``kernel_kind`` against the wall time, the device time of the host
     range ``adamw`` (the optimizer) taken out of "other" where the trace
-    has one, and the longest kernels.  ``trace`` receives the Chrome
-    trace."""
+    has one, the number of device activities (kernels and copies) and the
+    longest kernels.  ``trace`` receives the Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1093,6 +1100,7 @@ def device_split(fn, trace: Path | None = None) -> dict:
     split: dict = {}
     top = []
     adamw_ms = None
+    launches = 0
     for evt in prof.key_averages():
         on_card = "cuda" in str(evt.device_type).lower()
         if evt.key == "adamw":
@@ -1104,6 +1112,7 @@ def device_split(fn, trace: Path | None = None) -> dict:
             continue
         kind = kernel_kind(evt.key)
         split[kind] = split.get(kind, 0.0) + us / 1e3
+        launches += evt.count
         top.append((us / 1e3, evt.count, evt.key[:90]))
     busy = sum(split.values())
     if adamw_ms is not None:
@@ -1115,7 +1124,8 @@ def device_split(fn, trace: Path | None = None) -> dict:
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if busy > 0 else "not measured",
             "idle_share": 1 - busy / wall_ms if busy > 0 else "not measured",
-            "split_ms": split, "top": sorted(top, reverse=True)[:12]}
+            "device_launches": launches, "split_ms": split,
+            "top": sorted(top, reverse=True)[:12]}
 
 
 def phase_lm_train(model, seed: int) -> dict:
@@ -1439,7 +1449,8 @@ def serve_split(model, seed: int) -> dict:
         fn()
         row = device_split(fn)
         out[label] = {k: row[k] for k in ("wall_ms", "device_busy_ms",
-                                          "idle_share", "split_ms")}
+                                          "idle_share", "device_launches",
+                                          "split_ms")}
         out[label]["top"] = row["top"][:6]
     del state
     return out
@@ -1487,7 +1498,7 @@ def phase_ssm_serve(arch: str, seed: int, store_path: Path, tunes: dict):
 
     fns = {"wkv6_fwd": wkk.wkv6_fwd, "selective_scan_fwd":
            msk.selective_scan_fwd, "flash_attention_fwd":
-           fak.flash_attention_fwd, "decode_attention": dak.decode_partials}
+           fak.flash_attention_fwd, "decode_attention": dak.decode_attention}
     for name in want:
         fns[name].launches = 0
     out = serve_session(cfg, batch=SSM_BATCH, prompt_len=SSM_PROMPT,
@@ -1769,37 +1780,66 @@ def phase_scan_bwd_parity(seed: int) -> list[dict]:
         return ok and same, err, ms, plain_ms
 
     # -- B9: r, k, v ~ N(0, 0.25), w = sigmoid(N + 2), u ~ N(0, 0.01); s0,
-    # dy, ds_T ~ N(0, 1)
+    # dy, ds_T ~ N(0, 1); then the same with a quarter of the channels
+    # decays w = exp(-exp(|N| + 3)) (all below 2.1e-9: every product of
+    # two underflows), and hd 48 (C5 lifted)
     b, t, h, hd = (metas["rwkv6_wkv_bwd"][k] for k in ("b", "t", "h", "hd"))
     r, k, v = (randn(b, t, h, hd) * 0.5 for _ in range(3))
     w = torch.sigmoid(randn(b, t, h, hd) + 2)
     u = randn(h, hd) * 0.1
     s0, dy, ds = randn(b, h, hd, hd), randn(b, t, h, hd), randn(b, h, hd, hd)
-    plain_kw = {"chunk": WKVB["chunk"], "span_chunks": WKVB["span_chunks"]}
     oks, errs = [], []
     for tt in (t, 1000, 1):
         args = [m[:, :tt].contiguous() if m.dim() == 4 and m.shape[1] == t
                 else m for m in (r, k, v, w, u, s0, dy, ds)]
         ok, err, ms_t, plain_t = run(
             "wkv6_bwd", lambda: wkk.wkv6_bwd(*args, **WKVB),
-            lambda: wkk.wkv6_bwd_plain(*args, **plain_kw), tt, WKVB,
-            tt == t)
+            lambda: wkk.wkv6_bwd_plain(*args), tt, WKVB, tt == t)
         oks.append(ok)
         errs.append(err)
         if tt == t:
             ms, plain_ms = ms_t, plain_t
-    del r, k, v, w, u, s0, dy, ds, args
+    w_tiny = w.clone()
+    w_tiny[..., ::4] = torch.exp(-torch.exp(randn(b, t, h, hd // 4).abs() + 3))
+    tiny_share = float((w_tiny < 1e-6).float().mean())
+    args = (r, k, v, w_tiny, u, s0, dy, ds)
+    ok, err, _, _ = run("wkv6_bwd tiny decays",
+                        lambda: wkk.wkv6_bwd(*args, **WKVB),
+                        lambda: wkk.wkv6_bwd_plain(*args), t, WKVB, False)
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in wkk.wkv6_bwd(*args, **WKVB))
+    cases[-1].update({"share_below_1e-6": tiny_share, "finite": finite})
+    cases[-1]["ok"] = cases[-1]["ok"] and finite
+    oks.append(ok and finite)
+    errs.append(err)
+    del w_tiny, args
+    args48 = [randn(2, 300, 4, 48) * 0.5 for _ in range(3)] + [
+        torch.sigmoid(randn(2, 300, 4, 48) + 2), randn(4, 48) * 0.1,
+        randn(2, 4, 48, 48), randn(2, 300, 4, 48), randn(2, 4, 48, 48)]
+    launch48 = {**WKVB, "cols": 16}
+    ok, err, _, _ = run("wkv6_bwd hd 48",
+                        lambda: wkk.wkv6_bwd(*args48, **launch48),
+                        lambda: wkk.wkv6_bwd_plain(*args48), 300, launch48,
+                        False)
+    oks.append(ok)
+    del r, k, v, w, u, s0, dy, ds, args48
     cell = b * t * h * hd * hd
     # r, k, v, w, dy read and dr, dk, dv, dw written; u, du; s0, ds_T, ds0
     n_bytes = 4 * (9 * b * t * h * hd + 2 * h * hd + 3 * b * h * hd * hd)
-    bound_ms, bound_by = roofline_ms(n_bytes, 8 * cell, INSTR_PER_S)
+    # the chunked form's FMAs a token and head: S0 dy, G v and G^T (B k)
+    # (3 hd^2), one a cell in each scan (2 hd^2), the in-chunk pairs
+    # (~6 chunk hd); the serial form's eight a state cell stand beside it
+    n_ops = b * t * h * (5 * hd * hd + 6 * WKVB["chunk"] * hd)
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops, INSTR_PER_S)
     records.append({
         "name": "wkv6_bwd", "ok": all(oks), "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
         "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:255",
         "launches": 0, "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None})
+        "library_ms": None,
+        "bound_8_per_cell_ms": roofline_ms(n_bytes, 8 * cell,
+                                           INSTR_PER_S)[0]})
     torch.cuda.empty_cache()
 
     # -- B7: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0, dy,
@@ -1846,10 +1886,9 @@ def phase_scan_bwd_parity(seed: int) -> list[dict]:
          shapes=metas, cases=cases,
          ptxas={name: ptxas_report(name)
                 for name in ("mamba_scan_bwd", "rwkv6_wkv_bwd")},
-         results=[{key: rec[key] for key in ("name", "ok", "max_abs_err",
-                                             "ms", "plain_ms", "bound_ms",
-                                             "bound_by")}
-                  for rec in records])
+         results=[{key: rec.get(key) for key in (
+             "name", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "bound_8_per_cell_ms")} for rec in records])
     for case in cases:
         check(case["ok"], f"scan_bwd_parity: {case}")
     return records
@@ -1879,8 +1918,8 @@ def train_plain_patches():
     from repro_torch.kernels.rwkv6_wkv import kernel as wkk
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
-    def plain_wkv_bwd(*args, chunk, span_chunks, **launch):
-        return wkk.wkv6_bwd_plain(*args, chunk=chunk, span_chunks=span_chunks)
+    def plain_wkv_bwd(*args, **launch):
+        return wkk.wkv6_bwd_plain(*args)
 
     def plain_scan_bwd(*args, chunk, **launch):
         return msk.selective_scan_bwd_plain(*args, chunk=chunk)
@@ -1927,9 +1966,8 @@ def float64_patches():
         if s0 is None:
             s0 = torch.zeros((b, h, hd, hd), dtype=torch.float64,
                              device=r.device)
-        return Plain64.apply(wkk.wkv6_fwd_plain,
-                             partial(wkk.wkv6_bwd_plain, chunk=8,
-                                     span_chunks=4), r, k, v, w, u, s0)
+        return Plain64.apply(wkk.wkv6_fwd_plain, wkk.wkv6_bwd_plain, r, k,
+                             v, w, u, s0)
 
     def scan64(x, delta, a, b, c, d, h0=None, **launch):
         if h0 is None:
@@ -2200,7 +2238,7 @@ def phase_ssm_train(model, seed: int, store_path: Path, tunes: dict) -> dict:
            "selective_scan_bwd": msk.selective_scan_bwd,
            "flash_attention_fwd": fak.flash_attention_fwd,
            "flash_attention_bwd": fak.flash_attention_bwd}
-    programs = {"wkv6_bwd": ("spans", "sweep"),
+    programs = {"wkv6_bwd": ("scans", "chunks"),
                 "selective_scan_bwd": ("spans", "sweep"),
                 "flash_attention_bwd": ("dq", "dkv")}
     for name, fn in fns.items():

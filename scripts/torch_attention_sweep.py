@@ -11,7 +11,11 @@ batches of back-to-back calls) measures every other configuration of the
 spec's space.  Prints, per kernel, the tune's measurements, its winner,
 the default and the exhaustive best, and the winner's rank; writes every
 configuration's time to ``attention_sweep.json`` in ``--out`` (default
-``results/``).
+``results/``).  The decode kernel (one launch a call, its split combine
+inside) is swept over its whole space; its default and best points are
+timed once more as ``chip_smoke.py`` times them (``device_ms``), beside
+one ``scaled_dot_product_attention`` call on the same inputs (GQA, the
+length mask).
 
 The flash-attention backward has no tuning space (the reference has none):
 at the training shape (B*H = 32, T = 2048, hd 128, causal, bfloat16) its
@@ -66,6 +70,28 @@ def backward_points(smoke) -> dict:
             "points": points}
 
 
+def decode_points(smoke, meta: dict, points: dict) -> dict:
+    """B4 at ``points`` (name -> launch) and SDPA, timed by ``device_ms``
+    at the decode shape, full cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+
+    b, kv, rep, hd, s = (meta[k] for k in ("b", "kv", "rep", "hd", "s"))
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    q = torch.randn((b, kv, rep, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, s, kv, hd), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out = {name: smoke.device_ms(lambda: dak.decode_attention(  # noqa: B023
+        q, k, v, s, **launch), 50) for name, launch in points.items()}
+    qh, kh, vh = q.reshape(b, kv * rep, 1, hd), k.transpose(1, 2), v.transpose(1, 2)
+    mask = torch.ones((1, 1, 1, s), dtype=torch.bool, device="cuda")
+    out["sdpa"] = smoke.device_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True), 50)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=ROOT / "results")
@@ -96,6 +122,10 @@ def main() -> int:
             "winner_over_best": winner_s / valid[0][0],
             "winner_rank": 1 + sum(s < winner_s for s, _ in valid),
             "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
+        if name == "decode_attention":
+            report[-1]["device_ms"] = decode_points(smoke, meta, {
+                "default": out.default_config, "winner": out.best_config,
+                "best": valid[0][1]})
         print(json.dumps({k: v for k, v in report[-1].items()
                           if k != "all_ms"}), flush=True)
     report.append(backward_points(smoke))

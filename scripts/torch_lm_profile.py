@@ -12,10 +12,11 @@ the batch and one decode step at the last position with ``torch.profiler``.
 It sums the card's kernel time by kind (``chip_smoke.device_split``, the
 classifier the training phase uses too): the port's attention kernels,
 matrix products (cuBLAS), and everything else (norms, RoPE, residual adds,
-cache writes, the split combine, the casts).  The LM head's share is timed
-apart by ``chip_smoke.device_ms`` on the same shapes.  Host time is the
-step's wall time (a synchronize on each side) less the card's busy time;
-its share is the card's idle share.
+cache writes, the casts), and counts the card's activities (kernels and
+copies) in each step.  The LM head's share is timed apart by
+``chip_smoke.device_ms`` on the same shapes.  Host time is the step's wall
+time (a synchronize on each side) less the card's busy time; its share is
+the card's idle share.
 
 Writes ``lm_profile.json`` and the two Chrome traces into ``--out``
 (default ``results/``), and prints the summary as JSON lines; the last
@@ -54,7 +55,7 @@ def profile(fn, label: str, out: Path) -> dict:
     return {"step": label, "wall_ms_profiled": row["wall_ms"],
             "wall_ms": plain_wall_ms, "device_busy_ms": row["device_busy_ms"],
             "by_kind_ms": row["split_ms"], "idle_share": row["idle_share"],
-            "top": row["top"]}
+            "device_launches": row["device_launches"], "top": row["top"]}
 
 
 def main() -> int:

@@ -5,15 +5,19 @@
 
 At the shapes ``chip_smoke.py`` serves (the wkv kernel at RWKV-6 1.6B's
 prefill, B 8, T 2048, H 32, hd 64; the selective scan at Jamba's, B 8,
-T 2048, dI 8192, S 16; float32), ``tune_kernel`` tunes each kernel as the
-``ssm_tune`` phase does, and then the same ``KernelTimer`` (parity-gated
-against the plain version, timed in batches of back-to-back calls)
-measures every other configuration of the spec's space.  Prints, per
-kernel, the tune's measurements, its winner, the default and the
-exhaustive best, the winner's rank, and the best time of each program
-(serial, chunked) and of each serial thread count; writes every
-configuration's time to ``scan_sweep.json`` in ``--out`` (default
-``results/``).  The last line names the card.
+T 2048, dI 8192, S 16; the wkv backward at RWKV-6's training shape, the
+same B 8 x 2048; float32), ``tune_kernel`` tunes each kernel as the
+``ssm_tune`` / ``ssm_bwd_tune`` phases do, and then the same
+``KernelTimer`` (parity-gated against the plain version, timed in batches
+of back-to-back calls) measures every other configuration of the spec's
+space.  Prints, per kernel, the tune's measurements, its winner, the
+default and the exhaustive best, the winner's rank, and the best time of
+each program (serial, chunked) and of each serial thread count, or, for
+the wkv backward, of each chunk length, with its two programs (``scans``,
+``chunks``) timed apart at the default and at the best point
+(``chip_smoke.device_ms``); writes every configuration's time to
+``scan_sweep.json`` in ``--out`` (default ``results/``).  The last line
+names the card.
 """
 
 from __future__ import annotations
@@ -41,6 +45,49 @@ def best_by(valid, key) -> dict:
     return out
 
 
+def wkv_bwd_programs(meta: dict, launch: dict) -> dict:
+    """The wkv backward's two programs timed apart (ms) at ``launch``."""
+    import chip_smoke as smoke
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+
+    b, t, h, hd = (meta[k] for k in ("b", "t", "h", "hd"))
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    r, k, v, w, dy = (torch.rand((b, t, h, hd), generator=gen, device="cuda")
+                      for _ in range(5))
+    u = torch.rand((h, hd), generator=gen, device="cuda")
+    s0, ds = (torch.rand((b, h, hd, hd), generator=gen, device="cuda")
+              for _ in range(2))
+    n = -(-t // launch["chunk"])
+    states = torch.empty((b, h, n, hd, hd), device="cuda")
+    adj = torch.empty_like(states)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((b, h, n, hd), device="cuda")
+    ds0 = torch.empty_like(s0)
+    lib = wkk._library_bwd()
+    tail = (b, t, h, hd, launch["chunk"], launch["block_threads"],
+            launch["cols"], launch["parts"])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def scans():
+        lib.rwkv6_wkv_bwd_scans(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                w.data_ptr(), dy.data_ptr(), s0.data_ptr(),
+                                ds.data_ptr(), states.data_ptr(),
+                                adj.data_ptr(), ds0.data_ptr(), *tail, stream)
+
+    def chunks():
+        lib.rwkv6_wkv_bwd_chunks(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 w.data_ptr(), u.data_ptr(), dy.data_ptr(),
+                                 states.data_ptr(), adj.data_ptr(),
+                                 dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 dw.data_ptr(), du.data_ptr(), *tail, stream)
+
+    scans()
+    chunks()
+    return {"scans_ms": smoke.device_ms(scans, 10),
+            "chunks_ms": smoke.device_ms(chunks, 10)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=ROOT / "results")
@@ -52,7 +99,9 @@ def main() -> int:
     from repro_torch.tune import kernels as ktune
 
     report = []
-    for name, meta in smoke.ssm_metas().items():
+    metas = {**smoke.ssm_metas(),
+             "rwkv6_wkv_bwd": smoke.ssm_train_metas()["rwkv6_wkv_bwd"]}
+    for name, meta in metas.items():
         out = ktune.tune_kernel(name, meta, seed=0)
         n_tune = out.n_measured
         configs = out.timer.spec.space(out.shape).enumerate()
@@ -60,8 +109,6 @@ def main() -> int:
                        key=lambda item: item[0])
         valid = [(s, cfg) for s, cfg in times if math.isfinite(s)]
         winner_s = out.best_time()
-        serial = [(s, cfg) for s, cfg in valid if cfg["lanes"] < 2]
-        threads = ("block_threads" if name == "rwkv6_wkv" else "block_d")
         report.append({
             "kernel": name, "shape": meta, "space_size": out.space_size,
             "n_valid": len(valid), "tune_n_measured": n_tune,
@@ -74,12 +121,24 @@ def main() -> int:
             "best_config": valid[0][1], "best_ms": valid[0][0] * 1e3,
             "winner_over_best": winner_s / valid[0][0],
             "winner_rank": 1 + sum(s < winner_s for s, _ in valid),
-            "best_ms_by_program": best_by(
-                valid, lambda c: "serial" if c["lanes"] < 2 else "chunked"),
-            "best_ms_by_lanes": best_by(valid, lambda c: c["lanes"]),
-            "serial_best_ms_by_threads": best_by(serial,
-                                                 lambda c: c[threads]),
             "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
+        if name == "rwkv6_wkv_bwd":
+            report[-1].update({
+                "best_ms_by_chunk": best_by(valid, lambda c: c["chunk"]),
+                "default_programs": wkv_bwd_programs(meta,
+                                                     out.default_config),
+                "best_programs": wkv_bwd_programs(meta, valid[0][1])})
+        else:
+            serial = [(s, cfg) for s, cfg in valid if cfg["lanes"] < 2]
+            threads = ("block_threads" if name == "rwkv6_wkv"
+                       else "block_d")
+            report[-1].update({
+                "best_ms_by_program": best_by(
+                    valid, lambda c: "serial" if c["lanes"] < 2
+                    else "chunked"),
+                "best_ms_by_lanes": best_by(valid, lambda c: c["lanes"]),
+                "serial_best_ms_by_threads": best_by(serial,
+                                                     lambda c: c[threads])})
         print(json.dumps({k: v for k, v in report[-1].items()
                           if k != "all_ms"}), flush=True)
         del out

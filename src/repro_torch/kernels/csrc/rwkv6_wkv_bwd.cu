@@ -1,4 +1,5 @@
-// RWKV-6 wkv recurrence (backward) for NVIDIA Hopper (sm_90a), float32.
+// RWKV-6 wkv recurrence (backward) for NVIDIA Hopper (sm_90a), float32, as
+// a chunked form that is stable for every decay in [0, 1].
 //
 // Replaces the Pallas TPU kernel wkv6_bwd of
 // src/repro/kernels/rwkv6_wkv/kernel.py (its two grid programs: the spans
@@ -8,46 +9,57 @@
 // The forward, per (batch, head) with a (hd x hd) state S (key i x value j):
 //     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 //     S_t = diag(w_t) S_{t-1} + k_t v_t^T
-// The reverse recurrence, derived by hand: with G the carried dL/dS_t,
-// starting from ds_T, for t = T-1 .. 0
+// and its adjoint G_t = dL/dS_t, from G_{T-1} = ds_T:
+//     G_{t-1} = diag(w_t) G_t + r_t dy_t^T,       ds0 = G_{-1}
 //     dr_t = S_{t-1} dy_t + u * k_t (v_t . dy_t)
-//     du  += r_t * k_t (v_t . dy_t)
-//     dk_t = u * r_t (v_t . dy_t) + G v_t
-//     dv_t = G^T k_t + (sum_i u_i r_ti k_ti) dy_t
-//     dw_t = rowsum(G * S_{t-1})
-//     G    = diag(w_t) G + r_t dy_t^T
-// and ds0 = G at the end.  Decays are only ever multiplied: S_{t-1} is never
-// recovered by dividing by w_t (w = exp(-exp(decay)) can be tiny).  The
-// pre-pass (program "spans") stores the state entering every span of
-// `span_chunks * chunk` tokens; the sweep (program "sweep") walks the spans
-// last to first and, within a span, its chunks last to first: each chunk's
-// entry state is recomputed from the span's (a forward over the span's
-// earlier chunks), then the chunk's forward keeps every token's S_{t-1} in
-// shared memory and the reverse steps walk back through it.
+//     dk_t = G_t v_t + u * r_t (v_t . dy_t)
+//     dv_t = G_t^T k_t + (sum_i u_i r_ti k_ti) dy_t
+//     dw_t = rowsum(G_t * S_{t-1}),               du = sum_t r_t * k_t (v_t . dy_t)
 //
-// What bounds it on the H100: operations.  At the RWKV-6 training shape
-// (B 8, T 2048, H 32, hd 64) each of the 2.15e9 (t, h, i, j) cells takes
-// about eight float32 instructions (the state recompute, the S dy, G v and
-// G * S row sums, G^T k, the G update): ~0.51 ms at 33.5e12/s, against
-// 9 x 134 MB of reads and writes (0.36 ms).  This design adds the pre-pass
-// and the recompute (about three more instructions a cell, and
-// (span_chunks - 1) / 2 more forward steps a token) and the span states
-// (B x n_spans x H x hd x hd floats: 1.07 GB at span 8).  What it does:
-//   * one block per (b, block_h heads); thread (head, row i, part) holds
-//     columns j = jj * split + part of row i of S and of G in registers, so
-//     dr, dk, dw and du are sums along its own row (plus `split`-lane
-//     shuffles), and only dv, a sum over rows, crosses threads;
-//   * dv: a butterfly reduce-scatter over the warp's rows, per-warp
-//     partials in shared memory, one pass over the warps a chunk;
-//   * r, k, v, w, dy of a chunk are staged in shared memory by coalesced
-//     loads, with v . dy and sum_i u r k once per (token, head);
-//   * each thread's S_{t-1} stack is its own column of shared memory
-//     (chunk x hd / split floats), which bounds the chunk: at hd 64 a head's
-//     state is 16 KB, so chunk 8 at block_h 1 is 128 KB.
-// No atomics: du goes into per-(b, head) partials the caller sums over b,
-// and every output element is written by exactly one thread.
+// Two programs, each deterministic and free of atomics:
 //
-// Plain C interface: rwkv6_wkv_bwd_spans / rwkv6_wkv_bwd_sweep launch on the
+//   * "scans": the state entering every chunk of `chunk` tokens and the
+//     adjoint leaving it, (B, H, N, hd, hd) each, and ds0.  A block owns one
+//     (b, head) in one direction (both run in one launch), a thread `cols`
+//     value columns of one row of S or G in registers (the columns evolve
+//     independently); each chunk is one product (an FMA a cell and token)
+//     from tiles the block double-buffers in shared memory.
+//   * "chunks": one block per (b, head, chunk), B * H * N of them, each
+//     computing the chunk's dr, dk, dv, dw and its du partial from its
+//     entry state S0 and exit adjoint G, all in float32 from shared tiles
+//     (a chunk's r, k, v, w, dy; S0, G):
+//       with A_t = prod_{s<t} w_s, B_t = prod_{s>t} w_s (in the chunk) and
+//       c(s, t) = prod_{s<σ<t} w_σ, M[t][s] = dy_t . v_s,
+//       dr_t = A_t (S0 dy_t) + sum_{s<t} c(s,t) k_s M[t][s] + bonus
+//       dk_t = B_t (G v_t)   + sum_{s>t} c(t,s) r_s M[s][t] + bonus
+//       dv_t = G^T (B_t k_t) + sum_{s>t} Q[t][s] dy_s     + bonus,
+//              Q[t][s] = sum_i c(t,s)_i r_si k_ti
+//       dw_t = A_t B_t rowsum(G * S0) + B_t P_t + A_t R_t + X_t, with the
+//              decayed prefix scan P of k * (G v), the suffix scan R of
+//              r * (S0 dy), and the in-chunk x in-chunk term
+//              X_t = sum_{s>t} c(t,s) r_s Y_t[s],
+//              Y_{t+1}[s] = w_t Y_t[s] + k_t M[s][t].
+//     Every decay factor is a product of w's (<= 1): nothing is inverted
+//     (no exp(-cumsum(log w)), no division by w), so w = 1e-30 or 0 gives
+//     finite, exact-as-float32 gradients.  The products over hd are
+//     register-tiled float32 FMAs fed by 16-byte shared loads (S0 dy,
+//     G v, dy v^T; G^T (B k) with Q dy in one pass writing dv, by lanes
+//     over columns); the pair sums keep their running coefficients in
+//     registers, a warp per token t with the lanes over channels; Q's sums
+//     over channels by a butterfly reduce-scatter; X by `parts` warps per
+//     32 channels, each over every parts-th s (the same s in every lane),
+//     their partials summed in shared memory.  du comes back as per-(b,
+//     head, chunk) partials that the caller sums.
+//
+// What bounds it on the H100: bytes read and written once (r, k, v, w,
+// dy, s0, ds_T in; dr, dk, dv, dw, du, ds0 out: 1.2 GB, 0.36 ms at the
+// RWKV-6 training shape B 8, T 2048, H 32, hd 64) against the operations
+// the chunked form does: per token and head ~3 hd^2 (the products with S0
+// and G) + ~6 chunk * hd (the pairs) FMAs, plus 2 hd^2 of each scan, and
+// the chunk states (2 x B x H x T/chunk x hd^2 floats) written and read
+// once.  Numbers: PERF.md.
+//
+// Plain C interface: rwkv6_wkv_bwd_scans / rwkv6_wkv_bwd_chunks launch on the
 // given stream, do not synchronise, allocate nothing, and return
 // cudaGetLastError().
 
@@ -56,41 +68,304 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 512;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_THREADS = 512;
 
-// Shared memory of the sweep, in floats (must match the Python-side checks).
-__host__ __device__ inline int64_t sweep_smem_floats(int chunk, int block_h,
-                                                     int hd, int split) {
-    const int64_t threads = (int64_t)block_h * hd * split;
-    return (int64_t)chunk * block_h * hd * hd    // S_{t-1} of every token
-         + 5LL * chunk * block_h * hd            // r, k, v, w, dy
-         + 2LL * chunk * block_h                 // v . dy, sum u r k
-         + (int64_t)block_h * hd                 // u
-         + threads / 32 * chunk * hd;            // per-warp dv partials
+__host__ __device__ constexpr int pitch(int hd) { return hd + 4; }
+
+// Shared memory of the chunk program, in floats (must match the
+// Python-side check): r, k, w, dy, B, B k, v, A, S0 dy, G v tiles (chunk x
+// pitch; the last four hold dw's partials at the end), S0 and G (hd x
+// pitch; dw's two scanned terms take S0's place once S0 is read, or two
+// tiles of their own when 2 chunk > hd), M and Q (chunk x (chunk + 4)), u,
+// rowsum(G * S0) and the per-token bonus sums.
+__host__ __device__ inline int64_t chunks_smem_floats(int chunk, int hd) {
+    return 10LL * chunk * pitch(hd) + 2LL * hd * pitch(hd)
+         + (2 * chunk > hd ? 2LL * chunk * pitch(hd) : 0)
+         + 2LL * chunk * (chunk + 4) + 2LL * hd + chunk;
 }
 
-__host__ __device__ inline int64_t spans_smem_floats(int chunk, int block_h,
-                                                     int hd) {
-    return 3LL * chunk * block_h * hd;           // k, v, w
+__host__ __device__ inline int64_t scans_smem_floats(int chunk, int hd) {
+    // two buffers of a, w, b tiles; the state on its way out
+    return 2LL * 3 * chunk * hd + (int64_t)hd * pitch(hd);
 }
 
-// Butterfly reduce-scatter (see mamba_scan_bwd.cu): N values over the lanes
-// differing in bits O .. STOP; returns the index of v[0] among the N.
+// 16-byte asynchronous copy device -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                    "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// program "scans"
+
+// One block per (b, head, direction): thread (g, i) carries columns
+// [g * COLS, (g + 1) * COLS) of row i of S (forward) or G (backward); a
+// chunk's a (k or r), w and b (v or dy) tiles are read once by the block
+// into a double buffer by cp.async while the chunk before is stepped.  A
+// chunk is one product, an FMA a cell and token:
+//     S <- diag(W) S + sum_t diag(prod_{s>t} w_s) k_t v_t^T
+//     G <- diag(W) G + sum_t diag(prod_{s<t} w_s) r_t dy_t^T
+// with W the product of the chunk's w; every factor a product of w's.
+template <int HD, int COLS>
+__global__ void __launch_bounds__(HD * HD / COLS)
+wkv_bwd_scans_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ w,
+                     const float* __restrict__ dy, const float* __restrict__ s0,
+                     const float* __restrict__ dsT, float* __restrict__ states,
+                     float* __restrict__ adj, float* __restrict__ ds0, int T,
+                     int H, int chunk, int N) {
+    extern __shared__ __align__(16) float smem[];
+    const int bh = blockIdx.x, b = bh / H, h = bh % H;
+    const bool back = blockIdx.y == 1;
+    const int tid = threadIdx.x, i = tid % HD, j0 = (tid / HD) * COLS;
+    const float* av = back ? r : k;
+    const float* bv = back ? dy : v;
+    float* store = back ? adj : states;
+    const int64_t hh = (int64_t)HD * HD;
+    const int64_t row = (int64_t)H * HD;
+    const int tile = chunk * HD;
+    float* out_tile = smem + 6 * tile;
+
+    auto load = [&](int n, int buf) {
+        const int t0 = n * chunk, nv = min(chunk, T - t0);
+        float* as = smem + buf * 3 * tile;
+        const int64_t base = ((int64_t)b * T + t0) * row + (int64_t)h * HD;
+        for (int e = tid; e < tile / 4; e += blockDim.x) {
+            const int tk = e / (HD / 4), c = (e - tk * (HD / 4)) * 4;
+            const bool in = tk < nv;
+            const int64_t g = base + (in ? tk : 0) * row + c;
+            cp_async16(as + tk * HD + c, av + g, in);
+            cp_async16(as + tile + tk * HD + c, w + g, in);
+            cp_async16(as + 2 * tile + tk * HD + c, bv + g, in);
+        }
+    };
+
+    float S[COLS];
+    {
+        const float4* src = reinterpret_cast<const float4*>(
+            (back ? dsT : s0) + bh * hh + (int64_t)i * HD + j0);
+#pragma unroll
+        for (int c = 0; c < COLS / 4; ++c) {
+            const float4 x = src[c];
+            S[4 * c] = x.x; S[4 * c + 1] = x.y; S[4 * c + 2] = x.z; S[4 * c + 3] = x.w;
+        }
+    }
+    load(back ? N - 1 : 0, 0);
+    cp_async_commit();
+    for (int step = 0; step < N; ++step) {
+        const int n = back ? N - 1 - step : step;
+        const int nv = min(chunk, T - n * chunk);
+        {                                 // the state, through shared memory
+            float4* st = reinterpret_cast<float4*>(out_tile + i * pitch(HD) + j0);
+#pragma unroll
+            for (int c = 0; c < COLS / 4; ++c)
+                st[c] = make_float4(S[4 * c], S[4 * c + 1], S[4 * c + 2], S[4 * c + 3]);
+        }
+        if (step + 1 < N) {               // the next chunk, while this one runs
+            load(back ? n - 1 : n + 1, (step + 1) & 1);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* as = smem + (step & 1) * 3 * tile;
+        const float* ws = as + tile;
+        const float* bs = ws + tile;
+        {                                 // ... and out in whole rows
+            float4* dst = reinterpret_cast<float4*>(store + (bh * N + n) * hh);
+            for (int e = tid; e < HD * HD / 4; e += blockDim.x) {
+                const int row_ = e / (HD / 4), c = e - row_ * (HD / 4);
+                dst[e] = *reinterpret_cast<const float4*>(out_tile + row_ * pitch(HD) + 4 * c);
+            }
+        }
+        // from the chunk's far edge: p is the decay product between token
+        // t and the edge the state leaves by, then the whole chunk's
+        float acc[COLS];
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
+        float p = 1.f;
+        for (int q = 0; q < nv; ++q) {
+            const int tk = back ? q : nv - 1 - q;
+            const float at = as[tk * HD + i] * p;
+            p *= ws[tk * HD + i];
+            const float4* bt = reinterpret_cast<const float4*>(bs + tk * HD + j0);
+#pragma unroll
+            for (int c = 0; c < COLS / 4; ++c) {
+                const float4 x = bt[c];
+                acc[4 * c] = fmaf(at, x.x, acc[4 * c]);
+                acc[4 * c + 1] = fmaf(at, x.y, acc[4 * c + 1]);
+                acc[4 * c + 2] = fmaf(at, x.z, acc[4 * c + 2]);
+                acc[4 * c + 3] = fmaf(at, x.w, acc[4 * c + 3]);
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) S[c] = fmaf(p, S[c], acc[c]);
+        __syncthreads();                  // the buffer is refilled next step
+    }
+    if (back) {
+        float4* dst = reinterpret_cast<float4*>(ds0 + bh * hh + (int64_t)i * HD + j0);
+#pragma unroll
+        for (int c = 0; c < COLS / 4; ++c)
+            dst[c] = make_float4(S[4 * c], S[4 * c + 1], S[4 * c + 2], S[4 * c + 3]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// program "chunks": shared-memory products
+
+// The warp tasks of one product go to warps first, first + 1, ... (mod
+// the block's warps), so consecutive products share the warps out evenly.
+__device__ __forceinline__ int first_task(int first, int warp, int nwarps) {
+    return ((warp - first) % nwarps + nwarps) % nwarps;
+}
+
+// out[a][b] = sum_x P[a][x] Q[b][x] for a < na, b < nb (x < nx, a multiple
+// of 4): a warp task is TM rows a (P's rows broadcast) by 32 * TN columns b
+// (a lane's: b = lane + 32 q), both read as float4.  Returns its task count.
+template <int TM, int TN>
+__device__ __forceinline__ int rowdot(float* out, int po, const float* P, int pp,
+                                      const float* Q, int pq, int na, int nb,
+                                      int nx, int first, int warp, int nwarps,
+                                      int lane) {
+    const int nab = (na + TM - 1) / TM, nbb = (nb + 32 * TN - 1) / (32 * TN);
+    for (int task = first_task(first, warp, nwarps); task < nab * nbb;
+         task += nwarps) {
+        const int a0 = (task / nbb) * TM, b0 = (task % nbb) * 32 * TN;
+        float acc[TM][TN];
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
+        const float* pr[TM];
+        const float* qr[TN];
+#pragma unroll
+        for (int m = 0; m < TM; ++m) pr[m] = P + min(a0 + m, na - 1) * pp;
+#pragma unroll
+        for (int q = 0; q < TN; ++q) qr[q] = Q + min(b0 + lane + 32 * q, nb - 1) * pq;
+        for (int x = 0; x < nx; x += 4) {
+            float4 pv[TM], qv[TN];
+#pragma unroll
+            for (int m = 0; m < TM; ++m) pv[m] = *reinterpret_cast<const float4*>(pr[m] + x);
+#pragma unroll
+            for (int q = 0; q < TN; ++q) qv[q] = *reinterpret_cast<const float4*>(qr[q] + x);
+#pragma unroll
+            for (int m = 0; m < TM; ++m)
+#pragma unroll
+                for (int q = 0; q < TN; ++q) {
+                    acc[m][q] = fmaf(pv[m].x, qv[q].x, acc[m][q]);
+                    acc[m][q] = fmaf(pv[m].y, qv[q].y, acc[m][q]);
+                    acc[m][q] = fmaf(pv[m].z, qv[q].z, acc[m][q]);
+                    acc[m][q] = fmaf(pv[m].w, qv[q].w, acc[m][q]);
+                }
+        }
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) {
+                const int a = a0 + m, bb = b0 + lane + 32 * q;
+                if (a < na && bb < nb) out[a * po + bb] = acc[m][q];
+            }
+    }
+    return nab * nbb;
+}
+
+// dv_t = G^T (B_t k_t) + sum_s Q[t][s] dy_s + bonus_t dy_t for t < nv, in
+// one pass: out[t][j] = sum_i (B[t][i] K[t][i]) G[i][j] + sum_s Q[t][s] D[s][j]
+// (Q[t][s] = 0 for s <= t), a warp task TM rows t (broadcast as float4) by
+// 32 * TN columns j (a lane's: j = lane + 32 q, rows of G and D by lanes),
+// written to device memory.
+template <int TM, int TN>
+__device__ __forceinline__ void dv_pass(float* __restrict__ dv, int64_t base,
+                                        int64_t row, int nv, const float* Bs,
+                                        const float* Ks, const float* Gs,
+                                        const float* Qm, const float* Ds,
+                                        const float* bonus, int C, int HD,
+                                        int P, int CP, int warp, int nwarps,
+                                        int lane) {
+    const int nab = (C + TM - 1) / TM, nbb = (HD + 32 * TN - 1) / (32 * TN);
+    for (int task = warp; task < nab * nbb; task += nwarps) {
+        const int a0 = (task / nbb) * TM, b0 = (task % nbb) * 32 * TN;
+        float acc[TM][TN];
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) acc[m][q] = 0.f;
+        int col[TN];
+#pragma unroll
+        for (int q = 0; q < TN; ++q) col[q] = min(b0 + lane + 32 * q, HD - 1);
+        auto segment = [&](const float* P1, const float* P2, int pp,
+                           const float* Qr, int nx) {
+            for (int x = 0; x < nx; x += 4) {
+                float4 pv[TM];
+#pragma unroll
+                for (int m = 0; m < TM; ++m) {
+                    const int a = min(a0 + m, C - 1);
+                    const float4 p1 = *reinterpret_cast<const float4*>(P1 + a * pp + x);
+                    if (P2) {
+                        const float4 p2 = *reinterpret_cast<const float4*>(P2 + a * pp + x);
+                        pv[m] = make_float4(p1.x * p2.x, p1.y * p2.y, p1.z * p2.z,
+                                            p1.w * p2.w);
+                    } else {
+                        pv[m] = p1;
+                    }
+                }
+#pragma unroll
+                for (int xx = 0; xx < 4; ++xx) {
+#pragma unroll
+                    for (int q = 0; q < TN; ++q) {
+                        const float qv = Qr[(x + xx) * P + col[q]];
+#pragma unroll
+                        for (int m = 0; m < TM; ++m) {
+                            const float pe = xx == 0 ? pv[m].x : xx == 1 ? pv[m].y
+                                           : xx == 2 ? pv[m].z : pv[m].w;
+                            acc[m][q] = fmaf(pe, qv, acc[m][q]);
+                        }
+                    }
+                }
+            }
+        };
+        segment(Bs, Ks, P, Gs, HD);
+        segment(Qm, nullptr, CP, Ds, C);
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+#pragma unroll
+            for (int q = 0; q < TN; ++q) {
+                const int t = a0 + m, j = b0 + lane + 32 * q;
+                if (t < nv && j < HD)
+                    dv[base + t * row + j] = fmaf(bonus[t], Ds[t * P + j], acc[m][q]);
+            }
+    }
+}
+
+// Butterfly reduce-scatter: N values over the lanes differing in bits
+// O .. STOP; returns the index of v[0] among the N (rs_left of them stay,
+// lanes with a bit of rs_dup set hold duplicates).
 template <int N, int O, int STOP>
 __device__ __forceinline__ int reduce_scatter(float* v, int lane) {
     if constexpr (O < STOP) {
         return 0;
     } else if constexpr (N > 1 && N % 2 == 0) {
-        constexpr int H = N / 2;
+        constexpr int HALF = N / 2;
         const bool up = lane & O;
 #pragma unroll
-        for (int i = 0; i < H; ++i) {
-            const float send = up ? v[i] : v[i + H];
-            const float keep = up ? v[i + H] : v[i];
+        for (int i = 0; i < HALF; ++i) {
+            const float send = up ? v[i] : v[i + HALF];
+            const float keep = up ? v[i + HALF] : v[i];
             v[i] = keep + __shfl_xor_sync(FULL, send, O);
         }
-        return (up ? H : 0) + reduce_scatter<H, O / 2, STOP>(v, lane);
+        return (up ? HALF : 0) + reduce_scatter<HALF, O / 2, STOP>(v, lane);
     } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(FULL, v[i], O);
@@ -112,348 +387,401 @@ __host__ __device__ constexpr int rs_dup() {
     else return O | rs_dup<N, O / 2, STOP>();
 }
 
-struct Layout {
-    int b, h0, hl, h, i, part, tid, nth;
-};
+// Two blocks an SM at up to 16 warps each (64 registers a thread) for the
+// chunks whose shared memory lets two in; one otherwise.
+template <int C, int HD>
+__global__ void __launch_bounds__(MAX_THREADS, C <= 16 ? 2 : 1)
+wkv_bwd_chunks_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ w,
+                      const float* __restrict__ u, const float* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ adj, float* __restrict__ dr,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      float* __restrict__ dw, float* __restrict__ du_part,
+                      int T, int H, int N, int parts) {
+    constexpr int P = pitch(HD);
+    constexpr int NQ = (HD + 31) / 32;    // channels a lane holds
+    constexpr int CP = C + 4;             // pitch of M and Q
+    extern __shared__ __align__(16) float smem[];
+    float* Rs = smem;
+    float* Ks = Rs + C * P;
+    float* Ws = Ks + C * P;
+    float* Ds = Ws + C * P;               // dy
+    float* Bs = Ds + C * P;               // prod_{s>t} w_s
+    float* BK = Bs + C * P;               // B_t * k_t
+    float* Vs = BK + C * P;               // v, then with As, X1, X2 the
+    float* As = Vs + C * P;               // prod_{s<t} w_s    partials of
+    float* X1 = As + C * P;               // S0 dy_t           dw's term X
+    float* X2 = X1 + C * P;               // G v_t             (phase 4)
+    float* XP = Vs;                       // (parts, C, HD), parts <= 4
+    float* S0 = X2 + C * P;               // (HD, P)
+    float* Gs = S0 + HD * P;              // (HD, P)
+    float* Ms = Gs + HD * P;              // M[t][s] = dy_t . v_s
+    float* Qm = Ms + C * CP;              // Q[t][s]
+    float* us = Qm + C * CP;
+    float* zs = us + HD;                  // rowsum(G * S0)
+    float* ruk = zs + HD;                 // sum_i u_i r_ti k_ti
+    // dw's terms from S0 and G: A B rowsum(G * S0) + B P + A R (phase 3)
+    float* DW = 2 * C <= HD ? S0 : ruk + C;  // its prefix and suffix parts
+    float* DWS = DW + C * P;
 
-__device__ __forceinline__ Layout layout(int H, int hd, int block_h,
-                                         int split) {
-    Layout L;
-    const int groups = H / block_h;
-    L.b = blockIdx.x / groups;
-    L.h0 = (blockIdx.x % groups) * block_h;
-    L.tid = threadIdx.x;
-    L.nth = blockDim.x;
-    L.hl = L.tid / (hd * split);
-    const int rem = L.tid % (hd * split);
-    L.i = rem / split;
-    L.part = rem % split;
-    L.h = L.h0 + L.hl;
-    return L;
-}
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const int n = blockIdx.x % N;
+    const int bh = blockIdx.x / N, b = bh / H, h = bh % H;
+    const int t0 = n * C;
+    const int nv = min(C, T - t0);
+    const int64_t row = (int64_t)H * HD;
+    const int64_t base = ((int64_t)b * T + t0) * row + (int64_t)h * HD;
+    const int64_t hh = (int64_t)HD * HD;
 
-// Stage `n` tokens of one operand from t0 for the block's heads: dst[tk *
-// width + c], width = block_h * hd (a token's block_h heads are contiguous).
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      float* dst, int b, int t0, int n,
-                                      int T, int H, int hd, int h0,
-                                      int width) {
-    const int64_t row = (int64_t)H * hd;
-    for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
-        const int tk = e / width, c = e % width;
-        dst[e] = src[((int64_t)b * T + t0 + tk) * row + (int64_t)h0 * hd + c];
+    // -- stage: the chunk's operands (tokens past T: r = k = v = dy = 0,
+    // w = 1, which change nothing), S0, G, u; every copy in flight at once
+    for (int e = tid; e < C * HD / 4; e += blockDim.x) {
+        const int tk = e / (HD / 4), c = (e - tk * (HD / 4)) * 4;
+        const bool in = tk < nv;
+        const int64_t g = base + (in ? tk : 0) * row + c;
+        cp_async16(Rs + tk * P + c, r + g, in);
+        cp_async16(Ks + tk * P + c, k + g, in);
+        cp_async16(Vs + tk * P + c, v + g, in);
+        cp_async16(Ds + tk * P + c, dy + g, in);
+        cp_async16(Ws + tk * P + c, w + g, in);
     }
-}
-
-// Pre-pass: the state entering every span, ss (B, n_spans, H, hd, hd).
-template <int COLS, int SPLIT>
-__global__ void __launch_bounds__(MAX_THREADS)
-wkv_bwd_spans_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ w, const float* __restrict__ s0,
-                     float* __restrict__ ss, int T, int H, int hd, int chunk,
-                     int span, int block_h) {
-    extern __shared__ float smem[];
-    constexpr int split = SPLIT;
-    const Layout L = layout(H, hd, block_h, split);
-    const int width = block_h * hd;
-    float* ks = smem;
-    float* vs = ks + chunk * width;
-    float* ws = vs + chunk * width;
-    const int n_spans = (T + span - 1) / span;
-
-    float S[COLS];
-    const int64_t hh = (int64_t)hd * hd;
-    const int64_t rowoff = (int64_t)L.i * hd + L.part;
-    const float* src0 = s0 + ((int64_t)L.b * H + L.h) * hh + rowoff;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) S[c] = src0[c * split];
-    for (int t0 = 0; t0 < T; t0 += chunk) {
-        if (t0 % span == 0) {
-            float* out = ss + (((int64_t)L.b * n_spans + t0 / span) * H + L.h) * hh
-                       + rowoff;
-#pragma unroll
-            for (int c = 0; c < COLS; ++c) out[c * split] = S[c];
-        }
-        const int n = min(chunk, T - t0);
+    const float* s0g = states + ((int64_t)bh * N + n) * hh;
+    const float* gg = adj + ((int64_t)bh * N + n) * hh;
+    for (int e = tid; e < HD * HD / 4; e += blockDim.x) {
+        const int i = e / (HD / 4), c = (e - i * (HD / 4)) * 4;
+        cp_async16(S0 + i * P + c, s0g + (int64_t)i * HD + c, true);
+        cp_async16(Gs + i * P + c, gg + (int64_t)i * HD + c, true);
+    }
+    cp_async_commit();
+    for (int e = tid; e < HD; e += blockDim.x) us[e] = u[(int64_t)h * HD + e];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (nv < C) {                         // the ragged end's decays: 1
+        for (int e = nv * HD + tid; e < C * HD; e += blockDim.x)
+            Ws[(e / HD) * P + e % HD] = 1.f;
         __syncthreads();
-        stage(k, ks, L.b, t0, n, T, H, hd, L.h0, width);
-        stage(v, vs, L.b, t0, n, T, H, hd, L.h0, width);
-        stage(w, ws, L.b, t0, n, T, H, hd, L.h0, width);
-        __syncthreads();
-        for (int tk = 0; tk < n; ++tk) {
-            const int o = tk * width + L.hl * hd;
-            const float wt = ws[o + L.i], kt = ks[o + L.i];
-#pragma unroll
-            for (int c = 0; c < COLS; ++c)
-                S[c] = fmaf(wt, S[c], kt * vs[o + c * split + L.part]);
+    }
+
+    // -- the decay products, M, S0 dy, G v, rowsum(G * S0), the bonus sums
+    // per-channel items, from the block's last threads down: the decay
+    // products A (prefix) and B, B k (suffix), and rowsum(G * S0)
+    for (int e = blockDim.x - 1 - tid; e < 3 * HD; e += blockDim.x) {
+        const int i = e % HD;
+        float p = 1.f;
+        if (e < HD) {
+            for (int t = 0; t < C; ++t) { As[t * P + i] = p; p *= Ws[t * P + i]; }
+        } else if (e < 2 * HD) {
+            for (int t = C - 1; t >= 0; --t) {
+                Bs[t * P + i] = p;
+                BK[t * P + i] = p * Ks[t * P + i];
+                p *= Ws[t * P + i];
+            }
+        } else {
+            p = 0.f;
+            for (int j = 0; j < HD; j += 4) {
+                const float4 g = *reinterpret_cast<const float4*>(Gs + i * P + j);
+                const float4 s0 = *reinterpret_cast<const float4*>(S0 + i * P + j);
+                p = fmaf(g.x, s0.x, p); p = fmaf(g.y, s0.y, p);
+                p = fmaf(g.z, s0.z, p); p = fmaf(g.w, s0.w, p);
+            }
+            zs[i] = p;
         }
     }
-}
+    int first = rowdot<2, (C + 31) / 32>(Ms, CP, Ds, P, Vs, P, C, C, HD, 0, warp,
+                                         nwarps, lane);
+    first += rowdot<2, NQ>(X1, P, Ds, P, S0, P, C, HD, HD, first, warp, nwarps, lane);
+    rowdot<2, NQ>(X2, P, Vs, P, Gs, P, C, HD, HD, first, warp, nwarps, lane);
+    for (int t = warp; t < C; t += nwarps) {
+        float a = 0.f;
+        for (int i = lane; i < HD; i += 32) a = fmaf(us[i] * Rs[t * P + i], Ks[t * P + i], a);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(FULL, a, o);
+        if (lane == 0) ruk[t] = a;
+    }
+    __syncthreads();
 
-// The reverse sweep.  Outputs: dr, dk, dv, dw (B, T, H, hd); du partials
-// (B, H, hd); ds0 (B, H, hd, hd).
-template <int COLS, int SPLIT>
-__global__ void __launch_bounds__(MAX_THREADS)
-wkv_bwd_sweep_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ u, const float* __restrict__ ss,
-                     const float* __restrict__ dy,
-                     const float* __restrict__ dsT, float* __restrict__ dr,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     float* __restrict__ dw, float* __restrict__ du_part,
-                     float* __restrict__ ds0, int T, int H, int hd, int chunk,
-                     int span_chunks, int block_h) {
-    extern __shared__ float smem[];
-    constexpr int split = SPLIT;
-    const Layout L = layout(H, hd, block_h, split);
-    const int width = block_h * hd;
-    const int nth = L.nth, tid = L.tid, lane = tid & 31, warp = tid >> 5;
-    const int warps_per_head = hd * split / 32;
-    float* stk = smem;                                  // (chunk, COLS, nth)
-    float* rs = stk + (int64_t)chunk * COLS * nth;
-    float* ks = rs + chunk * width;
-    float* vs = ks + chunk * width;
-    float* ws = vs + chunk * width;
-    float* dys = ws + chunk * width;
-    float* vdy = dys + chunk * width;                   // (chunk, block_h)
-    float* ruk = vdy + chunk * block_h;                 // (chunk, block_h)
-    float* us = ruk + chunk * block_h;                  // (block_h, hd)
-    float* wpart = us + width;                          // (nwarps, chunk, hd)
-
-    const int span = chunk * span_chunks;
-    const int n_spans = (T + span - 1) / span;
-    const int64_t hh = (int64_t)hd * hd;
-    const int64_t rowoff = (int64_t)L.i * hd + L.part;
-    const int64_t sbase = ((int64_t)L.b * H + L.h) * hh + rowoff;
-    const int64_t row = (int64_t)H * hd;
-
-    float G[COLS], S[COLS];
+    // -- dr; dk and Q; dw's scanned terms; du
+    int ch[NQ];
+    bool live[NQ];
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) G[c] = dsT[sbase + c * split];
-    for (int e = tid; e < width; e += nth) us[e] = u[(int64_t)L.h0 * hd + e];
-    const float ui = u[(int64_t)L.h * hd + L.i];
-    float du = 0.f;
-
-    for (int j = n_spans - 1; j >= 0; --j) {
-        const int ts = j * span;
-        const float* entry = ss + (((int64_t)L.b * n_spans + j) * H + L.h) * hh
-                           + rowoff;
-        for (int cc = span_chunks - 1; cc >= 0; --cc) {
-            const int tc = ts + cc * chunk;
-            if (tc >= T) continue;                      // past the ragged end
-            const int n = min(chunk, T - tc);
-            // this chunk's entry state: the span's, stepped over its earlier
-            // chunks
+    for (int q = 0; q < NQ; ++q) {
+        live[q] = lane + 32 * q < HD;
+        ch[q] = min(lane + 32 * q, HD - 1);
+    }
+    // a warp's tokens t: rounds of the block's warps, every other round
+    // reversed, so the pair sums' lengths (t or C - 1 - t) even out
+    auto token = [&](int j) {
+        const int round = j / nwarps, w_ = j - round * nwarps;
+        return (round & 1) ? round * nwarps + (nwarps - 1 - w_) : j;
+    };
+    for (int j = warp; j < C; j += nwarps) {         // dr_t
+        const int t = token(j);
+        float coef[NQ], acc[NQ];
 #pragma unroll
-            for (int c = 0; c < COLS; ++c) S[c] = entry[c * split];
-            for (int t0 = ts; t0 < tc; t0 += chunk) {
-                __syncthreads();
-                stage(k, ks, L.b, t0, chunk, T, H, hd, L.h0, width);
-                stage(v, vs, L.b, t0, chunk, T, H, hd, L.h0, width);
-                stage(w, ws, L.b, t0, chunk, T, H, hd, L.h0, width);
-                __syncthreads();
-                for (int tk = 0; tk < chunk; ++tk) {
-                    const int o = tk * width + L.hl * hd;
-                    const float wt = ws[o + L.i], kt = ks[o + L.i];
+        for (int q = 0; q < NQ; ++q) { coef[q] = 1.f; acc[q] = 0.f; }
+        for (int s = t - 1; s >= 0; --s) {
+            const float m = Ms[t * CP + s];
 #pragma unroll
-                    for (int c = 0; c < COLS; ++c)
-                        S[c] = fmaf(wt, S[c], kt * vs[o + c * split + L.part]);
-                }
+            for (int q = 0; q < NQ; ++q) {
+                acc[q] = fmaf(coef[q] * Ks[s * P + ch[q]], m, acc[q]);
+                coef[q] *= Ws[s * P + ch[q]];
             }
-            __syncthreads();
-            stage(r, rs, L.b, tc, n, T, H, hd, L.h0, width);
-            stage(k, ks, L.b, tc, n, T, H, hd, L.h0, width);
-            stage(v, vs, L.b, tc, n, T, H, hd, L.h0, width);
-            stage(w, ws, L.b, tc, n, T, H, hd, L.h0, width);
-            stage(dy, dys, L.b, tc, n, T, H, hd, L.h0, width);
-            __syncthreads();
-            // v . dy and sum_i u r k, once per (token, head)
-            for (int e = tid; e < n * block_h; e += nth) {
-                const int tk = e / block_h, hl = e % block_h;
-                const int o = tk * width + hl * hd;
-                float a1 = 0.f, a2 = 0.f;
-                int c = e % hd;                         // a rotated start
-                for (int q = 0; q < hd; ++q) {
-                    a1 = fmaf(vs[o + c], dys[o + c], a1);
-                    a2 = fmaf(us[hl * hd + c] * rs[o + c], ks[o + c], a2);
-                    if (++c == hd) c = 0;
-                }
-                vdy[e] = a1;
-                ruk[e] = a2;
-            }
-            // the chunk's forward, keeping S_{t-1}
-            for (int tk = 0; tk < n; ++tk) {
-                const int o = tk * width + L.hl * hd;
-                const float wt = ws[o + L.i], kt = ks[o + L.i];
+        }
+        if (t < nv) {
+            const float vd = Ms[t * CP + t];
 #pragma unroll
-                for (int c = 0; c < COLS; ++c) {
-                    stk[((int64_t)tk * COLS + c) * nth + tid] = S[c];
-                    S[c] = fmaf(wt, S[c], kt * vs[o + c * split + L.part]);
-                }
-            }
-            __syncthreads();                            // vdy, ruk are ready
-            // back through the chunk
-            for (int tk = n - 1; tk >= 0; --tk) {
-                const int o = tk * width + L.hl * hd;
-                const float rt = rs[o + L.i], kt = ks[o + L.i],
-                            wt = ws[o + L.i];
-                float sdr = 0.f, sdk = 0.f, sdw = 0.f;
-                float dvv[COLS];
-#pragma unroll
-                for (int c = 0; c < COLS; ++c) {
-                    const int jj = o + c * split + L.part;
-                    const float sp = stk[((int64_t)tk * COLS + c) * nth + tid];
-                    const float dyj = dys[jj];
-                    sdr = fmaf(sp, dyj, sdr);
-                    sdk = fmaf(G[c], vs[jj], sdk);
-                    sdw = fmaf(G[c], sp, sdw);
-                    dvv[c] = G[c] * kt;
-                    G[c] = fmaf(wt, G[c], rt * dyj);
-                }
-                for (int q = 1; q < split; q <<= 1) {
-                    sdr += __shfl_xor_sync(FULL, sdr, q);
-                    sdk += __shfl_xor_sync(FULL, sdk, q);
-                    sdw += __shfl_xor_sync(FULL, sdw, q);
-                }
-                if (L.part == 0) {
-                    const float vd = vdy[tk * block_h + L.hl];
-                    const int64_t g = ((int64_t)L.b * T + tc + tk) * row
-                                    + (int64_t)L.h * hd + L.i;
-                    dr[g] = fmaf(ui * kt, vd, sdr);
-                    dk[g] = fmaf(ui * rt, vd, sdk);
-                    dw[g] = sdw;
-                    du = fmaf(rt * kt, vd, du);
-                }
-                // dv: sums over the warp's rows (lane bits SPLIT .. 16)
-                constexpr int NL = rs_left<COLS, 16, SPLIT>();
-                constexpr int DUP = rs_dup<COLS, 16, SPLIT>();
-                const int base = reduce_scatter<COLS, 16, SPLIT>(dvv, lane);
-                if ((lane & DUP) == 0) {
-                    float* wp = wpart + ((int64_t)warp * chunk + tk) * hd;
-#pragma unroll
-                    for (int q = 0; q < NL; ++q)
-                        wp[(base + q) * split + L.part] = dvv[q];
-                }
-            }
-            __syncthreads();
-            // dv of the chunk: the warps of each head summed, plus the bonus
-            for (int e = tid; e < n * width; e += nth) {
-                const int tk = e / width, c = e % width;
-                const int hl = c / hd, jcol = c % hd;
-                float acc = ruk[tk * block_h + hl] * dys[tk * width + c];
-                for (int q = 0; q < warps_per_head; ++q)
-                    acc += wpart[((int64_t)(hl * warps_per_head + q) * chunk + tk)
-                                 * hd + jcol];
-                dv[((int64_t)L.b * T + tc + tk) * row + (int64_t)L.h0 * hd + c] = acc;
+            for (int q = 0; q < NQ; ++q) {
+                const int i = ch[q];
+                if (live[q])
+                    dr[base + t * row + i] = fmaf(As[t * P + i], X1[t * P + i],
+                                                  fmaf(us[i] * Ks[t * P + i], vd, acc[q]));
             }
         }
     }
+    for (int j = warp; j < C; j += nwarps) {         // dk_t and Q[t][.]
+        const int t = token(j);
+        float coef[NQ], acc[NQ], kt[NQ], qv[C];
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) ds0[sbase + c * split] = G[c];
-    if (L.part == 0)
-        du_part[((int64_t)L.b * H + L.h) * hd + L.i] = du;
+        for (int q = 0; q < NQ; ++q) {
+            coef[q] = 1.f;
+            acc[q] = 0.f;
+            kt[q] = live[q] ? Ks[t * P + ch[q]] : 0.f;
+        }
+#pragma unroll
+        for (int s = 0; s < C; ++s) {
+            qv[s] = 0.f;
+            if (s > t) {
+                const float m = Ms[s * CP + t];
+#pragma unroll
+                for (int q = 0; q < NQ; ++q) {
+                    const float a = coef[q] * Rs[s * P + ch[q]];
+                    acc[q] = fmaf(a, m, acc[q]);
+                    qv[s] = fmaf(a, kt[q], qv[s]);
+                    coef[q] *= Ws[s * P + ch[q]];
+                }
+            }
+        }
+        constexpr int NL = rs_left<C, 16, 1>();
+        constexpr int DUP = rs_dup<C, 16, 1>();
+        const int first = reduce_scatter<C, 16, 1>(qv, lane);
+        if ((lane & DUP) == 0) {
+#pragma unroll
+            for (int q = 0; q < NL; ++q) Qm[t * CP + first + q] = qv[q];
+        }
+        if (t < nv) {
+            const float vd = Ms[t * CP + t];
+#pragma unroll
+            for (int q = 0; q < NQ; ++q) {
+                const int i = ch[q];
+                if (live[q])
+                    dk[base + t * row + i] = fmaf(Bs[t * P + i], X2[t * P + i],
+                                                  fmaf(us[i] * Rs[t * P + i], vd, acc[q]));
+            }
+        }
+    }
+    // per-channel items, from the block's last threads down: dw's scanned
+    // terms, A B rowsum(G * S0) + B P (prefix) and A R (suffix), and du
+    for (int e = blockDim.x - 1 - tid; e < 3 * HD; e += blockDim.x) {
+        const int i = e % HD;
+        float p = 0.f;
+        if (e < HD) {
+            const float z = zs[i];
+            for (int t = 0; t < C; ++t) {
+                const float bt = Bs[t * P + i];
+                DW[t * P + i] = fmaf(As[t * P + i] * bt, z, bt * p);
+                p = fmaf(Ws[t * P + i], p, Ks[t * P + i] * X2[t * P + i]);
+            }
+        } else if (e < 2 * HD) {
+            for (int t = C - 1; t >= 0; --t) {
+                DWS[t * P + i] = As[t * P + i] * p;
+                p = fmaf(Ws[t * P + i], p, Rs[t * P + i] * X1[t * P + i]);
+            }
+        } else {
+            for (int t = 0; t < C; ++t)
+                p = fmaf(Rs[t * P + i] * Ks[t * P + i], Ms[t * CP + t], p);
+            du_part[((int64_t)bh * N + n) * HD + i] = p;
+        }
+    }
+    __syncthreads();
+
+    // -- dv_t = G^T (B_t k_t) + sum_{s>t} Q[t][s] dy_s + bonus
+    dv_pass<2, NQ>(dv, base, row, nv, BK, nullptr, Gs, Qm, Ds, ruk, C, HD, P, CP,
+                   warp, nwarps, lane);
+    // dw's in-chunk x in-chunk term X, a warp task (32 channels, part): the
+    // lanes over channels, s = 1 + part, 1 + part + parts, ... the same in
+    // every lane; the parts' partials go to tiles that are free by now
+    {
+        const int groups = (HD + 31) / 32;
+        for (int task = warp; task < groups * parts; task += nwarps) {
+            const int part = task / groups;
+            const int iw = (task - part * groups) * 32 + lane;
+            const int i = min(iw, HD - 1);
+            float x[C];
+#pragma unroll
+            for (int t = 0; t < C; ++t) x[t] = 0.f;
+            for (int s_ = 1 + part; s_ < C; s_ += parts) {
+                float ys[C];
+                float y = 0.f;
+#pragma unroll
+                for (int t = 0; t < C; ++t) {
+                    if (t < s_) {
+                        ys[t] = y;
+                        y = fmaf(Ws[t * P + i], y, Ks[t * P + i] * Ms[s_ * CP + t]);
+                    }
+                }
+                float c = Rs[s_ * P + i];
+#pragma unroll
+                for (int t = C - 1; t >= 0; --t) {
+                    if (t < s_) {
+                        x[t] = fmaf(c, ys[t], x[t]);
+                        c *= Ws[t * P + i];
+                    }
+                }
+            }
+            if (iw < HD) {
+                float* xp = XP + part * C * HD;
+#pragma unroll
+                for (int t = 0; t < C; ++t) xp[t * HD + iw] = x[t];
+            }
+        }
+    }
+    __syncthreads();
+    for (int e = tid; e < nv * HD; e += blockDim.x) {
+        const int t = e / HD, i = e - t * HD;
+        float a = DW[t * P + i] + DWS[t * P + i];
+        for (int q = 0; q < parts; ++q) a += XP[(q * C + t) * HD + i];
+        dw[base + t * row + i] = a;
+    }
 }
 
-template <int COLS, int SPLIT>
-int launch_cols(bool sweep, const float* r, const float* k, const float* v,
-                const float* w, const float* u, const float* s0,
-                const float* ss_in, float* ss_out, const float* dy,
-                const float* dsT, float* dr, float* dk, float* dv, float* dw,
-                float* du, float* ds0, int B, int T, int H, int hd, int chunk,
-                int span_chunks, int block_h, cudaStream_t stream) {
-    const int threads = block_h * hd * SPLIT;
-    const int64_t blocks = (int64_t)B * (H / block_h);
-    cudaError_t err;
-    if (!sweep) {
-        const size_t smem = (size_t)spans_smem_floats(chunk, block_h, hd)
-                          * sizeof(float);
-        err = cudaFuncSetAttribute(wkv_bwd_spans_kernel<COLS, SPLIT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        wkv_bwd_spans_kernel<COLS, SPLIT><<<(unsigned)blocks, threads, smem, stream>>>(
-            k, v, w, s0, ss_out, T, H, hd, chunk, chunk * span_chunks, block_h);
-    } else {
-        const size_t smem = (size_t)sweep_smem_floats(chunk, block_h, hd, SPLIT)
-                          * sizeof(float);
-        err = cudaFuncSetAttribute(wkv_bwd_sweep_kernel<COLS, SPLIT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        wkv_bwd_sweep_kernel<COLS, SPLIT><<<(unsigned)blocks, threads, smem, stream>>>(
-            r, k, v, w, u, ss_in, dy, dsT, dr, dk, dv, dw, du, ds0, T, H, hd,
-            chunk, span_chunks, block_h);
-    }
+// ---------------------------------------------------------------------------
+// launches
+
+template <int HD, int COLS>
+int launch_scans(const float* r, const float* k, const float* v, const float* w,
+                 const float* dy, const float* s0, const float* dsT,
+                 float* states, float* adj, float* ds0, int B, int T, int H,
+                 int chunk, cudaStream_t stream) {
+    const size_t smem = (size_t)scans_smem_floats(chunk, HD) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        wkv_bwd_scans_kernel<HD, COLS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int N = (T + chunk - 1) / chunk;
+    const dim3 grid((unsigned)(B * H), 2);
+    wkv_bwd_scans_kernel<HD, COLS><<<grid, HD * HD / COLS, smem, stream>>>(
+        r, k, v, w, dy, s0, dsT, states, adj, ds0, T, H, chunk, N);
     return (int)cudaGetLastError();
 }
 
-int dispatch(bool sweep, const float* r, const float* k, const float* v,
-             const float* w, const float* u, const float* s0,
-             const float* ss_in, float* ss_out, const float* dy,
-             const float* dsT, float* dr, float* dk, float* dv, float* dw,
-             float* du, float* ds0, int B, int T, int H, int hd, int chunk,
-             int span_chunks, int block_h, int split, cudaStream_t stream) {
-    if (B <= 0 || T <= 0 || H <= 0) return 0;
-    if (hd <= 0 || chunk <= 0 || span_chunks <= 0 || block_h <= 0
-        || H % block_h || split <= 0 || split > 32 || (split & (split - 1))
-        || hd % split || (hd * split) % 32 || block_h * hd * split > MAX_THREADS)
-        return (int)cudaErrorInvalidValue;
-#define WKV_BWD_CASE(HD, SP)                                                \
-    case HD * 100 + SP:                                                     \
-        return launch_cols<HD / SP, SP>(sweep, r, k, v, w, u, s0, ss_in,    \
-                                        ss_out, dy, dsT, dr, dk, dv, dw, du,\
-                                        ds0, B, T, H, hd, chunk,            \
-                                        span_chunks, block_h, stream);
-    // the head sizes the port's models use, each split a warp divides
-    switch (hd * 100 + split) {
-        WKV_BWD_CASE(16, 2) WKV_BWD_CASE(16, 4) WKV_BWD_CASE(16, 8)
-        WKV_BWD_CASE(16, 16)
-        WKV_BWD_CASE(32, 1) WKV_BWD_CASE(32, 2) WKV_BWD_CASE(32, 4)
-        WKV_BWD_CASE(32, 8) WKV_BWD_CASE(32, 16) WKV_BWD_CASE(32, 32)
-        WKV_BWD_CASE(64, 1) WKV_BWD_CASE(64, 2) WKV_BWD_CASE(64, 4)
-        WKV_BWD_CASE(64, 8) WKV_BWD_CASE(64, 16) WKV_BWD_CASE(64, 32)
+template <int HD>
+int dispatch_scans(int cols, const float* r, const float* k, const float* v,
+                   const float* w, const float* dy, const float* s0,
+                   const float* dsT, float* states, float* adj, float* ds0,
+                   int B, int T, int H, int chunk, cudaStream_t stream) {
+    if (HD % cols) return (int)cudaErrorInvalidValue;
+    switch (cols) {
+        case 4: return launch_scans<HD, 4>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
+        case 8: return launch_scans<HD, 8>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
+        case 16: return launch_scans<HD, 16>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
+        case 32:
+            if constexpr (HD % 32 == 0)
+                return launch_scans<HD, 32>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
+            return (int)cudaErrorInvalidValue;
         default: return (int)cudaErrorInvalidValue;
     }
-#undef WKV_BWD_CASE
+}
+
+template <int C, int HD>
+int launch_chunks(const float* r, const float* k, const float* v,
+                  const float* w, const float* u, const float* dy,
+                  const float* states, const float* adj, float* dr, float* dk,
+                  float* dv, float* dw, float* du, int B, int T, int H,
+                  int threads, int parts, cudaStream_t stream) {
+    const size_t smem = (size_t)chunks_smem_floats(C, HD) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        wkv_bwd_chunks_kernel<C, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int N = (T + C - 1) / C;
+    const int64_t blocks = (int64_t)B * H * N;
+    wkv_bwd_chunks_kernel<C, HD><<<(unsigned)blocks, threads, smem, stream>>>(
+        r, k, v, w, u, dy, states, adj, dr, dk, dv, dw, du, T, H, N, parts);
+    return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch_chunks(int chunk, const float* r, const float* k, const float* v,
+                    const float* w, const float* u, const float* dy,
+                    const float* states, const float* adj, float* dr,
+                    float* dk, float* dv, float* dw, float* du, int B, int T,
+                    int H, int threads, int parts, cudaStream_t stream) {
+    switch (chunk) {
+        case 8: return launch_chunks<8, HD>(r, k, v, w, u, dy, states, adj, dr, dk, dv, dw, du, B, T, H, threads, parts, stream);
+        case 16: return launch_chunks<16, HD>(r, k, v, w, u, dy, states, adj, dr, dk, dv, dw, du, B, T, H, threads, parts, stream);
+        case 32: return launch_chunks<32, HD>(r, k, v, w, u, dy, states, adj, dr, dk, dv, dw, du, B, T, H, threads, parts, stream);
+        case 64: return launch_chunks<64, HD>(r, k, v, w, u, dy, states, adj, dr, dk, dv, dw, du, B, T, H, threads, parts, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+bool bad_args(int hd, int chunk, int threads, int cols, int parts) {
+    return chunk <= 0 || threads < 32 || threads > MAX_THREADS || threads % 32
+        || cols <= 0 || hd % cols || cols % 4 || parts < 1 || parts > 4;
 }
 
 }  // namespace
 
 extern "C" {
 
-// k, v, w: (B, T, H, hd); s0: (B, H, hd, hd); ss: (B, ceil(T / span), H, hd,
-// hd) with span = chunk * span_chunks; all float32 and contiguous.
-int rwkv6_wkv_bwd_spans(const void* k, const void* v, const void* w,
-                        const void* s0, void* ss, int B, int T, int H, int hd,
-                        int chunk, int span_chunks, int block_h, int split,
-                        void* stream) {
-    return dispatch(false, nullptr, (const float*)k, (const float*)v,
-                    (const float*)w, nullptr, (const float*)s0, nullptr,
-                    (float*)ss, nullptr, nullptr, nullptr, nullptr, nullptr,
-                    nullptr, nullptr, nullptr, B, T, H, hd, chunk,
-                    span_chunks, block_h, split, (cudaStream_t)stream);
+// r, k, v, w, dy: (B, T, H, hd); s0, ds_T, ds0: (B, H, hd, hd); states and
+// adj: (B, H, ceil(T / chunk), hd, hd); all float32, contiguous, 16-byte
+// aligned.  hd in {16, 32, 48, 64}; cols in {4, 8, 16, 32} dividing hd.
+int rwkv6_wkv_bwd_scans(const void* r, const void* k, const void* v,
+                        const void* w, const void* dy, const void* s0,
+                        const void* dsT, void* states, void* adj, void* ds0,
+                        int B, int T, int H, int hd, int chunk, int threads,
+                        int cols, int parts, void* stream) {
+    if (B <= 0 || T <= 0 || H <= 0) return 0;
+    if (bad_args(hd, chunk, threads, cols, parts)) return (int)cudaErrorInvalidValue;
+    const auto f = [](const void* p) { return (const float*)p; };
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (hd) {
+        case 16: return dispatch_scans<16>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
+        case 32: return dispatch_scans<32>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
+        case 48: return dispatch_scans<48>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
+        case 64: return dispatch_scans<64>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-// As the forward's operands plus ss (from rwkv6_wkv_bwd_spans with the same
-// chunk and span_chunks), dy (B, T, H, hd) and dsT (B, H, hd, hd).  Writes
-// dr, dk, dv, dw (B, T, H, hd), du partials (B, H, hd) and ds0.
-int rwkv6_wkv_bwd_sweep(const void* r, const void* k, const void* v,
-                        const void* w, const void* u, const void* ss,
-                        const void* dy, const void* dsT, void* dr, void* dk,
-                        void* dv, void* dw, void* du, void* ds0, int B, int T,
-                        int H, int hd, int chunk, int span_chunks, int block_h,
-                        int split, void* stream) {
-    return dispatch(true, (const float*)r, (const float*)k, (const float*)v,
-                    (const float*)w, (const float*)u, nullptr,
-                    (const float*)ss, nullptr, (const float*)dy,
-                    (const float*)dsT, (float*)dr, (float*)dk, (float*)dv,
-                    (float*)dw, (float*)du, (float*)ds0, B, T, H, hd, chunk,
-                    span_chunks, block_h, split, (cudaStream_t)stream);
+// As the scans' operands plus u (H, hd); writes dr, dk, dv, dw (B, T, H, hd)
+// and du partials (B, H, ceil(T / chunk), hd).  chunk in {8, 16, 32, 64};
+// threads a multiple of 32 up to 512; parts in [1, 4].
+int rwkv6_wkv_bwd_chunks(const void* r, const void* k, const void* v,
+                         const void* w, const void* u, const void* dy,
+                         const void* states, const void* adj, void* dr,
+                         void* dk, void* dv, void* dw, void* du, int B, int T,
+                         int H, int hd, int chunk, int threads, int cols,
+                         int parts, void* stream) {
+    if (B <= 0 || T <= 0 || H <= 0) return 0;
+    if (bad_args(hd, chunk, threads, cols, parts)) return (int)cudaErrorInvalidValue;
+    const auto f = [](const void* p) { return (const float*)p; };
+    const auto o = [](void* p) { return (float*)p; };
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (hd) {
+        case 16: return dispatch_chunks<16>(chunk, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), f(adj), o(dr), o(dk), o(dv), o(dw), o(du), B, T, H, threads, parts, s);
+        case 32: return dispatch_chunks<32>(chunk, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), f(adj), o(dr), o(dk), o(dv), o(dw), o(du), B, T, H, threads, parts, s);
+        case 48: return dispatch_chunks<48>(chunk, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), f(adj), o(dr), o(dk), o(dv), o(dw), o(du), B, T, H, threads, parts, s);
+        case 64: return dispatch_chunks<64>(chunk, f(r), f(k), f(v), f(w), f(u), f(dy), f(states), f(adj), o(dr), o(dk), o(dv), o(dw), o(du), B, T, H, threads, parts, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
-long long rwkv6_wkv_bwd_smem_bytes(int chunk, int block_h, int hd, int split) {
-    return (long long)sweep_smem_floats(chunk, block_h, hd, split)
-         * (long long)sizeof(float);
+long long rwkv6_wkv_bwd_smem_bytes(int chunk, int hd) {
+    return (long long)chunks_smem_floats(chunk, hd) * (long long)sizeof(float);
 }
 
 const char* rwkv6_wkv_bwd_error_string(int code) {

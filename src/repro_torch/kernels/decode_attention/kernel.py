@@ -6,24 +6,27 @@ after its ``pallas_call``).  One query token per (batch, head) attends to a
 fixed-capacity cache ``(B, S, KV, hd)``; the ``rep = H / KV`` heads that
 share a kv head form one group, so each cached row is read once for all of
 them.  The cache is cut into ``splits`` segments of ``ceil(S / splits)``
-positions; each (batch, kv head, segment) yields an unnormalised partial
-``(acc, m, l)`` over its positions below ``length``, and
-:func:`combine_splits` merges the partials with one logsumexp rescale.  A
-segment that lies wholly at or beyond ``length`` yields ``m = -1e30,
-l = 0, acc = 0`` and weighs exactly 0 in the combine.
+positions; each (batch, kv head, segment) forms an unnormalised partial
+``(acc, m, l)`` over its positions below ``length``, and the partials are
+merged with one logsumexp rescale.  A segment that lies wholly at or beyond
+``length`` holds ``m = -1e30, l = 0, acc = 0`` and weighs exactly 0.
 
-The partials come from the CUDA C++ kernel in
-``kernels/csrc/decode_attention.cu`` (float32 and bfloat16 caches; hd in
-{32, 64, 96, 128, 192}; rep <= 16), compiled at first use and bound with
-``ctypes``; the combine is plain PyTorch, as it is plain JAX in the
-reference.  ``length`` is a plain integer handed to the kernel, so one
-build serves every fill level.
+The kernel is CUDA C++ in ``kernels/csrc/decode_attention.cu`` (float32 and
+bfloat16 caches; hd in {32, 64, 96, 128, 192}; rep <= 16), compiled at first
+use and bound with ``ctypes``.  It computes the whole function in one
+launch: the ``splits`` blocks of a group form a thread block cluster and
+merge their partials through distributed shared memory, in split order, so
+two runs give the same bits.  The bfloat16 build streams k and v through
+``cp.async`` rings (``stages`` deep, ``block_s`` keys a tile, a ring per
+warp of ``block_threads / 32``) into ``mma.sync`` products; the float32
+build is the parity path on the CUDA cores.  ``length`` is a plain integer
+handed to the kernel, so one build serves every fill level.
 
-The kernel's wrapper, ``decode_partials``, launches it for a CUDA tensor,
-or raises; it takes the plain PyTorch version (``decode_partials_plain``,
-which materialises the float32 scores) only for tensors on the CPU.
-Launches are counted in ``decode_partials.launches``;
-``decode_attention`` is the wrapper followed by the combine.
+The wrapper, ``decode_attention``, launches the kernel for a CUDA tensor,
+or raises; it takes the plain PyTorch version (``decode_attention_plain``:
+``decode_partials_plain``, which materialises the float32 scores, then
+``combine_splits``) only for tensors on the CPU.  Launches are counted in
+``decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -35,15 +38,23 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["DTYPES", "HEAD_DIMS", "MAX_REP", "NEG_INF", "combine_splits",
-           "decode_attention", "decode_attention_plain", "decode_partials",
-           "decode_partials_plain", "segment_length", "smem_bytes"]
+__all__ = ["BLOCK_S", "DTYPES", "HEAD_DIMS", "MAX_REP", "MAX_SPLITS",
+           "NEG_INF", "STAGES", "combine_splits", "decode_attention",
+           "decode_attention_plain", "decode_partials_plain",
+           "segment_length", "smem_bytes"]
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (32, 64, 96, 128, 192)
 MAX_REP = 16
-MAX_THREADS = 512
+# a group's splits form one cluster: a power of two, at most 16 (above 8
+# through the non-portable cluster size)
+MAX_SPLITS = 16
+# keys a tile (the bfloat16 build's template lengths; the float32 build
+# takes the same), ring depths, threads a block per build
+BLOCK_S = (16, 32, 64)
+STAGES = (1, 2, 3, 4)
+MAX_THREADS = {"f32": 512, "bf16": 256}
 
 _lib: ctypes.CDLL | None = None
 
@@ -55,7 +66,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for suffix in DTYPES.values():
             fn = getattr(lib, f"decode_attention_{suffix}")
-            fn.argtypes = [ptr] * 6 + [i32] * 9 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 4 + [i32] * 10 + [ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -63,20 +74,28 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def smem_bytes(rep: int, hd: int, block_s: int, block_threads: int) -> int:
-    """Shared memory one block asks for (the kernel's ``smem_floats``):
-    scaled queries, a tile of scores, three per-head carries and one
-    accumulator per warp, all float32."""
-    return 4 * (rep * hd + rep * block_s + 3 * rep
-                + (block_threads // 32) * rep * hd)
+def smem_bytes(rep: int, hd: int, block_s: int, block_threads: int,
+               stages: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory one block asks for (the kernel's ``*_smem_*``).
+
+    bfloat16: the warps' rings of k and v tiles (pitch hd + 8), reused for
+    the warps' float32 partials (16 rows each) after the main loop, plus the
+    block's m and l.  float32: scaled queries, a tile of scores, three
+    per-head carries and one accumulator per warp."""
+    warps = block_threads // 32
+    if dtype == torch.bfloat16:
+        ring = warps * stages * 2 * block_s * (hd + 8) * 2
+        part = warps * (16 * hd + 32) * 4
+        return max(ring, part) + 2 * 16 * 4
+    return 4 * (rep * hd + rep * block_s + 3 * rep + warps * rep * hd)
 
 
 def segment_length(s_len: int, splits: int) -> int:
     return -(-s_len // splits)
 
 
-def _check(q, k, v, length, splits: int, block_s: int,
-           block_threads: int) -> None:
+def _check(q, k, v, length, splits: int, block_s: int, block_threads: int,
+           stages: int) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not isinstance(x, torch.Tensor) or x.dtype not in DTYPES:
             raise TypeError(f"{name} must be a float32 or bfloat16 tensor")
@@ -102,17 +121,22 @@ def _check(q, k, v, length, splits: int, block_s: int,
     if isinstance(length, bool) or not isinstance(length, int) or length < 1:
         raise ValueError(f"length must be a positive int, got {length!r}")
     s_len = k.shape[1]
-    if not 1 <= splits <= s_len:
-        raise ValueError(f"splits={splits} outside [1, S={s_len}]")
-    if block_s < 1:
-        raise ValueError(f"block_s={block_s} must be positive")
-    if not 32 <= block_threads <= MAX_THREADS or block_threads % 32:
+    if not 1 <= splits <= min(s_len, MAX_SPLITS) or splits & (splits - 1):
+        raise ValueError(f"splits={splits} must be a power of two in "
+                         f"[1, min(S={s_len}, {MAX_SPLITS})] (one cluster)")
+    if block_s not in BLOCK_S:
+        raise ValueError(f"block_s={block_s} not in {BLOCK_S}")
+    limit = MAX_THREADS[DTYPES[q.dtype]]
+    if not 32 <= block_threads <= limit or block_threads % 32:
         raise ValueError("block_threads must be a multiple of 32 in "
-                         f"[32, {MAX_THREADS}], got {block_threads}")
-    if smem_bytes(rep, hd, block_s, block_threads) > SMEM_LIMIT_BYTES:
-        raise ValueError(f"block_s={block_s}, block_threads={block_threads} "
-                         f"need {smem_bytes(rep, hd, block_s, block_threads)} "
-                         f"bytes of shared memory (limit {SMEM_LIMIT_BYTES})")
+                         f"[32, {limit}], got {block_threads}")
+    if stages not in STAGES:
+        raise ValueError(f"stages={stages} not in {STAGES}")
+    need = smem_bytes(rep, hd, block_s, block_threads, stages, q.dtype)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(f"block_s={block_s}, block_threads={block_threads}, "
+                         f"stages={stages} need {need} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT_BYTES})")
 
 
 def combine_splits(acc: torch.Tensor, m: torch.Tensor,
@@ -131,9 +155,9 @@ def combine_splits(acc: torch.Tensor, m: torch.Tensor,
 
 def decode_partials_plain(q, k, v, length: int, *, splits: int
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: the per-split partials ``(acc, m, l)``
-    from the materialised float32 scores, with the kernel's rule for
-    positions at or beyond ``length`` (they take no part)."""
+    """The per-split partials ``(acc, m, l)`` from the materialised float32
+    scores, with the kernel's rule for positions at or beyond ``length``
+    (they take no part)."""
     b, kv, rep, hd = q.shape
     s_len = k.shape[1]
     seg = segment_length(s_len, splits)
@@ -156,48 +180,34 @@ def decode_attention_plain(q, k, v, length: int, *,
                                                  splits=splits))
 
 
-def decode_partials(q, k, v, length: int, *, splits: int = 16,
-                    block_s: int = 64, block_threads: int = 128
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel: q (B, KV, rep, hd); k, v (B, S, KV, hd) -> per-split
-    partials acc (B, splits, KV, rep, hd), m and l (B, splits, KV, rep),
-    float32, over positions ``< length``."""
+def decode_attention(q, k, v, length: int, *, splits: int = 4,
+                     block_s: int = 16, block_threads: int = 256,
+                     stages: int = 3) -> torch.Tensor:
+    """The kernel: q (B, KV, rep, hd); k, v (B, S, KV, hd); attends to
+    positions ``< length``.  Returns (B, KV, rep, hd) float32, the splits
+    merged inside the launch."""
     splits, block_s = int(splits), int(block_s)
-    block_threads = int(block_threads)
-    _check(q, k, v, length, splits, block_s, block_threads)
+    block_threads, stages = int(block_threads), int(stages)
+    _check(q, k, v, length, splits, block_s, block_threads, stages)
     if q.device.type == "cpu":
-        return decode_partials_plain(q, k, v, length, splits=splits)
+        return decode_attention_plain(q, k, v, length, splits=splits)
     b, kv, rep, hd = q.shape
     s_len = k.shape[1]
-    acc = torch.empty((b, splits, kv, rep, hd), dtype=torch.float32,
-                      device=q.device)
-    m = torch.empty((b, splits, kv, rep), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
+    out = torch.empty((b, kv, rep, hd), dtype=torch.float32, device=q.device)
     lib = _library()
     fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-                m.data_ptr(), l.data_ptr(), b, s_len, kv, rep, hd, length,
-                splits, block_s, block_threads, hd ** -0.5, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s_len, kv, rep, hd, length, splits, block_s, block_threads,
+                stages, hd ** -0.5, stream)
     if rc != 0:
         raise KernelLaunchError(
             f"decode_attention(splits={splits}, block_s={block_s}, "
-            f"block_threads={block_threads}): launch refused ({rc}: "
-            f"{lib.decode_attention_error_string(rc).decode()})")
-    decode_partials.launches += 1
-    return acc, m, l
+            f"block_threads={block_threads}, stages={stages}): launch refused "
+            f"({rc}: {lib.decode_attention_error_string(rc).decode()})")
+    decode_attention.launches += 1
+    return out
 
 
-def decode_attention(q, k, v, length: int, *, splits: int = 16,
-                     block_s: int = 64, block_threads: int = 128
-                     ) -> torch.Tensor:
-    """q: (B, KV, rep, hd); k, v: (B, S, KV, hd); attends to positions
-    ``< length``.  Returns (B, KV, rep, hd) float32: the kernel's partials
-    merged by :func:`combine_splits`."""
-    return combine_splits(*decode_partials(q, k, v, length, splits=splits,
-                                           block_s=block_s,
-                                           block_threads=block_threads))
-
-
-decode_partials.launches = 0
+decode_attention.launches = 0

@@ -26,15 +26,17 @@ tensors on the CPU.  Launches are counted in ``wkv6_fwd.launches``.
 
 ``wkv6_bwd`` replaces the Pallas backward ``wkv6_bwd`` (the spans pre-pass
 and the reverse sweep).  Its kernel is CUDA C++ in
-``kernels/csrc/rwkv6_wkv_bwd.cu``, two programs: ``spans`` stores the state
-entering every span of ``span_chunks * chunk`` tokens, ``sweep`` walks the
-spans, and each span's chunks, last to first, recomputing the chunk's
-states and stepping the state adjoint back through it; a thread holds
-``hd / split`` columns of one row of the state and of its adjoint.  ``du``
-comes back as per-batch partials that the wrapper sums.
-``wkv6_bwd_plain`` computes the same scheme in PyTorch.  Launches are
-counted in ``wkv6_bwd.launches`` (calls) and ``wkv6_bwd.program_launches``
-(each program).
+``kernels/csrc/rwkv6_wkv_bwd.cu``, a chunked form stable for every decay in
+[0, 1], two programs: ``scans`` stores the state entering and the adjoint
+leaving every chunk of ``chunk`` tokens (a thread carries ``cols`` value
+columns of one row), ``chunks`` computes every chunk's gradients at once
+from them, one block a (batch, head, chunk), every decay factor a product
+of w's.  ``du`` comes back as per-(batch, head, chunk) partials that the
+wrapper sums.  ``wkv6_bwd_plain`` (the oracle, the CPU branch) is the
+serial reverse recurrence; ``wkv6_bwd_chunked_plain`` computes the
+kernel's chunked form in PyTorch.  Launches are counted in
+``wkv6_bwd.launches`` (calls) and ``wkv6_bwd.program_launches`` (each
+program).
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["BWD_HEAD_SPLITS", "BWD_MAX_THREADS", "MATRIX_MAX_CHUNK",
-           "MATRIX_MAX_THREADS", "SERIAL_MAX_THREADS", "SERIAL_ROWS",
-           "serial_split", "smem_bytes", "smem_bytes_bwd", "wkv6_bwd",
+__all__ = ["BWD_CHUNKS", "BWD_COLS", "BWD_HEAD_DIMS", "BWD_MAX_THREADS",
+           "BWD_PARTS", "MATRIX_MAX_CHUNK", "MATRIX_MAX_THREADS",
+           "SERIAL_MAX_THREADS", "SERIAL_ROWS", "serial_split", "smem_bytes",
+           "smem_bytes_bwd", "wkv6_bwd", "wkv6_bwd_chunked_plain",
            "wkv6_bwd_plain", "wkv6_fwd", "wkv6_fwd_plain"]
 
 SERIAL_MAX_THREADS = 512
@@ -59,10 +62,13 @@ SERIAL_ROWS = (4, 8, 16, 32, 64)
 # decays: the reference's cap on matrix-form chunks
 MATRIX_MAX_CHUNK = 64
 
-# the backward kernel's builds: head size -> threads per row (a warp must
-# not span two heads, so hd * split is a multiple of 32)
-BWD_HEAD_SPLITS = {16: (2, 4, 8, 16), 32: (1, 2, 4, 8, 16, 32),
-                   64: (1, 2, 4, 8, 16, 32)}
+# the backward kernel's builds: head sizes, chunk lengths (templates),
+# value columns a scan thread carries, warps 32 channels' in-chunk pair sum
+# is split over, and the chunk program's block size
+BWD_HEAD_DIMS = (16, 32, 48, 64)
+BWD_CHUNKS = (8, 16, 32, 64)
+BWD_COLS = (4, 8, 16, 32)
+BWD_PARTS = (1, 2, 3, 4)
 BWD_MAX_THREADS = 512
 
 _lib: ctypes.CDLL | None = None
@@ -87,10 +93,10 @@ def _library_bwd() -> ctypes.CDLL:
     if _lib_bwd is None:
         lib = _build.load_library("rwkv6_wkv_bwd")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv6_wkv_bwd_spans.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        lib.rwkv6_wkv_bwd_spans.restype = ctypes.c_int
-        lib.rwkv6_wkv_bwd_sweep.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
-        lib.rwkv6_wkv_bwd_sweep.restype = ctypes.c_int
+        lib.rwkv6_wkv_bwd_scans.argtypes = [ptr] * 10 + [i32] * 8 + [ptr]
+        lib.rwkv6_wkv_bwd_scans.restype = ctypes.c_int
+        lib.rwkv6_wkv_bwd_chunks.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
+        lib.rwkv6_wkv_bwd_chunks.restype = ctypes.c_int
         lib.rwkv6_wkv_bwd_error_string.argtypes = [ctypes.c_int]
         lib.rwkv6_wkv_bwd_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -176,7 +182,7 @@ def _serial_plain(r, k, v, w, u, s):
         r_t, k_t, v_t, w_t = r[:, i], k[:, i], v[:, i], w[:, i]
         kv = k_t[..., :, None] * v_t[..., None, :]
         bonus = (r_t * u * k_t).sum(-1, keepdim=True) * v_t
-        ys.append(torch.einsum("bhi,bhij->bhj", r_t, s) + bonus)
+        ys.append((r_t[..., None, :] @ s)[..., 0, :] + bonus)
         s = w_t[..., :, None] * s + kv
     return torch.stack(ys, dim=1), s
 
@@ -254,17 +260,21 @@ wkv6_fwd.launches = 0
 
 # -- backward ---------------------------------------------------------------------
 
-def smem_bytes_bwd(chunk: int, block_h: int, hd: int, split: int) -> int:
-    """Shared memory one block of the backward sweep asks for (the kernel's
-    ``sweep_smem_floats``): every token's state of a chunk, the chunk's r,
-    k, v, w, dy, two per-token sums, u, and the warps' dv partials."""
-    warps = block_h * hd * split // 32
-    return 4 * (chunk * block_h * hd * hd + 5 * chunk * block_h * hd
-                + 2 * chunk * block_h + block_h * hd + warps * chunk * hd)
+def smem_bytes_bwd(chunk: int, hd: int) -> int:
+    """Shared memory one block of the backward's chunk program asks for
+    (the kernel's ``chunks_smem_floats``): ten (chunk, hd + 4) tiles (r, k,
+    v, w, dy, the prefix and suffix decay products, their suffix product
+    times k, S0 dy, G v), S0 and G (hd, hd + 4; dw's two scanned terms
+    reuse S0's, or take two tiles of their own when 2 chunk > hd), M and Q
+    (chunk, chunk + 4), u, rowsum(G * S0) and the per-token bonus sums."""
+    pitch = hd + 4
+    return 4 * (10 * chunk * pitch + 2 * hd * pitch
+                + (2 * chunk * pitch if 2 * chunk > hd else 0)
+                + 2 * chunk * (chunk + 4) + 2 * hd + chunk)
 
 
-def _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk: int, span_chunks: int,
-               block_h: int, split: int) -> None:
+def _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk: int, block_threads: int,
+               cols: int, parts: int) -> None:
     _check_operands(r, k, v, w, u, s0)
     for name, x, like in (("dy", dy, r), ("ds_t", ds_t, s0)):
         if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
@@ -273,39 +283,39 @@ def _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk: int, span_chunks: int,
                              f"{r.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    h, hd = r.shape[2], r.shape[3]
-    if chunk < 1 or span_chunks < 1 or block_h < 1 or h % block_h:
-        raise ValueError(f"chunk={chunk} and span_chunks={span_chunks} must "
-                         f"be positive and block_h={block_h} divide H={h}")
-    if split not in BWD_HEAD_SPLITS.get(hd, ()):
-        raise ValueError(f"backward: split={split} not built for hd={hd} "
-                         f"({BWD_HEAD_SPLITS.get(hd, ())})")
-    if block_h * hd * split > BWD_MAX_THREADS:
-        raise ValueError(f"backward: block_h={block_h}, split={split}: "
-                         f"{block_h * hd * split} threads (limit "
-                         f"{BWD_MAX_THREADS})")
-    need = smem_bytes_bwd(chunk, block_h, hd, split)
+    hd = r.shape[3]
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"backward: hd={hd} not built ({BWD_HEAD_DIMS})")
+    if chunk not in BWD_CHUNKS:
+        raise ValueError(f"backward: chunk={chunk} not built ({BWD_CHUNKS})")
+    if block_threads % 32 or not 32 <= block_threads <= BWD_MAX_THREADS:
+        raise ValueError(f"backward: block_threads={block_threads} must be a "
+                         f"multiple of 32 up to {BWD_MAX_THREADS}")
+    if cols not in BWD_COLS or hd % cols:
+        raise ValueError(f"backward: cols={cols} not in {BWD_COLS} or does "
+                         f"not divide hd={hd}")
+    if parts not in BWD_PARTS:
+        raise ValueError(f"backward: parts={parts} not in {BWD_PARTS}")
+    need = smem_bytes_bwd(chunk, hd)
     if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"backward: chunk={chunk}, block_h={block_h}, "
-                         f"split={split} need {need} bytes of shared memory "
-                         f"(limit {SMEM_LIMIT_BYTES})")
+        raise ValueError(f"backward: chunk={chunk} at hd={hd} needs {need} "
+                         f"bytes of shared memory (limit {SMEM_LIMIT_BYTES})")
 
 
-def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 8,
-                   span_chunks: int = 4):
-    """Plain version of :func:`wkv6_bwd`: the same scheme (span entry
-    states, each chunk's states recomputed from its span's, the reverse
-    recurrence) in float32, with the (B, H, hd, hd) state as a Python
-    loop's carry."""
+def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, *, span: int = 32):
+    """Plain version of :func:`wkv6_bwd`, the oracle: the serial reverse
+    recurrence in the operands' dtype (float32, or float64 for a reference
+    pass), token by token, with ``S_{t-1}`` recomputed from the state
+    entering each span of ``span`` tokens (so memory stays at one span's
+    states) and the adjoint ``G`` carried as a Python loop's carry."""
     t = r.shape[1]
-    span = chunk * span_chunks
 
     def step(s, i):
         return w[:, i, ..., None] * s + k[:, i, ..., None] * v[:, i, :, None, :]
 
     starts = []
     s = s0
-    for i in range(t):                                 # the spans pre-pass
+    for i in range(t):
         if i % span == 0:
             starts.append(s)
         s = step(s, i)
@@ -313,76 +323,149 @@ def wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 8,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.zeros_like(r[:, 0])
     for j in reversed(range(len(starts))):
-        for t0 in reversed(range(j * span, min((j + 1) * span, t), chunk)):
-            s = starts[j]
-            for i in range(j * span, t0):              # the chunk's entry
-                s = step(s, i)
-            ss = []
-            for i in range(t0, min(t0 + chunk, t)):    # the chunk's states
-                ss.append(s)
-                s = step(s, i)
-            for i in reversed(range(t0, min(t0 + chunk, t))):
-                sp = ss[i - t0]
-                r_t, k_t, v_t, w_t, dy_t = (m[:, i] for m in (r, k, v, w, dy))
-                vdy = (v_t * dy_t).sum(-1, keepdim=True)
-                dr[:, i] = torch.einsum("bhij,bhj->bhi", sp, dy_t) \
-                    + u * k_t * vdy
-                du += r_t * k_t * vdy
-                dk[:, i] = u * r_t * vdy + torch.einsum("bhij,bhj->bhi", g, v_t)
-                dv[:, i] = torch.einsum("bhij,bhi->bhj", g, k_t) \
-                    + (u * r_t * k_t).sum(-1, keepdim=True) * dy_t
-                dw[:, i] = (g * sp).sum(-1)
-                g = w_t[..., None] * g + r_t[..., None] * dy_t[..., None, :]
+        s, ss = starts[j], []
+        for i in range(j * span, min((j + 1) * span, t)):
+            ss.append(s)
+            s = step(s, i)
+        for i in reversed(range(j * span, min((j + 1) * span, t))):
+            sp = ss[i - j * span]
+            r_t, k_t, v_t, w_t, dy_t = (m[:, i] for m in (r, k, v, w, dy))
+            vdy = (v_t * dy_t).sum(-1, keepdim=True)
+            dr[:, i] = (sp @ dy_t[..., None])[..., 0] + u * k_t * vdy
+            du += r_t * k_t * vdy
+            dk[:, i] = u * r_t * vdy + (g @ v_t[..., None])[..., 0]
+            dv[:, i] = (k_t[..., None, :] @ g)[..., 0, :] \
+                + (u * r_t * k_t).sum(-1, keepdim=True) * dy_t
+            dw[:, i] = (g * sp).sum(-1)
+            g = w_t[..., None] * g + r_t[..., None] * dy_t[..., None, :]
     return dr, dk, dv, dw, du.sum(0), g
 
 
-def wkv6_bwd(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 8,
-             span_chunks: int = 4, block_h: int = 1, split: int = 4):
+def wkv6_bwd_chunked_plain(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 16):
+    """The kernel's chunked formulation in plain PyTorch (for the tests and
+    ``chip_smoke.py``; the wrapper's CPU branch takes
+    :func:`wkv6_bwd_plain`): the state entering and the adjoint leaving
+    every chunk by serial scans, then every chunk's gradients at once from
+    them, every decay factor a running product of w's (nothing divided or
+    exponentiated), as ``kernels/csrc/rwkv6_wkv_bwd.cu`` derives them.
+    Tokens past T count as r = k = v = dy = 0, w = 1."""
+    b, t, h, hd = r.shape
+    n = -(-t // chunk)
+    pad = n * chunk - t
+    c_ = chunk
+
+    def chunks(x, fill):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad), value=fill)
+        return x.view(b, n, c_, h, hd).permute(0, 3, 1, 2, 4)
+
+    rr, kk, vv, dd = (chunks(x, 0.0) for x in (r, k, v, dy))
+    ww = chunks(w, 1.0)                                # (b, h, n, chunk, hd)
+    s, entry = s0, []
+    for c in range(n):                                 # program "scans"
+        entry.append(s)
+        for i in range(c_):
+            s = ww[:, :, c, i, :, None] * s \
+                + kk[:, :, c, i, :, None] * vv[:, :, c, i, None, :]
+    g, leave = ds_t, [None] * n
+    for c in reversed(range(n)):
+        leave[c] = g
+        for i in reversed(range(c_)):
+            g = ww[:, :, c, i, :, None] * g \
+                + rr[:, :, c, i, :, None] * dd[:, :, c, i, None, :]
+    s0c, gc = torch.stack(entry, 2), torch.stack(leave, 2)
+    ones = torch.ones_like(ww[..., :1, :])
+    pre = torch.cumprod(torch.cat([ones, ww[..., :-1, :]], -2), -2)
+    suf = torch.cumprod(torch.cat([ones, ww.flip(-2)[..., :-1, :]], -2),
+                        -2).flip(-2)
+    x1 = torch.einsum("bhnij,bhntj->bhnti", s0c, dd)   # S0 dy_t
+    x2 = torch.einsum("bhnij,bhntj->bhnti", gc, vv)    # G v_t
+    x3 = torch.einsum("bhnti,bhnij->bhntj", suf * kk, gc)
+    m = torch.einsum("bhnti,bhnsi->bhnts", dd, vv)     # dy_t . v_s
+    vdy = m.diagonal(dim1=-2, dim2=-1)[..., None]
+    uu = u[None, :, None, None, :]
+    dr = pre * x1 + uu * kk * vdy
+    dk = suf * x2 + uu * rr * vdy
+    dv = x3 + (uu * rr * kk).sum(-1, keepdim=True) * dd
+    du = (rr * kk * vdy).sum((0, 2, 3))
+    coef = torch.ones_like(ww)           # c(s, s + d) = prod_{s<σ<s+d} w_σ
+    for d in range(1, c_):
+        cd = coef[..., :c_ - d, :]
+        md = m.diagonal(offset=-d, dim1=-2, dim2=-1)[..., None]  # m[s+d][s]
+        dr[..., d:, :] += cd * kk[..., :c_ - d, :] * md
+        a = cd * rr[..., d:, :]
+        dk[..., :c_ - d, :] += a * md
+        dv[..., :c_ - d, :] += (a * kk[..., :c_ - d, :]).sum(-1, keepdim=True) \
+            * dd[..., d:, :]
+        coef = cd[..., :c_ - d - 1, :] * ww[..., d:c_ - 1, :]
+    dw = pre * suf * (gc * s0c).sum(-1)[..., None, :]
+    p = torch.zeros_like(ww[..., 0, :])
+    for i in range(c_):                  # decayed prefix scan of k * (G v)
+        dw[..., i, :] += suf[..., i, :] * p
+        p = ww[..., i, :] * p + kk[..., i, :] * x2[..., i, :]
+    p = torch.zeros_like(p)
+    for i in reversed(range(c_)):        # decayed suffix scan of r * (S0 dy)
+        dw[..., i, :] += pre[..., i, :] * p
+        p = ww[..., i, :] * p + rr[..., i, :] * x1[..., i, :]
+    y = torch.zeros_like(ww)             # the in-chunk x in-chunk term
+    for i in range(c_ - 1):
+        ci = torch.cumprod(torch.cat([ones, ww[..., i + 1:c_ - 1, :]], -2), -2)
+        dw[..., i, :] += (ci * rr[..., i + 1:, :] * y[..., i + 1:, :]).sum(-2)
+        y = ww[..., i:i + 1, :] * y + kk[..., i:i + 1, :] * m[..., :, i, None]
+
+    def back(x):
+        return x.permute(0, 2, 3, 1, 4).reshape(b, n * c_, h, hd)[:, :t]
+
+    return back(dr), back(dk), back(dv), back(dw), du, g
+
+
+def wkv6_bwd(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 16,
+             block_threads: int = 512, cols: int = 16, parts: int = 4):
     """Gradients of ``(y, s_T) = wkv6_fwd(r, k, v, w, u, s0)`` for the
     cotangents ``dy`` (B, T, H, hd) and ``ds_t`` (B, H, hd, hd), all float32:
     returns (dr, dk, dv, dw, du, ds0) in the operands' shapes.  Every element
     is written by one thread and ``du``'s partials are summed here, so the
     same inputs give the same bits."""
-    chunk, span_chunks = int(chunk), int(span_chunks)
-    block_h, split = int(block_h), int(split)
-    _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk, span_chunks, block_h,
-               split)
+    chunk, block_threads = int(chunk), int(block_threads)
+    cols, parts = int(cols), int(parts)
+    _check_bwd(r, k, v, w, u, s0, dy, ds_t, chunk, block_threads, cols, parts)
     if r.device.type == "cpu":
-        return wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t, chunk=chunk,
-                              span_chunks=span_chunks)
+        return wkv6_bwd_plain(r, k, v, w, u, s0, dy, ds_t)
     b, t, h, hd = r.shape
-    n_spans = -(-t // (chunk * span_chunks))
-    ss = torch.empty((b, n_spans, h, hd, hd), dtype=torch.float32,
-                     device=r.device)
+    n = -(-t // chunk)
+    states = torch.empty((b, h, n, hd, hd), dtype=torch.float32,
+                         device=r.device)
+    adj = torch.empty_like(states)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    du = torch.empty((b, h, n, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(s0)
     lib = _library_bwd()
-    tail = (b, t, h, hd, chunk, span_chunks, block_h, split)
+    tail = (b, t, h, hd, chunk, block_threads, cols, parts)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for prog in ("spans", "sweep"):
-            if prog == "spans":
-                rc = lib.rwkv6_wkv_bwd_spans(
-                    k.data_ptr(), v.data_ptr(), w.data_ptr(), s0.data_ptr(),
-                    ss.data_ptr(), *tail, stream)
-            else:
-                rc = lib.rwkv6_wkv_bwd_sweep(
+        for prog in ("scans", "chunks"):
+            if prog == "scans":
+                rc = lib.rwkv6_wkv_bwd_scans(
                     r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                    u.data_ptr(), ss.data_ptr(), dy.data_ptr(),
-                    ds_t.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-                    ds0.data_ptr(), *tail, stream)
+                    dy.data_ptr(), s0.data_ptr(), ds_t.data_ptr(),
+                    states.data_ptr(), adj.data_ptr(), ds0.data_ptr(), *tail,
+                    stream)
+            else:
+                rc = lib.rwkv6_wkv_bwd_chunks(
+                    r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), dy.data_ptr(), states.data_ptr(),
+                    adj.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), dw.data_ptr(), du.data_ptr(), *tail,
+                    stream)
             if rc != 0:
                 raise KernelLaunchError(
-                    f"rwkv6_wkv_bwd {prog} (chunk={chunk}, span_chunks="
-                    f"{span_chunks}, block_h={block_h}, split={split}): launch "
+                    f"rwkv6_wkv_bwd {prog} (chunk={chunk}, block_threads="
+                    f"{block_threads}, cols={cols}, parts={parts}): launch "
                     f"refused ({rc}: "
                     f"{lib.rwkv6_wkv_bwd_error_string(rc).decode()})")
             wkv6_bwd.program_launches[prog] += 1
     wkv6_bwd.launches += 1
-    return dr, dk, dv, dw, du.sum(0), ds0
+    return dr, dk, dv, dw, du.sum((0, 2)), ds0
 
 
 wkv6_bwd.launches = 0
-wkv6_bwd.program_launches = {"spans": 0, "sweep": 0}
+wkv6_bwd.program_launches = {"scans": 0, "chunks": 0}

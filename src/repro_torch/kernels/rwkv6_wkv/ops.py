@@ -4,7 +4,7 @@ Launch parameters resolve defaults < tuned store (``tuned=``, see
 ``repro_torch.tune.kernels``) < explicit overrides, under the reference's
 meta keys ``{b, t, h, hd}``: the forward's
 (``chunk``/``lanes``/``block_h``/``block_threads``) as ``rwkv6_wkv``, the
-backward's (``chunk``/``span_chunks``/``block_h``/``split``) as
+backward's (``chunk``/``block_threads``/``cols``/``parts``) as
 ``rwkv6_wkv_bwd``, from its defaults and the tuned store only (the backward
 kernel's own keywords force a configuration).  Every operand is cast to
 float32, as the reference's ``ops.wkv6`` casts them.
@@ -29,10 +29,12 @@ from .kernel import serial_split, wkv6_bwd, wkv6_fwd
 # 256 threads a block (one thread a column, 64 threads, takes ~4x as long
 # on the H100 at the RWKV-6 prefill shape)
 DEFAULTS = {"chunk": 32, "lanes": 0, "block_h": 1, "block_threads": 256}
-# one head a block, eight threads a state row, chunks of 8 tokens (their
-# states take 128 KB of shared memory at hd 64), spans of 4 chunks: the
-# fastest of five points tried on the H100 at the RWKV-6 training shape
-BWD_DEFAULTS = {"chunk": 8, "span_chunks": 4, "block_h": 1, "split": 8}
+# chunks of 16 tokens (81 KB of shared memory at hd 64: two blocks an SM),
+# sixteen warps a chunk, 16 value columns a scan thread (every head size
+# built divides by 16), 32 channels' in-chunk pair sum over 4 warps: the
+# fastest pair of programs timed on the H100 at the RWKV-6 training shape
+# (PERF.md)
+BWD_DEFAULTS = {"chunk": 16, "block_threads": 512, "cols": 16, "parts": 4}
 
 
 def fit_threads(hd: int, block_h: int, block_threads: int) -> int:

@@ -21,10 +21,10 @@ launch parameters.  :class:`KernelTimer` is the measurement oracle a
     batch the card is held by a spin long enough for the host to enqueue
     the whole batch, so the events bracket device work only.  Without the
     spin, a call whose launches are shorter than the host's time to issue
-    them (the decode kernel and its five-launch split combine: ~0.09 ms of
-    device work, ~0.15 ms of host work) is timed at the host's pace, the
-    same for every configuration and 2x apart between runs, and the tune
-    ranks noise.
+    them (a decode kernel followed by a plain five-launch split combine:
+    ~0.09 ms of device work, ~0.15 ms of host work) is timed at the host's
+    pace, the same for every configuration and 2x apart between runs, and
+    the tune ranks noise.
 
 Measurements are deduplicated per config (the paper's effort
 accounting: re-measuring a recorded experiment is free), and

@@ -31,10 +31,12 @@ backward specs keep the same names and meta keys as the reference's
 (``mamba_scan_bwd``, ``rwkv6_wkv_bwd``); their default shapes are the
 training shapes (Jamba batch 2 x 2048, RWKV-6 batch 8 x 2048), their
 inputs add the cotangents ``dy`` and ``dh_T`` / ``ds_T``, and their oracles
-are the plain backward versions.  Their spaces are chunk x block_d /
-block_h x threads per channel or state row (``split``), and for the wkv
-backward the chunks a stored span covers (``span_chunks``); a chunk is
-bounded by the shared memory its per-token states take.
+are the plain backward versions.  The selective-scan backward's space is
+chunk x block_d x threads per channel (``split``), a chunk bounded by the
+shared memory its per-token states take; the wkv backward's is chunk x the
+chunk program's threads x value columns a scan thread carries (``cols``)
+x warps 32 channels' in-chunk pair sum takes (``parts``), a chunk bounded
+by the shared memory its tiles, entry state and exit adjoint take.
 """
 
 from __future__ import annotations
@@ -64,10 +66,11 @@ from .registry import KernelSpec, dtype_name, register_kernel
 
 __all__ = ["ATTN_BLOCKS", "ATTN_BLOCKS_Q", "ATTN_STAGES", "ATTN_THREADS",
            "BLOCK_THREADS", "BWD_SPLITS",
-           "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_THREADS",
+           "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_STAGES",
+           "DECODE_THREADS",
            "SCAN_BLOCK_D", "SCAN_BWD_CHUNKS", "SCAN_CHUNKS", "SCAN_LANES",
-           "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_SPAN_CHUNKS",
-           "WKV_THREADS"]
+           "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_BWD_COLS",
+           "WKV_BWD_PARTS", "WKV_BWD_THREADS", "WKV_THREADS"]
 
 TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 BLOCK_THREADS = (64, 128, 256, 512, 1024)
@@ -78,9 +81,12 @@ ATTN_BLOCKS = (16, 32, 64, 128, 256)
 ATTN_BLOCKS_Q = ATTN_BLOCKS
 ATTN_THREADS = (32, 64, 128, 256)
 ATTN_STAGES = fa_kernel.STAGES
-DECODE_SPLITS = (1, 2, 4, 8, 16, 32, 64)
-DECODE_BLOCK_S = (16, 32, 64, 128, 256, 512)
-DECODE_THREADS = (32, 64, 128, 256, 512)
+# split-KV decode: splits (a group's blocks form one cluster: a power of
+# two up to 16), keys a warp's tile, threads (a ring per warp) and ring depth
+DECODE_SPLITS = (1, 2, 4, 8, 16)
+DECODE_BLOCK_S = da_kernel.BLOCK_S
+DECODE_THREADS = (32, 64, 128, 256)
+DECODE_STAGES = da_kernel.STAGES
 SCAN_CHUNKS = (8, 16, 32, 64, 128, 256, 512, 1024)
 SCAN_LANES = (0, 2, 4, 8, 16)        # 0 = the serial program
 SCAN_BLOCK_D = (32, 64, 128, 256, 512)
@@ -88,8 +94,12 @@ WKV_BLOCK_H = (1, 2, 4, 8)
 WKV_THREADS = (64, 128, 256, 512, 1024)
 SCAN_BWD_CHUNKS = (1, 2, 4, 8, 16, 32, 64)
 BWD_SPLITS = (1, 2, 4, 8, 16, 32)
-WKV_BWD_CHUNKS = (1, 2, 4, 8, 16)
-WKV_SPAN_CHUNKS = (1, 2, 4, 8)
+# the wkv backward: chunk length, the chunk program's threads, value
+# columns a scan thread carries, warps 32 channels' in-chunk pair sum takes
+WKV_BWD_CHUNKS = wkv_kernel.BWD_CHUNKS
+WKV_BWD_THREADS = (64, 128, 256, 512)
+WKV_BWD_COLS = wkv_kernel.BWD_COLS
+WKV_BWD_PARTS = wkv_kernel.BWD_PARTS
 
 # what a block gets without opting in to more dynamic shared memory
 SMEM_DEFAULT_BYTES = 48 * 1024
@@ -264,6 +274,7 @@ def _da_space(meta: Mapping[str, Any]) -> ConfigSpace:
         Param("splits", DECODE_SPLITS),
         Param("block_s", DECODE_BLOCK_S),
         Param("block_threads", DECODE_THREADS),
+        Param("stages", DECODE_STAGES),
     ])
 
 
@@ -279,8 +290,10 @@ def _da_validate(cfg, meta) -> str | None:
     seg = da_kernel.segment_length(s, sp)
     if (sp - 1) * seg >= s:
         return f"splits={sp} leaves segments past the cache ({s} positions)"
-    return (_not_above(seg, bs, DECODE_BLOCK_S[0], "block_s")
-            or _smem(da_kernel.smem_bytes(rep, hd, bs, nt)))
+    # either build may take the point: the larger of their footprints
+    need = max(da_kernel.smem_bytes(rep, hd, bs, nt, cfg["stages"], dtype)
+               for dtype in da_kernel.DTYPES)
+    return _not_above(seg, bs, DECODE_BLOCK_S[0], "block_s") or _smem(need)
 
 
 def _da_inputs(meta, dtype, rng, device):
@@ -295,7 +308,8 @@ def _da_run(cfg, inputs):
     q, k, v, length = inputs
     return da_kernel.decode_attention(q, k, v, length, splits=cfg["splits"],
                                       block_s=cfg["block_s"],
-                                      block_threads=cfg["block_threads"])
+                                      block_threads=cfg["block_threads"],
+                                      stages=cfg["stages"])
 
 
 def _da_ref(inputs):
@@ -520,29 +534,22 @@ register_kernel(KernelSpec(
 def _wkvb_space(meta: Mapping[str, Any]) -> ConfigSpace:
     return ConfigSpace([
         Param("chunk", WKV_BWD_CHUNKS),
-        Param("span_chunks", WKV_SPAN_CHUNKS),
-        Param("block_h", WKV_BLOCK_H),
-        Param("split", BWD_SPLITS),
+        Param("block_threads", WKV_BWD_THREADS),
+        Param("cols", WKV_BWD_COLS),
+        Param("parts", WKV_BWD_PARTS),
     ])
 
 
 def _wkvb_validate(cfg, meta) -> str | None:
-    chunk, span_chunks = cfg["chunk"], cfg["span_chunks"]
-    bh, split = cfg["block_h"], cfg["split"]
+    chunk, cols = cfg["chunk"], cfg["cols"]
     t, hd = meta["t"], meta["hd"]
-    err = _divides(meta["h"], bh, "block_h")
-    if err:
-        return err
-    splits = wkv_kernel.BWD_HEAD_SPLITS.get(hd, ())
-    if split not in splits:
-        return f"split={split} not built for hd={hd} ({splits})"
-    n = bh * hd * split
-    if n > wkv_kernel.BWD_MAX_THREADS:
-        return f"{n} threads a block (limit {wkv_kernel.BWD_MAX_THREADS})"
-    # a chunk's per-token states: chunk x block_h x hd x hd floats
-    return (_not_above(t, chunk * span_chunks, WKV_BWD_CHUNKS[0],
-                       "chunk*span_chunks")
-            or _smem(wkv_kernel.smem_bytes_bwd(chunk, bh, hd, split)))
+    if hd not in wkv_kernel.BWD_HEAD_DIMS:
+        return f"hd={hd} not built ({wkv_kernel.BWD_HEAD_DIMS})"
+    if hd % cols:
+        return f"cols={cols} does not divide hd={hd}"
+    # a chunk's tiles, S0 and G: shared memory bounds the chunk
+    return (_not_above(t, chunk, WKV_BWD_CHUNKS[0], "chunk")
+            or _smem(wkv_kernel.smem_bytes_bwd(chunk, hd)))
 
 
 def _wkvb_inputs(meta, dtype, rng, device):
@@ -555,9 +562,7 @@ def _wkvb_inputs(meta, dtype, rng, device):
 
 
 def _wkvb_run(cfg, inputs):
-    return wkv_kernel.wkv6_bwd(*inputs, chunk=cfg["chunk"],
-                               span_chunks=cfg["span_chunks"],
-                               block_h=cfg["block_h"], split=cfg["split"])
+    return wkv_kernel.wkv6_bwd(*inputs, **cfg)
 
 
 def _wkvb_ref(inputs):

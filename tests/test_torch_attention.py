@@ -268,18 +268,19 @@ def test_decode_attention_matches_reference(b, s, kv, rep, hd, length):
     qj, qt = both(rng.standard_normal((b, kv * rep, hd)))
     (kj, kt), (vj, vt) = (both(rng.standard_normal((b, s, kv, hd)))
                           for _ in range(2))
-    got = da_ops.decode_attention(qt, kt, vt, length=length, block_s=128)
+    got = da_ops.decode_attention(qt, kt, vt, length=length, block_s=64)
     want = decode_attention_ref(qj, kj, vj, length=length)
     assert got.dtype == torch.float32 and got.shape == (b, kv * rep, hd)
     close(got, want, 2e-5)
 
 
-@pytest.mark.parametrize("splits", specs.DECODE_SPLITS)
+@pytest.mark.parametrize("splits", (1, 2, 4, 8, 16, 32, 64))
 def test_fully_masked_splits_weigh_zero(splits):
     """``length`` far below the capacity, S = 999 (no split count here
     divides it): segments at or past ``length`` yield m = -1e30, l = 0,
     acc = 0, and the combine gives the reference's answer for every split
-    count."""
+    count; the kernel's wrapper takes every split count its cluster can
+    hold (up to 16) and refuses the rest."""
     rng = np.random.default_rng(13)
     b, s, kv, rep, hd, length = 2, 999, 2, 4, 32, 37
     qj, qt = both(rng.standard_normal((b, kv, rep, hd)))
@@ -297,8 +298,12 @@ def test_fully_masked_splits_weigh_zero(splits):
     want = decode_attention_ref(qj.reshape(b, kv * rep, hd), kj, vj,
                                 length=length)
     close(got.reshape(b, kv * rep, hd), want, 2e-5)
-    close(da_kernel.decode_attention(qt, kt, vt, length, splits=splits,
-                                     block_s=16, block_threads=32)
+    kw = dict(splits=splits, block_s=16, block_threads=32)
+    if splits > da_kernel.MAX_SPLITS:
+        with pytest.raises(ValueError, match="one cluster"):
+            da_kernel.decode_attention(qt, kt, vt, length, **kw)
+        return
+    close(da_kernel.decode_attention(qt, kt, vt, length, **kw)
           .reshape(b, kv * rep, hd), want, 2e-5)
 
 
@@ -341,6 +346,24 @@ def test_decode_attention_bf16_cache():
     close(got, decode_attention_ref(qj, kj, vj, length=211), 2e-2)
 
 
+@pytest.mark.parametrize("rep, hd", [(8, 128), (12, 192)])
+def test_decode_defaults_are_cut_to_the_cards_shared_memory(rep, hd):
+    """A bfloat16 cache through the op at its defaults: the ring is cut to
+    fit the card's shared memory where the head size needs it (hd 192,
+    nemotron4's), and left as it is where it fits."""
+    rng = np.random.default_rng(23)
+    b, s, kv = 2, 300, 2
+    qj, qt = both(rng.standard_normal((b, kv * rep, hd)), "bfloat16")
+    (kj, kt), (vj, vt) = (both(rng.standard_normal((b, s, kv, hd)),
+                               "bfloat16") for _ in range(2))
+    got = da_ops.decode_attention(qt, kt, vt, length=211)
+    close(got, decode_attention_ref(qj, kj, vj, length=211), 2e-2)
+    fit = da_ops.fit_launch(da_ops.DEFAULTS, rep, hd, torch.bfloat16)
+    assert da_kernel.smem_bytes(rep, hd, fit["block_s"], fit["block_threads"],
+                                fit["stages"]) <= ktune.SMEM_LIMIT_BYTES
+    assert (fit == da_ops.DEFAULTS) == (hd == 128)
+
+
 @pytest.mark.parametrize("bad, match", [
     (dict(length=0), "positive int"),
     (dict(length=True), "positive int"),
@@ -367,6 +390,52 @@ def test_decode_wrapper_refuses_unsupported_shapes():
         da_kernel.decode_attention(torch.zeros((1, 1, 32, 32)),
                                    torch.zeros((1, 8, 1, 32)),
                                    torch.zeros((1, 8, 1, 32)), 8)
+
+
+@pytest.mark.parametrize("splits", [3, 6, 12])
+def test_decode_splits_must_fill_a_cluster(splits):
+    """A group's splits form one thread block cluster: a power of two."""
+    q = torch.zeros((1, 2, 4, 32))
+    k = torch.zeros((1, 64, 2, 32))
+    with pytest.raises(ValueError, match="power of two"):
+        da_kernel.decode_attention(q, k, k, 8, splits=splits)
+
+
+@pytest.mark.parametrize("dtype,args,want", [
+    # bf16: the warps' rings (pitch hd + 8, k and v, 2-byte elements; their
+    # float32 partials reuse them after the loop) + m and l
+    (torch.bfloat16, (8, 128, 32, 128, 2), 4 * 2 * 2 * 32 * 136 * 2 + 128),
+    (torch.bfloat16, (8, 128, 16, 256, 1), 8 * 1 * 2 * 16 * 136 * 2 + 128),
+    (torch.bfloat16, (1, 96, 64, 64, 4), 2 * 4 * 2 * 64 * 104 * 2 + 128),
+    # float32: scaled queries, a tile of scores, three carries, a warp's
+    # accumulators
+    (torch.float32, (8, 128, 32, 128, 2),
+     4 * (8 * 128 + 8 * 32 + 3 * 8 + 4 * 8 * 128)),
+    (torch.float32, (12, 192, 64, 256, 4),
+     4 * (12 * 192 + 12 * 64 + 3 * 12 + 8 * 12 * 192)),
+])
+def test_decode_smem_accounting_per_build(dtype, args, want):
+    """The Python-side shared-memory sums are the .cu file's, per build."""
+    rep, hd, block_s, threads, stages = args
+    assert da_kernel.smem_bytes(rep, hd, block_s, threads, stages,
+                                dtype) == want
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "jamba-v0.1-52b",
+                                  "phi3-mini-3.8b"])
+def test_decode_defaults_fit_every_served_shape(arch):
+    """The decode defaults are a valid point of the space at each served
+    model's decode shape (batch 8, cache 2176), so serving never launches a
+    point the space would refuse."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    meta = {"b": 8, "kv": cfg.n_kv_heads, "rep": cfg.n_heads // cfg.n_kv_heads,
+            "hd": cfg.head_dim, "s": 2176}
+    spec = ktune.get_kernel("decode_attention")
+    assert spec.validate(dict(da_ops.DEFAULTS), meta) is None
+    valid = [c for c in spec.space(meta).enumerate()
+             if spec.validate(c, meta) is None]
+    assert len(valid) >= 64
 
 
 # -- launch-parameter spaces and tuning -------------------------------------------

@@ -56,6 +56,38 @@ def test_dna_space_is_redrawn_for_the_card():
     assert ktune.SMEM_LIMIT_BYTES == 232448
 
 
+@pytest.mark.parametrize("name, meta", [
+    # B4 at the decode shapes served: Qwen2.5-3B, Jamba's attention layer,
+    # phi3-mini (batch 8, cache 2176)
+    ("decode_attention", {"b": 8, "kv": 2, "rep": 8, "hd": 128, "s": 2176}),
+    ("decode_attention", {"b": 8, "kv": 8, "rep": 4, "hd": 128, "s": 2176}),
+    ("decode_attention", {"b": 8, "kv": 32, "rep": 1, "hd": 96, "s": 2176}),
+    # B9 at RWKV-6 1.6B's training shape and the smoke shape's head size
+    ("rwkv6_wkv_bwd", {"b": 8, "t": 2048, "h": 32, "hd": 64}),
+    ("rwkv6_wkv_bwd", {"b": 1, "t": 64, "h": 1, "hd": 16}),
+])
+def test_redesigned_spaces_hold_their_defaults(name, meta):
+    """The spaces redrawn for the one-launch decode kernel and the chunked
+    wkv backward keep >= 64 valid points and shared-memory refusals, under
+    the reference's meta keys, and the ops' defaults are valid points
+    there."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    spec = ktune.get_kernel(name)
+    assert set(meta) == set(spec.default_shape)
+    space = spec.space(meta)
+    reasons = [spec.validate(c, meta) for c in space.enumerate()]
+    assert sum(r is None for r in reasons) >= 64
+    defaults = (da_ops.DEFAULTS if name == "decode_attention"
+                else wkv_ops.BWD_DEFAULTS)
+    assert spec.validate(dict(defaults), meta) is None
+    assert ktune.kernel_workload(name, meta, spec.dtype) == \
+        ref_kernel_workload(name, meta, spec.dtype)
+    if meta.get("hd") in (64, 128):
+        assert any("shared-memory" in (r or "") for r in reasons)
+
+
 @pytest.mark.parametrize("shape", ["smoke_shape", "default_shape"])
 def test_space_has_valid_default_and_invalid_candidates(shape):
     spec = ktune.get_kernel("dna_automaton")

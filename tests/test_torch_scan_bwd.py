@@ -22,8 +22,7 @@ from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
-from repro_torch.tune.kernels.specs import (SCAN_BWD_CHUNKS, WKV_BWD_CHUNKS,
-                                            WKV_SPAN_CHUNKS)
+from repro_torch.tune.kernels.specs import SCAN_BWD_CHUNKS, WKV_BWD_CHUNKS
 
 # the reference's backward tests' gates (tests/test_kernels.py): float32
 # atol 1e-5 / rtol 1e-4 (the same reverse recurrence, summed in another
@@ -47,12 +46,23 @@ def scan_arrays(bt, t, di, s, seed=0):
     return [np.asarray(a, np.float32) for a in arrs]
 
 
-def wkv_arrays(b, t, h, hd, seed=0):
+def wkv_arrays(b, t, h, hd, seed=0, decay=None):
     """r, k, v ~ N(0, 0.25), w = sigmoid(N(0, 1) + 2), u ~ N(0, 0.01), a
-    non-zero s0, and cotangents dy, ds_T ~ N(0, 1)."""
+    non-zero s0, and cotangents dy, ds_T ~ N(0, 1).  ``decay`` redraws w:
+    "near_one" (1 - 10^U(-7, -2)), "tiny" (a quarter of the channels
+    10^U(-30, -6)), "underflow" (w = exp(-exp(N + 4)): every product of a
+    few dozen underflows to 0, some w are 0 already)."""
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal((b, t, h, hd)) * 0.5 for _ in range(3)]
-    arrs.append(1 / (1 + np.exp(-(rng.standard_normal((b, t, h, hd)) + 2))))
+    w = 1 / (1 + np.exp(-(rng.standard_normal((b, t, h, hd)) + 2)))
+    if decay == "near_one":
+        w = 1 - 10.0 ** rng.uniform(-7, -2, w.shape)
+    elif decay == "tiny":
+        w[..., ::4] = 10.0 ** rng.uniform(-30, -6, w[..., ::4].shape)
+    elif decay == "underflow":
+        w = np.exp(-np.exp(rng.standard_normal(w.shape) + 4))
+        w[..., 1::5] = 0.0
+    arrs.append(w)
     arrs += [rng.standard_normal((h, hd)) * 0.1,
              rng.standard_normal((b, h, hd, hd)),
              rng.standard_normal((b, t, h, hd)),
@@ -109,22 +119,65 @@ def test_selective_scan_bwd_at_every_chunk_of_the_space(chunk):
     (1, 1, 1, 16, 8, 4),                           # one token
 ])
 def test_wkv6_bwd_matches_the_vjp(b, t, h, hd, chunk, span_chunks):
+    """The wrapper (its CPU branch, the serial plain version) at its
+    defaults, the serial plain version at spans of chunk * span_chunks
+    tokens, and the kernel's chunked form at ``chunk``: each the
+    reference's vjp."""
     arrays = wkv_arrays(b, t, h, hd)
     want = vjp(wkv6_ref, arrays)
-    got = wkv_kernel.wkv6_bwd(*tensors(arrays), chunk=chunk,
-                              span_chunks=span_chunks, split=4)
-    close(got, want, what=WKV_NAMES)
+    close(wkv_kernel.wkv6_bwd(*tensors(arrays), **wkv_ops.BWD_DEFAULTS),
+          want, what=WKV_NAMES)
+    close(wkv_kernel.wkv6_bwd_plain(*tensors(arrays),
+                                    span=chunk * span_chunks), want,
+          what=WKV_NAMES)
+    close(wkv_kernel.wkv6_bwd_chunked_plain(*tensors(arrays), chunk=chunk),
+          want, what=WKV_NAMES)
 
 
-@pytest.mark.parametrize("chunk", WKV_BWD_CHUNKS)
+@pytest.mark.parametrize("chunk", (1, 2, 4, 8, 16, 32, 64))
 def test_wkv6_bwd_at_every_chunk_of_the_space(chunk):
-    """Every chunk and span length the space can pick, at 37 tokens."""
+    """The chunked form at every chunk length the space can pick (8-64)
+    and the shorter ones, and the serial plain version at spans of that
+    length, at 37 tokens."""
     arrays = wkv_arrays(1, 37, 1, 16, seed=chunk)
     want = vjp(wkv6_ref, arrays)
-    for span_chunks in WKV_SPAN_CHUNKS:
-        close(wkv_kernel.wkv6_bwd_plain(*tensors(arrays), chunk=chunk,
-                                        span_chunks=span_chunks), want,
-              what=WKV_NAMES)
+    close(wkv_kernel.wkv6_bwd_chunked_plain(*tensors(arrays), chunk=chunk),
+          want, what=WKV_NAMES)
+    close(wkv_kernel.wkv6_bwd_plain(*tensors(arrays), span=chunk), want,
+          what=WKV_NAMES)
+
+
+@pytest.mark.parametrize("b,t,h,hd,chunk,decay", [
+    (1, 32, 1, 16, 8, None), (2, 64, 2, 32, 16, None),  # the reference's
+    (2, 77, 2, 16, 32, None),                           # ragged T
+    (1, 1, 1, 16, 16, None),                            # one token
+    (1, 64, 2, 16, 16, "near_one"),
+    (2, 50, 1, 16, 16, "tiny"),
+    (1, 70, 2, 32, 32, "underflow"),
+    (1, 40, 1, 48, 8, None),                            # hd 48 (C5)
+])
+def test_wkv6_bwd_chunked_plain_matches_the_vjp(b, t, h, hd, chunk, decay):
+    """The kernel's chunked formulation (every decay factor a running
+    product of w's) against the reference's vjp, with w near 1, w below
+    1e-6 and w that underflow to 0 after a few products: within the
+    reference's float32 gate and never inf or nan."""
+    arrays = wkv_arrays(b, t, h, hd, decay=decay)
+    got = wkv_kernel.wkv6_bwd_chunked_plain(*tensors(arrays), chunk=chunk)
+    assert all(torch.isfinite(g).all() for g in got)
+    close(got, vjp(wkv6_ref, arrays), what=WKV_NAMES)
+
+
+def test_wkv6_bwd_takes_head_dim_48():
+    """C5 lifted: the backward is built for hd 48 (the reference spec's
+    default shape), so the wrapper takes it and gives the vjp."""
+    arrays = wkv_arrays(1, 20, 2, 48, seed=5)
+    close(wkv_kernel.wkv6_bwd(*tensors(arrays), chunk=8, cols=16),
+          vjp(wkv6_ref, arrays), what=WKV_NAMES)
+    assert ktune.get_kernel("rwkv6_wkv_bwd").validate(
+        {"chunk": 16, "block_threads": 256, "cols": 16, "parts": 4},
+        {"b": 1, "t": 64, "h": 1, "hd": 48}) is None
+    with pytest.raises(ValueError, match="cols=32"):
+        wkv_kernel.wkv6_bwd(*tensors(arrays), cols=32)
 
 
 # -- the autograd Functions ---------------------------------------------------------
@@ -158,9 +211,7 @@ def test_wkv6_function_gives_the_plain_backward():
     y, s_t = wkv_ops.wkv6(*leaves)
     assert isinstance(y.grad_fn, wkv_ops.Wkv6._backward_cls)
     torch.autograd.backward((y, s_t), (dy, ds))
-    bwd = wkv_ops.BWD_DEFAULTS
-    want = wkv_kernel.wkv6_bwd_plain(*primals, dy, ds, chunk=bwd["chunk"],
-                                     span_chunks=bwd["span_chunks"])
+    want = wkv_kernel.wkv6_bwd_plain(*primals, dy, ds)
     for name, leaf, w in zip(WKV_NAMES, leaves, want):
         assert torch.equal(leaf.grad, w), name
     with torch.no_grad():
@@ -207,12 +258,19 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
         ms_kernel.selective_scan_bwd(x, dl, a, b, c, d, h0, dy, dh,
                                      block_d=512, chunk=64, split=1)
     r, k, v, w, u, s0, dy, ds = tensors(wkv_arrays(1, 8, 2, 16))
-    with pytest.raises(ValueError, match="split=1 not built"):
-        wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds, split=1)
+    with pytest.raises(ValueError, match="chunk=12 not built"):
+        wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds, chunk=12)
     with pytest.raises(ValueError, match="ds_t must be"):
         wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds[:, :1])
-    with pytest.raises(ValueError, match="block_h=3"):
-        wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds, block_h=3)
+    with pytest.raises(ValueError, match="parts=5"):
+        wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds, parts=5)
+    with pytest.raises(ValueError, match="block_threads=1024"):
+        wkv_kernel.wkv6_bwd(r, k, v, w, u, s0, dy, ds, block_threads=1024)
+    r24 = torch.zeros((1, 8, 2, 24))
+    with pytest.raises(ValueError, match="hd=24 not built"):
+        wkv_kernel.wkv6_bwd(r24, r24, r24, r24, torch.zeros((2, 24)),
+                            torch.zeros((1, 2, 24, 24)), r24,
+                            torch.zeros((1, 2, 24, 24)))
 
 
 @pytest.mark.parametrize("which", ["scan", "wkv"])
@@ -243,8 +301,16 @@ def test_backward_smem_accounting_matches_the_sources():
     """The Python-side shared-memory sums are the .cu files' sums."""
     assert ms_kernel.smem_bytes_bwd(16, 128, 16, 4) == 4 * (
         16 * 16 * 128 + 2 * 16 * 16 + 16 * 16 * 2 * 16)
-    assert wkv_kernel.smem_bytes_bwd(8, 1, 64, 4) == 4 * (
-        8 * 64 * 64 + 5 * 8 * 64 + 2 * 8 + 64 + 8 * 8 * 64)
+    # the chunk program: ten (chunk, hd + 4) tiles, S0 and G (hd, hd + 4),
+    # M and Q (chunk, chunk + 4), u, rowsum(G * S0), the bonus sums; dw's
+    # two scanned terms in S0's place, or in two tiles of their own past
+    # chunk hd / 2
+    assert wkv_kernel.smem_bytes_bwd(16, 64) == 4 * (
+        10 * 16 * 68 + 2 * 64 * 68 + 2 * 16 * 20 + 2 * 64 + 16)
+    assert wkv_kernel.smem_bytes_bwd(32, 16) == 4 * (
+        12 * 32 * 20 + 2 * 16 * 20 + 2 * 32 * 36 + 2 * 16 + 32)
+    assert wkv_kernel.smem_bytes_bwd(64, 64) > 232448 \
+        >= wkv_kernel.smem_bytes_bwd(32, 64)
     assert ms_kernel.bwd_splits(4) == (1, 2, 4)
     assert ms_kernel.bwd_splits(16) == (1, 2, 4, 8, 16)
 

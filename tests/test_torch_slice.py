@@ -148,7 +148,7 @@ def test_no_source_imports_jax_or_repro(path):
     ("dna_automaton", ("state_map_plain", "count_hits_plain")),
     ("flash_attention", ("flash_attention_fwd_plain",
                          "flash_attention_bwd_plain")),
-    ("decode_attention", ("decode_partials_plain",)),
+    ("decode_attention", ("decode_attention_plain",)),
     ("mamba_scan", ("selective_scan_fwd_plain", "selective_scan_bwd_plain")),
     ("rwkv6_wkv", ("wkv6_fwd_plain", "wkv6_bwd_plain")),
 ])
@@ -158,10 +158,8 @@ def test_no_silent_fallback_in_the_wrappers(package, plain):
     src = (PORT / "kernels" / package / "kernel.py").read_text()
     assert "try:" not in src and "except" not in src
     for name in plain:
-        # its def + the CPU branch (+ the plain decode_attention_plain,
-        # which is partials then combine)
-        want = 3 if name == "decode_partials_plain" else 2
-        assert src.count(f"{name}(") == want, name
+        # its def + the CPU branch
+        assert src.count(f"{name}(") == 2, name
     assert src.count('.device.type == "cpu"') == len(
         [line for line in src.splitlines() if "launches += 1" in line])
 
