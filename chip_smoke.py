@@ -9,10 +9,12 @@ drives the port's seven paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
-  automaton's launch parameters on a text of 3 * 2^30 symbols resident on
-  the card (the paper's human genome is 3.17 GB), store the winner, then
+  automaton's launch parameters (map chunk, count chunk, threads, symbols
+  a table lookup advances) on a text of 3 * 2^30 symbols resident on the
+  card (the paper's human genome is 3.17 GB), store the winner, then
   ``configure`` the store and answer five motif-count requests through
-  ``fa_match(tuned=True)``;
+  ``fa_match(tuned=True)``, each again under the profiler for its device
+  time split into the state map (B1), the count (B2) and the rest;
 * LM serving: ``tune_kernel`` the flash-attention and decode-attention
   kernels at Qwen2.5-3B's serving shapes into one store, ``configure`` it,
   then ``serve_session`` a batch of 8 random 2048-token prompts and decode
@@ -51,13 +53,18 @@ points a user would call:
   backward kernel, the attention layer through the flash-attention kernels.
 
 Before each path it holds each of the path's kernels against its plain
-PyTorch version on the same inputs at the path's shapes (the attention
+PyTorch version on the same inputs at the path's shapes (the DNA kernels
+exactly at S = 7 and 9 and every gram, at S = 21 (the state map's gather
+route) and on an unaligned slice of the text, each with its route and the
+three reckonings of its design: bytes, shared memory, instructions; the
+attention
 kernels also in both builds at hd 64 and 96 with ragged T, a q_offset and
 no mask, the backward run twice for the same bits, the decode kernel (one
 launch a call, its split combine inside) at length 37 where most segments
 lie past the fill, twice for the same bits, at phi3-mini's hd 96 and at hd
-192; the wkv backward also with a quarter of its decays below 1e-6 and at
-hd 48; every tune must store a point no slower than the default it
+192; the flash-attention backward also at hd 192 in bf16; the wkv
+backward also with a quarter of its decays below 1e-6 and at hd 48; every
+tune must store a point no slower than the default it
 measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
@@ -66,7 +73,8 @@ choices pinned to the kernel run's);
 before each training path it compares the loss and every parameter's
 gradient the same way (the recurrent ones in float32 compute, each held
 against a float64 pass by its parameter's gate, with one wrong backward
-per new kernel run as a control).  Each path's launch
+per new kernel run as a control; their bf16 gradients are read against
+the same float64 pass, per parameter, and reported).  Each path's launch
 counters are set to 0 just before it and read just after it.  After the
 Qwen training path, the restart drill (``run_with_restarts`` with a
 failure injected at step 7, checkpoints every 4 steps) runs the Qwen2.5-3B
@@ -274,71 +282,114 @@ def phase_oracle(seed: int) -> None:
     emit(phase="oracle", ok=True, cases=cases)
 
 
+DNA_MOTIFS = {7: "ACGTAC", 9: "ACGTACGT", 21: "ACGTTGCAAGCTTCGAACGT"}
+
+
 def phase_kernels(text) -> list[dict]:
-    """Each kernel at the default launch parameters against its plain
-    version on the full-width text; returns the kernels' records (their
-    ``launches`` are filled in after the main path ran)."""
+    """B1 and B2 against their plain versions, exactly (``torch.equal``):
+    at the full text with S = 7 and S = 9 at the defaults and at each
+    ``gram``, with a 20-letter motif (S = 21, the gather route) on 2^28
+    symbols, and on the unaligned slice ``text[1:1 + 2^24]``; each case
+    with its route, time, bound and three reckonings.  Returns the
+    kernels' records at the defaults and S = 7 (their ``launches`` are
+    filled in after the main path ran)."""
     from repro_torch.convert import dfa_to_device
     from repro_torch.kernels.dna_automaton import kernel, ops
 
-    chunk, bt = ops.DEFAULTS["map_chunk"], ops.DEFAULTS["block_threads"]
-    table, accept = dfa_to_device(*ops.build_motif_dfa("ACGTAC"), "cuda")
-    t, s = text.shape[0], table.shape[0]
-    n_chunks = t // chunk
+    d = ops.DEFAULTS
+    mc, cc, bt = d["map_chunk"], d["count_chunk"], d["block_threads"]
     source = "src/repro_torch/kernels/csrc/dna_automaton.cu"
+    t_full = text.shape[0]
 
     def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
         return roofline_ms(n_bytes, n_ops, INSTR_PER_S)
 
-    # -- dna_state_map
-    maps = kernel.state_map(text, table, chunk=chunk, block_threads=bt)
-    torch.cuda.synchronize()
-    ms = device_ms(lambda: kernel.state_map(text, table, chunk=chunk,
-                                            block_threads=bt), 5)
-    holder = {}
-    plain_ms = device_ms(lambda: holder.update(
-        maps=kernel.state_map_plain(text, table, chunk=chunk)), 1)
-    ok = torch.equal(maps, holder["maps"])
-    b_ms, b_by = bound(t + 4 * table.numel() + 4 * n_chunks * s, t * s)
-    records = [{
-        "name": "dna_state_map", "ok": ok, "route": "cuda", "source": source,
-        "replaces": "src/repro/kernels/dna_automaton/kernel.py:54",
-        "launches": 0, "max_abs_err": max_abs_err([maps], [holder["maps"]]),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
+    def plain_timed(fn):
+        holder = {}
+        plain_ms = device_ms(lambda: holder.update(out=fn()), 1)
+        return holder["out"], plain_ms
 
-    # -- dna_count_hits, from each chunk's true start state
-    prefix = ops.compose_maps(maps)
-    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
-                        prefix[:-1, 0]])
-    del prefix, holder
-    compose_ms = device_ms(lambda: ops.compose_maps(maps), 3)
-    got = kernel.count_hits(text, table, accept, starts, chunk=chunk,
-                            block_threads=bt)
-    torch.cuda.synchronize()
-    ms = device_ms(lambda: kernel.count_hits(text, table, accept, starts,
-                                             chunk=chunk, block_threads=bt), 5)
-    holder = {}
-    plain_ms = device_ms(lambda: holder.update(out=kernel.count_hits_plain(
-        text, table, accept, starts, chunk=chunk)), 1)
-    want = holder["out"]
-    ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    b_ms, b_by = bound(t + 4 * table.numel() + 4 * s + 3 * 4 * n_chunks, t)
-    records.append({
-        "name": "dna_count_hits", "ok": ok, "route": "cuda", "source": source,
-        "replaces": "src/repro/kernels/dna_automaton/kernel.py:94",
-        "launches": 0, "max_abs_err": max_abs_err(got, want),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
+    cases, records = [], []
+    for s, txt, grams, timed in ((7, text, kernel.GRAMS, True),
+                                 (9, text, kernel.GRAMS, True),
+                                 (21, text[:2 ** 28], (d["gram"],), True),
+                                 (7, text[1:1 + 2 ** 24], (d["gram"],), False),
+                                 (9, text[1:1 + 2 ** 24], (d["gram"],), False)):
+        table, accept = dfa_to_device(*ops.build_motif_dfa(DNA_MOTIFS[s]),
+                                      "cuda")
+        t = txt.shape[0]
+        route = kernel.route_of(s)
+        full_defaults = t == t_full and s == 7
+        want_maps, map_plain_ms = plain_timed(
+            lambda: kernel.state_map_plain(txt, table, chunk=mc))
+        prefix = ops.compose_maps(want_maps)
+        rep = cc // mc
+        starts = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                            prefix[rep - 1::rep, 0][:t // cc - 1]])
+        del prefix
+        want_counts, count_plain_ms = plain_timed(
+            lambda: kernel.count_hits_plain(txt, table, accept, starts,
+                                            chunk=cc))
+        for gram in grams:
+            launch = {"block_threads": bt, "gram": gram}
+            maps = kernel.state_map(txt, table, chunk=mc, **launch)
+            got = kernel.count_hits(txt, table, accept, starts, chunk=cc,
+                                    **launch)
+            torch.cuda.synchronize()
+            ok_map = torch.equal(maps, want_maps)
+            ok_count = all(torch.equal(g, w) for g, w in zip(got, want_counts))
+            case = {"s": s, "t": t, "unaligned": txt.data_ptr() % 16 != 0,
+                    "gram": gram, "route": route, "state_map_equal": ok_map,
+                    "count_hits_equal": ok_count}
+            if timed:
+                case["state_map_ms"] = device_ms(lambda: kernel.state_map(
+                    txt, table, chunk=mc, **launch), 5)
+                case["count_hits_ms"] = device_ms(lambda: kernel.count_hits(
+                    txt, table, accept, starts, chunk=cc, **launch), 5)
+                case["state_map_reckon"] = kernel.reckonings(
+                    route, t, s, gram, chunk=mc, threads=bt)
+                case["count_hits_reckon"] = kernel.reckonings(
+                    "count", t, s, gram, chunk=cc, threads=bt)
+            cases.append(case)
+            check(ok_map and ok_count, f"kernel_parity: DNA case {case}")
+            if full_defaults and gram == d["gram"]:
+                n_maps, n_counts = t // mc, t // cc
+                b_ms, b_by = bound(t + 4 * table.numel() + 4 * n_maps * s,
+                                   t * s)
+                records.append({
+                    "name": "dna_state_map", "ok": ok_map, "route": "cuda",
+                    "source": source,
+                    "replaces": "src/repro/kernels/dna_automaton/kernel.py:54",
+                    "launches": 0,
+                    "max_abs_err": max_abs_err([maps], [want_maps]),
+                    "ms": case["state_map_ms"], "plain_ms": map_plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                b_ms, b_by = bound(t + 4 * table.numel() + 4 * s
+                                   + 3 * 4 * n_counts, t)
+                records.append({
+                    "name": "dna_count_hits", "ok": ok_count, "route": "cuda",
+                    "source": source,
+                    "replaces": "src/repro/kernels/dna_automaton/kernel.py:94",
+                    "launches": 0, "max_abs_err": max_abs_err(got, want_counts),
+                    "ms": case["count_hits_ms"], "plain_ms": count_plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                total_count = int(got[0].sum())
+                maps_default = maps
+            del maps, got
+        del want_maps, want_counts, starts
+        torch.cuda.empty_cache()
 
     # where one fa_match at the defaults spends its time: the two kernels
     # above, the plain-PyTorch prefix compose between them, and the rest
+    compose_ms = device_ms(lambda: ops.compose_maps(maps_default), 3)
+    del maps_default
+    table, accept = ops.build_motif_dfa(DNA_MOTIFS[7])
     ops.fa_match(text, table, accept, tuned=False)      # warm the allocator
     fa_match_ms = device_ms(lambda: ops.fa_match(text, table, accept,
                                                  tuned=False), 3)
-    emit(phase="kernel_parity", t=t, chunk=chunk, block_threads=bt,
-         total_count=int(got[0].sum()), compose_maps_ms=compose_ms,
-         fa_match_default_ms=fa_match_ms,
+    emit(phase="kernel_parity", t=t_full, defaults=dict(d),
+         total_count=total_count, compose_maps_ms=compose_ms,
+         fa_match_default_ms=fa_match_ms, cases=cases,
          results=[{k: r[k] for k in ("name", "ok", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms")}
                   for r in records])
@@ -405,11 +456,26 @@ def phase_serve(text, store_path: Path, tuned) -> None:
         after = (kernel.state_map.launches, kernel.count_hits.launches)
         check(after == (before[0] + 1, before[1] + 1),
               f"serve: launch counters went {before} -> {after}")
+        # the same request again under the profiler: its device time split
+        # into B1, B2 and the rest (compose_maps and the start states)
+        split = device_split(lambda: ops.fa_match(text, table, accept,
+                                                  tuned=True))
+        again = (kernel.state_map.launches, kernel.count_hits.launches)
+        check(again == (after[0] + 1, after[1] + 1),
+              f"serve: launch counters went {after} -> {again}")
         want = int(ops.fa_match_plain(text, table, accept))
         check(count == want,
               f"serve: motif {motif}: kernel path {count}, plain path {want}")
-        requests.append({"motif": motif, "store_hit": hit, "count": count,
-                         "ms": seconds * 1e3, "symbols_per_s": t / seconds})
+        parts = split["split_ms"]
+        requests.append({"motif": motif, "s": table.shape[0],
+                         "store_hit": hit, "count": count,
+                         "ms": seconds * 1e3, "symbols_per_s": t / seconds,
+                         "device_ms": {
+                             "state_map": parts.get("dna_state_map (B1)"),
+                             "count_hits": parts.get("dna_count_hits (B2)"),
+                             "compose_and_rest": parts.get("other"),
+                             "busy": split["device_busy_ms"],
+                             "wall": split["wall_ms"]}})
     check(tuned.timer.n_measured == n_measured,
           "serve: answering requests measured new configurations")
     ktune.disable()
@@ -809,12 +875,12 @@ def phase_train_attention_parity(seed: int) -> dict:
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    def case(tq, tk, q_offset, causal, dtype, launch, hd=hd, h=h):
+    def case(tq, tk, q_offset, causal, dtype, launch, hd=hd, h=h, fwd=None):
         q, do = (randn(b, tq, h, hd, dtype=dtype) for _ in range(2))
         k, v = (randn(b, tk, h, hd, dtype=dtype) for _ in range(2))
-        # the forward at its build's launch point
+        # the forward at its build's launch point (or ``fwd``)
         o, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
-                                         q_offset=q_offset)
+                                         q_offset=q_offset, **(fwd or {}))
         args = (q, k, v, o, lse, do)
         kw = dict(causal=causal, q_offset=q_offset)
         return args, (lambda: fak.flash_attention_bwd(*args, **kw, **launch),
@@ -906,6 +972,48 @@ def phase_train_attention_parity(seed: int) -> dict:
                               "rel_err": err, "tol": tol,
                               "same_bits_twice": same})
                 check(err <= tol and same, f"flash_attention_bwd: {cases[-1]}")
+    # C6: bf16 at hd 192 (nemotron4's head size), at the wrapper's launch
+    # point (fit_bwd_launch: 64 x 64): dq stages its do rows, dk/dv runs as
+    # dv and dk halves of one grid; ragged T, a q_offset, no mask, and the
+    # launch counts of each call exact (one of each program)
+    fwd192 = {"block_q": 64, "block_k": 64}
+    launch192 = fak.fit_bwd_launch(torch.bfloat16, 192)
+    for tq, tk, q_offset, causal in ((333, 333, 0, True), (77, 333, 256, True),
+                                     (200, 333, 0, False)):
+        _, (kernel_fn, plain_fn) = case(tq, tk, q_offset, causal,
+                                        torch.bfloat16, {}, hd=192, h=4,
+                                        fwd=fwd192)
+        before = (fak.flash_attention_bwd.launches,
+                  dict(fak.flash_attention_bwd.program_launches))
+        got = kernel_fn()
+        after = (fak.flash_attention_bwd.launches,
+                 dict(fak.flash_attention_bwd.program_launches))
+        check(after == (before[0] + 1, {p_: n + 1 for p_, n in
+                                        before[1].items()}),
+              f"flash_attention_bwd hd 192: launches {before} -> {after}")
+        want = plain_fn()
+        err = max(grad_err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(a, g) for a, g in zip(kernel_fn(), got))
+        cases.append({"hd": 192, "tq": tq, "tk": tk, "q_offset": q_offset,
+                      "causal": causal, "dtype": "bfloat16",
+                      "launch": [launch192[k] for k in (
+                          "block_q", "block_k", "block_threads")],
+                      "rel_err": err, "tol": 2e-2, "same_bits_twice": same})
+        check(err <= 2e-2 and same, f"flash_attention_bwd: {cases[-1]}")
+    # its time at a training shape: batch 2 x 2048, 8 heads of 192
+    args, (kernel_fn, plain_fn) = case(t, t, 0, True, torch.bfloat16, {},
+                                       hd=192, h=8, fwd=fwd192)
+    got, want, ms192, plain192 = timed_pair(kernel_fn, plain_fn, 5)
+    n_flops = 5 * 2 * b * 8 * 192 * t * (t + 1) / 2
+    n_bytes = 8 * b * t * 8 * 192 * 2 + b * 8 * t * 4
+    bound192, bound192_by = attention_bound(n_bytes, n_flops)
+    report["hd192"] = {
+        "shape": [b, t, 8, 192], "launch": launch192, "ms": ms192,
+        "plain_ms": plain192, "bound_ms": bound192, "bound_by": bound192_by,
+        "rel_err": max(grad_err(g, w) for g, w in zip(got, want))}
+    check(report["hd192"]["rel_err"] <= 2e-2,
+          f"flash_attention_bwd hd 192: {report['hd192']}")
+    del args, got, want
     report["cases"] = {
         "n": len(cases),
         "rel_err_max": {dt: max(c["rel_err"] for c in cases
@@ -1050,6 +1158,10 @@ MATMUL_MARKS = ("gemm", "cutlass", "nvjet", "xmma", "sm90_", "cublas")
 def kernel_kind(name: str) -> str:
     """The kind a card kernel belongs to in a device-time split."""
     low = name.lower()
+    if "state_map_vec_kernel" in low or "state_map_gather_kernel" in low:
+        return "dna_state_map (B1)"
+    if "count_hits_kernel" in low:
+        return "dna_count_hits (B2)"
     if "flash_fwd" in low:
         return "flash_attention_fwd (B3)"
     if "flash_bwd" in low:
@@ -2113,8 +2225,11 @@ def phase_ssm_train_parity(arch: str, seed: int):
     of the largest logit and would swamp any gradient gate; a wrong adjoint
     moves a gradient by its own size.  Each wrong backward of
     ``wrong_backward_controls`` runs too, against the same gates, reported
-    beside whether they catch it; the bf16 gaps are reported beside the
-    gates.  Returns the model, float32 parameters, set to bf16 compute for
+    beside whether they catch it.  Then the same pass in bf16 compute (as
+    the training paths train), through the kernels and through the plain
+    versions: their gap, and each one's relative L2 from the float64
+    gradient per parameter beside the float32 kernel path's (C4), are
+    reported, not gated.  Returns the model, float32 parameters, set to bf16 compute for
     training, and the report, with every leaf's readings under
     ``leaves``."""
     import dataclasses
@@ -2165,16 +2280,32 @@ def phase_ssm_train_parity(arch: str, seed: int):
                           "worst_over_gate": sorted(
                               caught.items(), key=lambda kv: -kv[1][0])[:1],
                           "caught": bool(caught)}
-    del truth
     torch.cuda.empty_cache()
 
-    # bf16 compute, the same weights: reported, not gated
+    # bf16 compute, the same weights, as rwkv_train and jamba_train train:
+    # the kernels against the plain versions, and both against the float64
+    # pass (C4), each parameter beside the float32 kernel path's reading;
+    # reported, not gated
     model.cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     bl_k, bg_k = ssm_grads(model, batch)
+    err_bk = rel_l2_leaves(bg_k, truth)
     bl_p, bg_p = ssm_grads(model, batch, train_plain_patches())
+    err_bp = rel_l2_leaves(bg_p, truth)
+    del truth
     bf16 = rel_l2(bg_k, bg_p)
     del bg_k, bg_p
     torch.cuda.empty_cache()
+
+    def by_param(rel: dict) -> dict:
+        worst: dict[str, float] = {}
+        for n, e in rel.items():
+            worst[leaf_kind(n)] = max(worst.get(leaf_kind(n), 0.0), e)
+        return worst
+
+    bk, bp, fk = by_param(err_bk), by_param(err_bp), by_param(err_k)
+    vs_float64 = {kind: {"bf16_kernels": bk[kind], "bf16_plain": bp[kind],
+                         "float32_kernels": fk[kind]}
+                  for kind in sorted(bk, key=lambda n: -bk[n])}
     phase = "rwkv_train_parity" if arch == RWKV_ARCH else "jamba_train_parity"
     report = dict(
         phase=phase, arch=arch, seed=seed, n_layers=cfg.n_layers,
@@ -2192,7 +2323,10 @@ def phase_ssm_train_parity(arch: str, seed: int):
               "loss_rel_err": float((bl_k - bl_p).abs() / bl_p.abs()),
               "grad_rel_l2_max": bf16["max"],
               "grad_rel_l2_worst": bf16["worst"],
-              "grad_rel_l2_mean": bf16["mean"]},
+              "grad_rel_l2_mean": bf16["mean"],
+              "kernels_vs_float64": summary(err_bk),
+              "plain_vs_float64": summary(err_bp),
+              "vs_float64_by_param": vs_float64},
         controls=controls)
     emit(**report)
     report["leaves"] = {"kernels_vs_float64": err_k, "plain_vs_float64": err_p}

@@ -53,8 +53,13 @@
 //       dp^T = v do^T, p^T and ds^T in registers, repacked as A fragments
 //       for dv += p^T do and dk += ds^T q (do's and q's B fragments by
 //       ldmatrix.trans): no transposed copy of anything.
-//     Templates for hd 32, 64, 96, 128; hd 192 is refused (the two
-//     accumulators and the fragments held in registers pass 255 registers).
+//     Templates for hd 32, 64, 96, 128 and 192.  At hd 192 the fragments
+//     and accumulators above pass 255 registers, so that build changes two
+//     things (WIDE_HD): dq keeps its do rows in a shared tile staged once
+//     (A fragments by ldmatrix) and only q's in registers; and the dk/dv
+//     program is split in two halves of one grid, dv blocks and dk blocks,
+//     each recomputing p (the dk half also dp and ds) and keeping one
+//     accumulator of 96 floats a thread.
 //   * float32 (the parity path): the float32 parity gate (2e-4) rules out
 //     TF32, so it stays on the CUDA cores in float32.  Each product runs as
 //     4 x 4 register micro-tiles fed from transposed shared-memory tiles: the
@@ -471,15 +476,19 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // 2 * block threads owns `block` rows; 8 warps fill the register file.
 constexpr int MMA_MAX_THREADS = 256;
 constexpr int DQ_KSUB = 32;       // keys whose s and dp a dq warp holds at once
+// above this head_dim dq stages do and dk/dv is split in two (see the top)
+constexpr int WIDE_HD = 128;
 
 __host__ __device__ inline int64_t pitch(int hd) { return hd + 8; }
 
 // Shared memory, in bytes, of the two bf16 programs (must match the
 // Python-side kernel.smem_bytes_bwd): dq, a two-slot ring of k and v
-// tiles; dk/dv, the block's v tile (read as A fragments) and a two-slot
-// ring of q and do tiles with their rows' lse and delta.
-__host__ __device__ inline int64_t smem_bytes_dq_bf16(int bk, int hd) {
-    return 2LL * 2 * bk * pitch(hd) * (int64_t)sizeof(bf16);
+// tiles (above WIDE_HD also the block's do rows); dk/dv, the block's v
+// tile (read as A fragments) and a two-slot ring of q and do tiles with
+// their rows' lse and delta.
+__host__ __device__ inline int64_t smem_bytes_dq_bf16(int bq, int bk, int hd) {
+    return 2LL * 2 * bk * pitch(hd) * (int64_t)sizeof(bf16)
+         + (hd > WIDE_HD ? (int64_t)bq * pitch(hd) * sizeof(bf16) : 0);
 }
 
 __host__ __device__ inline int64_t smem_bytes_dkv_bf16(int bq, int bk, int hd) {
@@ -497,9 +506,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          int bq, int bk, int causal, int q_offset, float scale) {
     using namespace flash;
     constexpr int KT = HD / 16, DT = HD / 8, LD = HD + 8, NS = DQ_KSUB / 8;
+    constexpr bool DO_SMEM = HD > WIDE_HD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // 2 x (k, v) tiles
     const int tile = bk * LD;
+    bf16* dos = ring + 4 * tile;                      // DO_SMEM: bq x LD
 
     // heaviest query blocks (the most key blocks under the diagonal) first
     const int n_qb = (tq + bq - 1) / bq;
@@ -513,9 +524,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool live = r0 < tq;
     const int row0 = r0 + g, row1 = row0 + 8;
 
-    uint32_t qf[KT][4], df[KT][4];
+    uint32_t qf[KT][4], df[DO_SMEM ? 1 : KT][4];
     load_a_rows<HD>(qf, q + b * st.q.b + h * st.q.h, st.q.t, r0, tq, lane);
-    load_a_rows<HD>(df, dout + b * st.d.b + h * st.d.h, st.d.t, r0, tq, lane);
+    if constexpr (DO_SMEM)
+        stage_rows_async<HD>(dos, dout + b * st.d.b + h * st.d.h, st.d.t, q0,
+                             bq, tq);   // lands with the ring's first group
+    else
+        load_a_rows<HD>(df, dout + b * st.d.b + h * st.d.h, st.d.t, r0, tq, lane);
     const float* lse_h = lse + (int64_t)bh * tq;
     const float* dl_h = delta + (int64_t)bh * tq;
     const float lse0 = row0 < tq ? lse_h[row0] * LOG2E : 0.f;
@@ -571,6 +586,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             // s = q k^T, dp = do v^T
 #pragma unroll
             for (int kk = 0; kk < KT; ++kk) {
+                uint32_t da[4];
+                if constexpr (DO_SMEM) {
+                    ldsm_x4(da, dos + 16 * warp * LD + kk * 16 + t_off);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) da[e] = df[kk][e];
+                }
 #pragma unroll
                 for (int np = 0; np < NN / 2; ++np) {
                     uint32_t bb[4];
@@ -578,8 +600,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     mma(s[2 * np], qf[kk], bb[0], bb[1]);
                     mma(s[2 * np + 1], qf[kk], bb[2], bb[3]);
                     ldsm_x4(bb, vs + (c0 + 16 * np) * LD + kk * 16 + b_off);
-                    mma(dp[2 * np], df[kk], bb[0], bb[1]);
-                    mma(dp[2 * np + 1], df[kk], bb[2], bb[3]);
+                    mma(dp[2 * np], da, bb[0], bb[1]);
+                    mma(dp[2 * np + 1], da, bb[2], bb[3]);
                 }
             }
             // p = exp(s - lse) (0 where masked), ds = p (dp - delta), in place
@@ -643,6 +665,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           int causal, int q_offset, float scale) {
     using namespace flash;
     constexpr int KT = HD / 16, DT = HD / 8, LD = HD + 8;
+    // above WIDE_HD the grid's blocks alternate: dv (part 0), dk (part 1),
+    // each with one accumulator (dka); below, a block computes both
+    constexpr bool SPLIT = HD > WIDE_HD;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* vs = reinterpret_cast<bf16*>(smem_raw);          // bk x LD
     unsigned char* ring = smem_raw + (size_t)bk * LD * sizeof(bf16);
@@ -650,8 +675,11 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                             + 2 * (size_t)bq * sizeof(float);
 
     // heaviest key blocks (the most query blocks under the diagonal) first
-    const int bh = (int)(blockIdx.x % n_bh);
-    const int kb = (int)(blockIdx.x / n_bh);
+    const int part = SPLIT ? (int)(blockIdx.x & 1) : 1;
+    const int block = SPLIT ? (int)(blockIdx.x >> 1) : (int)blockIdx.x;
+    const bool want_dp = !SPLIT || part == 1;    // dk needs dp and ds
+    const int bh = block % n_bh;
+    const int kb = block / n_bh;
     const int b = bh / n_heads, h = bh - b * n_heads;
     const int k0 = kb * bk;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -662,14 +690,19 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // the block's v rows for dp^T = v do^T (A fragments by ldmatrix), the
     // warp's k rows as A fragments in registers
-    stage_rows_async<HD>(vs, v + b * st.v.b + h * st.v.h, st.v.t, k0, bk, tk);
+    if (want_dp)
+        stage_rows_async<HD>(vs, v + b * st.v.b + h * st.v.h, st.v.t, k0, bk, tk);
     uint32_t kf[KT][4];
     load_a_rows<HD>(kf, k + b * st.k.b + h * st.k.h, st.k.t, kr0, tk, lane);
-    float dka[DT][4], dva[DT][4];
+    float dka[DT][4], dva[SPLIT ? 1 : DT][4];
 #pragma unroll
     for (int n = 0; n < DT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dka[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < (SPLIT ? 1 : DT); ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dva[n][e] = 0.f;
     const float sl2 = scale * LOG2E;
     const int b_off = nt_offset(lane, LD), t_off = kn_offset(lane, LD);
 
@@ -730,10 +763,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                 ldsm_x4(bb, qs + c0 * LD + kk * 16 + b_off);
                 mma(s[0], kf[kk], bb[0], bb[1]);
                 mma(s[1], kf[kk], bb[2], bb[3]);
-                ldsm_x4(va, vs + 16 * warp * LD + kk * 16 + t_off);
-                ldsm_x4(bb, dos + c0 * LD + kk * 16 + b_off);
-                mma(dp[0], va, bb[0], bb[1]);
-                mma(dp[1], va, bb[2], bb[3]);
+                if (want_dp) {
+                    ldsm_x4(va, vs + 16 * warp * LD + kk * 16 + t_off);
+                    ldsm_x4(bb, dos + c0 * LD + kk * 16 + b_off);
+                    mma(dp[0], va, bb[0], bb[1]);
+                    mma(dp[1], va, bb[2], bb[3]);
+                }
             }
             // p^T = exp(s^T - lse) (0 where masked), ds^T = p^T (dp^T - delta)
             const bool edge = qbase + 16 > tq || kr0 + 16 > tk
@@ -759,20 +794,35 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                 }
             }
             // dv += p^T do, dk += ds^T q: do and q through ldmatrix.trans
-            uint32_t pa[4], sa[4];
-            c_to_a(pa, s[0], s[1]);
-            c_to_a(sa, dp[0], dp[1]);
             const bf16* drow = dos + c0 * LD + t_off;
             const bf16* qrow = qs + c0 * LD + t_off;
+            if constexpr (SPLIT) {
+                // the block's one product: p^T do (dv) or ds^T q (dk)
+                uint32_t a[4];
+                if (part) c_to_a(a, dp[0], dp[1]);
+                else c_to_a(a, s[0], s[1]);
+                const bf16* brow = part ? qrow : drow;
 #pragma unroll
-            for (int d2 = 0; d2 < DT / 2; ++d2) {
-                uint32_t bb[4];
-                ldsm_x4_t(bb, drow + 16 * d2);
-                mma(dva[2 * d2], pa, bb[0], bb[1]);
-                mma(dva[2 * d2 + 1], pa, bb[2], bb[3]);
-                ldsm_x4_t(bb, qrow + 16 * d2);
-                mma(dka[2 * d2], sa, bb[0], bb[1]);
-                mma(dka[2 * d2 + 1], sa, bb[2], bb[3]);
+                for (int d2 = 0; d2 < DT / 2; ++d2) {
+                    uint32_t bb[4];
+                    ldsm_x4_t(bb, brow + 16 * d2);
+                    mma(dka[2 * d2], a, bb[0], bb[1]);
+                    mma(dka[2 * d2 + 1], a, bb[2], bb[3]);
+                }
+            } else {
+                uint32_t pa[4], sa[4];
+                c_to_a(pa, s[0], s[1]);
+                c_to_a(sa, dp[0], dp[1]);
+#pragma unroll
+                for (int d2 = 0; d2 < DT / 2; ++d2) {
+                    uint32_t bb[4];
+                    ldsm_x4_t(bb, drow + 16 * d2);
+                    mma(dva[2 * d2], pa, bb[0], bb[1]);
+                    mma(dva[2 * d2 + 1], pa, bb[2], bb[3]);
+                    ldsm_x4_t(bb, qrow + 16 * d2);
+                    mma(dka[2 * d2], sa, bb[0], bb[1]);
+                    mma(dka[2 * d2 + 1], sa, bb[2], bb[3]);
+                }
             }
         }
     }
@@ -780,6 +830,23 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     bf16* dkg = dk + b * st.dk.b + h * st.dk.h;
     bf16* dvg = dv + b * st.dv.b + h * st.dv.h;
+    if constexpr (SPLIT) {
+        // part 1 holds dk (scaled), part 0 dv
+        bf16* og = part ? dkg : dvg;
+        const int64_t ot = part ? st.dk.t : st.dv.t;
+        const float sc = part ? scale : 1.f;
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+            const int d = 8 * n + 2 * t4;
+            if (key0 < tk)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)key0 * ot + d) =
+                    pack_bf16(dka[n][0] * sc, dka[n][1] * sc);
+            if (key1 < tk)
+                *reinterpret_cast<uint32_t*>(og + (int64_t)key1 * ot + d) =
+                    pack_bf16(dka[n][2] * sc, dka[n][3] * sc);
+        }
+        return;
+    }
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
         const int d = 8 * n + 2 * t4;
@@ -808,7 +875,7 @@ int launch_bf16_hd(const void* q, const void* k, const void* v,
     const int n_bh = batch * n_heads;
     const AllStrides st = unpack(strides);
     if (dq != nullptr) {
-        const size_t smem = (size_t)smem_bytes_dq_bf16(bk, HD);
+        const size_t smem = (size_t)smem_bytes_dq_bf16(bq, bk, HD);
         cudaError_t err = cudaFuncSetAttribute(
             flash_bwd_dq_bf16_kernel<HD>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -825,7 +892,8 @@ int launch_bf16_hd(const void* q, const void* k, const void* v,
             flash_bwd_dkv_bf16_kernel<HD>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
-        const int64_t blocks = (int64_t)n_bh * ((tk + bk - 1) / bk);
+        const int64_t blocks = (int64_t)n_bh * ((tk + bk - 1) / bk)
+                             * (HD > WIDE_HD ? 2 : 1);
         flash_bwd_dkv_bf16_kernel<HD><<<(unsigned)blocks, 2 * bk, smem,
                                         (cudaStream_t)stream>>>(
             (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
@@ -855,6 +923,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
         BWD_BF16(64)
         BWD_BF16(96)
         BWD_BF16(128)
+        BWD_BF16(192)
         default: return (int)cudaErrorInvalidValue;
     }
 #undef BWD_BF16
@@ -870,7 +939,7 @@ extern "C" {
 // lse and delta: (B, H, Tq) float32, contiguous.  float32: bq, bk and hd
 // multiples of 4; threads a multiple of 32 in [32, 512].  bfloat16: bq ==
 // bk == threads / 2, a multiple of 16, threads <= 256; hd in {32, 64, 96,
-// 128}; every stride a multiple of 8 and every pointer 16-byte aligned.
+// 128, 192}; every stride a multiple of 8 and every pointer 16-byte aligned.
 
 int flash_attention_bwd_dq_f32(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,

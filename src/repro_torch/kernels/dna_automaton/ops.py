@@ -21,7 +21,8 @@ from .kernel import (count_hits, count_hits_plain, state_map,
 
 DNA_SYMBOLS = "ACGT"
 
-DEFAULTS = {"map_chunk": 2048, "count_chunk": 2048, "block_threads": 256}
+DEFAULTS = {"map_chunk": 65536, "count_chunk": 65536, "block_threads": 64,
+            "gram": 4}
 
 
 def build_motif_dfa(motif: str) -> tuple[np.ndarray, np.ndarray]:
@@ -108,15 +109,17 @@ def fa_match_plain(text: torch.Tensor, table, accept, *, chunk: int = 2048,
 
 def fa_match(text, table, accept, *, chunk: int | None = None,
              map_chunk: int | None = None, count_chunk: int | None = None,
-             block_threads: int | None = None, start_state: int = 0,
-             tuned: bool | None = None, device=None) -> torch.Tensor:
+             block_threads: int | None = None, gram: int | None = None,
+             start_state: int = 0, tuned: bool | None = None,
+             device=None) -> torch.Tensor:
     """Total motif matches in ``text`` ((T,) uint8 symbols). int32 scalar.
 
     The two passes chunk independently (``map_chunk``/``count_chunk``);
     ``chunk`` sets both at once (legacy knob).  The count pass needs the
     automaton state at its own chunk boundaries, so ``count_chunk`` must
     be a multiple of ``map_chunk`` — otherwise it is clamped down to the
-    map granularity.  ``tuned=True`` resolves the cached best launch
+    map granularity.  ``gram`` is the symbols a table lookup advances
+    (1, 2 or 4).  ``tuned=True`` resolves the cached best launch
     parameters for this (shape, dtype, device); ``tuned=None`` does so
     only when tuning was enabled globally
     (``repro_torch.tune.kernels.configure``).
@@ -138,13 +141,13 @@ def fa_match(text, table, accept, *, chunk: int | None = None,
         overrides={"map_chunk": map_chunk if map_chunk is not None else chunk,
                    "count_chunk": (count_chunk if count_chunk is not None
                                    else chunk),
-                   "block_threads": block_threads},
+                   "block_threads": block_threads, "gram": gram},
         tuned=tuned, device=dev)
     mc = largest_aligned_divisor(t, p["map_chunk"])
     cc = largest_aligned_divisor(t, p["count_chunk"])
     if cc % mc:
         cc = mc
-    bt = p["block_threads"]
+    launch = {"block_threads": p["block_threads"], "gram": p["gram"]}
     return _match(text, table, accept, mc, cc, start_state,
-                  functools.partial(state_map, block_threads=bt),
-                  functools.partial(count_hits, block_threads=bt))
+                  functools.partial(state_map, **launch),
+                  functools.partial(count_hits, **launch))

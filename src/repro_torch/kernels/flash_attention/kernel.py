@@ -36,9 +36,12 @@ Each build has its own launch point (``FWD_LAUNCH``, ``BWD_LAUNCH``),
 taken for any launch parameter left ``None``, its own shared-memory
 layout (``smem_bytes``, ``smem_bytes_bwd``) and its own checks; the
 bfloat16 builds are compiled for the head_dims the repo's configs carry
-(``BF16_HEAD_DIMS``; the backward's registers do not hold hd 192,
-``BWD_BF16_HEAD_DIMS``), and an unbuilt head_dim is refused before any
-launch, on the CPU too.
+(``BF16_HEAD_DIMS``, ``BWD_BF16_HEAD_DIMS``; at hd 192 the backward keeps
+dq's do rows in shared memory and splits the dk/dv program's blocks into
+dv and dk halves of one grid, since its fragments and two accumulators
+would pass 255 registers, and its launch point is cut to the card's
+shared memory: ``fit_bwd_launch``), and an unbuilt head_dim is refused
+before any launch, on the CPU too.
 
 A wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version (``flash_attention_fwd_plain``,
@@ -59,7 +62,8 @@ from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
 __all__ = ["BF16_HEAD_DIMS", "BWD_BF16_HEAD_DIMS", "BWD_LAUNCH", "DTYPES",
            "FWD_LAUNCH", "MAX_BWD_THREADS", "MAX_HD_TWO_TILES",
-           "MMA_MAX_THREADS", "NEG_INF", "STAGES", "flash_attention_bwd",
+           "MMA_MAX_THREADS", "NEG_INF", "STAGES", "fit_bwd_launch",
+           "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "smem_bytes", "smem_bytes_bwd"]
 
@@ -71,12 +75,12 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_BWD_THREADS = 512
 # the bfloat16 kernels: a warp per 16 rows (the forward: or 32) with up to
 # 255 registers, so at most 8 warps a block; templates per head_dim (the
-# backward's q/do or k fragments and two accumulators do not fit 255
-# registers at hd 192, nor the forward's two row tiles)
+# forward's two row tiles do not fit 255 registers at hd 192; the
+# backward's hd 192 build holds one accumulator a block, see the top)
 MMA_MAX_THREADS = 256
 MAX_HD_TWO_TILES = 128
 BF16_HEAD_DIMS = (32, 64, 96, 128, 192)
-BWD_BF16_HEAD_DIMS = (32, 64, 96, 128)
+BWD_BF16_HEAD_DIMS = (32, 64, 96, 128, 192)
 STAGES = (1, 2, 3, 4)
 # each build's launch point, for launch parameters left None
 FWD_LAUNCH = {
@@ -156,20 +160,35 @@ def smem_bytes_bwd(block_q: int, block_k: int, hd: int,
     dk/dv, k, v, q and do transposed, p and ds, both accumulators, lse and
     delta; transposed rows padded by one word.  bfloat16
     (``smem_bytes_dq_bf16``/``smem_bytes_dkv_bf16``; the fragments and
-    accumulators live in registers): dq, a two-slot ring of k and v tiles;
-    dk/dv, the block's v tile and a two-slot ring of q and do tiles with
-    their rows' lse and delta; bf16 rows at a pitch of ``hd + 8``.
+    accumulators live in registers): dq, a two-slot ring of k and v tiles
+    (above hd 128 also the block's do rows); dk/dv, the block's v tile and
+    a two-slot ring of q and do tiles with their rows' lse and delta; bf16
+    rows at a pitch of ``hd + 8``.
     """
     bq, bk = block_q, block_k
     if dtype == torch.bfloat16:
         ld = hd + 8
         dq = 2 * 2 * bk * ld * 2
         dkv = bk * ld * 2 + 2 * (2 * bq * ld * 2 + 2 * bq * 4)
+        if hd > MAX_HD_TWO_TILES:
+            dq += bq * ld * 2        # the block's do rows
         return max(dq, dkv)
     dq = 2 * hd * (bq + 1) + 2 * hd * (bk + 1) + bq * (bk + 1) + bq * hd + 2 * bq
     dkv = (2 * hd * (bk + 1) + 2 * hd * (bq + 1) + 2 * bq * (bk + 1)
            + 2 * bk * hd + 2 * bq)
     return 4 * max(dq, dkv)
+
+
+def fit_bwd_launch(dtype: torch.dtype, hd: int) -> dict:
+    """The backward's launch point for ``dtype`` at ``hd``: ``BWD_LAUNCH``,
+    the bfloat16 blocks halved while their tiles pass the card's shared
+    memory (hd 192: 64 x 64 at 128 threads); the other head_dims keep it."""
+    p = dict(BWD_LAUNCH.get(dtype, BWD_LAUNCH[torch.float32]))
+    while (dtype == torch.bfloat16 and p["block_q"] > 16
+           and smem_bytes_bwd(p["block_q"], p["block_k"], hd, dtype)
+           > SMEM_LIMIT_BYTES):
+        p = {k: v // 2 for k, v in p.items()}
+    return p
 
 
 def _check_tensors(q, k, v) -> None:
@@ -419,9 +438,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     repeated; ``lse`` (B, H, Tq) float32 as :func:`flash_attention_fwd`
     returns it.  Returns dq, dk, dv in the inputs' dtype, each written by
     exactly one block (no atomics: the same inputs give the same bits).
-    Launch parameters left ``None`` take the build's (``BWD_LAUNCH``).
+    Launch parameters left ``None`` take the build's (``BWD_LAUNCH``, cut
+    to the card's shared memory at hd 192: ``fit_bwd_launch``).
     """
-    p = _launch(BWD_LAUNCH, q, block_q=block_q, block_k=block_k,
+    hd = q.shape[-1] if isinstance(q, torch.Tensor) else 0
+    p = _launch({dt: fit_bwd_launch(dt, hd) for dt in BWD_LAUNCH}, q,
+                block_q=block_q, block_k=block_k,
                 block_threads=block_threads)
     block_q, block_k, block_threads = (p["block_q"], p["block_k"],
                                        p["block_threads"])

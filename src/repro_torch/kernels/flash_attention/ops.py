@@ -19,10 +19,11 @@ Each build has its own launch points.  The bfloat16 forward's
 replace; the float32 forward, the parity path, keeps ``F32_DEFAULTS``
 (the space is the bfloat16 build's, and a float32 record is never
 written).  The backward's are ``BWD_DEFAULTS`` (bfloat16) and
-``BWD_F32_DEFAULTS``: the reference reuses the forward's blocks, but the
-backward programs own their rows differently and there is no backward
-tuning space.  Other backward blocks are reached through
-``flash_attention_bwd``'s own keywords.
+``BWD_F32_DEFAULTS``, as ``fit_bwd_launch`` cuts them to the card's
+shared memory (bfloat16 at hd 192: 64 x 64): the reference reuses the
+forward's blocks, but the backward programs own their rows differently
+and there is no backward tuning space.  Other backward blocks are reached
+through ``flash_attention_bwd``'s own keywords.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import (BWD_LAUNCH, FWD_LAUNCH, flash_attention_bwd,
-                     flash_attention_fwd)
+from .kernel import (BWD_LAUNCH, FWD_LAUNCH, fit_bwd_launch,
+                     flash_attention_bwd, flash_attention_fwd)
 
 DEFAULTS = dict(FWD_LAUNCH[torch.bfloat16])
 F32_DEFAULTS = dict(FWD_LAUNCH[torch.float32])
@@ -57,8 +58,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # do arrives as a view of the output projection's gradient
-        launch = (BWD_DEFAULTS if q.dtype == torch.bfloat16
-                  else BWD_F32_DEFAULTS)
+        launch = fit_bwd_launch(q.dtype, q.shape[-1])
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          causal=ctx.causal,
                                          q_offset=ctx.q_offset, **launch)

@@ -50,6 +50,7 @@ from ...convert import dfa_to_device
 from ...core.space import ConfigSpace, Param
 from ...kernels.decode_attention import kernel as da_kernel
 from ...kernels.decode_attention.ops import DEFAULTS as DA_DEFAULTS
+from ...kernels.dna_automaton import kernel as dna_kernel
 from ...kernels.dna_automaton.ops import (DEFAULTS as DNA_DEFAULTS,
                                           build_motif_dfa, fa_match,
                                           fa_match_plain, random_dna_text)
@@ -67,13 +68,17 @@ from .registry import KernelSpec, dtype_name, register_kernel
 __all__ = ["ATTN_BLOCKS", "ATTN_BLOCKS_Q", "ATTN_STAGES", "ATTN_THREADS",
            "BLOCK_THREADS", "BWD_SPLITS",
            "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_STAGES",
-           "DECODE_THREADS",
+           "DECODE_THREADS", "GRAMS",
            "SCAN_BLOCK_D", "SCAN_BWD_CHUNKS", "SCAN_CHUNKS", "SCAN_LANES",
            "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_BWD_COLS",
            "WKV_BWD_PARTS", "WKV_BWD_THREADS", "WKV_THREADS"]
 
-TEXT_CHUNKS = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
-BLOCK_THREADS = (64, 128, 256, 512, 1024)
+# the DNA kernels: map and count chunks, threads a block (at most 256, so a
+# thread may hold 255 registers; a warp's ring of text slots takes 13.5
+# KB), symbols a lookup
+TEXT_CHUNKS = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
+BLOCK_THREADS = (64, 128, 256)
+GRAMS = dna_kernel.GRAMS
 # flash attention (the bfloat16 build): key blocks, query blocks, threads
 # (a warp per 16 or 32 query rows, at most 8 warps), and the depth of the
 # ring that brings k and v in
@@ -101,10 +106,6 @@ WKV_BWD_THREADS = (64, 128, 256, 512)
 WKV_BWD_COLS = wkv_kernel.BWD_COLS
 WKV_BWD_PARTS = wkv_kernel.BWD_PARTS
 
-# what a block gets without opting in to more dynamic shared memory
-SMEM_DEFAULT_BYTES = 48 * 1024
-
-
 def _divides(extent: int, block: int, name: str) -> str | None:
     if block > extent:
         return f"{name}={block} exceeds extent {extent}"
@@ -128,19 +129,28 @@ def _dna_space(meta: Mapping[str, Any]) -> ConfigSpace:
         Param("map_chunk", TEXT_CHUNKS),
         Param("count_chunk", TEXT_CHUNKS),
         Param("block_threads", BLOCK_THREADS),
+        Param("gram", GRAMS),
     ])
 
 
 def _dna_validate(cfg, meta) -> str | None:
-    mc, cc, t = cfg["map_chunk"], cfg["count_chunk"], meta["t"]
-    err = (_divides(t, mc, "map_chunk") or _divides(t, cc, "count_chunk")
-           or _smem(16 * meta["s"], SMEM_DEFAULT_BYTES))
+    mc, cc, t, s = cfg["map_chunk"], cfg["count_chunk"], meta["t"], meta["s"]
+    bt, gram = cfg["block_threads"], cfg["gram"]
+    err = _divides(t, mc, "map_chunk") or _divides(t, cc, "count_chunk")
     if err:
         return err
     if cc % mc:
         return (f"count_chunk={cc} is not a multiple of map_chunk={mc} "
                 "(count start states live at map-chunk boundaries)")
-    return None
+    if s > dna_kernel.MAX_STATES:
+        return f"S={s} states above {dna_kernel.MAX_STATES}"
+    # a walker's range (a count chunk; a state-map slice, whole 16-byte
+    # units of its chunk) is a whole number of 16-byte copies and k-grams
+    if mc % 16 or cc % 16:
+        return (f"map_chunk={mc} or count_chunk={cc} is not a whole number "
+                "of 16-byte copies")
+    return (_smem(dna_kernel.smem_bytes(dna_kernel.route_of(s), s, bt, gram))
+            or _smem(dna_kernel.smem_bytes("count", s, bt, gram)))
 
 
 def _dna_inputs(meta, dtype, rng, device):
@@ -160,7 +170,8 @@ def _dna_run(cfg, inputs):
     text, table, accept = inputs
     return fa_match(text, table, accept, map_chunk=cfg["map_chunk"],
                     count_chunk=cfg["count_chunk"],
-                    block_threads=cfg["block_threads"], tuned=False)
+                    block_threads=cfg["block_threads"], gram=cfg["gram"],
+                    tuned=False)
 
 
 def _dna_ref(inputs):

@@ -218,7 +218,7 @@ def test_flash_space_keeps_64_points(hd):
 
 
 @pytest.mark.parametrize("which, hd", [("fwd", 48), ("fwd", 80),
-                                       ("bwd", 192), ("bwd", 48)])
+                                       ("bwd", 48)])
 def test_an_unbuilt_head_dim_is_refused_before_launch(which, hd,
                                                       monkeypatch):
     """A bfloat16 head_dim with no template is a ValueError that names it,
@@ -241,6 +241,37 @@ def test_an_unbuilt_head_dim_is_refused_before_launch(which, hd,
                 fa_kernel.flash_attention_bwd(q, q, q, q, lse, q)
     assert (fa_kernel.flash_attention_fwd.launches,
             fa_kernel.flash_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_the_hd_192_bf16_backward_passes_the_wrappers_checks(device,
+                                                            monkeypatch):
+    """A bfloat16 backward at head_dim 192 (nemotron4's) is built: at its
+    launch point (64 x 64, cut to the card's shared memory) it passes
+    every check; on the CPU it returns the plain version's gradients,
+    off the CPU it goes on to the library, and no launch is counted
+    before the kernel runs."""
+    def reached(*a, **k):
+        raise LookupError("the library was asked for")
+
+    monkeypatch.setattr(fa_kernel, "_library_bwd", reached)
+    launch = fa_kernel.fit_bwd_launch(torch.bfloat16, 192)
+    assert launch == {"block_q": 64, "block_k": 64, "block_threads": 128}
+    assert fa_kernel.smem_bytes_bwd(64, 64, 192, torch.bfloat16) \
+        <= fa_kernel.SMEM_LIMIT_BYTES
+    before = fa_kernel.flash_attention_bwd.launches
+    q = torch.zeros((1, 40, 2, 192), dtype=torch.bfloat16, device=device)
+    lse = torch.zeros((1, 2, 40), device=device)
+    for kw in ({}, launch):
+        if device == "cpu":
+            grads = fa_kernel.flash_attention_bwd(q, q, q, q, lse, q,
+                                                  q_offset=8, **kw)
+            assert [g.shape for g in grads] == [q.shape] * 3
+        else:
+            with pytest.raises(LookupError, match="library"):
+                fa_kernel.flash_attention_bwd(q, q, q, q, lse, q,
+                                              q_offset=8, **kw)
+    assert fa_kernel.flash_attention_bwd.launches == before
 
 
 def test_flash_wrapper_refuses_bad_tensors():

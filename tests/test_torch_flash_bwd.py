@@ -43,6 +43,7 @@ def both(arr: np.ndarray, dtype: str):
     (2, 64, 64, 2, 32, True, 0, "bfloat16"),
     (1, 33, 33, 4, 64, True, 0, "bfloat16"),
     (1, 16, 40, 2, 32, True, 24, "bfloat16"),
+    (1, 33, 45, 2, 192, True, 12, "bfloat16"),    # hd 192, ragged, q_offset
 ])
 def test_bwd_plain_matches_jax_vjp(b, tq, tk, h, hd, causal, q_offset, dtype):
     rng = np.random.default_rng(17)
@@ -194,10 +195,17 @@ def test_bwd_smem_accounting_and_defaults(dtype):
         ld = hd + 8
         assert fa_kernel.smem_bytes_bwd(64, 64, hd, dtype) == max(
             2 * 2 * 64 * ld * 2, 64 * ld * 2 + 2 * (2 * 64 * ld * 2 + 2 * 64 * 4))
-        # the largest block (8 warps) fits every built head_dim
+        # the largest block (8 warps) fits every built head_dim up to 128;
+        # hd 192 (dq also stages its do rows) is cut to 64 x 64
         for d in fa_kernel.BWD_BF16_HEAD_DIMS:
-            assert fa_kernel.smem_bytes_bwd(128, 128, d, dtype) \
-                <= SMEM_LIMIT_BYTES
+            fit = fa_kernel.fit_bwd_launch(dtype, d)
+            assert fa_kernel.smem_bytes_bwd(fit["block_q"], fit["block_k"], d,
+                                            dtype) <= SMEM_LIMIT_BYTES
+            assert fit == (launch if d <= 128 else {
+                "block_q": 64, "block_k": 64, "block_threads": 128})
+        assert fa_kernel.smem_bytes_bwd(64, 64, 192, dtype) == max(
+            2 * 2 * 64 * 200 * 2 + 64 * 200 * 2,
+            64 * 200 * 2 + 2 * (2 * 64 * 200 * 2 + 2 * 64 * 4))
 
 
 def test_a_tensor_off_the_cpu_takes_the_kernel_or_raises(monkeypatch):

@@ -18,7 +18,7 @@ from repro_torch.kernels.dna_automaton import ops as dna_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
 from repro_torch.tune.kernels import KernelTimer
-from repro_torch.tune.kernels.specs import BLOCK_THREADS, TEXT_CHUNKS
+from repro_torch.tune.kernels.specs import BLOCK_THREADS, GRAMS, TEXT_CHUNKS
 
 
 @pytest.fixture
@@ -34,6 +34,13 @@ def smoke_timer(**kw):
                              repeats=1, **kw)
 
 
+def smoke_default(spec):
+    """The spec's default at the smoke shape: the nearest valid point
+    where the hardcoded defaults exceed the smoke text (the timer's own
+    notion of the default)."""
+    return spec.default_config(spec.space(spec.smoke_shape), spec.smoke_shape)
+
+
 # -- registry ------------------------------------------------------------------------
 
 def test_dna_space_is_redrawn_for_the_card():
@@ -43,15 +50,20 @@ def test_dna_space_is_redrawn_for_the_card():
                                    "mamba_scan_bwd", "rwkv6_wkv",
                                    "rwkv6_wkv_bwd"]
     space = spec.space(spec.default_shape)
-    assert space.names == ("map_chunk", "count_chunk", "block_threads")
-    assert space.size() == 500 >= 64
-    assert space["block_threads"].values == BLOCK_THREADS == (64, 128, 256, 512, 1024)
+    assert space.names == ("map_chunk", "count_chunk", "block_threads",
+                           "gram")
+    assert 64 <= space.size() == 441 <= 500
+    assert space["block_threads"].values == BLOCK_THREADS == (64, 128, 256)
     assert space["map_chunk"].values == TEXT_CHUNKS
+    assert space["gram"].values == GRAMS == (1, 2, 4)
+    valid = [c for c in space.enumerate()
+             if spec.validate(c, spec.default_shape) is None]
+    assert len(valid) >= 64
     assert all(p.ordinal for p in space.params)
     assert spec.default_shape == {"t": 3 * 2 ** 30, "s": 7}
     assert spec.smoke_shape == {"t": 4096, "s": 7}
     assert dict(spec.defaults) == dna_ops.DEFAULTS
-    assert dna_ops.DEFAULTS["block_threads"] == 256
+    assert spec.validate(dna_ops.DEFAULTS, spec.default_shape) is None
     assert (spec.atol, spec.rtol) == (0.0, 0.0)
     assert ktune.SMEM_LIMIT_BYTES == 232448
 
@@ -103,10 +115,10 @@ def test_space_has_valid_default_and_invalid_candidates(shape):
 
 def test_default_config_moves_to_nearest_valid_point():
     spec = ktune.get_kernel("dna_automaton")
-    meta = {"t": 1024, "s": 7}                    # 2048 exceeds the text
+    meta = {"t": 1024, "s": 7}               # the defaults exceed the text
     cfg = spec.default_config(spec.space(meta), meta)
     assert spec.validate(cfg, meta) is None
-    assert cfg == {"map_chunk": 1024, "count_chunk": 1024, "block_threads": 256}
+    assert cfg == dict(dna_ops.DEFAULTS, map_chunk=1024, count_chunk=1024)
     with pytest.raises(ValueError, match="no valid config"):
         spec.default_config(spec.space({"t": 100, "s": 7}), {"t": 100, "s": 7})
 
@@ -114,13 +126,20 @@ def test_default_config_moves_to_nearest_valid_point():
 def test_validation_reasons():
     spec = ktune.get_kernel("dna_automaton")
     meta = spec.smoke_shape
-    ok = {"map_chunk": 256, "count_chunk": 512, "block_threads": 64}
+    ok = {"map_chunk": 1024, "count_chunk": 2048, "block_threads": 128,
+          "gram": 4}
     assert spec.validate(ok, meta) is None
     assert "exceeds" in spec.validate(dict(ok, map_chunk=8192), meta)
     assert "not a multiple" in spec.validate(
-        dict(ok, map_chunk=512, count_chunk=256), meta)
-    assert "does not divide" in spec.validate(ok, {"t": 4096 + 256 * 3, "s": 7})
-    assert "shared-memory" in spec.validate(ok, {"t": 4096, "s": 4000})
+        dict(ok, map_chunk=2048, count_chunk=1024), meta)
+    assert "does not divide" in spec.validate(ok, {"t": 4096 + 1024 * 3,
+                                                   "s": 7})
+    assert "16-byte copies" in spec.validate(
+        dict(ok, map_chunk=1000, count_chunk=2000), {"t": 4000, "s": 7})
+    assert "states above" in spec.validate(ok, {"t": 4096, "s": 4000})
+    # 512 threads: 16 warps' rings of text slots pass the shared memory
+    assert "shared-memory" in spec.validate(
+        dict(ok, block_threads=512), meta)
 
 
 def test_unknown_kernel_raises():
@@ -166,7 +185,8 @@ def test_timer_inputs_share_the_reference_numpy_stream():
 
 def test_invalid_config_scores_inf_without_measuring():
     _, timer = smoke_timer()
-    bad = {"map_chunk": 8192, "count_chunk": 8192, "block_threads": 256}
+    bad = {"map_chunk": 8192, "count_chunk": 8192, "block_threads": 256,
+           "gram": 4}
     assert timer(bad) == float("inf")
     assert timer.n_measured == 0
     assert "exceed" in next(iter(timer.rejected.values()))
@@ -174,7 +194,7 @@ def test_invalid_config_scores_inf_without_measuring():
 
 def test_measurements_deduplicate():
     spec, timer = smoke_timer()
-    cfg = dict(spec.defaults)
+    cfg = smoke_default(spec)
     first = timer(cfg)
     assert timer(dict(cfg)) == first and timer.n_measured == 1
 
@@ -185,7 +205,7 @@ def with_run(spec, run):
 
 def test_only_a_refused_launch_scores_inf(monkeypatch):
     spec = ktune.get_kernel("dna_automaton")
-    cfg = dict(spec.defaults)
+    cfg = smoke_default(spec)
 
     def refused(cfg, inputs):
         raise KernelLaunchError("too many resources requested for launch")
@@ -214,11 +234,12 @@ def test_parity_failure_is_fatal_at_the_default_only():
 
     timer = KernelTimer(with_run(spec, wrong), spec.smoke_shape, "uint8",
                         device="cpu", repeats=1)
-    other = {"map_chunk": 256, "count_chunk": 256, "block_threads": 64}
+    other = {"map_chunk": 1024, "count_chunk": 1024, "block_threads": 128,
+             "gram": 2}
     assert timer(other) == float("inf") and timer.n_measured == 0
     assert "parity" in next(iter(timer.rejected.values()))
     with pytest.raises(RuntimeError, match="default configuration"):
-        timer(dict(spec.defaults))
+        timer(smoke_default(spec))
 
 
 @pytest.mark.parametrize("probe_s, calls", [
@@ -250,7 +271,7 @@ def test_card_timer_times_batches_of_back_to_back_calls(monkeypatch, probe_s,
     monkeypatch.setattr(timer, "device", torch.device("cuda"))
     monkeypatch.setattr(timer, "_sync", lambda: None)
     assert evaluate.MIN_BATCH_S == 1e-3 and evaluate.MAX_BATCH == 1000
-    assert timer(dict(spec.defaults)) == pytest.approx(2 * probe_s)
+    assert timer(smoke_default(spec)) == pytest.approx(2 * probe_s)
     assert batches == [(calls, 7e-5)] * 3 and timer.n_measured == 1
 
 
@@ -264,7 +285,7 @@ def test_host_timer_times_single_calls():
 
     timer = KernelTimer(with_run(spec, counted), spec.smoke_shape, "uint8",
                         device="cpu", repeats=3)
-    assert 0 < timer(dict(spec.defaults)) < float("inf")
+    assert 0 < timer(smoke_default(spec)) < float("inf")
     assert len(runs) == 1 + 3          # warm + one call per repeat
 
 
@@ -371,7 +392,7 @@ def test_tune_keeps_the_fastest_measured_point_over_a_wrong_pick(
 
 def test_too_few_valid_measurements_raises(tmp_path):
     with pytest.raises(ValueError, match="too few valid"):
-        ktune.tune_kernel("dna_automaton", {"t": 256}, device="cpu",
+        ktune.tune_kernel("dna_automaton", {"t": 1024}, device="cpu",
                           n_train=1, repeats=1)
 
 

@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels.dna_automaton.ref import fa_match_ref
+from repro_torch.kernels import largest_aligned_divisor
 from repro_torch.kernels.dna_automaton import ops
 from repro_torch.tune import kernels as ktune
 
@@ -46,7 +47,7 @@ def test_tune_store_serve_round_trip(tmp_path, tuned_path_disabled,
     store = tmp_path / "kernels.json"
     out = ktune.tune_kernel("dna_automaton", smoke=True, device="cpu",
                             store=store, repeats=1, iterations=80)
-    assert out.space_size == 500
+    assert out.space_size == 441
     assert 0 < out.n_measured <= 25 and out.measured_fraction <= 0.05
     assert out.timer.n_launch_failed == 0
     assert out.result.strategy == "SAML" and not out.result.from_cache
@@ -77,7 +78,9 @@ def test_tune_store_serve_round_trip(tmp_path, tuned_path_disabled,
                                 jnp.asarray(accept))[0])
         assert got == want, motif
     tuned = (out.best_config["map_chunk"], out.best_config["count_chunk"])
-    default = (ops.DEFAULTS["map_chunk"], ops.DEFAULTS["count_chunk"])
+    # the defaults as fa_match clamps them to the text
+    default = tuple(largest_aligned_divisor(4096, ops.DEFAULTS[k])
+                    for k in ("map_chunk", "count_chunk"))
     # 6-letter motifs hit the record (same {"t", "s"}); the 8-letter one
     # (s = 9) misses and runs the hardcoded defaults
     assert seen == [tuned, tuned, tuned, default]
