@@ -63,7 +63,11 @@ no mask, the backward run twice for the same bits, the decode kernel (one
 launch a call, its split combine inside) at length 37 where most segments
 lie past the fill, twice for the same bits, at phi3-mini's hd 96 and at hd
 192; the flash-attention backward also at hd 192 in bf16; the wkv
-backward also with a quarter of its decays below 1e-6 and at hd 48; every
+forward's chunked route and the wkv backward also with a quarter of their
+decays below 2.1e-9 (the forward also with some 0), at hd 48 and twice for
+the same bits, the forward's serial route at T = 1; the selective-scan
+backward also with a quarter of its channels' decays 0 in float32; the
+redesigned kernels' programs timed apart; every
 tune must store a point no slower than the default it
 measured); after each
 serving path it runs the same weights with the kernels and with the plain
@@ -99,9 +103,11 @@ multiply-add as two, so 33.5e12 instructions per second; the same rate is
 taken for int32 instructions), the attention's flops over 989e12
 FLOP/s (dense bfloat16 tensor cores) for the attention kernels, the
 backward counting the five products a backward needs (its two programs
-do seven: ``bound_7_products_ms`` in its phase line), three float32
-instructions per (token, head, i, j) state cell over 33.5e12/s for the wkv
-kernel, and for the selective scan the larger of one exp per (token,
+do seven: ``bound_7_products_ms`` in its phase line), the FMAs of the wkv
+kernel's chunked route over 33.5e12/s, three a (token, head, i, j) state
+cell (one in the states program, the state's step and r . S in the chunk
+program; bytes bound it: ``t1_bound_ms`` is a decode step's, the state
+read and written), and for the selective scan the larger of one exp per (token,
 channel, state) cell on the special-function units (16 a clock per SM,
 the CUDA C++ Programming Guide's throughput table for compute capability
 9.0, on 132 SMs at the 1.98 GHz boost clock: 4.18e12/s) and four float32
@@ -1168,13 +1174,14 @@ def kernel_kind(name: str) -> str:
         return "flash_attention_bwd (B5)"
     if "decode_bf16_kernel" in low or "decode_f32_kernel" in low:
         return "decode_attention (B4)"
-    if "scan_bwd_spans_kernel" in low or "scan_bwd_sweep_kernel" in low:
+    if "scan_bwd_summaries_kernel" in low or "scan_bwd_carry_kernel" in low \
+            or "scan_bwd_chunks_kernel" in low:
         return "selective_scan_bwd (B7)"
     if "wkv_bwd_scans_kernel" in low or "wkv_bwd_chunks_kernel" in low:
         return "wkv6_bwd (B9)"
     if "scan_serial_kernel" in low or "scan_chunked_kernel" in low:
         return "selective_scan (B6)"
-    if "wkv_serial_kernel" in low or "wkv_matrix_kernel" in low:
+    if "wkv_serial_kernel" in low or "wkv_fwd_states_kernel" in low:
         return "wkv6 (B8)"
     if any(mark in low for mark in MATMUL_MARKS):
         return "matmul (cuBLAS)"
@@ -1362,11 +1369,98 @@ def ssm_metas() -> dict:
     }
 
 
+def wkv_fwd_programs_ms(r, k, v, w, u, s0, launch: dict,
+                       repeats: int = 10) -> dict:
+    """B8's chunked route with its two programs (``states``, ``chunks``)
+    timed apart (ms) at ``launch``, through the library calls the wrapper
+    makes."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+
+    b, t, h, hd = r.shape
+    chunk = launch["chunk"]
+    states = torch.empty((b, h, -(-t // chunk), hd, hd), device=r.device)
+    y, s_out = torch.empty_like(r), torch.empty_like(s0)
+    lib = wkk._library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_states():
+        return lib.rwkv6_wkv_fwd_states(
+            k.data_ptr(), v.data_ptr(), w.data_ptr(), s0.data_ptr(),
+            states.data_ptr(), s_out.data_ptr(), b, t, h, hd, chunk,
+            launch["cols"], stream)
+
+    def run_chunks():
+        return lib.rwkv6_wkv_fwd_chunks(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), states.data_ptr(), y.data_ptr(), b, t, h, hd, chunk,
+            launch["block_h"], launch["split"], stream)
+
+    check(run_states() == 0 and run_chunks() == 0,
+          f"wkv6 programs refused at {launch}")
+    return {"states_ms": device_ms(run_states, repeats),
+            "chunks_ms": device_ms(run_chunks, repeats)}
+
+
+def scan_bwd_programs_ms(x, dl, a, bm, cm, d, h0, dy, dh, launch: dict,
+                         repeats: int = 10) -> dict:
+    """B7's three programs (``summaries``, ``carry``, ``chunks``) timed apart
+    (ms) at ``launch``, through the library calls the wrapper makes."""
+    from repro_torch.kernels.mamba_scan import kernel as msk
+
+    bt, t, di = x.shape
+    s = a.shape[1]
+    bd, chunk, split, span = (launch[key] for key in ("block_d", "chunk",
+                                                      "split", "span"))
+    n = -(-t // chunk)
+    ns = -(-n // span)
+    pc, hc = (torch.empty((bt, n, di, s), device=x.device) for _ in range(2))
+    ps, hs, gs, da = (torch.empty((bt, ns, di, s), device=x.device)
+                      for _ in range(4))
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db = torch.empty((-(-di // bd), bt, t, s), device=x.device)
+    dc = torch.empty_like(db)
+    dd = torch.empty((bt, ns, di), device=x.device)
+    dh0 = torch.empty_like(h0)
+    lib = msk._library_bwd()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def summaries():
+        return lib.mamba_scan_bwd_summaries(
+            x.data_ptr(), dl.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), dy.data_ptr(), pc.data_ptr(), hc.data_ptr(),
+            ps.data_ptr(), hs.data_ptr(), gs.data_ptr(), bt, t, di, s, bd,
+            chunk, split, span, stream)
+
+    def carry():
+        return lib.mamba_scan_bwd_carry(
+            h0.data_ptr(), dh.data_ptr(), ps.data_ptr(), hs.data_ptr(),
+            gs.data_ptr(), dh0.data_ptr(), bt, di, s, ns, stream)
+
+    def chunks():
+        return lib.mamba_scan_bwd_chunks(
+            x.data_ptr(), dl.data_ptr(), a.data_ptr(), bm.data_ptr(),
+            cm.data_ptr(), d.data_ptr(), dy.data_ptr(), pc.data_ptr(),
+            hc.data_ptr(), hs.data_ptr(), gs.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            dd.data_ptr(), bt, t, di, s, bd, chunk, split, span, stream)
+
+    check(all(fn() == 0 for fn in (summaries, carry, chunks)),
+          f"selective_scan_bwd programs refused at {launch}")
+    # carry rewrites the span summaries in place at every call: neither its
+    # time nor the chunk program's depends on the values
+    return {"summaries_ms": device_ms(summaries, repeats),
+            "carry_ms": device_ms(carry, repeats),
+            "chunks_ms": device_ms(chunks, repeats)}
+
+
 def phase_scan_parity(seed: int) -> list[dict]:
-    """B8 and B6 at their prefill shapes, in the serial program (the
-    defaults) and one chunked form, from a non-zero state; B8 also at T = 1
-    (a decode step) and each at a ragged T, all against their plain
-    versions in float32 (atol 2e-4 / rtol 2e-3)."""
+    """B8 and B6 at their prefill shapes, each in its default launch and
+    one other, from a non-zero state, against their plain versions in
+    float32 (atol 2e-4 / rtol 2e-3).  B8's chunked route (states and chunk
+    programs timed apart) is held against the serial plain version, also at
+    T 1000, with a quarter of its decays below 2.1e-9 and some 0, at hd 48,
+    and twice for the same bits; its serial route at T = 1 (a decode step,
+    also at hd 48).  B6 also at T = 1 and a ragged T."""
     from repro_torch.kernels.mamba_scan import kernel as msk
     from repro_torch.kernels.mamba_scan.ops import DEFAULTS as MS
     from repro_torch.kernels.rwkv6_wkv import kernel as wkk
@@ -1387,40 +1481,89 @@ def phase_scan_parity(seed: int) -> list[dict]:
     w = torch.sigmoid(randn(b, t, h, hd) + 2)
     u = randn(h, hd) * 0.1
     s0 = randn(b, h, hd, hd)
-    chunked = {"chunk": 32, "lanes": 4, "block_h": 1, "block_threads": 512}
+    other = {"chunk": 64, "split": 2, "cols": 8, "block_h": 2}
+    oks, errs = [], []
+
+    def wkv_case(label, args, launch, want, timed=False):
+        got = wkk.wkv6_fwd(*args, **launch)
+        ok, err = scan_gate(got, want)
+        same = all(torch.equal(a_, g) for a_, g in
+                   zip(wkk.wkv6_fwd(*args, **launch), got))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        tt, hd_ = args[0].shape[1], args[0].shape[3]
+        case = {"kernel": "wkv6", "case": label, "t": tt, "hd": hd_,
+                "route": wkk.route_of(tt, hd_, launch["chunk"]),
+                "launch": dict(launch), "ok": ok and same and finite,
+                "deterministic": same, "finite": finite, "max_abs_err": err}
+        if timed:
+            case["ms"] = device_ms(lambda: wkk.wkv6_fwd(*args, **launch), 50)
+        cases.append(case)
+        oks.append(case["ok"])
+        errs.append(err)
+
     got, want, ms, plain_ms = timed_pair(
         lambda: wkk.wkv6_fwd(r, k, v, w, u, s0, **WKV),
         lambda: wkk.wkv6_fwd_plain(r, k, v, w, u, s0), 5)
     ok, err = scan_gate(got, want)
-    cases.append({"kernel": "wkv6", "t": t, "launch": dict(WKV), "ok": ok,
-                  "max_abs_err": err, "ms": ms})
-    chunked_ms = device_ms(lambda: wkk.wkv6_fwd(r, k, v, w, u, s0,
-                                                **chunked), 5)
-    ok_c, err_c = scan_gate(wkk.wkv6_fwd(r, k, v, w, u, s0, **chunked), want)
-    cases.append({"kernel": "wkv6", "t": t, "launch": chunked, "ok": ok_c,
-                  "max_abs_err": err_c, "ms": chunked_ms})
-    del got, want
-    cell = b * t * h * hd * hd
-    n_bytes = 4 * (5 * b * t * h * hd + h * hd + 2 * b * h * hd * hd)
-    bound_ms, bound_by = roofline_ms(n_bytes, 3 * cell, INSTR_PER_S)
-    records.append({
-        "name": "wkv6_fwd", "ok": ok and ok_c, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:160",
-        "launches": 0, "max_abs_err": max(err, err_c), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None})
-    for tt, launch in ((1, WKV), (1, chunked), (1000, WKV), (1000, chunked)):
+    same = all(torch.equal(a_, g) for a_, g in
+               zip(wkk.wkv6_fwd(r, k, v, w, u, s0, **WKV), got))
+    cases.append({"kernel": "wkv6", "case": "prefill", "t": t, "hd": hd,
+                  "route": wkk.route_of(t, hd, WKV["chunk"]),
+                  "launch": dict(WKV), "ok": ok and same,
+                  "deterministic": same, "max_abs_err": err, "ms": ms,
+                  **wkv_fwd_programs_ms(r, k, v, w, u, s0, WKV)})
+    oks.append(ok and same)
+    errs.append(err)
+    del got
+    wkv_case("prefill, another launch", (r, k, v, w, u, s0), other, want)
+    cases[-1].update(ms=device_ms(lambda: wkk.wkv6_fwd(r, k, v, w, u, s0,
+                                                       **other), 5),
+                     **wkv_fwd_programs_ms(r, k, v, w, u, s0, other))
+    del want
+    w_tiny = w.clone()
+    w_tiny[..., ::4] = torch.exp(-torch.exp(randn(b, t, h, hd // 4).abs() + 3))
+    w_tiny[..., 1::9] = 0.0
+    tiny_share = float((w_tiny < 2.1e-9).float().mean())
+    wkv_case("tiny and zero decays", (r, k, v, w_tiny, u, s0), WKV,
+             wkk.wkv6_fwd_plain(r, k, v, w_tiny, u, s0))
+    cases[-1].update(share_below_2_1e_9=tiny_share,
+                     share_zero=float((w_tiny == 0).float().mean()))
+    del w_tiny
+    t1_ms = None
+    for tt, launch in ((1, WKV), (1000, WKV), (1000, other)):
         args = (r[:, :tt].contiguous(), k[:, :tt].contiguous(),
                 v[:, :tt].contiguous(), w[:, :tt].contiguous(), u, s0)
-        want = wkk.wkv6_fwd_plain(*args)
-        ok, err = scan_gate(wkk.wkv6_fwd(*args, **launch), want)
+        wkv_case(f"T {tt}", args, launch, wkk.wkv6_fwd_plain(*args),
+                 timed=tt == 1)
         if tt == 1:
-            dms = device_ms(lambda: wkk.wkv6_fwd(*args, **launch), 50)
-        cases.append({"kernel": "wkv6", "t": tt, "launch": dict(launch),
-                      "ok": ok, "max_abs_err": err,
-                      **({"ms": dms} if tt == 1 else {})})
-    del r, k, v, w, u, s0, args, want
+            t1_ms = cases[-1]["ms"]
+    del r, k, v, w, u, s0, args
+    args48 = [randn(2, 300, 4, 48) * 0.5 for _ in range(3)] + [
+        torch.sigmoid(randn(2, 300, 4, 48) + 2), randn(4, 48) * 0.1,
+        randn(2, 4, 48, 48)]
+    for tt in (300, 1):
+        args = [a_[:, :tt].contiguous() if a_.dim() == 4 and a_.shape[1] == 300
+                else a_ for a_ in args48]
+        wkv_case(f"hd 48, T {tt}", args, WKV, wkk.wkv6_fwd_plain(*args))
+    del args48, args
+    # bytes: r, k, v, w read and y written, u, s0 read and s_T written; the
+    # chunked route's FMAs a token and head: one a state cell in the states
+    # program, two in the chunks program (r . S and the state's step)
+    n_bytes = 4 * (5 * b * t * h * hd + h * hd + 2 * b * h * hd * hd)
+    n_ops = 3 * b * t * h * hd * hd
+    bound_ms, bound_by = roofline_ms(n_bytes, n_ops, INSTR_PER_S)
+    records.append({
+        "name": "wkv6_fwd", "ok": all(oks), "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6_wkv/kernel.py:160",
+        "launches": 0, "max_abs_err": max(errs), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "t1_ms": t1_ms,
+        # a decode step reads s0 and writes s_T (and a token's r, k, v, w, y)
+        "t1_bound_ms": roofline_ms(
+            4 * (5 * b * h * hd + h * hd + 2 * b * h * hd * hd), 0,
+            INSTR_PER_S)[0]})
+    torch.cuda.empty_cache()
 
     # -- B6: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0 ~ N
     bt, t, di, s = (metas["mamba_scan"][k] for k in ("bt", "t", "di", "s"))
@@ -1468,10 +1611,10 @@ def phase_scan_parity(seed: int) -> list[dict]:
 
     emit(phase="scan_parity", gate={"atol": 2e-4, "rtol": 2e-3},
          shapes=metas, cases=cases,
-         results=[{key: rec[key] for key in ("name", "ok", "max_abs_err",
-                                             "ms", "plain_ms", "bound_ms",
-                                             "bound_by")}
-                  for rec in records])
+         ptxas={"rwkv6_wkv": ptxas_report("rwkv6_wkv")},
+         results=[{key: rec.get(key) for key in (
+             "name", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "t1_ms", "t1_bound_ms")} for rec in records])
     for case in cases:
         check(case["ok"], f"scan_parity: {case}")
     return records
@@ -1613,9 +1756,19 @@ def phase_ssm_serve(arch: str, seed: int, store_path: Path, tunes: dict):
            fak.flash_attention_fwd, "decode_attention": dak.decode_attention}
     for name in want:
         fns[name].launches = 0
+    # B8's programs: the chunked route in prefill, the serial route at every
+    # decode step
+    n_rwkv = kinds.count("rwkv")
+    programs = {"states": n_rwkv, "chunks": n_rwkv,
+                "serial": n_rwkv * (SSM_GEN - 1)}
+    wkk.wkv6_fwd.program_launches = {p_: 0 for p_ in programs}
     out = serve_session(cfg, batch=SSM_BATCH, prompt_len=SSM_PROMPT,
                         gen=SSM_GEN, seed=seed, model=model)
     launches = {name: fns[name].launches for name in want}
+    if n_rwkv:
+        launches.update({f"wkv6_fwd_{p_}": n for p_, n in
+                         wkk.wkv6_fwd.program_launches.items()})
+        want.update({f"wkv6_fwd_{p_}": n for p_, n in programs.items()})
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(launches == want, f"{arch}: launches {launches}, want {want}")
     check(all(tuned.timer.n_measured == measured[name]
@@ -1654,8 +1807,8 @@ def plain_patches():
     def plain_decode(q, k, v, length, **launch):
         return dak.decode_attention_plain(q, k, v, length)
 
-    def plain_wkv(r, k, v, w, u, s0, *, chunk, lanes, **launch):
-        return wkk.wkv6_fwd_plain(r, k, v, w, u, s0, chunk=chunk, lanes=lanes)
+    def plain_wkv(r, k, v, w, u, s0, **launch):
+        return wkk.wkv6_fwd_plain(r, k, v, w, u, s0)
 
     def plain_scan(x, dl, a, b, c, d, h0, *, chunk, lanes, **launch):
         return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0,
@@ -1721,9 +1874,10 @@ def logit_gap(got: list, want: list) -> list[float]:
 
 
 def chunked_plain_patches():
-    """The scans' plain versions in their chunked form (chunk 32, 4 lanes)
-    whatever the launch parameters: another float32 summation order of the
-    same function, which gives the bf16 model's own noise floor."""
+    """The scans' plain versions in their chunked forms (B8's chunked route
+    at chunk 32; B6's at chunk 32, 4 lanes) whatever the launch parameters:
+    another float32 summation order of the same function, which gives the
+    bf16 model's own noise floor."""
     from unittest import mock
 
     from repro_torch.kernels.mamba_scan import kernel as msk
@@ -1732,7 +1886,7 @@ def chunked_plain_patches():
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 
     def wkv(r, k, v, w, u, s0, **launch):
-        return wkk.wkv6_fwd_plain(r, k, v, w, u, s0, chunk=32, lanes=4)
+        return wkk.wkv6_fwd_chunked_plain(r, k, v, w, u, s0, chunk=32)
 
     def scan(x, dl, a, b, c, d, h0, **launch):
         return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0, chunk=32,
@@ -1864,7 +2018,10 @@ def phase_scan_bwd_parity(seed: int) -> list[dict]:
     """B9 and B7 at their training shapes, at a ragged T (1000) and at
     T = 1, from non-zero states with non-zero cotangents, against their
     plain versions in float32 (atol 2e-4 / rtol 2e-3, the reference's
-    ``*_bwd`` specs); each run twice for the same bits."""
+    ``*_bwd`` specs); each run twice for the same bits.  B9 also with a
+    quarter of its decays below 2.1e-9 and at hd 48; B7 also with a
+    quarter of its channels' decays underflowing to 0, and its three
+    programs timed apart."""
     from repro_torch.kernels.mamba_scan import kernel as msk
     from repro_torch.kernels.mamba_scan.ops import BWD_DEFAULTS as MSB
     from repro_torch.kernels.rwkv6_wkv import kernel as wkk
@@ -1955,7 +2112,9 @@ def phase_scan_bwd_parity(seed: int) -> list[dict]:
     torch.cuda.empty_cache()
 
     # -- B7: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0, dy,
-    # dh_T ~ N
+    # dh_T ~ N; then the same with a quarter of the channels at delta =
+    # 1 + |N| * 0.1 and A = -(|N| + 110), so that delta * A < -104 and
+    # a_t = exp(delta A) is 0 in float32
     bt, t, di, s = (metas["mamba_scan_bwd"][k] for k in ("bt", "t", "di", "s"))
     x = randn(bt, t, di)
     dl = randn(bt, t, di).abs() * 0.1
@@ -1976,7 +2135,24 @@ def phase_scan_bwd_parity(seed: int) -> list[dict]:
         errs.append(err)
         if tt == t:
             ms, plain_ms = ms_t, plain_t
-    del x, dl, a, bm, cm, d, h0, dy, dh, args
+            cases[-1].update(scan_bwd_programs_ms(*args, MSB))
+    dl_u, a_u = dl.clone(), a.clone()
+    dl_u[..., ::4] += 1.0
+    a_u[::4] -= 110.0
+    zero_share = float((torch.exp(dl_u[0, :64, :, None] * a_u) == 0)
+                       .float().mean())
+    args = (x, dl_u, a_u, bm, cm, d, h0, dy, dh)
+    ok, err, _, _ = run("selective_scan_bwd a_t = 0",
+                        lambda: msk.selective_scan_bwd(*args, **MSB),
+                        lambda: msk.selective_scan_bwd_plain(
+                            *args, chunk=MSB["chunk"]), t, MSB, False)
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in msk.selective_scan_bwd(*args, **MSB))
+    cases[-1].update({"share_a_t_zero": zero_share, "finite": finite})
+    cases[-1]["ok"] = cases[-1]["ok"] and finite
+    oks.append(ok and finite)
+    errs.append(err)
+    del x, dl, a, bm, cm, d, h0, dy, dh, args, dl_u, a_u
     torch.cuda.empty_cache()
     cell = bt * t * di * s
     # x, delta, dy read and dx, ddelta written; B, C and dB, dC; A, dA; D,
@@ -2372,8 +2548,9 @@ def phase_ssm_train(model, seed: int, store_path: Path, tunes: dict) -> dict:
            "selective_scan_bwd": msk.selective_scan_bwd,
            "flash_attention_fwd": fak.flash_attention_fwd,
            "flash_attention_bwd": fak.flash_attention_bwd}
-    programs = {"wkv6_bwd": ("scans", "chunks"),
-                "selective_scan_bwd": ("spans", "sweep"),
+    programs = {"wkv6_fwd": ("states", "chunks", "serial"),
+                "wkv6_bwd": ("scans", "chunks"),
+                "selective_scan_bwd": ("summaries", "carry", "chunks"),
                 "flash_attention_bwd": ("dq", "dkv")}
     for name, fn in fns.items():
         fn.launches = 0
@@ -2399,7 +2576,8 @@ def phase_ssm_train(model, seed: int, store_path: Path, tunes: dict) -> dict:
             "flash_attention_bwd": n["attn"]}
     for name, progs in programs.items():
         for prog in progs:
-            want[f"{name}_{prog}"] = want[name]
+            # training runs B8 at T 2048: its chunked route, never serial
+            want[f"{name}_{prog}"] = 0 if prog == "serial" else want[name]
     losses, step_seconds = out["losses"], out["step_seconds"]
     warm = sorted(step_seconds[1:])
     warm_s = warm[len(warm) // 2]

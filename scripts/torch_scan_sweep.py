@@ -3,19 +3,23 @@
 
     python3 scripts/torch_scan_sweep.py [--out DIR]
 
-At the shapes ``chip_smoke.py`` serves (the wkv kernel at RWKV-6 1.6B's
-prefill, B 8, T 2048, H 32, hd 64; the selective scan at Jamba's, B 8,
-T 2048, dI 8192, S 16; the wkv backward at RWKV-6's training shape, the
-same B 8 x 2048; float32), ``tune_kernel`` tunes each kernel as the
+At the shapes ``chip_smoke.py`` serves and trains (the wkv forward at
+RWKV-6 1.6B's prefill, B 8, T 2048, H 32, hd 64; the selective scan at
+Jamba's, B 8, T 2048, dI 8192, S 16; the wkv backward at RWKV-6's
+training shape, the same B 8 x 2048; the selective-scan backward at
+Jamba's, B 2 x 2048; float32), ``tune_kernel`` tunes each kernel as the
 ``ssm_tune`` / ``ssm_bwd_tune`` phases do, and then the same
 ``KernelTimer`` (parity-gated against the plain version, timed in batches
 of back-to-back calls) measures every other configuration of the spec's
 space.  Prints, per kernel, the tune's measurements, its winner, the
 default and the exhaustive best, the winner's rank, and the best time of
-each program (serial, chunked) and of each serial thread count, or, for
-the wkv backward, of each chunk length, with its two programs (``scans``,
-``chunks``) timed apart at the default and at the best point
-(``chip_smoke.device_ms``); writes every configuration's time to
+each chunk length (the selective scan: of each program, serial and
+chunked, and serial thread count), with the programs of the kernels that
+have several timed apart at the default and at the best point
+(``chip_smoke.device_ms``): the wkv forward's ``states`` and ``chunks``
+(and its serial route at T = 1, a decode step), the wkv backward's
+``scans`` and ``chunks``, the selective-scan backward's ``summaries``,
+``carry`` and ``chunks``.  Writes every configuration's time to
 ``scan_sweep.json`` in ``--out`` (default ``results/``).  The last line
 names the card.
 """
@@ -45,19 +49,23 @@ def best_by(valid, key) -> dict:
     return out
 
 
+def inputs(n: int, shape_of) -> list:
+    """``n`` uniform tensors on the card, the i-th of shape ``shape_of(i)``,
+    from seed 0."""
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    return [torch.rand(shape_of(i), generator=gen, device="cuda")
+            for i in range(n)]
+
+
 def wkv_bwd_programs(meta: dict, launch: dict) -> dict:
     """The wkv backward's two programs timed apart (ms) at ``launch``."""
     import chip_smoke as smoke
     from repro_torch.kernels.rwkv6_wkv import kernel as wkk
 
     b, t, h, hd = (meta[k] for k in ("b", "t", "h", "hd"))
-    gen = torch.Generator("cuda")
-    gen.manual_seed(0)
-    r, k, v, w, dy = (torch.rand((b, t, h, hd), generator=gen, device="cuda")
-                      for _ in range(5))
-    u = torch.rand((h, hd), generator=gen, device="cuda")
-    s0, ds = (torch.rand((b, h, hd, hd), generator=gen, device="cuda")
-              for _ in range(2))
+    r, k, v, w, dy, u, s0, ds = inputs(8, lambda i: (
+        (b, t, h, hd) if i < 5 else (h, hd) if i == 5 else (b, h, hd, hd)))
     n = -(-t // launch["chunk"])
     states = torch.empty((b, h, n, hd, hd), device="cuda")
     adj = torch.empty_like(states)
@@ -88,6 +96,43 @@ def wkv_bwd_programs(meta: dict, launch: dict) -> dict:
             "chunks_ms": smoke.device_ms(chunks, 10)}
 
 
+def wkv_fwd_programs(meta: dict, launch: dict) -> dict:
+    """The wkv forward's chunked route, its two programs timed apart (ms)
+    at ``launch``."""
+    import chip_smoke as smoke
+
+    b, t, h, hd = (meta[k] for k in ("b", "t", "h", "hd"))
+    r, k, v, w, u, s0 = inputs(6, lambda i: (
+        (b, t, h, hd) if i < 4 else (h, hd) if i == 4 else (b, h, hd, hd)))
+    return smoke.wkv_fwd_programs_ms(r, k, v, w, u, s0, launch)
+
+
+def wkv_decode_ms(meta: dict) -> float:
+    """The wkv forward at T = 1 (a decode step: its serial route) (ms)."""
+    import chip_smoke as smoke
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv.ops import DEFAULTS
+
+    b, h, hd = (meta[k] for k in ("b", "h", "hd"))
+    r, k, v, w, u, s0 = inputs(6, lambda i: (
+        (b, 1, h, hd) if i < 4 else (h, hd) if i == 4 else (b, h, hd, hd)))
+    return smoke.device_ms(lambda: wkk.wkv6_fwd(r, k, v, w, u, s0,
+                                                **DEFAULTS), 50)
+
+
+def scan_bwd_programs(meta: dict, launch: dict) -> dict:
+    """The selective-scan backward's three programs timed apart (ms) at
+    ``launch``."""
+    import chip_smoke as smoke
+
+    bt, t, di, s = (meta[k] for k in ("bt", "t", "di", "s"))
+    shapes = [(bt, t, di), (bt, t, di), (di, s), (bt, t, s), (bt, t, s),
+              (di,), (bt, di, s), (bt, t, di), (bt, di, s)]
+    x, dl, a, bm, cm, d, h0, dy, dh = inputs(9, lambda i: shapes[i])
+    return smoke.scan_bwd_programs_ms(x, dl * 0.1, -(a + 0.5), bm, cm, d,
+                                      h0, dy, dh, launch)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path, default=ROOT / "results")
@@ -99,8 +144,7 @@ def main() -> int:
     from repro_torch.tune import kernels as ktune
 
     report = []
-    metas = {**smoke.ssm_metas(),
-             "rwkv6_wkv_bwd": smoke.ssm_train_metas()["rwkv6_wkv_bwd"]}
+    metas = {**smoke.ssm_metas(), **smoke.ssm_train_metas()}
     for name, meta in metas.items():
         out = ktune.tune_kernel(name, meta, seed=0)
         n_tune = out.n_measured
@@ -122,23 +166,28 @@ def main() -> int:
             "winner_over_best": winner_s / valid[0][0],
             "winner_rank": 1 + sum(s < winner_s for s, _ in valid),
             "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
-        if name == "rwkv6_wkv_bwd":
-            report[-1].update({
-                "best_ms_by_chunk": best_by(valid, lambda c: c["chunk"]),
-                "default_programs": wkv_bwd_programs(meta,
-                                                     out.default_config),
-                "best_programs": wkv_bwd_programs(meta, valid[0][1])})
-        else:
+        if name == "mamba_scan":
             serial = [(s, cfg) for s, cfg in valid if cfg["lanes"] < 2]
-            threads = ("block_threads" if name == "rwkv6_wkv"
-                       else "block_d")
             report[-1].update({
                 "best_ms_by_program": best_by(
                     valid, lambda c: "serial" if c["lanes"] < 2
                     else "chunked"),
                 "best_ms_by_lanes": best_by(valid, lambda c: c["lanes"]),
-                "serial_best_ms_by_threads": best_by(serial,
-                                                     lambda c: c[threads])})
+                "serial_best_ms_by_threads": best_by(
+                    serial, lambda c: c["block_d"])})
+        else:
+            programs = {"rwkv6_wkv": wkv_fwd_programs,
+                        "rwkv6_wkv_bwd": wkv_bwd_programs,
+                        "mamba_scan_bwd": scan_bwd_programs}[name]
+            report[-1].update({
+                "best_ms_by_chunk": best_by(valid, lambda c: c["chunk"]),
+                "default_programs": programs(meta, out.default_config),
+                "best_programs": programs(meta, valid[0][1])})
+        if name in ("mamba_scan_bwd", "rwkv6_wkv"):
+            report[-1]["best_ms_by_split"] = best_by(valid,
+                                                     lambda c: c["split"])
+        if name == "rwkv6_wkv":
+            report[-1]["decode_t1_ms"] = wkv_decode_ms(meta)
         print(json.dumps({k: v for k, v in report[-1].items()
                           if k != "all_ms"}), flush=True)
         del out

@@ -11,46 +11,62 @@
 // over r, k, v, w (B, T, H, hd), u (H, hd), s0 (B, H, hd, hd), giving
 // y (B, T, H, hd) and the final state s_T (B, H, hd, hd), all float32.
 //
-// What bounds it on the H100: operations.  Every (b, t, h, i, j) cell costs
-// about four float32 instructions (the r.S product, the decay and the k v
-// outer product), so the RWKV-6 1.6B prefill shape (B 8, T 2048, H 32, hd 64)
-// is 2.15e9 cells, ~8.6e9 instructions, ~0.26 ms at 33.5e12 instructions/s,
-// against 0.68 GB of reads and writes (0.20 ms at 3.35 TB/s).  The token
-// loop is a dependent chain, so the hard part is parallelism: only B * H
-// (256 at that shape) independent recurrences exist.  What the design does:
-//   * serial program (lanes < 2): one block per (b, block_h heads); thread
-//     (head, j, part) holds rows i = ii * split + part of column j of its
-//     head's state in registers (hd / split floats), so `split` > 1 spreads
-//     one head over more threads (hd * split per head) and the partial r.S
-//     sums meet by warp shuffles.  The r, k, v, w of `chunk` tokens are
-//     staged in shared memory by coalesced loads (a token's block_h * hd
-//     values are contiguous), and the bonus sum_i r u k of each (token, head)
-//     is one dot per token, not one per thread;
-//   * matrix form (lanes >= 2, chunk <= 64): what _chunked_kernel computes,
-//     in float32 tiles in shared memory.  Per chunk, with g the in-chunk
-//     inclusive cumsum of log w: A = r * exp(g_excl), Bm = k * exp(-g), the
-//     strictly lower (chunk x chunk) scores A Bm^T, y = scores V + bonus, the
-//     chunk's local state (k exp(g_last - g))^T V, taken as exp(g_last)
-//     (Bm^T V) so that Bm serves twice, then a `lanes`-step combine
-//     threads the carried state through the span's chunks, and each chunk
-//     adds A S_entry to its y.  The span's end state carries to the next
-//     span inside the block.  A is recomputed for the last step instead of
-//     kept, so shared memory holds one chunk's tiles plus the block's
-//     per-chunk local states.
-// T need not divide into chunks or spans: tokens at or past T load as
-// r = k = v = 0, w = 1 (log w = 0), which leave the state as it is, and are
-// not written.  T = 1 is a decode step.
+// What bounds it on the H100: bytes.  The RWKV-6 1.6B prefill shape (B 8,
+// T 2048, H 32, hd 64) reads r, k, v, w and writes y, 0.68 GB (0.20 ms at
+// 3.35 TB/s).  The token loop is a dependent chain over only B * H (256)
+// independent recurrences, so the hard part is parallelism.  Two routes,
+// picked by the caller from T and hd:
+//   * "serial" (decode, T = 1, and any T shorter than a chunk or a head
+//     size not built below): one block per (b, block_h heads); thread
+//     (head, column tile, part) holds rows i = ii * split + part of JC
+//     adjacent columns of its head's state in registers (hd / split x JC
+//     floats), the partial r.S sums meeting by warp shuffles; the r, k,
+//     v, w of `chunk` tokens staged in shared memory by 16-byte loads
+//     (each r_i, k_i, w_i a thread reads serves its JC columns:
+//     shared-memory reads, not FMAs, bound a column a thread), the bonus
+//     sum_i r u k a thread's chain per (token, head), started at another
+//     channel each token;
+//   * "chunked" (prefill, training; hd 16, 32, 48, 64), two programs,
+//     deterministic and free of atomics:
+//       - "states": the state entering every chunk of C tokens,
+//         (B, H, N, hd, hd), and s_T: one block per (b, head), a thread
+//         `cols` value columns of one row, each chunk one product
+//             S <- diag(W) S + sum_t diag(prod_{s>t} w_s) k_t v_t^T
+//         from double-buffered shared tiles (wkv_chunk_scan.cuh, the
+//         program the backward's "scans" runs in both directions);
+//       - "chunks": the serial program over B * (H / block_h) * N blocks,
+//         each walking one chunk's C tokens from that chunk's entry state.
+//     Only products of w's appear: nothing is inverted and no log or exp
+//     is taken (the reference's matrix form divides by exp(cumsum log w),
+//     which overflows float32 once a chunk's decays multiply below e^-88),
+//     so w = 1e-30 or 0 gives finite results.  Inside a chunk the state is
+//     stepped token by token, as the serial route steps it, rather than
+//     summed as in-chunk pairs (sum_{s<t} (sum_i r_ti c(s,t)_i k_si) v_s
+//     with c(s,t) = prod_{s<σ<t} w_σ): the pair form's float32 gradients
+//     of RWKV-6 1.6B lay further from float64 than the serial recurrence's
+//     (PERF.md), the stepped form's as close.  The chunked route moves
+//     more than the bound's bytes: the states are written once and read
+//     once (B x H x N x hd^2 floats, 0.27 GB at chunk 32).
+// T need not divide into chunks: the states program reads tokens past T as
+// r = k = v = 0, w = 1, which leave the state as it is; nothing past T is
+// written.
 //
-// Plain C interface: rwkv6_wkv_fwd launches on the given stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// Plain C interface: rwkv6_wkv_fwd_serial, rwkv6_wkv_fwd_states and
+// rwkv6_wkv_fwd_chunks launch on the given stream, do not synchronise,
+// allocate nothing, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv_chunk_scan.cuh"
+
 namespace {
 
+using namespace wkv_chunk;
+
 constexpr int SERIAL_MAX_THREADS = 512;
-constexpr int MATRIX_MAX_THREADS = 1024;
+// tokens the chunk program stages in shared memory at a time
+constexpr int CHUNKS_STAGE = 32;
 
 // Shared memory, in floats (must match the Python-side checks).
 __host__ __device__ inline int64_t serial_smem_floats(int chunk, int block_h,
@@ -60,25 +76,26 @@ __host__ __device__ inline int64_t serial_smem_floats(int chunk, int block_h,
          + (int64_t)block_h * hd;          // u
 }
 
-__host__ __device__ inline int64_t matrix_smem_floats(int chunk, int lanes,
-                                                      int block_h, int hd) {
-    return 4LL * chunk * hd                      // r/A, k/Bm, v, log w/g
-         + (int64_t)chunk * chunk                // scores
-         + chunk                                 // bonus
-         + (int64_t)block_h * lanes * hd * hd    // local, then entry states
-         + (int64_t)block_h * lanes * hd         // total decay per chunk
-         + (int64_t)block_h * hd * hd            // carried state
-         + (int64_t)block_h * hd;                // u
-}
+// ---------------------------------------------------------------------------
+// route "serial"
 
-template <int ROWS>
+// A block walks the tokens [n * span, (n + 1) * span) of block_h heads of
+// one batch row from its entry state, entry[(b, h, n)] (B, H, nspan, hd,
+// hd): the serial route is one span of T tokens from s0 (nspan = 1), the
+// chunked route's chunk program one span a chunk from the states program's
+// chunk-entry states.  Thread (head, column tile, part) holds rows
+// i = ii * split + part of JC adjacent columns of its head's state in
+// registers (ROWS = hd / split rows): each r_i, k_i, w_i it reads from
+// shared memory serves JC columns.  s_out (when given) takes the state
+// after the span.
+template <int ROWS, int JC>
 __global__ void __launch_bounds__(SERIAL_MAX_THREADS)
 wkv_serial_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, const float* __restrict__ s0,
+                  const float* __restrict__ u, const float* __restrict__ entry,
                   float* __restrict__ y, float* __restrict__ s_out, int T,
-                  int H, int hd, int chunk, int block_h) {
-    extern __shared__ float smem[];
+                  int H, int hd, int chunk, int block_h, int span, int nspan) {
+    extern __shared__ __align__(16) float smem[];
     const int width = block_h * hd;       // a token's floats in this block
     float* rs = smem;
     float* ks = rs + chunk * width;
@@ -88,41 +105,53 @@ wkv_serial_kernel(const float* __restrict__ r, const float* __restrict__ k,
     float* us = bon + chunk * block_h;    // (block_h, hd)
 
     const int split = hd / ROWS;
+    const int per_head = (hd / JC) * split;
     const int groups = H / block_h;
-    const int b = blockIdx.x / groups;
-    const int h0 = (blockIdx.x % groups) * block_h;
+    const int n = blockIdx.x % nspan, rest = blockIdx.x / nspan;
+    const int b = rest / groups;
+    const int h0 = (rest % groups) * block_h;
     const int tid = threadIdx.x, nth = blockDim.x;
-    const int hl = tid / (hd * split);
-    const int rem = tid % (hd * split);
-    const int j = rem / split, part = rem % split;
+    const int hl = tid / per_head;
+    const int rem = tid % per_head;
+    const int j0 = (rem / split) * JC, part = rem % split;
     const int h = h0 + hl;
     const int64_t row = (int64_t)H * hd;  // floats of one token
+    const int t_lo = n * span, t_hi = min(T, t_lo + span);
 
-    float S[ROWS];
-    const int64_t sbase = ((int64_t)b * H + h) * hd * hd;
+    float S[ROWS][JC];
+    const int64_t hh = (int64_t)hd * hd;
+    const int64_t ebase = (((int64_t)b * H + h) * nspan + n) * hh;
 #pragma unroll
     for (int ii = 0; ii < ROWS; ++ii)
-        S[ii] = s0[sbase + (int64_t)(ii * split + part) * hd + j];
+#pragma unroll
+        for (int c = 0; c < JC; ++c)
+            S[ii][c] = entry[ebase + (int64_t)(ii * split + part) * hd + j0 + c];
     for (int e = tid; e < width; e += nth) us[e] = u[(int64_t)h0 * hd + e];
 
-    for (int t0 = 0; t0 < T; t0 += chunk) {
-        const int n = min(chunk, T - t0);
+    for (int t0 = t_lo; t0 < t_hi; t0 += chunk) {
+        const int nt = min(chunk, t_hi - t0);
         __syncthreads();                  // the previous chunk is consumed
-        for (int e = tid; e < n * width; e += nth) {
-            const int tk = e / width, c = e % width;
+        for (int e = tid; e < nt * width / 4; e += nth) {   // 16-byte loads
+            const int tk = e / (width / 4), c = (e - tk * (width / 4)) * 4;
             const int64_t g = ((int64_t)b * T + t0 + tk) * row
                             + (int64_t)h0 * hd + c;
-            rs[e] = r[g];
-            ks[e] = k[g];
-            vs[e] = v[g];
-            ws[e] = w[g];
+            const int o = tk * width + c;
+            *reinterpret_cast<float4*>(rs + o) = *reinterpret_cast<const float4*>(r + g);
+            *reinterpret_cast<float4*>(ks + o) = *reinterpret_cast<const float4*>(k + g);
+            *reinterpret_cast<float4*>(vs + o) = *reinterpret_cast<const float4*>(v + g);
+            *reinterpret_cast<float4*>(ws + o) = *reinterpret_cast<const float4*>(w + g);
         }
         __syncthreads();
-        for (int e = tid; e < n * block_h; e += nth) {
-            const int tk = e / block_h, hh = e % block_h;
-            const float* rr = rs + tk * width + hh * hd;
-            const float* kk = ks + tk * width + hh * hd;
-            const float* uu = us + hh * hd;
+        // the bonus sums, a thread a (token, head), each token's sum started
+        // at another channel: a fixed order (a warp's tree, or a chain from
+        // channel 0) makes the rounding of every token alike, and RWKV-6's
+        // float32 gradients then lie measurably further from float64
+        // (PERF.md)
+        for (int e = tid; e < nt * block_h; e += nth) {
+            const int tk = e / block_h, hb = e % block_h;
+            const float* rr = rs + tk * width + hb * hd;
+            const float* kk = ks + tk * width + hb * hd;
+            const float* uu = us + hb * hd;
             float acc = 0.f;
             int i = e % hd;               // a rotated start spreads the banks
             for (int c = 0; c < hd; ++c) {
@@ -132,284 +161,159 @@ wkv_serial_kernel(const float* __restrict__ r, const float* __restrict__ k,
             bon[e] = acc;
         }
         __syncthreads();
-        for (int tk = 0; tk < n; ++tk) {
+        for (int tk = 0; tk < nt; ++tk) {
             const float* rt = rs + tk * width + hl * hd;
             const float* kt = ks + tk * width + hl * hd;
             const float* wt = ws + tk * width + hl * hd;
-            const float vj = vs[tk * width + hl * hd + j];
-            float acc = 0.f;
+            float vj[JC], acc[JC];
+#pragma unroll
+            for (int c = 0; c < JC; ++c) {
+                vj[c] = vs[tk * width + hl * hd + j0 + c];
+                acc[c] = 0.f;
+            }
 #pragma unroll
             for (int ii = 0; ii < ROWS; ++ii) {
                 const int i = ii * split + part;
-                acc = fmaf(rt[i], S[ii], acc);
-                S[ii] = fmaf(wt[i], S[ii], kt[i] * vj);
+                const float ri = rt[i], ki = kt[i], wi = wt[i];
+#pragma unroll
+                for (int c = 0; c < JC; ++c) {
+                    acc[c] = fmaf(ri, S[ii][c], acc[c]);
+                    S[ii][c] = fmaf(wi, S[ii][c], ki * vj[c]);
+                }
             }
             for (int o = split >> 1; o > 0; o >>= 1)
-                acc += __shfl_xor_sync(0xffffffffu, acc, o);
-            if (part == 0)
-                y[((int64_t)b * T + t0 + tk) * row + (int64_t)h * hd + j] =
-                    fmaf(vj, bon[tk * block_h + hl], acc);
-        }
-    }
 #pragma unroll
-    for (int ii = 0; ii < ROWS; ++ii)
-        s_out[sbase + (int64_t)(ii * split + part) * hd + j] = S[ii];
-}
-
-// Load one chunk of one head into shared memory; tokens at or past T read
-// as r = k = v = 0 and log w = 0.  `kv` false loads r and log w only.
-__device__ __forceinline__ void load_chunk(
-        const float* __restrict__ r, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ w, float* ra,
-        float* kb, float* vs, float* gs, int b, int h, int t0, int T, int H,
-        int hd, int chunk, bool kv) {
-    for (int e = threadIdx.x; e < chunk * hd; e += blockDim.x) {
-        const int tk = e / hd, i = e % hd;
-        const int t = t0 + tk;
-        if (t < T) {
-            const int64_t g = (((int64_t)b * T + t) * H + h) * hd + i;
-            ra[e] = r[g];
-            gs[e] = logf(w[g]);
-            if (kv) {
-                kb[e] = k[g];
-                vs[e] = v[g];
-            }
-        } else {
-            ra[e] = 0.f;
-            gs[e] = 0.f;
-            if (kv) {
-                kb[e] = 0.f;
-                vs[e] = 0.f;
+                for (int c = 0; c < JC; ++c)
+                    acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+            if (part == 0) {
+                const float bt = bon[tk * block_h + hl];
+                float* yt = y + ((int64_t)b * T + t0 + tk) * row
+                          + (int64_t)h * hd + j0;
+#pragma unroll
+                for (int c = 0; c < JC; ++c) yt[c] = fmaf(vj[c], bt, acc[c]);
             }
         }
     }
-}
-
-// In-chunk inclusive cumsum of log w per channel (one thread per channel);
-// writes exp(g_last) to dtot when it is given.
-__device__ __forceinline__ void cumsum_chunk(float* gs, float* dtot, int hd,
-                                             int chunk) {
-    for (int i = threadIdx.x; i < hd; i += blockDim.x) {
-        float run = 0.f;
-        for (int tk = 0; tk < chunk; ++tk) {
-            run += gs[tk * hd + i];
-            gs[tk * hd + i] = run;
-        }
-        if (dtot) dtot[i] = expf(run);
+    if (s_out) {
+        const int64_t sbase = ((int64_t)b * H + h) * hh;
+#pragma unroll
+        for (int ii = 0; ii < ROWS; ++ii)
+#pragma unroll
+            for (int c = 0; c < JC; ++c)
+                s_out[sbase + (int64_t)(ii * split + part) * hd + j0 + c] = S[ii][c];
     }
 }
 
-__global__ void __launch_bounds__(MATRIX_MAX_THREADS)
-wkv_matrix_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, const float* __restrict__ s0,
-                  float* __restrict__ y, float* __restrict__ s_out, int T,
-                  int H, int hd, int chunk, int lanes, int block_h) {
-    extern __shared__ float smem[];
-    const int hh2 = hd * hd;
-    float* ra = smem;                     // (chunk, hd): r, then A
-    float* kb = ra + chunk * hd;          // k, then Bm
-    float* vs = kb + chunk * hd;          // v
-    float* gs = vs + chunk * hd;          // log w, then g
-    float* sc = gs + chunk * hd;          // (chunk, chunk) scores
-    float* bon = sc + chunk * chunk;      // (chunk,)
-    float* sloc = bon + chunk;            // (block_h, lanes, hd, hd)
-    float* dtot = sloc + (int64_t)block_h * lanes * hh2;   // (block_h, lanes, hd)
-    float* st = dtot + block_h * lanes * hd;               // (block_h, hd, hd)
-    float* us = st + (int64_t)block_h * hh2;               // (block_h, hd)
-
-    const int groups = H / block_h;
-    const int b = blockIdx.x / groups;
-    const int h0 = (blockIdx.x % groups) * block_h;
-    const int tid = threadIdx.x, nth = blockDim.x;
-    const int lane = tid & 31;
-    const int64_t sbase = ((int64_t)b * H + h0) * hh2;
-    for (int e = tid; e < block_h * hh2; e += nth) st[e] = s0[sbase + e];
-    for (int e = tid; e < block_h * hd; e += nth) us[e] = u[(int64_t)h0 * hd + e];
-
-    const int span = chunk * lanes;
-    for (int ts = 0; ts < T; ts += span) {
-        // 1. every chunk of the span from a zero entry state
-        for (int unit = 0; unit < block_h * lanes; ++unit) {
-            const int hl = unit / lanes, l = unit % lanes;
-            const int h = h0 + hl, t0 = ts + l * chunk;
-            float* slo = sloc + (int64_t)unit * hh2;
-            float* dto = dtot + unit * hd;
-            __syncthreads();
-            load_chunk(r, k, v, w, ra, kb, vs, gs, b, h, t0, T, H, hd, chunk,
-                       true);
-            __syncthreads();
-            for (int e = tid; e < chunk; e += nth) {
-                const float* rr = ra + e * hd;
-                const float* kk = kb + e * hd;
-                const float* uu = us + hl * hd;
-                float acc = 0.f;
-                int i = e % hd;
-                for (int c = 0; c < hd; ++c) {
-                    acc = fmaf(rr[i] * uu[i], kk[i], acc);
-                    if (++i == hd) i = 0;
-                }
-                bon[e] = acc;
-            }
-            cumsum_chunk(gs, dto, hd, chunk);
-            __syncthreads();
-            for (int e = tid; e < chunk * hd; e += nth) {
-                const int tk = e / hd;
-                ra[e] *= expf(tk ? gs[e - hd] : 0.f);
-                kb[e] *= expf(-gs[e]);
-            }
-            __syncthreads();
-            for (int e = tid; e < chunk * chunk; e += nth) {
-                const int t = e / chunk, s = e % chunk;
-                float acc = 0.f;
-                if (s < t) {
-                    const float* at = ra + t * hd;
-                    const float* bs = kb + s * hd;
-                    int i = lane % hd;
-                    for (int c = 0; c < hd; ++c) {
-                        acc = fmaf(at[i], bs[i], acc);
-                        if (++i == hd) i = 0;
-                    }
-                }
-                sc[e] = acc;
-            }
-            __syncthreads();
-            for (int e = tid; e < chunk * hd; e += nth) {
-                const int t = e / hd, j = e % hd;
-                if (t0 + t >= T) continue;
-                float acc = bon[t] * vs[t * hd + j];
-                for (int s = 0; s < t; ++s)
-                    acc = fmaf(sc[t * chunk + s], vs[s * hd + j], acc);
-                y[(((int64_t)b * T + t0 + t) * H + h) * hd + j] = acc;
-            }
-            for (int e = tid; e < hh2; e += nth) {
-                const int i = e / hd, j = e % hd;
-                float acc = 0.f;
-                for (int s = 0; s < chunk; ++s)
-                    acc = fmaf(kb[s * hd + i], vs[s * hd + j], acc);
-                slo[e] = acc * dto[i];
-            }
-        }
-        __syncthreads();
-        // 2. the lanes-step combine: each chunk's entry state replaces its
-        // local state, and the carried state steps through the span
-        for (int e = tid; e < block_h * hh2; e += nth) {
-            const int hl = e / hh2, ij = e % hh2, i = ij / hd;
-            float s = st[e];
-            for (int l = 0; l < lanes; ++l) {
-                const int unit = hl * lanes + l;
-                float* slot = sloc + (int64_t)unit * hh2 + ij;
-                const float loc = *slot;
-                *slot = s;
-                s = fmaf(dtot[unit * hd + i], s, loc);
-            }
-            st[e] = s;
-        }
-        // 3. each chunk adds A S_entry to its y
-        for (int unit = 0; unit < block_h * lanes; ++unit) {
-            const int hl = unit / lanes, l = unit % lanes;
-            const int h = h0 + hl, t0 = ts + l * chunk;
-            const float* ent = sloc + (int64_t)unit * hh2;
-            if (t0 >= T) continue;        // this chunk is padding
-            __syncthreads();
-            load_chunk(r, k, v, w, ra, kb, vs, gs, b, h, t0, T, H, hd, chunk,
-                       false);
-            __syncthreads();
-            cumsum_chunk(gs, nullptr, hd, chunk);
-            __syncthreads();
-            for (int e = tid; e < chunk * hd; e += nth) {
-                const int tk = e / hd;
-                ra[e] *= expf(tk ? gs[e - hd] : 0.f);
-            }
-            __syncthreads();
-            for (int e = tid; e < chunk * hd; e += nth) {
-                const int t = e / hd, j = e % hd;
-                if (t0 + t >= T) continue;
-                const float* at = ra + t * hd;
-                float acc = 0.f;
-                for (int i = 0; i < hd; ++i)
-                    acc = fmaf(at[i], ent[i * hd + j], acc);
-                y[(((int64_t)b * T + t0 + t) * H + h) * hd + j] += acc;
-            }
-        }
-        __syncthreads();
-    }
-    for (int e = tid; e < block_h * hh2; e += nth) s_out[sbase + e] = st[e];
-}
-
-template <int ROWS>
+template <int ROWS, int JC>
 int launch_serial(const float* r, const float* k, const float* v,
-                  const float* w, const float* u, const float* s0, float* y,
+                  const float* w, const float* u, const float* entry, float* y,
                   float* s_out, int B, int T, int H, int hd, int chunk,
-                  int block_h, int threads, cudaStream_t stream) {
+                  int block_h, int threads, int span, cudaStream_t stream) {
     const size_t smem = (size_t)serial_smem_floats(chunk, block_h, hd) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
-        wkv_serial_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        wkv_serial_kernel<ROWS, JC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int64_t blocks = (int64_t)B * (H / block_h);
-    wkv_serial_kernel<ROWS><<<(unsigned)blocks, threads, smem, stream>>>(
-        r, k, v, w, u, s0, y, s_out, T, H, hd, chunk, block_h);
+    const int nspan = (T + span - 1) / span;
+    const int64_t blocks = (int64_t)B * (H / block_h) * nspan;
+    wkv_serial_kernel<ROWS, JC><<<(unsigned)blocks, threads, smem, stream>>>(
+        r, k, v, w, u, entry, y, s_out, T, H, hd, chunk, block_h, span, nspan);
     return (int)cudaGetLastError();
+}
+
+// The column tile of a serial-program thread (must match the Python-side
+// rule): the widest of 4, 2, 1 that keeps ROWS x JC <= 64 registers of
+// state and gives a block a whole number of warps, up to 512 threads; 0
+// when none does.
+__host__ __device__ inline int serial_tile(int hd, int split, int block_h) {
+    if (split <= 0 || hd % split) return 0;
+    const int rows = hd / split;
+    for (int jc = 4; jc >= 1; jc /= 2) {
+        if (rows * jc > 64 || hd % jc) continue;
+        const int threads = block_h * (hd / jc) * split;
+        if (threads % 32 == 0 && threads <= SERIAL_MAX_THREADS) return jc;
+    }
+    return 0;
+}
+
+int dispatch_serial(const float* r, const float* k, const float* v,
+                    const float* w, const float* u, const float* entry,
+                    float* y, float* s_out, int B, int T, int H, int hd,
+                    int chunk, int block_h, int split, int span,
+                    cudaStream_t st) {
+    if (hd <= 0 || chunk <= 0 || block_h <= 0 || H % block_h || span <= 0
+            || split > 32 || (split & (split - 1)))
+        return (int)cudaErrorInvalidValue;
+    const int jc = serial_tile(hd, split, block_h);
+    if (!jc) return (int)cudaErrorInvalidValue;
+    const int threads = block_h * (hd / jc) * split;
+#define WKV_SERIAL(ROWS_, JC_)                                                \
+    if (hd / split == ROWS_ && jc == JC_)                                     \
+        return launch_serial<ROWS_, JC_>(r, k, v, w, u, entry, y, s_out, B,   \
+                                         T, H, hd, chunk, block_h, threads,   \
+                                         span, st);
+    WKV_SERIAL(4, 4) WKV_SERIAL(4, 2) WKV_SERIAL(4, 1)
+    WKV_SERIAL(8, 4) WKV_SERIAL(8, 2) WKV_SERIAL(8, 1)
+    WKV_SERIAL(12, 4) WKV_SERIAL(12, 2) WKV_SERIAL(12, 1)
+    WKV_SERIAL(16, 4) WKV_SERIAL(16, 2) WKV_SERIAL(16, 1)
+    WKV_SERIAL(24, 2) WKV_SERIAL(24, 1)
+    WKV_SERIAL(32, 2) WKV_SERIAL(32, 1)
+    WKV_SERIAL(48, 1) WKV_SERIAL(64, 1)
+#undef WKV_SERIAL
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd); y: (B, T, H, hd);
-// s_out: (B, H, hd, hd); all float32 and contiguous.  block_h divides H.
-// lanes < 2: the serial program, threads = block_h * hd * split with
-// hd / split in {4, 8, 16, 32, 64} and threads <= 512.  lanes >= 2: the
-// matrix form with `threads` threads (a multiple of 32, <= 1024).
-int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const void* w,
-                  const void* u, const void* s0, void* y, void* s_out, int B,
-                  int T, int H, int hd, int chunk, int lanes, int block_h,
-                  int threads, void* stream) {
+// Route "serial".  r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd,
+// hd); y: (B, T, H, hd); s_out: (B, H, hd, hd); all float32 and contiguous.
+// block_h divides H; split (threads a state column's rows, a power of two)
+// with hd / split in {4, 8, 12, 16, 24, 32, 48, 64} and serial_tile(hd,
+// split, block_h) not 0; `chunk` tokens are staged in shared memory at a
+// time.
+int rwkv6_wkv_fwd_serial(const void* r, const void* k, const void* v,
+                         const void* w, const void* u, const void* s0, void* y,
+                         void* s_out, int B, int T, int H, int hd, int chunk,
+                         int block_h, int split, void* stream) {
     if (B <= 0 || T <= 0 || H <= 0) return 0;
-    if (hd <= 0 || chunk <= 0 || block_h <= 0 || H % block_h || threads <= 0)
-        return (int)cudaErrorInvalidValue;
-    const float *fr = (const float*)r, *fk = (const float*)k,
-                *fv = (const float*)v, *fw = (const float*)w,
-                *fu = (const float*)u, *fs0 = (const float*)s0;
-    float *fy = (float*)y, *fs = (float*)s_out;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (lanes >= 2) {
-        const size_t smem = (size_t)matrix_smem_floats(chunk, lanes, block_h, hd)
-                          * sizeof(float);
-        cudaError_t err = cudaFuncSetAttribute(
-            wkv_matrix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        const int64_t blocks = (int64_t)B * (H / block_h);
-        wkv_matrix_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-            fr, fk, fv, fw, fu, fs0, fy, fs, T, H, hd, chunk, lanes, block_h);
-        return (int)cudaGetLastError();
-    }
-    const int per_split = block_h * hd;
-    if (threads % per_split) return (int)cudaErrorInvalidValue;
-    const int split = threads / per_split;
-    if (split > 32 || (split & (split - 1)) || hd % split)
-        return (int)cudaErrorInvalidValue;
-    switch (hd / split) {
-        case 4: return launch_serial<4>(fr, fk, fv, fw, fu, fs0, fy, fs, B, T, H, hd,
-                                        chunk, block_h, threads, st);
-        case 8: return launch_serial<8>(fr, fk, fv, fw, fu, fs0, fy, fs, B, T, H, hd,
-                                        chunk, block_h, threads, st);
-        case 16: return launch_serial<16>(fr, fk, fv, fw, fu, fs0, fy, fs, B, T, H,
-                                          hd, chunk, block_h, threads, st);
-        case 32: return launch_serial<32>(fr, fk, fv, fw, fu, fs0, fy, fs, B, T, H,
-                                          hd, chunk, block_h, threads, st);
-        case 64: return launch_serial<64>(fr, fk, fv, fw, fu, fs0, fy, fs, B, T, H,
-                                          hd, chunk, block_h, threads, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const auto f = [](const void* p) { return (const float*)p; };
+    return dispatch_serial(f(r), f(k), f(v), f(w), f(u), f(s0), (float*)y,
+                           (float*)s_out, B, T, H, hd, chunk, block_h,
+                           split, T, (cudaStream_t)stream);
 }
 
-long long rwkv6_wkv_smem_bytes(int chunk, int lanes, int block_h, int hd) {
-    const int64_t floats = lanes >= 2 ? matrix_smem_floats(chunk, lanes, block_h, hd)
-                                      : serial_smem_floats(chunk, block_h, hd);
-    return (long long)floats * (long long)sizeof(float);
+// Route "chunked", program "states": k, v, w (B, T, H, hd), s0 (B, H, hd,
+// hd) -> states (B, H, ceil(T / chunk), hd, hd), the state entering every
+// chunk, and s_out (B, H, hd, hd); 16-byte aligned.  hd in {16, 32, 48,
+// 64}; cols in {4, 8, 16, 32} dividing hd.
+int rwkv6_wkv_fwd_states(const void* k, const void* v, const void* w,
+                         const void* s0, void* states, void* s_out, int B,
+                         int T, int H, int hd, int chunk, int cols,
+                         void* stream) {
+    if (B <= 0 || T <= 0 || H <= 0) return 0;
+    if (chunk <= 0 || cols <= 0 || cols % 4) return (int)cudaErrorInvalidValue;
+    const auto f = [](const void* p) { return (const float*)p; };
+    return chunk_scan(hd, cols, nullptr, f(k), f(v), f(w), nullptr, f(s0),
+                      nullptr, (float*)states, nullptr, nullptr,
+                      (float*)s_out, B, T, H, chunk, 1, (cudaStream_t)stream);
+}
+
+// Route "chunked", program "chunks": r, k, v, w, u and the states of
+// rwkv6_wkv_fwd_states at the same chunk -> y (B, T, H, hd): a block a
+// (b, block_h heads, chunk) in the serial program's layout (block_h and
+// split as for the serial route), min(chunk, 32) tokens staged at a time.
+int rwkv6_wkv_fwd_chunks(const void* r, const void* k, const void* v,
+                         const void* w, const void* u, const void* states,
+                         void* y, int B, int T, int H, int hd, int chunk,
+                         int block_h, int split, void* stream) {
+    if (B <= 0 || T <= 0 || H <= 0) return 0;
+    const auto f = [](const void* p) { return (const float*)p; };
+    return dispatch_serial(f(r), f(k), f(v), f(w), f(u), f(states), (float*)y,
+                           nullptr, B, T, H, hd, chunk < CHUNKS_STAGE
+                           ? chunk : CHUNKS_STAGE, block_h, split, chunk,
+                           (cudaStream_t)stream);
 }
 
 const char* rwkv6_wkv_error_string(int code) {

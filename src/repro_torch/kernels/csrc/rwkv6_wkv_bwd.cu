@@ -59,6 +59,9 @@
 // the chunk states (2 x B x H x T/chunk x hd^2 floats) written and read
 // once.  Numbers: PERF.md.
 //
+// The scan program lives in wkv_chunk_scan.cuh, shared with the forward
+// (rwkv6_wkv.cu, whose chunked route runs its forward direction).
+//
 // Plain C interface: rwkv6_wkv_bwd_scans / rwkv6_wkv_bwd_chunks launch on the
 // given stream, do not synchronise, allocate nothing, and return
 // cudaGetLastError().
@@ -66,12 +69,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv_chunk_scan.cuh"
+
 namespace {
+
+using namespace wkv_chunk;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_THREADS = 512;
-
-__host__ __device__ constexpr int pitch(int hd) { return hd + 4; }
 
 // Shared memory of the chunk program, in floats (must match the
 // Python-side check): r, k, w, dy, B, B k, v, A, S0 dy, G v tiles (chunk x
@@ -83,143 +88,6 @@ __host__ __device__ inline int64_t chunks_smem_floats(int chunk, int hd) {
     return 10LL * chunk * pitch(hd) + 2LL * hd * pitch(hd)
          + (2 * chunk > hd ? 2LL * chunk * pitch(hd) : 0)
          + 2LL * chunk * (chunk + 4) + 2LL * hd + chunk;
-}
-
-__host__ __device__ inline int64_t scans_smem_floats(int chunk, int hd) {
-    // two buffers of a, w, b tiles; the state on its way out
-    return 2LL * 3 * chunk * hd + (int64_t)hd * pitch(hd);
-}
-
-// 16-byte asynchronous copy device -> shared; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                    "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// program "scans"
-
-// One block per (b, head, direction): thread (g, i) carries columns
-// [g * COLS, (g + 1) * COLS) of row i of S (forward) or G (backward); a
-// chunk's a (k or r), w and b (v or dy) tiles are read once by the block
-// into a double buffer by cp.async while the chunk before is stepped.  A
-// chunk is one product, an FMA a cell and token:
-//     S <- diag(W) S + sum_t diag(prod_{s>t} w_s) k_t v_t^T
-//     G <- diag(W) G + sum_t diag(prod_{s<t} w_s) r_t dy_t^T
-// with W the product of the chunk's w; every factor a product of w's.
-template <int HD, int COLS>
-__global__ void __launch_bounds__(HD * HD / COLS)
-wkv_bwd_scans_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ w,
-                     const float* __restrict__ dy, const float* __restrict__ s0,
-                     const float* __restrict__ dsT, float* __restrict__ states,
-                     float* __restrict__ adj, float* __restrict__ ds0, int T,
-                     int H, int chunk, int N) {
-    extern __shared__ __align__(16) float smem[];
-    const int bh = blockIdx.x, b = bh / H, h = bh % H;
-    const bool back = blockIdx.y == 1;
-    const int tid = threadIdx.x, i = tid % HD, j0 = (tid / HD) * COLS;
-    const float* av = back ? r : k;
-    const float* bv = back ? dy : v;
-    float* store = back ? adj : states;
-    const int64_t hh = (int64_t)HD * HD;
-    const int64_t row = (int64_t)H * HD;
-    const int tile = chunk * HD;
-    float* out_tile = smem + 6 * tile;
-
-    auto load = [&](int n, int buf) {
-        const int t0 = n * chunk, nv = min(chunk, T - t0);
-        float* as = smem + buf * 3 * tile;
-        const int64_t base = ((int64_t)b * T + t0) * row + (int64_t)h * HD;
-        for (int e = tid; e < tile / 4; e += blockDim.x) {
-            const int tk = e / (HD / 4), c = (e - tk * (HD / 4)) * 4;
-            const bool in = tk < nv;
-            const int64_t g = base + (in ? tk : 0) * row + c;
-            cp_async16(as + tk * HD + c, av + g, in);
-            cp_async16(as + tile + tk * HD + c, w + g, in);
-            cp_async16(as + 2 * tile + tk * HD + c, bv + g, in);
-        }
-    };
-
-    float S[COLS];
-    {
-        const float4* src = reinterpret_cast<const float4*>(
-            (back ? dsT : s0) + bh * hh + (int64_t)i * HD + j0);
-#pragma unroll
-        for (int c = 0; c < COLS / 4; ++c) {
-            const float4 x = src[c];
-            S[4 * c] = x.x; S[4 * c + 1] = x.y; S[4 * c + 2] = x.z; S[4 * c + 3] = x.w;
-        }
-    }
-    load(back ? N - 1 : 0, 0);
-    cp_async_commit();
-    for (int step = 0; step < N; ++step) {
-        const int n = back ? N - 1 - step : step;
-        const int nv = min(chunk, T - n * chunk);
-        {                                 // the state, through shared memory
-            float4* st = reinterpret_cast<float4*>(out_tile + i * pitch(HD) + j0);
-#pragma unroll
-            for (int c = 0; c < COLS / 4; ++c)
-                st[c] = make_float4(S[4 * c], S[4 * c + 1], S[4 * c + 2], S[4 * c + 3]);
-        }
-        if (step + 1 < N) {               // the next chunk, while this one runs
-            load(back ? n - 1 : n + 1, (step + 1) & 1);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const float* as = smem + (step & 1) * 3 * tile;
-        const float* ws = as + tile;
-        const float* bs = ws + tile;
-        {                                 // ... and out in whole rows
-            float4* dst = reinterpret_cast<float4*>(store + (bh * N + n) * hh);
-            for (int e = tid; e < HD * HD / 4; e += blockDim.x) {
-                const int row_ = e / (HD / 4), c = e - row_ * (HD / 4);
-                dst[e] = *reinterpret_cast<const float4*>(out_tile + row_ * pitch(HD) + 4 * c);
-            }
-        }
-        // from the chunk's far edge: p is the decay product between token
-        // t and the edge the state leaves by, then the whole chunk's
-        float acc[COLS];
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
-        float p = 1.f;
-        for (int q = 0; q < nv; ++q) {
-            const int tk = back ? q : nv - 1 - q;
-            const float at = as[tk * HD + i] * p;
-            p *= ws[tk * HD + i];
-            const float4* bt = reinterpret_cast<const float4*>(bs + tk * HD + j0);
-#pragma unroll
-            for (int c = 0; c < COLS / 4; ++c) {
-                const float4 x = bt[c];
-                acc[4 * c] = fmaf(at, x.x, acc[4 * c]);
-                acc[4 * c + 1] = fmaf(at, x.y, acc[4 * c + 1]);
-                acc[4 * c + 2] = fmaf(at, x.z, acc[4 * c + 2]);
-                acc[4 * c + 3] = fmaf(at, x.w, acc[4 * c + 3]);
-            }
-        }
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) S[c] = fmaf(p, S[c], acc[c]);
-        __syncthreads();                  // the buffer is refilled next step
-    }
-    if (back) {
-        float4* dst = reinterpret_cast<float4*>(ds0 + bh * hh + (int64_t)i * HD + j0);
-#pragma unroll
-        for (int c = 0; c < COLS / 4; ++c)
-            dst[c] = make_float4(S[4 * c], S[4 * c + 1], S[4 * c + 2], S[4 * c + 3]);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -282,18 +150,18 @@ __device__ __forceinline__ int rowdot(float* out, int po, const float* P, int pp
 }
 
 // dv_t = G^T (B_t k_t) + sum_s Q[t][s] dy_s + bonus_t dy_t for t < nv, in
-// one pass: out[t][j] = sum_i (B[t][i] K[t][i]) G[i][j] + sum_s Q[t][s] D[s][j]
-// (Q[t][s] = 0 for s <= t), a warp task TM rows t (broadcast as float4) by
-// 32 * TN columns j (a lane's: j = lane + 32 q, rows of G and D by lanes),
-// written to device memory.
+// one pass: out[t][j] = sum_i (P1[t][i] P2[t][i]) G[i][j] + sum_s Q[t][s]
+// D[s][j] (P2 null: P1 alone; Q[t][s] = 0 for s <= t), a warp task TM rows
+// t (broadcast as float4) by 32 * TN columns j (a lane's: j = lane + 32 q,
+// rows of G and D by lanes), written to device memory.
 template <int TM, int TN>
-__device__ __forceinline__ void dv_pass(float* __restrict__ dv, int64_t base,
-                                        int64_t row, int nv, const float* Bs,
-                                        const float* Ks, const float* Gs,
-                                        const float* Qm, const float* Ds,
-                                        const float* bonus, int C, int HD,
-                                        int P, int CP, int warp, int nwarps,
-                                        int lane) {
+__device__ __forceinline__ void dv_pass(float* __restrict__ out, int64_t base,
+                                         int64_t row, int nv, const float* P1,
+                                         const float* P2, const float* Gs,
+                                         const float* Qm, const float* Ds,
+                                         const float* bonus, int C, int HD,
+                                         int P, int CP, int warp, int nwarps,
+                                         int lane) {
     const int nab = (C + TM - 1) / TM, nbb = (HD + 32 * TN - 1) / (32 * TN);
     for (int task = warp; task < nab * nbb; task += nwarps) {
         const int a0 = (task / nbb) * TM, b0 = (task % nbb) * 32 * TN;
@@ -305,16 +173,16 @@ __device__ __forceinline__ void dv_pass(float* __restrict__ dv, int64_t base,
         int col[TN];
 #pragma unroll
         for (int q = 0; q < TN; ++q) col[q] = min(b0 + lane + 32 * q, HD - 1);
-        auto segment = [&](const float* P1, const float* P2, int pp,
+        auto segment = [&](const float* A1, const float* A2, int pp,
                            const float* Qr, int nx) {
             for (int x = 0; x < nx; x += 4) {
                 float4 pv[TM];
 #pragma unroll
                 for (int m = 0; m < TM; ++m) {
                     const int a = min(a0 + m, C - 1);
-                    const float4 p1 = *reinterpret_cast<const float4*>(P1 + a * pp + x);
-                    if (P2) {
-                        const float4 p2 = *reinterpret_cast<const float4*>(P2 + a * pp + x);
+                    const float4 p1 = *reinterpret_cast<const float4*>(A1 + a * pp + x);
+                    if (A2) {
+                        const float4 p2 = *reinterpret_cast<const float4*>(A2 + a * pp + x);
                         pv[m] = make_float4(p1.x * p2.x, p1.y * p2.y, p1.z * p2.z,
                                             p1.w * p2.w);
                     } else {
@@ -336,7 +204,7 @@ __device__ __forceinline__ void dv_pass(float* __restrict__ dv, int64_t base,
                 }
             }
         };
-        segment(Bs, Ks, P, Gs, HD);
+        segment(P1, P2, P, Gs, HD);
         segment(Qm, nullptr, CP, Ds, C);
 #pragma unroll
         for (int m = 0; m < TM; ++m)
@@ -344,7 +212,7 @@ __device__ __forceinline__ void dv_pass(float* __restrict__ dv, int64_t base,
             for (int q = 0; q < TN; ++q) {
                 const int t = a0 + m, j = b0 + lane + 32 * q;
                 if (t < nv && j < HD)
-                    dv[base + t * row + j] = fmaf(bonus[t], Ds[t * P + j], acc[m][q]);
+                    out[base + t * row + j] = fmaf(bonus[t], Ds[t * P + j], acc[m][q]);
             }
     }
 }
@@ -659,41 +527,6 @@ wkv_bwd_chunks_kernel(const float* __restrict__ r, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launches
 
-template <int HD, int COLS>
-int launch_scans(const float* r, const float* k, const float* v, const float* w,
-                 const float* dy, const float* s0, const float* dsT,
-                 float* states, float* adj, float* ds0, int B, int T, int H,
-                 int chunk, cudaStream_t stream) {
-    const size_t smem = (size_t)scans_smem_floats(chunk, HD) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        wkv_bwd_scans_kernel<HD, COLS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int N = (T + chunk - 1) / chunk;
-    const dim3 grid((unsigned)(B * H), 2);
-    wkv_bwd_scans_kernel<HD, COLS><<<grid, HD * HD / COLS, smem, stream>>>(
-        r, k, v, w, dy, s0, dsT, states, adj, ds0, T, H, chunk, N);
-    return (int)cudaGetLastError();
-}
-
-template <int HD>
-int dispatch_scans(int cols, const float* r, const float* k, const float* v,
-                   const float* w, const float* dy, const float* s0,
-                   const float* dsT, float* states, float* adj, float* ds0,
-                   int B, int T, int H, int chunk, cudaStream_t stream) {
-    if (HD % cols) return (int)cudaErrorInvalidValue;
-    switch (cols) {
-        case 4: return launch_scans<HD, 4>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
-        case 8: return launch_scans<HD, 8>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
-        case 16: return launch_scans<HD, 16>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
-        case 32:
-            if constexpr (HD % 32 == 0)
-                return launch_scans<HD, 32>(r, k, v, w, dy, s0, dsT, states, adj, ds0, B, T, H, chunk, stream);
-            return (int)cudaErrorInvalidValue;
-        default: return (int)cudaErrorInvalidValue;
-    }
-}
-
 template <int C, int HD>
 int launch_chunks(const float* r, const float* k, const float* v,
                   const float* w, const float* u, const float* dy,
@@ -748,13 +581,10 @@ int rwkv6_wkv_bwd_scans(const void* r, const void* k, const void* v,
     if (bad_args(hd, chunk, threads, cols, parts)) return (int)cudaErrorInvalidValue;
     const auto f = [](const void* p) { return (const float*)p; };
     cudaStream_t s = (cudaStream_t)stream;
-    switch (hd) {
-        case 16: return dispatch_scans<16>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
-        case 32: return dispatch_scans<32>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
-        case 48: return dispatch_scans<48>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
-        case 64: return dispatch_scans<64>(cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT), (float*)states, (float*)adj, (float*)ds0, B, T, H, chunk, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    // both directions (S and G) in one launch
+    return chunk_scan(hd, cols, f(r), f(k), f(v), f(w), f(dy), f(s0), f(dsT),
+                      (float*)states, (float*)adj, (float*)ds0, nullptr, B, T,
+                      H, chunk, 2, s);
 }
 
 // As the scans' operands plus u (H, hd); writes dr, dk, dv, dw (B, T, H, hd)

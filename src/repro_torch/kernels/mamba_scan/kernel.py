@@ -25,13 +25,22 @@ same form with the state as a Python loop's carry and never holds a
 
 ``selective_scan_bwd`` replaces the Pallas backward ``selective_scan_bwd``
 (the spans pre-pass and the reverse sweep).  Its kernel is CUDA C++ in
-``kernels/csrc/mamba_scan_bwd.cu``, two programs: ``spans`` stores the state
-entering every span of ``chunk`` tokens, ``sweep`` walks the spans last to
-first, recomputing each span's states and stepping the state adjoint back
-through it, with ``split`` threads per channel.  The reduced operands (A,
-B, C, D) come back as partials that the wrapper sums, as the reference
-does.  ``selective_scan_bwd_plain`` computes the same scheme in PyTorch.
-Launches are counted in ``selective_scan_bwd.launches`` (calls) and
+``kernels/csrc/mamba_scan_bwd.cu``, a chunk-parallel form over chunks of
+``chunk`` tokens grouped in spans of ``span`` chunks, in three programs:
+``summaries`` (per chunk and (batch, channel, state entry) the decay
+product and the local state from zero; per span those and the local
+adjoint from zero), ``carry`` (the state entering and the adjoint leaving
+every span) and ``chunks`` (a block a span: its chunks' entry states, then
+the chunks last to first, each chunk's forward recomputed from its entry
+state and walked back with the adjoint carried from chunk to chunk; two
+exps a cell in all), ``split`` threads a channel in both.  Only
+products of decays appear, so an ``exp(delta A)`` that underflows to 0
+gives finite gradients.  The reduced operands (A, B, C, D) come back as
+partials that the wrapper sums, as the reference does.
+``selective_scan_bwd_plain`` (the oracle, the CPU branch) is the serial
+reverse recurrence over spans; ``selective_scan_bwd_chunked_plain``
+computes the kernel's chunk-parallel form in PyTorch.  Launches are
+counted in ``selective_scan_bwd.launches`` (calls) and
 ``selective_scan_bwd.program_launches`` (each program).
 """
 
@@ -44,13 +53,25 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["MAX_THREADS", "STATE_SIZES", "bwd_splits", "selective_scan_bwd",
+__all__ = ["BWD_CHUNKS", "BWD_MAX_KEPT", "BWD_MAX_THREADS", "BWD_SPANS",
+           "MAX_THREADS",
+           "STATE_SIZES", "bwd_launch_error", "bwd_splits",
+           "selective_scan_bwd", "selective_scan_bwd_chunked_plain",
            "selective_scan_bwd_plain", "selective_scan_fwd",
            "selective_scan_fwd_plain", "smem_bytes", "smem_bytes_bwd",
-           "threads"]
+           "smem_bytes_bwd_summaries", "threads"]
 
 MAX_THREADS = 512
 STATE_SIZES = (4, 8, 16)          # the kernel's templates
+# the backward's chunk lengths (templates) and chunks a span; a
+# chunk-program thread keeps chunk x S / split floats of each of
+# a_t h_{t-1} and a_t and two per-token sums in registers: chunk x
+# (S / split + 1) at most BWD_MAX_KEPT; both programs take at most
+# BWD_MAX_THREADS threads a block
+BWD_CHUNKS = (8, 16, 32, 64)
+BWD_SPANS = (1, 2, 4, 8, 16)
+BWD_MAX_KEPT = 80
+BWD_MAX_THREADS = 256
 
 _lib: ctypes.CDLL | None = None
 _lib_bwd: ctypes.CDLL | None = None
@@ -74,10 +95,12 @@ def _library_bwd() -> ctypes.CDLL:
     if _lib_bwd is None:
         lib = _build.load_library("mamba_scan_bwd")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mamba_scan_bwd_spans.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-        lib.mamba_scan_bwd_spans.restype = ctypes.c_int
-        lib.mamba_scan_bwd_sweep.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
-        lib.mamba_scan_bwd_sweep.restype = ctypes.c_int
+        lib.mamba_scan_bwd_summaries.argtypes = [ptr] * 11 + [i32] * 8 + [ptr]
+        lib.mamba_scan_bwd_summaries.restype = ctypes.c_int
+        lib.mamba_scan_bwd_carry.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.mamba_scan_bwd_carry.restype = ctypes.c_int
+        lib.mamba_scan_bwd_chunks.argtypes = [ptr] * 17 + [i32] * 8 + [ptr]
+        lib.mamba_scan_bwd_chunks.restype = ctypes.c_int
         lib.mamba_scan_bwd_error_string.argtypes = [ctypes.c_int]
         lib.mamba_scan_bwd_error_string.restype = ctypes.c_char_p
         _lib_bwd = lib
@@ -237,17 +260,57 @@ def bwd_splits(s: int) -> tuple[int, ...]:
     return tuple(p for p in (1, 2, 4, 8, 16) if p <= s and s % p == 0)
 
 
-def smem_bytes_bwd(s: int, block_d: int, chunk: int, split: int) -> int:
-    """Shared memory one block of the backward sweep asks for (the kernel's
-    ``sweep_smem_floats``): every token's h_{t-1} of a span, B_t and C_t,
-    and the warps' dB/dC partials."""
+def smem_bytes_bwd(s: int, block_d: int, chunk: int, split: int,
+                   span: int) -> int:
+    """Shared memory one block of the backward's chunk program asks for
+    (the kernel's ``chunks_smem_floats``): two buffers of a chunk's x,
+    delta, dy (chunk x block_d each) and B_t, C_t (chunk x S each); the
+    span's chunks' P and h_loc (span x block_d x S each); the reduced
+    sum_s g B and sum_s q A (chunk x block_d each); the warps' dC/dB
+    partials (chunk x 2S each)."""
     warps = block_d * split // 32
-    return 4 * (chunk * s * block_d + 2 * chunk * s + warps * chunk * 2 * s)
+    return 4 * (2 * (3 * chunk * block_d + 2 * chunk * s)
+                + 2 * span * block_d * s + 2 * chunk * block_d
+                + warps * chunk * 2 * s)
+
+
+def smem_bytes_bwd_summaries(s: int, block_d: int, chunk: int) -> int:
+    """The summaries program's block (``summaries_smem_floats``): two
+    buffers of the chunk's x, delta, dy, B_t and C_t, and three (block_d x
+    S) tiles of results on their way out."""
+    return 4 * (2 * (3 * chunk * block_d + 2 * chunk * s) + 3 * block_d * s)
+
+
+def bwd_launch_error(s: int, block_d: int, chunk: int, split: int,
+                     span: int) -> str | None:
+    """Why the backward cannot launch these parameters at state size
+    ``s``, or None."""
+    if split not in bwd_splits(s):
+        return f"split={split} not in {bwd_splits(s)} for S={s}"
+    if chunk not in BWD_CHUNKS:
+        return f"backward: chunk={chunk} not built ({BWD_CHUNKS})"
+    if span not in BWD_SPANS:
+        return f"backward: span={span} not in {BWD_SPANS}"
+    need = max(smem_bytes_bwd(s, block_d, chunk, split, span),
+               smem_bytes_bwd_summaries(s, block_d, chunk))
+    if need > SMEM_LIMIT_BYTES:
+        return (f"backward: block_d={block_d}, chunk={chunk}, split={split}, "
+                f"span={span} need {need} bytes of shared memory (limit "
+                f"{SMEM_LIMIT_BYTES})")
+    kept = chunk * (s // split + 1)
+    if kept > BWD_MAX_KEPT:
+        return (f"backward: chunk={chunk} x (S/split + 1) = {kept} kept "
+                f"values a thread (registers: at most {BWD_MAX_KEPT})")
+    threads = block_d * split
+    if block_d < 1 or threads % 32 or threads > BWD_MAX_THREADS:
+        return (f"backward: block_d={block_d} x split={split} = {threads} "
+                f"threads: a multiple of 32 up to {BWD_MAX_THREADS}")
+    return None
 
 
 def _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d: int, chunk: int,
-               split: int) -> None:
-    _check(x, delta, a, b, c, d, h0, block_d, 1, 0)
+               split: int, span: int) -> None:
+    _check(x, delta, a, b, c, d, h0, 32, 1, 0)
     for name, t, like in (("dy", dy, x), ("dh_t", dh_t, h0)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
                 or t.shape != like.shape or t.device != x.device:
@@ -255,24 +318,17 @@ def _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d: int, chunk: int,
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    s = a.shape[1]
-    if split not in bwd_splits(s):
-        raise ValueError(f"split={split} not in {bwd_splits(s)} for S={s}")
-    if block_d * split > MAX_THREADS:
-        raise ValueError(f"block_d={block_d}, split={split}: "
-                         f"{block_d * split} threads (limit {MAX_THREADS})")
-    need = smem_bytes_bwd(s, block_d, chunk, split)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"backward: block_d={block_d}, chunk={chunk}, "
-                         f"split={split} need {need} bytes of shared memory "
-                         f"(limit {SMEM_LIMIT_BYTES})")
+    err = bwd_launch_error(a.shape[1], block_d, chunk, split, span)
+    if err:
+        raise ValueError(err)
 
 
 def selective_scan_bwd_plain(x, delta, a, b, c, d, h0, dy, dh_t, *,
                              chunk: int = 16):
-    """Plain version of :func:`selective_scan_bwd`: the same scheme (span
-    entry states, each span's states recomputed, the reverse recurrence) in
-    float32, with the (B, dI, S) state as a Python loop's carry."""
+    """Plain version of :func:`selective_scan_bwd`, the oracle: the
+    reference's scheme (the state entering every span of ``chunk`` tokens,
+    each span's states recomputed, the serial reverse recurrence) in the
+    operands' dtype, with the (B, dI, S) state as a Python loop's carry."""
     bt, t, di = x.shape
     starts = []
     h = h0
@@ -311,55 +367,154 @@ def selective_scan_bwd_plain(x, delta, a, b, c, d, h0, dy, dh_t, *,
     return dx, ddt, da.sum(0), db, dc, dd.sum(0), g
 
 
+def selective_scan_bwd_chunked_plain(x, delta, a, b, c, d, h0, dy, dh_t, *,
+                                     chunk: int = 16, span: int = 8):
+    """The kernel's chunk-parallel formulation in plain PyTorch (for the
+    tests and ``chip_smoke.py``; the wrapper's CPU branch takes
+    :func:`selective_scan_bwd_plain`): each chunk's decay product and local
+    state, each span's and its local adjoint (program ``summaries``), the
+    state entering and the adjoint leaving every span (``carry``), then
+    per span its chunks' entry states and the chunks last to first, each
+    recomputed from its entry state and walked back with the adjoint
+    carried from chunk to chunk (``chunks``), as
+    ``kernels/csrc/mamba_scan_bwd.cu`` derives them: only products of
+    decays, nothing divided.  Tokens past T count as x = delta = dy = 0."""
+    bt, t, di = x.shape
+    s = a.shape[1]
+    n = -(-t // chunk)
+    ns = -(-n // span)
+    pad = ns * span * chunk - t
+
+    def chunks(m):
+        m = torch.nn.functional.pad(m, (0, 0, 0, pad))
+        return m.view(bt, ns, span, chunk, m.shape[-1])
+
+    xs, ds, ys, bs, cs = (chunks(m) for m in (x, delta, dy, b, c))
+    hl = torch.zeros((bt, ns, span, di, s), dtype=x.dtype, device=x.device)
+    p = torch.ones_like(hl)
+    hs, ps = torch.zeros_like(hl[:, :, 0]), torch.ones_like(hl[:, :, 0])
+    gs = torch.zeros_like(hs)
+    for k in range(span):                              # program "summaries"
+        for i in range(chunk):
+            at = torch.exp(ds[:, :, k, i, :, None] * a)
+            hl[:, :, k] = at * hl[:, :, k] \
+                + (ds[:, :, k, i] * xs[:, :, k, i])[..., None] \
+                * bs[:, :, k, i, None, :]
+            p[:, :, k] = p[:, :, k] * at
+            ps = ps * at
+            gs = gs + ps * (ys[:, :, k, i, :, None] * cs[:, :, k, i, None, :])
+        hs = p[:, :, k] * hs + hl[:, :, k]
+    h, entry = h0, []
+    for j in range(ns):                                # program "carry"
+        entry.append(h)
+        h = ps[:, j] * h + hs[:, j]
+    g, leave = dh_t, [None] * ns
+    for j in reversed(range(ns)):
+        leave[j] = g
+        g = gs[:, j] + ps[:, j] * g
+    dh0 = g
+    h, g = torch.stack(entry, 1), torch.stack(leave, 1)
+    starts = []                                        # program "chunks"
+    for k in range(span):
+        starts.append(h)
+        h = p[:, :, k] * h + hl[:, :, k]
+    dx, ddt = torch.empty_like(xs), torch.empty_like(xs)
+    db, dc = torch.empty_like(bs), torch.empty_like(cs)
+    da = torch.zeros_like(hs)
+    for k in reversed(range(span)):
+        h, hps, ats = starts[k], [], []
+        for i in range(chunk):
+            at = torch.exp(ds[:, :, k, i, :, None] * a)
+            hps.append(h)
+            ats.append(at)
+            h = at * h + (ds[:, :, k, i] * xs[:, :, k, i])[..., None] \
+                * bs[:, :, k, i, None, :]
+        for i in reversed(range(chunk)):
+            dt, xv, dyv = ds[:, :, k, i], xs[:, :, k, i], ys[:, :, k, i]
+            hp, at = hps[i], ats[i]
+            b_t, c_t = bs[:, :, k, i, None, :], cs[:, :, k, i, None, :]
+            ht = at * hp + (dt * xv)[..., None] * b_t
+            gr = g + dyv[..., None] * c_t
+            dc[:, :, k, i] = torch.einsum("bnds,bnd->bns", ht, dyv)
+            db[:, :, k, i] = torch.einsum("bnds,bnd->bns", gr, dt * xv)
+            sx = (gr * b_t).sum(-1)
+            dx[:, :, k, i] = d * dyv + dt * sx
+            q = gr * at * hp
+            ddt[:, :, k, i] = (q * a).sum(-1) + xv * sx
+            da = da + q * dt[..., None]
+            g = gr * at
+
+    def back(m):
+        return m.reshape(bt, ns * span * chunk, m.shape[-1])[:, :t]
+
+    return (back(dx), back(ddt), da.sum((0, 1)), back(db), back(dc),
+            (dy * x).sum((0, 1)), dh0)
+
+
 def selective_scan_bwd(x, delta, a, b, c, d, h0, dy, dh_t, *,
-                       block_d: int = 128, chunk: int = 16, split: int = 4):
+                       block_d: int = 32, chunk: int = 16, split: int = 4,
+                       span: int = 8):
     """Gradients of ``(y, h_T) = selective_scan_fwd(x, delta, a, b, c, d,
     h0)`` for the cotangents ``dy`` (B, T, dI) and ``dh_t`` (B, dI, S), all
     float32: returns (dx, ddelta, dA, dB, dC, dD, dh0) in the operands'
     shapes.  Every element is written by one thread and the partials are
     summed here, so the same inputs give the same bits."""
     block_d, chunk, split = int(block_d), int(chunk), int(split)
-    _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d, chunk, split)
+    span = int(span)
+    _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d, chunk, split,
+               span)
     if x.device.type == "cpu":
         return selective_scan_bwd_plain(x, delta, a, b, c, d, h0, dy, dh_t,
                                         chunk=chunk)
     bt, t, di = x.shape
     s = a.shape[1]
-    n_spans = -(-t // chunk)
+    n = -(-t // chunk)
+    ns = -(-n // span)
     n_db = -(-di // block_d)
     f32 = dict(dtype=torch.float32, device=x.device)
-    hs = torch.empty((bt, n_spans, di, s), **f32)
+    prod_c, hloc_c = (torch.empty((bt, n, di, s), **f32) for _ in range(2))
+    prod_s, hloc_s, gloc_s, da = (torch.empty((bt, ns, di, s), **f32)
+                                  for _ in range(4))
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    da = torch.empty((bt, di, s), **f32)
     db = torch.empty((n_db, bt, t, s), **f32)
     dc = torch.empty((n_db, bt, t, s), **f32)
-    dd = torch.empty((bt, di), **f32)
+    dd = torch.empty((bt, ns, di), **f32)
     dh0 = torch.empty_like(h0)
     lib = _library_bwd()
-    tail = (bt, t, di, s, block_d, chunk, split)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for prog in ("spans", "sweep"):
-            if prog == "spans":
-                rc = lib.mamba_scan_bwd_spans(
+        for prog in ("summaries", "carry", "chunks"):
+            if prog == "summaries":
+                rc = lib.mamba_scan_bwd_summaries(
                     x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
-                    h0.data_ptr(), hs.data_ptr(), *tail, stream)
+                    c.data_ptr(), dy.data_ptr(), prod_c.data_ptr(),
+                    hloc_c.data_ptr(), prod_s.data_ptr(), hloc_s.data_ptr(),
+                    gloc_s.data_ptr(), bt, t, di, s, block_d, chunk, split,
+                    span, stream)
+            elif prog == "carry":
+                rc = lib.mamba_scan_bwd_carry(
+                    h0.data_ptr(), dh_t.data_ptr(), prod_s.data_ptr(),
+                    hloc_s.data_ptr(), gloc_s.data_ptr(), dh0.data_ptr(), bt,
+                    di, s, ns, stream)
             else:
-                rc = lib.mamba_scan_bwd_sweep(
+                rc = lib.mamba_scan_bwd_chunks(
                     x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
-                    c.data_ptr(), d.data_ptr(), hs.data_ptr(), dy.data_ptr(),
-                    dh_t.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                    c.data_ptr(), d.data_ptr(), dy.data_ptr(),
+                    prod_c.data_ptr(), hloc_c.data_ptr(), hloc_s.data_ptr(),
+                    gloc_s.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                     da.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
-                    dh0.data_ptr(), *tail, stream)
+                    bt, t, di, s, block_d, chunk, split, span, stream)
             if rc != 0:
                 raise KernelLaunchError(
                     f"mamba_scan_bwd {prog} (block_d={block_d}, chunk={chunk}, "
-                    f"split={split}): launch refused ({rc}: "
+                    f"split={split}, span={span}): launch refused ({rc}: "
                     f"{lib.mamba_scan_bwd_error_string(rc).decode()})")
             selective_scan_bwd.program_launches[prog] += 1
     selective_scan_bwd.launches += 1
-    return dx, ddt, da.sum(0), db.sum(0), dc.sum(0), dd.sum(0), dh0
+    return (dx, ddt, da.sum((0, 1)), db.sum(0), dc.sum(0), dd.sum((0, 1)),
+            dh0)
 
 
 selective_scan_bwd.launches = 0
-selective_scan_bwd.program_launches = {"spans": 0, "sweep": 0}
+selective_scan_bwd.program_launches = {"summaries": 0, "carry": 0,
+                                       "chunks": 0}

@@ -3,7 +3,8 @@
 Launch parameters resolve defaults < tuned store (``tuned=``, see
 ``repro_torch.tune.kernels``) < explicit overrides, under the reference's
 meta keys ``{bt, t, di, s}``: the forward's (``block_d``/``chunk``/``lanes``)
-as ``mamba_scan``, the backward's (``block_d``/``chunk``/``split``) as
+as ``mamba_scan``, the backward's
+(``block_d``/``chunk``/``split``/``span``) as
 ``mamba_scan_bwd``, from its defaults and the tuned store only (the
 backward kernel's own keywords force a configuration).  Every operand is
 cast to float32, as the reference's ``ops.selective_scan`` casts them.
@@ -26,11 +27,11 @@ from .kernel import selective_scan_bwd, selective_scan_fwd
 
 # the serial program, 128 channels a block
 DEFAULTS = {"block_d": 128, "chunk": 64, "lanes": 0}
-# 64 channels a block, eight threads a channel (512 threads), spans of 16
-# tokens (their states take 64 KB of shared memory at S 16): the fastest of
-# five points tried on the H100 at the Jamba training shape; a state of
-# S < 8 takes S threads a channel (``bwd_defaults``)
-BWD_DEFAULTS = {"block_d": 64, "chunk": 16, "split": 8}
+# 32 channels a block, four threads a channel (four state entries each),
+# chunks of 16 tokens in spans of 8 chunks: the fastest point of the H100
+# sweep at the Jamba training shape (PERF.md); a state of S < 4 takes S
+# threads a channel (``bwd_defaults``)
+BWD_DEFAULTS = {"block_d": 32, "chunk": 16, "split": 4, "span": 8}
 
 
 def bwd_defaults(s: int) -> dict:

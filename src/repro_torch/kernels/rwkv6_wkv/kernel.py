@@ -1,4 +1,4 @@
-"""RWKV-6 wkv recurrence: the CUDA kernel's wrapper and its plain version.
+"""RWKV-6 wkv recurrence: the CUDA kernels' wrappers and their plain versions.
 
 ``wkv6_fwd`` replaces the Pallas kernel ``wkv6_kernel``
 (``repro/kernels/rwkv6_wkv/kernel.py``: ``_serial_kernel`` and
@@ -7,22 +7,34 @@ state S through the tokens:
 
     y_t = r_t (S + diag(u) k_t v_t^T),    S <- diag(w_t) S + k_t v_t^T
 
-``lanes < 2`` is the serial program: a token loop with the state in
-registers, ``block_threads / (block_h * hd)`` threads per state column.
-``lanes >= 2`` is the matrix form: chunks of ``chunk <= 64`` tokens, each a
-masked (chunk x chunk) score product plus a product against its entry
-state, the chunk summaries threaded through a ``lanes``-step combine.  The
-kernel is CUDA C++ in ``kernels/csrc/rwkv6_wkv.cu``, compiled at first use
-and bound with ``ctypes``; it computes in float32 on the CUDA cores.
+It has two routes, picked from T and hd (``route_of``):
 
-T need not divide into chunks: the ragged edge is masked (tokens past T
-count as r = k = v = 0, w = 1, which leave the state as it is) where the
-reference clamps its chunk to a divisor of T.  T = 1 is a decode step.
+* ``"serial"`` (decode, T = 1; any T shorter than a chunk; a head size the
+  chunked route is not built for): a token loop with the state in
+  registers, at its own launch point (``SERIAL_LAUNCH``);
+* ``"chunked"`` (prefill, training): two programs, ``states`` (the state
+  entering every chunk of ``chunk`` tokens, a thread carrying ``cols``
+  value columns of one row: the program the backward's ``scans`` runs in
+  both directions) and ``chunks`` (the serial program over every chunk at
+  once, a block ``block_h`` heads of one chunk with ``split`` threads
+  sharing a state column's rows, walking its chunk's tokens from the
+  chunk's entry state),
+  every decay factor a product of w's, so any w in [0, 1] gives finite
+  results.
 
-The wrapper launches the kernel for a CUDA tensor, or raises; it takes the
-plain PyTorch version (``wkv6_fwd_plain``, which computes the same form,
-serial or matrix, with the state as a Python loop's carry) only for
-tensors on the CPU.  Launches are counted in ``wkv6_fwd.launches``.
+The kernels are CUDA C++ in ``kernels/csrc/rwkv6_wkv.cu`` (and
+``wkv_chunk_scan.cuh``), compiled at first use and bound with ``ctypes``;
+they compute in float32 on the CUDA cores.  T need not divide into
+chunks: the ragged edge is masked (tokens past T count as r = k = v = 0,
+w = 1, which leave the state as it is) where the reference clamps its
+chunk to a divisor of T.
+
+The wrapper launches the kernels for a CUDA tensor, or raises; it takes
+the plain version ``wkv6_fwd_plain`` (the serial recurrence, the oracle)
+only for tensors on the CPU.  ``wkv6_fwd_chunked_plain`` computes the
+chunked route's formulation in PyTorch.  Launches are counted in
+``wkv6_fwd.launches`` (calls) and ``wkv6_fwd.program_launches`` (each
+program: ``serial``, ``states``, ``chunks``).
 
 ``wkv6_bwd`` replaces the Pallas backward ``wkv6_bwd`` (the spans pre-pass
 and the reverse sweep).  Its kernel is CUDA C++ in
@@ -48,26 +60,41 @@ import torch
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
-__all__ = ["BWD_CHUNKS", "BWD_COLS", "BWD_HEAD_DIMS", "BWD_MAX_THREADS",
-           "BWD_PARTS", "MATRIX_MAX_CHUNK", "MATRIX_MAX_THREADS",
-           "SERIAL_MAX_THREADS", "SERIAL_ROWS", "serial_split", "smem_bytes",
-           "smem_bytes_bwd", "wkv6_bwd", "wkv6_bwd_chunked_plain",
-           "wkv6_bwd_plain", "wkv6_fwd", "wkv6_fwd_plain"]
+__all__ = ["BLOCK_H", "BWD_CHUNKS", "BWD_COLS", "BWD_HEAD_DIMS",
+           "BWD_MAX_THREADS", "BWD_PARTS", "CHUNKED_HEAD_DIMS", "CHUNKS",
+           "CHUNKS_STAGE", "COLS", "SERIAL_LAUNCH", "SERIAL_MAX_THREADS", "SPLITS",
+           "SERIAL_ROWS", "launch_error", "route_of", "serial_launch",
+           "serial_tile", "smem_bytes", "smem_bytes_bwd",
+           "smem_bytes_states", "wkv6_bwd", "wkv6_bwd_chunked_plain",
+           "wkv6_bwd_plain", "wkv6_fwd", "wkv6_fwd_chunked_plain",
+           "wkv6_fwd_plain"]
 
 SERIAL_MAX_THREADS = 512
-MATRIX_MAX_THREADS = 1024
-# state rows a serial thread holds in registers (the kernel's templates)
-SERIAL_ROWS = (4, 8, 16, 32, 64)
-# exp(-cumsum(log w)) overflows float32 past about this many tokens of small
-# decays: the reference's cap on matrix-form chunks
-MATRIX_MAX_CHUNK = 64
+# state rows a serial thread holds in registers (the kernel's templates;
+# 12, 24 and 48 serve head size 48)
+SERIAL_ROWS = (4, 8, 12, 16, 24, 32, 48, 64)
+# the serial route's own launch point: one head a block, four threads a
+# state column's rows (fitted to the head size and H by ``serial_launch``)
+SERIAL_LAUNCH = {"chunk": 32, "block_h": 1, "split": 4}
+
+# the chunked route: head sizes the states program is built for, chunk
+# lengths, value columns a states thread carries, heads a chunk-program
+# block walks and threads a state column there (the serial program's
+# layout), and the tokens the chunk program stages in shared memory at a
+# time (the kernel's CHUNKS_STAGE)
+CHUNKED_HEAD_DIMS = (16, 32, 48, 64)
+CHUNKS = (16, 32, 64, 128, 256)
+COLS = (4, 8, 16, 32)
+BLOCK_H = (1, 2, 4)
+SPLITS = (1, 2, 4, 8)
+CHUNKS_STAGE = 32
 
 # the backward kernel's builds: head sizes, chunk lengths (templates),
 # value columns a scan thread carries, warps 32 channels' in-chunk pair sum
 # is split over, and the chunk program's block size
-BWD_HEAD_DIMS = (16, 32, 48, 64)
+BWD_HEAD_DIMS = CHUNKED_HEAD_DIMS
 BWD_CHUNKS = (8, 16, 32, 64)
-BWD_COLS = (4, 8, 16, 32)
+BWD_COLS = COLS
 BWD_PARTS = (1, 2, 3, 4)
 BWD_MAX_THREADS = 512
 
@@ -80,8 +107,12 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library("rwkv6_wkv")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rwkv6_wkv_fwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
-        lib.rwkv6_wkv_fwd.restype = ctypes.c_int
+        lib.rwkv6_wkv_fwd_serial.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+        lib.rwkv6_wkv_fwd_serial.restype = ctypes.c_int
+        lib.rwkv6_wkv_fwd_states.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.rwkv6_wkv_fwd_states.restype = ctypes.c_int
+        lib.rwkv6_wkv_fwd_chunks.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.rwkv6_wkv_fwd_chunks.restype = ctypes.c_int
         lib.rwkv6_wkv_error_string.argtypes = [ctypes.c_int]
         lib.rwkv6_wkv_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -103,28 +134,55 @@ def _library_bwd() -> ctypes.CDLL:
     return _lib_bwd
 
 
-def smem_bytes(chunk: int, lanes: int, block_h: int, hd: int) -> int:
-    """Shared memory one block asks for (the kernel's ``*_smem_floats``)."""
-    if lanes >= 2:
-        floats = (4 * chunk * hd + chunk * chunk + chunk
-                  + block_h * lanes * hd * hd + block_h * lanes * hd
-                  + block_h * hd * hd + block_h * hd)
-    else:
-        floats = 4 * chunk * block_h * hd + chunk * block_h + block_h * hd
-    return 4 * floats
+def route_of(t: int, hd: int, chunk: int) -> str:
+    """The forward's route: ``"chunked"`` where the head size is built for
+    it and T fills a chunk, ``"serial"`` otherwise (decode steps)."""
+    return "chunked" if hd in CHUNKED_HEAD_DIMS and t >= chunk else "serial"
 
 
-def serial_split(hd: int, block_h: int, block_threads: int) -> int | None:
-    """Threads per state column of the serial program, or None when
-    ``block_threads`` gives no split the kernel is built for."""
-    per = block_h * hd
-    if block_threads % per:
-        return None
-    split = block_threads // per
-    if split > 32 or split & (split - 1) or hd % split \
+def smem_bytes(chunk: int, block_h: int, hd: int) -> int:
+    """Shared memory one block of the serial program asks for (the
+    kernel's ``serial_smem_floats``): r, k, v, w of ``chunk`` tokens, the
+    bonus sums, u."""
+    return 4 * (4 * chunk * block_h * hd + chunk * block_h + block_h * hd)
+
+
+def smem_bytes_states(chunk: int, hd: int) -> int:
+    """The states (and the backward's scans) program's block
+    (``scan_smem_floats``): two buffers of three (chunk, hd) tiles, the
+    state on its way out (hd, hd + 4)."""
+    return 4 * (6 * chunk * hd + hd * (hd + 4))
+
+
+def serial_tile(hd: int, split: int, block_h: int
+                ) -> tuple[int, int] | None:
+    """The serial program's column tile and block size at (hd, split,
+    block_h) (the kernel's ``serial_tile``): the widest of 4, 2, 1 columns a
+    thread that keeps ROWS x JC <= 64 registers of state (ROWS = hd /
+    split, one of ``SERIAL_ROWS``) and gives a block a whole number of
+    warps up to 512 threads, with the block's threads; None when none
+    does."""
+    if split < 1 or split & (split - 1) or hd % split \
             or hd // split not in SERIAL_ROWS:
         return None
-    return split
+    for jc in (4, 2, 1):
+        if hd // split * jc > 64 or hd % jc:
+            continue
+        threads = block_h * (hd // jc) * split
+        if threads % 32 == 0 and threads <= SERIAL_MAX_THREADS:
+            return jc, threads
+    return None
+
+
+def serial_launch(hd: int, h: int) -> dict:
+    """``SERIAL_LAUNCH`` fitted to the head size and head count: the first
+    (split, block_h) from it that the kernel takes (block_h dividing H), as
+    the reference clamps its blocks to what the shape allows."""
+    for split in (SERIAL_LAUNCH["split"], 2, 8, 1, 16):
+        for block_h in (SERIAL_LAUNCH["block_h"], 2, 4, 8):
+            if h % block_h == 0 and serial_tile(hd, split, block_h):
+                return {**SERIAL_LAUNCH, "split": split, "block_h": block_h}
+    return dict(SERIAL_LAUNCH)
 
 
 def _check_operands(r, k, v, w, u, s0) -> None:
@@ -150,34 +208,46 @@ def _check_operands(r, k, v, w, u, s0) -> None:
                          f"{hd}), got {tuple(s0.shape)}")
 
 
-def _check(r, k, v, w, u, s0, chunk: int, lanes: int, block_h: int,
-           block_threads: int) -> None:
-    _check_operands(r, k, v, w, u, s0)
-    h, hd = r.shape[2], r.shape[3]
-    if chunk < 1 or block_h < 1 or h % block_h:
-        raise ValueError(f"chunk={chunk} must be positive and block_h="
-                         f"{block_h} must divide H={h}")
-    if block_threads % 32 or not 32 <= block_threads <= (
-            MATRIX_MAX_THREADS if lanes >= 2 else SERIAL_MAX_THREADS):
-        raise ValueError(f"block_threads={block_threads} must be a multiple "
-                         "of 32 up to the program's limit")
-    if lanes >= 2:
-        if chunk > MATRIX_MAX_CHUNK:
-            raise ValueError(f"chunk={chunk} exceeds the matrix form's "
-                             f"stability cap {MATRIX_MAX_CHUNK}")
-    elif serial_split(hd, block_h, block_threads) is None:
-        raise ValueError(
-            f"block_threads={block_threads} is not block_h * hd * split "
-            f"({block_h} * {hd} * split) with hd / split in {SERIAL_ROWS}")
-    need = smem_bytes(chunk, lanes, block_h, hd)
+def launch_error(t: int, h: int, hd: int, chunk: int, split: int, cols: int,
+                 block_h: int) -> str | None:
+    """Why the forward cannot launch these parameters at (T, H, hd), or
+    None: the chunked route's builds, block shape and shared memory, or, on
+    the serial route, its own launch point."""
+    if chunk not in CHUNKS:
+        return f"chunk={chunk} not built ({CHUNKS})"
+    if split not in SPLITS:
+        return f"split={split} not in {SPLITS}"
+    if cols not in COLS:
+        return f"cols={cols} not in {COLS}"
+    if block_h not in BLOCK_H:
+        return f"block_h={block_h} not in {BLOCK_H}"
+    if route_of(t, hd, chunk) == "chunked":
+        if hd % cols:
+            return f"cols={cols} does not divide hd={hd}"
+        if h % block_h:
+            return f"block_h={block_h} must divide H={h}"
+        if serial_tile(hd, split, block_h) is None:
+            return (f"block_h={block_h}, hd={hd}, split={split}: no column "
+                    f"tile gives whole warps up to {SERIAL_MAX_THREADS} "
+                    f"threads with hd / split in {SERIAL_ROWS}")
+        need = max(smem_bytes_states(chunk, hd),
+                   smem_bytes(min(chunk, CHUNKS_STAGE), block_h, hd))
+    else:
+        launch = serial_launch(hd, h)
+        if serial_tile(hd, launch["split"], launch["block_h"]) is None:
+            return (f"hd={hd}, H={h}: the serial program has no split and "
+                    f"block_h it takes (hd / split in {SERIAL_ROWS})")
+        need = smem_bytes(launch["chunk"], launch["block_h"], hd)
     if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"chunk={chunk}, lanes={lanes}, block_h={block_h} "
-                         f"need {need} bytes of shared memory (limit "
-                         f"{SMEM_LIMIT_BYTES})")
+        return (f"chunk={chunk} at hd={hd} needs {need} bytes of shared "
+                f"memory (limit {SMEM_LIMIT_BYTES})")
+    return None
 
 
-def _serial_plain(r, k, v, w, u, s):
-    ys = []
+def wkv6_fwd_plain(r, k, v, w, u, s0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernels, the oracle: the serial recurrence in
+    the operands' dtype, with the state as a Python loop's carry."""
+    ys, s = [], s0
     for i in range(r.shape[1]):
         r_t, k_t, v_t, w_t = r[:, i], k[:, i], v[:, i], w[:, i]
         kv = k_t[..., :, None] * v_t[..., None, :]
@@ -187,75 +257,103 @@ def _serial_plain(r, k, v, w, u, s):
     return torch.stack(ys, dim=1), s
 
 
-def _matrix_plain(r, k, v, w, u, s, chunk: int):
+def wkv6_fwd_chunked_plain(r, k, v, w, u, s0, *, chunk: int = 32
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked route's formulation in plain PyTorch (for the tests and
+    ``chip_smoke.py``; the wrapper's CPU branch takes
+    :func:`wkv6_fwd_plain`): the state entering every chunk, one product a
+    chunk with every decay factor a product of w's (program ``states``),
+    then every chunk at once stepped token by token from its entry state
+    (program ``chunks``), as ``kernels/csrc/rwkv6_wkv.cu`` computes them.
+    Tokens past T count as r = k = v = 0, w = 1."""
     b, t, h, hd = r.shape
     n = -(-t // chunk)
     pad = n * chunk - t
 
     def chunks(x, fill):
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad), value=fill)
-        return x.view(b, n, chunk, h, hd)
+        return x.view(b, n, chunk, h, hd).permute(0, 3, 1, 2, 4)
 
-    rr, kk, vv = chunks(r, 0.0), chunks(k, 0.0), chunks(v, 0.0)
-    logw = torch.log(chunks(w, 1.0))
-    g = torch.cumsum(logw, dim=2)                      # inclusive, in-chunk
-    aa = rr * torch.exp(g - logw)                      # r * exp(g_excl)
-    bb = kk * torch.exp(-g)
-    scores = torch.einsum("bnthi,bnshi->bnhts", aa, bb)
-    scores = torch.tril(scores, diagonal=-1)
-    bonus = (rr * u * kk).sum(-1, keepdim=True) * vv
-    y = torch.einsum("bnhts,bnshj->bnthj", scores, vv) + bonus
-    d_tot = torch.exp(g[:, :, -1])                     # (b, n, h, hd)
-    s_loc = torch.einsum("bnshi,bnshj->bnhij", bb, vv) * d_tot[..., None]
-    starts = []
-    for c in range(n):                                 # the combine
-        starts.append(s)
-        s = d_tot[:, c, ..., None] * s + s_loc[:, c]
-    y = y + torch.einsum("bnthi,bnhij->bnthj", aa, torch.stack(starts, 1))
-    return y.reshape(b, n * chunk, h, hd)[:, :t], s
-
-
-def wkv6_fwd_plain(r, k, v, w, u, s0, *, chunk: int = 64, lanes: int = 0
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: the serial recurrence (``lanes < 2``)
-    or the matrix form over chunks of ``chunk`` tokens (``lanes >= 2``;
-    the combine runs chunk after chunk, as the kernel's lanes-step combine
-    and span carry do), in float32."""
-    if lanes >= 2:
-        return _matrix_plain(r, k, v, w, u, s0, chunk)
-    return _serial_plain(r, k, v, w, u, s0)
+    rr, kk, vv = (chunks(x, 0.0) for x in (r, k, v))
+    ww = chunks(w, 1.0)                                # (b, h, n, chunk, hd)
+    ones = torch.ones_like(ww[..., :1, :])
+    suf = torch.cumprod(torch.cat([ones, ww.flip(-2)[..., :-1, :]], -2),
+                        -2).flip(-2)                   # prod_{s>t} w_s
+    whole = suf[..., 0, :] * ww[..., 0, :]             # the chunk's product
+    local = torch.einsum("bhnti,bhntj->bhnij", suf * kk, vv)
+    s, entry = s0, []
+    for c in range(n):                                 # program "states"
+        entry.append(s)
+        s = whole[:, :, c, :, None] * s + local[:, :, c]
+    st, ys = torch.stack(entry, 2), []                 # (b, h, n, hd, hd)
+    uu = u[None, :, None, :]
+    for i in range(chunk):                             # program "chunks"
+        r_t, k_t, v_t = rr[..., i, :], kk[..., i, :], vv[..., i, :]
+        bonus = (r_t * uu * k_t).sum(-1, keepdim=True) * v_t
+        ys.append((r_t[..., None, :] @ st)[..., 0, :] + bonus)
+        st = ww[..., i, :, None] * st + k_t[..., :, None] * v_t[..., None, :]
+    y = torch.stack(ys, 3)                             # (b, h, n, chunk, hd)
+    return y.permute(0, 2, 3, 1, 4).reshape(b, n * chunk, h, hd)[:, :t], s
 
 
-def wkv6_fwd(r, k, v, w, u, s0, *, chunk: int = 64, lanes: int = 0,
-             block_h: int = 1, block_threads: int = 64
+def _raise_if(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        raise KernelLaunchError(f"{what}: launch refused ({rc}: "
+                                f"{lib.rwkv6_wkv_error_string(rc).decode()})")
+
+
+def wkv6_fwd(r, k, v, w, u, s0, *, chunk: int = 64, split: int = 4,
+             cols: int = 16, block_h: int = 1
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: r, k, v, w (B, T, H, hd), u (H, hd), s0 (B, H, hd, hd),
-    all float32 -> (y (B, T, H, hd), s_T (B, H, hd, hd)) float32."""
-    chunk, lanes, block_h = int(chunk), int(lanes), int(block_h)
-    block_threads = int(block_threads)
-    _check(r, k, v, w, u, s0, chunk, lanes, block_h, block_threads)
-    if r.device.type == "cpu":
-        return wkv6_fwd_plain(r, k, v, w, u, s0, chunk=chunk, lanes=lanes)
+    """The kernels: r, k, v, w (B, T, H, hd), u (H, hd), s0 (B, H, hd, hd),
+    all float32 -> (y (B, T, H, hd), s_T (B, H, hd, hd)) float32.  The
+    route is ``route_of(T, hd, chunk)``; the serial route runs at
+    ``SERIAL_LAUNCH`` whatever the chunked route's parameters."""
+    chunk, split = int(chunk), int(split)
+    cols, block_h = int(cols), int(block_h)
+    _check_operands(r, k, v, w, u, s0)
     b, t, h, hd = r.shape
+    err = launch_error(t, h, hd, chunk, split, cols, block_h)
+    if err:
+        raise ValueError(err)
+    if r.device.type == "cpu":
+        return wkv6_fwd_plain(r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_out = torch.empty_like(s0)
     lib = _library()
+    ptrs = [x.data_ptr() for x in (r, k, v, w, u)]
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.rwkv6_wkv_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t,
-            h, hd, chunk, lanes, block_h, block_threads, stream)
-    if rc != 0:
-        raise KernelLaunchError(
-            f"rwkv6_wkv(chunk={chunk}, lanes={lanes}, block_h={block_h}, "
-            f"block_threads={block_threads}): launch refused ({rc}: "
-            f"{lib.rwkv6_wkv_error_string(rc).decode()})")
+        if route_of(t, hd, chunk) == "serial":
+            sl = serial_launch(hd, h)
+            rc = lib.rwkv6_wkv_fwd_serial(
+                *ptrs, s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, t, h,
+                hd, sl["chunk"], sl["block_h"], sl["split"], stream)
+            _raise_if(rc, lib, f"rwkv6_wkv serial ({sl})")
+            wkv6_fwd.program_launches["serial"] += 1
+        else:
+            n = -(-t // chunk)
+            states = torch.empty((b, h, n, hd, hd), dtype=torch.float32,
+                                 device=r.device)
+            rc = lib.rwkv6_wkv_fwd_states(
+                k.data_ptr(), v.data_ptr(), w.data_ptr(), s0.data_ptr(),
+                states.data_ptr(), s_out.data_ptr(), b, t, h, hd, chunk, cols,
+                stream)
+            _raise_if(rc, lib, f"rwkv6_wkv states (chunk={chunk}, "
+                               f"cols={cols})")
+            wkv6_fwd.program_launches["states"] += 1
+            rc = lib.rwkv6_wkv_fwd_chunks(
+                *ptrs, states.data_ptr(), y.data_ptr(), b, t, h, hd, chunk,
+                block_h, split, stream)
+            _raise_if(rc, lib, f"rwkv6_wkv chunks (chunk={chunk}, "
+                               f"block_h={block_h}, split={split})")
+            wkv6_fwd.program_launches["chunks"] += 1
     wkv6_fwd.launches += 1
     return y, s_out
 
 
 wkv6_fwd.launches = 0
+wkv6_fwd.program_launches = {"serial": 0, "states": 0, "chunks": 0}
 
 
 # -- backward ---------------------------------------------------------------------

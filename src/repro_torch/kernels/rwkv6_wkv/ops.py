@@ -2,8 +2,10 @@
 
 Launch parameters resolve defaults < tuned store (``tuned=``, see
 ``repro_torch.tune.kernels``) < explicit overrides, under the reference's
-meta keys ``{b, t, h, hd}``: the forward's
-(``chunk``/``lanes``/``block_h``/``block_threads``) as ``rwkv6_wkv``, the
+meta keys ``{b, t, h, hd}``: the forward's chunked route
+(``chunk``/``split``/``cols``/``block_h``) as ``rwkv6_wkv`` (its
+serial route, decode and T shorter than a chunk, keeps its own launch
+point, ``kernel.SERIAL_LAUNCH``), the
 backward's (``chunk``/``block_threads``/``cols``/``parts``) as
 ``rwkv6_wkv_bwd``, from its defaults and the tuned store only (the backward
 kernel's own keywords force a configuration).  Every operand is cast to
@@ -23,30 +25,20 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import serial_split, wkv6_bwd, wkv6_fwd
+from .kernel import wkv6_bwd, wkv6_fwd
 
-# the serial program, four threads per state column of one head at hd 64:
-# 256 threads a block (one thread a column, 64 threads, takes ~4x as long
-# on the H100 at the RWKV-6 prefill shape)
-DEFAULTS = {"chunk": 32, "lanes": 0, "block_h": 1, "block_threads": 256}
+# the chunked route: chunks of 64 tokens, 16 value columns a states thread
+# (every head size built divides by 16), one head a chunk block with four
+# threads sharing a state column's rows: the fastest point of the H100
+# sweep at the RWKV-6 prefill shape that every H takes (PERF.md; two heads
+# a block, which needs an even H, was 0.3 % faster)
+DEFAULTS = {"chunk": 64, "split": 4, "cols": 16, "block_h": 1}
 # chunks of 16 tokens (81 KB of shared memory at hd 64: two blocks an SM),
 # sixteen warps a chunk, 16 value columns a scan thread (every head size
 # built divides by 16), 32 channels' in-chunk pair sum over 4 warps: the
 # fastest pair of programs timed on the H100 at the RWKV-6 training shape
 # (PERF.md)
 BWD_DEFAULTS = {"chunk": 16, "block_threads": 512, "cols": 16, "parts": 4}
-
-
-def fit_threads(hd: int, block_h: int, block_threads: int) -> int:
-    """The serial program's ``block_threads`` for this head size: the
-    largest ``block_h * hd * split`` up to the one asked for that the
-    kernel is built for (the smallest when none is), as the reference
-    clamps its blocks to what the shape allows."""
-    fits = [block_h * hd * s for s in (1, 2, 4, 8, 16, 32)
-            if serial_split(hd, block_h, block_h * hd * s) is not None
-            and block_h * hd * s % 32 == 0]
-    under = [n for n in fits if n <= block_threads]
-    return max(under) if under else min(fits, default=block_threads)
 
 
 class Wkv6(torch.autograd.Function):
@@ -69,8 +61,8 @@ class Wkv6(torch.autograd.Function):
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, s0: torch.Tensor | None = None, *,
-         chunk: int | None = None, lanes: int | None = None,
-         block_h: int | None = None, block_threads: int | None = None,
+         chunk: int | None = None, split: int | None = None,
+         cols: int | None = None, block_h: int | None = None,
          tuned: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd) or None
     (zeros).  Returns (y (B, T, H, hd), s_T (B, H, hd, hd)), float32.
@@ -84,8 +76,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     meta = {"b": b, "t": t, "h": h, "hd": hd}
     p = resolve_launch_params(
         "rwkv6_wkv", meta, torch.float32, defaults=DEFAULTS,
-        overrides={"chunk": chunk, "lanes": lanes, "block_h": block_h,
-                   "block_threads": block_threads},
+        overrides={"chunk": chunk, "split": split, "cols": cols,
+                   "block_h": block_h},
         tuned=tuned, device=r.device)
     if s0 is None:
         s0 = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
@@ -93,8 +85,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     def f32(x: torch.Tensor) -> torch.Tensor:
         return x.to(torch.float32).contiguous()
 
-    if p["lanes"] < 2:
-        p["block_threads"] = fit_threads(hd, p["block_h"], p["block_threads"])
     args = (f32(r), f32(k), f32(v), f32(w), f32(u), f32(s0))
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         pb = resolve_launch_params(

@@ -23,17 +23,21 @@ default shapes are the serving shapes of ``qwen2.5-3b`` at batch 8 with a
 2048-token prompt and 128 generated tokens.  The scan specs keep the reference's ``{bt, t, di, s}`` and
 ``{b, t, h, hd}``; their default shapes are the prefill shapes of
 ``jamba-v0.1-52b`` and ``rwkv6-1.6b`` at batch 8 with a 2048-token prompt,
-and their spaces keep the reference's ``lanes`` switch between the serial
-program (``lanes = 0``) and the chunked form, with the matrix form's
-``chunk <= 64`` cap.  These kernels mask the ragged edge, so a block or
-chunk need not divide its extent, only not exceed it.  The scans'
-backward specs keep the same names and meta keys as the reference's
-(``mamba_scan_bwd``, ``rwkv6_wkv_bwd``); their default shapes are the
-training shapes (Jamba batch 2 x 2048, RWKV-6 batch 8 x 2048), their
-inputs add the cotangents ``dy`` and ``dh_T`` / ``ds_T``, and their oracles
-are the plain backward versions.  The selective-scan backward's space is
-chunk x block_d x threads per channel (``split``), a chunk bounded by the
-shared memory its per-token states take; the wkv backward's is chunk x the
+and the selective scan's space keeps the reference's ``lanes`` switch
+between the serial program (``lanes = 0``) and the chunked form.  The wkv
+forward's space is its chunked route's (chunk x threads a state column
+in the chunk program (``split``) x value columns a states thread carries
+(``cols``) x heads a chunk-program block walks (``block_h``)); its serial
+route, for decode and short T, keeps its own launch point.  These kernels
+mask the ragged edge, so a block or chunk need not divide its extent, only
+not exceed it.  The scans' backward specs keep the same names and meta
+keys as the reference's (``mamba_scan_bwd``, ``rwkv6_wkv_bwd``); their
+default shapes are the training shapes (Jamba batch 2 x 2048, RWKV-6 batch
+8 x 2048), their inputs add the cotangents ``dy`` and ``dh_T`` / ``ds_T``,
+and their oracles are the plain backward versions.  The selective-scan
+backward's space is block_d x chunk x threads a channel (``split``) x
+chunks a span (``span``), a chunk bounded by the registers its kept states
+take and a span by the shared memory its chunks' summaries take; the wkv backward's is chunk x the
 chunk program's threads x value columns a scan thread carries (``cols``)
 x warps 32 channels' in-chunk pair sum takes (``parts``), a chunk bounded
 by the shared memory its tiles, entry state and exit adjoint take.
@@ -69,9 +73,11 @@ __all__ = ["ATTN_BLOCKS", "ATTN_BLOCKS_Q", "ATTN_STAGES", "ATTN_THREADS",
            "BLOCK_THREADS", "BWD_SPLITS",
            "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_STAGES",
            "DECODE_THREADS", "GRAMS",
-           "SCAN_BLOCK_D", "SCAN_BWD_CHUNKS", "SCAN_CHUNKS", "SCAN_LANES",
-           "TEXT_CHUNKS", "WKV_BLOCK_H", "WKV_BWD_CHUNKS", "WKV_BWD_COLS",
-           "WKV_BWD_PARTS", "WKV_BWD_THREADS", "WKV_THREADS"]
+           "SCAN_BLOCK_D", "SCAN_BWD_BLOCK_D", "SCAN_BWD_CHUNKS",
+           "SCAN_BWD_SPANS", "SCAN_CHUNKS", "SCAN_LANES",
+           "TEXT_CHUNKS", "WKV_BWD_CHUNKS", "WKV_BWD_COLS", "WKV_BWD_PARTS",
+           "WKV_BLOCK_H", "WKV_BWD_THREADS", "WKV_CHUNKS", "WKV_COLS",
+           "WKV_SPLITS"]
 
 # the DNA kernels: map and count chunks, threads a block (at most 256, so a
 # thread may hold 255 registers; a warp's ring of text slots takes 13.5
@@ -95,10 +101,19 @@ DECODE_STAGES = da_kernel.STAGES
 SCAN_CHUNKS = (8, 16, 32, 64, 128, 256, 512, 1024)
 SCAN_LANES = (0, 2, 4, 8, 16)        # 0 = the serial program
 SCAN_BLOCK_D = (32, 64, 128, 256, 512)
-WKV_BLOCK_H = (1, 2, 4, 8)
-WKV_THREADS = (64, 128, 256, 512, 1024)
-SCAN_BWD_CHUNKS = (1, 2, 4, 8, 16, 32, 64)
-BWD_SPLITS = (1, 2, 4, 8, 16, 32)
+# the wkv forward's chunked route: chunk length, threads a state column in
+# the chunk program, value columns a states thread carries, heads a
+# chunk-program block walks
+WKV_CHUNKS = wkv_kernel.CHUNKS
+WKV_SPLITS = wkv_kernel.SPLITS
+WKV_COLS = wkv_kernel.COLS
+WKV_BLOCK_H = wkv_kernel.BLOCK_H
+# the selective-scan backward: channels a block, chunk length, threads a
+# channel, chunks a span
+SCAN_BWD_BLOCK_D = (16, 32, 64, 128, 256)
+SCAN_BWD_CHUNKS = ms_kernel.BWD_CHUNKS
+BWD_SPLITS = (1, 2, 4, 8, 16)
+SCAN_BWD_SPANS = ms_kernel.BWD_SPANS
 # the wkv backward: chunk length, the chunk program's threads, value
 # columns a scan thread carries, warps 32 channels' in-chunk pair sum takes
 WKV_BWD_CHUNKS = wkv_kernel.BWD_CHUNKS
@@ -417,24 +432,26 @@ register_kernel(KernelSpec(
 
 def _msb_space(meta: Mapping[str, Any]) -> ConfigSpace:
     return ConfigSpace([
-        Param("block_d", SCAN_BLOCK_D),
+        Param("block_d", SCAN_BWD_BLOCK_D),
         Param("chunk", SCAN_BWD_CHUNKS),
         Param("split", BWD_SPLITS),
+        Param("span", SCAN_BWD_SPANS),
     ])
 
 
 def _msb_validate(cfg, meta) -> str | None:
-    bd, chunk, split, s = cfg["block_d"], cfg["chunk"], cfg["split"], meta["s"]
+    bd, chunk, s = cfg["block_d"], cfg["chunk"], meta["s"]
+    split, span = cfg["split"], cfg["span"]
     if s not in ms_kernel.STATE_SIZES:
         return f"state size {s} not in {ms_kernel.STATE_SIZES}"
-    if split not in ms_kernel.bwd_splits(s):
-        return f"split={split} not in {ms_kernel.bwd_splits(s)} at S={s}"
-    if bd * split > ms_kernel.MAX_THREADS:
-        return f"{bd * split} threads a block (limit {ms_kernel.MAX_THREADS})"
-    # the span's per-token states: chunk x S x block_d floats
-    return (_not_above(meta["di"], bd, SCAN_BLOCK_D[0], "block_d")
-            or _not_above(meta["t"], chunk, SCAN_BWD_CHUNKS[0], "chunk")
-            or _smem(ms_kernel.smem_bytes_bwd(s, bd, chunk, split)))
+    # shared memory bounds block_d x chunk and block_d x span; the chunk
+    # program keeps chunk x (S / split + 1) floats of each kind a thread in
+    # registers
+    return (_smem(max(ms_kernel.smem_bytes_bwd(s, bd, chunk, split, span),
+                      ms_kernel.smem_bytes_bwd_summaries(s, bd, chunk)))
+            or ms_kernel.bwd_launch_error(s, bd, chunk, split, span)
+            or _not_above(meta["di"], bd, SCAN_BWD_BLOCK_D[0], "block_d")
+            or _not_above(meta["t"], chunk, SCAN_BWD_CHUNKS[0], "chunk"))
 
 
 def _msb_inputs(meta, dtype, rng, device):
@@ -447,9 +464,7 @@ def _msb_inputs(meta, dtype, rng, device):
 
 
 def _msb_run(cfg, inputs):
-    return ms_kernel.selective_scan_bwd(*inputs, block_d=cfg["block_d"],
-                                        chunk=cfg["chunk"],
-                                        split=cfg["split"])
+    return ms_kernel.selective_scan_bwd(*inputs, **cfg)
 
 
 def _msb_ref(inputs):
@@ -471,39 +486,24 @@ register_kernel(KernelSpec(
 
 def _wkv_space(meta: Mapping[str, Any]) -> ConfigSpace:
     return ConfigSpace([
-        Param("chunk", SCAN_CHUNKS),
-        Param("lanes", SCAN_LANES),
+        Param("chunk", WKV_CHUNKS),
+        Param("split", WKV_SPLITS),
+        Param("cols", WKV_COLS),
         Param("block_h", WKV_BLOCK_H),
-        Param("block_threads", WKV_THREADS),
     ])
 
 
 def _wkv_validate(cfg, meta) -> str | None:
-    chunk, lanes = cfg["chunk"], cfg["lanes"]
-    bh, nt = cfg["block_h"], cfg["block_threads"]
-    t, h, hd = meta["t"], meta["h"], meta["hd"]
-    err = _divides(h, bh, "block_h")
-    if err:
-        return err
-    if lanes < 2:                       # the serial program
-        if nt > wkv_kernel.SERIAL_MAX_THREADS:
-            return (f"block_threads={nt} exceeds the serial program's "
-                    f"{wkv_kernel.SERIAL_MAX_THREADS}")
-        if wkv_kernel.serial_split(hd, bh, nt) is None:
-            return (f"block_threads={nt} is not block_h * hd * split with "
-                    f"hd / split in {wkv_kernel.SERIAL_ROWS}")
-        span = chunk
-    else:
-        if chunk > wkv_kernel.MATRIX_MAX_CHUNK:
-            # the matrix form computes k * exp(-cumsum(log w)); past ~64
-            # tokens the inverse decay product can overflow float32 (the
-            # tuner's parity gate also refuses any configuration that
-            # diverges)
-            return (f"chunk={chunk} exceeds matrix-form stability cap "
-                    f"{wkv_kernel.MATRIX_MAX_CHUNK}")
-        span = chunk * lanes
-    return (_not_above(t, span, SCAN_CHUNKS[0], "chunk*lanes")
-            or _smem(wkv_kernel.smem_bytes(chunk, lanes, bh, hd)))
+    """The chunked route's space: a head size it is built for, a T that
+    fills the chunk, and the states and chunk programs' shared memory
+    (the serial route keeps its own launch point and is not tuned)."""
+    chunk, t, hd = cfg["chunk"], meta["t"], meta["hd"]
+    if hd not in wkv_kernel.CHUNKED_HEAD_DIMS:
+        return (f"hd={hd} not built for the chunked route "
+                f"({wkv_kernel.CHUNKED_HEAD_DIMS})")
+    return (_not_above(t, chunk, WKV_CHUNKS[0], "chunk")
+            or wkv_kernel.launch_error(t, meta["h"], hd, chunk, cfg["split"],
+                                       cfg["cols"], cfg["block_h"]))
 
 
 def _wkv_inputs(meta, dtype, rng, device):
@@ -520,9 +520,7 @@ def _wkv_inputs(meta, dtype, rng, device):
 
 
 def _wkv_run(cfg, inputs):
-    return wkv_kernel.wkv6_fwd(*inputs, chunk=cfg["chunk"],
-                               lanes=cfg["lanes"], block_h=cfg["block_h"],
-                               block_threads=cfg["block_threads"])
+    return wkv_kernel.wkv6_fwd(*inputs, **cfg)
 
 
 def _wkv_ref(inputs):

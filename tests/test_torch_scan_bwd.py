@@ -22,7 +22,6 @@ from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
-from repro_torch.tune.kernels.specs import SCAN_BWD_CHUNKS, WKV_BWD_CHUNKS
 
 # the reference's backward tests' gates (tests/test_kernels.py): float32
 # atol 1e-5 / rtol 1e-4 (the same reverse recurrence, summed in another
@@ -95,20 +94,32 @@ def close(got, want, dtype="float32", what=""):
     (1, 1, 32, 4, 8),                         # one token
 ])
 def test_selective_scan_bwd_matches_the_vjp(bt, t, di, s, chunk):
+    """The wrapper (its CPU branch, the serial plain version) at a launch
+    the kernel takes (chunk x (S / split + 1) <= 80 kept values a thread:
+    two threads a channel, four at S 16), and the kernel's chunk-parallel
+    form at the same chunk: each the reference's vjp."""
     arrays = scan_arrays(bt, t, di, s)
     want = vjp(selective_scan_ref, arrays)
     got = ms_kernel.selective_scan_bwd(*tensors(arrays), block_d=32,
-                                       chunk=chunk, split=2)
+                                       chunk=chunk, split=max(2, s // 4))
     close(got, want, what=SCAN_NAMES)
+    close(ms_kernel.selective_scan_bwd_chunked_plain(*tensors(arrays),
+                                                     chunk=chunk),
+          want, what=SCAN_NAMES)
 
 
-@pytest.mark.parametrize("chunk", SCAN_BWD_CHUNKS)
+@pytest.mark.parametrize("chunk", (1, 2, 4, 8, 16, 32, 64))
 def test_selective_scan_bwd_at_every_chunk_of_the_space(chunk):
-    """Every span length the space can pick, at a T none of them divides
-    but 1 (70 tokens)."""
+    """Every chunk the space can pick (8-64) and the shorter ones, at a T
+    none of them divides but 1 (70 tokens): the serial plain version at
+    spans of that length and the chunk-parallel form at chunks of it."""
     arrays = scan_arrays(1, 70, 32, 8, seed=chunk)
+    want = vjp(selective_scan_ref, arrays)
     close(ms_kernel.selective_scan_bwd_plain(*tensors(arrays), chunk=chunk),
-          vjp(selective_scan_ref, arrays), what=SCAN_NAMES)
+          want, what=SCAN_NAMES)
+    close(ms_kernel.selective_scan_bwd_chunked_plain(*tensors(arrays),
+                                                     chunk=chunk),
+          want, what=SCAN_NAMES)
 
 
 # -- B9: the wkv backward ------------------------------------------------------------
@@ -299,8 +310,16 @@ def test_a_tensor_off_the_cpu_goes_to_the_backward_kernel_or_raises(
 
 def test_backward_smem_accounting_matches_the_sources():
     """The Python-side shared-memory sums are the .cu files' sums."""
-    assert ms_kernel.smem_bytes_bwd(16, 128, 16, 4) == 4 * (
-        16 * 16 * 128 + 2 * 16 * 16 + 16 * 16 * 2 * 16)
+    # the chunk program: two buffers of x, delta, dy (chunk x block_d) and
+    # B_t, C_t (chunk x S); the span's chunks' P and h_loc (span x block_d
+    # x S); the reduced dx and ddelta sums (chunk x block_d); the warps'
+    # dC/dB partials (chunk x 2S); the summaries: two buffers of x, delta,
+    # dy, B_t and C_t, and three (block_d x S) tiles of results
+    assert ms_kernel.smem_bytes_bwd(16, 128, 16, 4, 8) == 4 * (
+        2 * (3 * 16 * 128 + 2 * 16 * 16) + 2 * 8 * 128 * 16 + 2 * 16 * 128
+        + 16 * 16 * 2 * 16)
+    assert ms_kernel.smem_bytes_bwd_summaries(16, 128, 16) == 4 * (
+        2 * (3 * 16 * 128 + 2 * 16 * 16) + 3 * 128 * 16)
     # the chunk program: ten (chunk, hd + 4) tiles, S0 and G (hd, hd + 4),
     # M and Q (chunk, chunk + 4), u, rowsum(G * S0), the bonus sums; dw's
     # two scanned terms in S0's place, or in two tiles of their own past

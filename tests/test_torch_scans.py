@@ -66,69 +66,85 @@ def scan_inputs(bt, t, di, s, seed=0, h0=False):
 
 # -- B8: wkv6 ------------------------------------------------------------------
 
+def wkv_route(route, r, k, v, w, u, s0=None, *, chunk):
+    """One of the kernel's two routes on the CPU: "serial" through the
+    wrapper (its CPU branch, the serial plain version), "chunked" through
+    the chunked route's formulation (``wkv6_fwd_chunked_plain``)."""
+    if route == "serial":
+        return wkv_ops.wkv6(r, k, v, w, u, s0, chunk=chunk)
+    if s0 is None:
+        b, _, h, hd = r.shape
+        s0 = torch.zeros((b, h, hd, hd))
+    return wkv_kernel.wkv6_fwd_chunked_plain(r, k, v, w, u, s0, chunk=chunk)
+
+
 @pytest.mark.parametrize("b,t,h,hd,chunk", [
     (2, 128, 2, 32, 32), (1, 96, 1, 64, 16), (2, 64, 4, 16, 64),
 ])
-@pytest.mark.parametrize("lanes", [0, 2])
-def test_wkv6_matches_reference(b, t, h, hd, chunk, lanes):
+@pytest.mark.parametrize("route", ["serial", "chunked"])
+def test_wkv6_matches_reference(b, t, h, hd, chunk, route):
     """The reference's test shapes (tests/test_kernels.py), in the serial
-    program and in the matrix form."""
+    route and in the chunked route's formulation."""
     jin, tin = wkv_inputs(b, t, h, hd)
-    y, s = wkv_ops.wkv6(*tin[:5], chunk=chunk, lanes=lanes)
+    assert wkv_kernel.route_of(t, hd, chunk) == "chunked"
+    y, s = wkv_route(route, *tin[:5], chunk=chunk)
     ye, se = wkv6_ref(*jin[:5])
     close(y, ye)
     close(s, se)
 
 
 def test_wkv6_chunked_matches_serial_at_every_chunk_size():
-    """Every (chunk, lanes >= 2) the space allows at this shape gives the
-    serial program's function; t = 128 is cut into whole and ragged
-    spans."""
+    """Every chunk the space allows at this shape gives the serial
+    program's function; t = 128 is cut into whole and ragged chunks."""
     b, t, h, hd = 2, 128, 2, 32
     _, (r, k, v, w, u, s0) = wkv_inputs(b, t, h, hd, s0=True)
-    y0, s_0 = wkv_ops.wkv6(r, k, v, w, u, s0, lanes=0)
+    y0, s_0 = wkv_ops.wkv6(r, k, v, w, u, s0)
     spec = ktune.get_kernel("rwkv6_wkv")
     meta = {"b": b, "t": t, "h": h, "hd": hd}
     space = spec.space(meta)
-    allowed = {(c["chunk"], c["lanes"]) for c in space.enumerate()
-               if c["lanes"] >= 2 and spec.validate(c, meta) is None}
-    assert {c for c, _ in allowed} == {8, 16, 32, 64}
-    for chunk, lanes in sorted(allowed):
-        y, s = wkv_kernel.wkv6_fwd_plain(r, k, v, w, u, s0, chunk=chunk,
-                                         lanes=lanes)
+    allowed = {c["chunk"] for c in space.enumerate()
+               if spec.validate(c, meta) is None}
+    assert allowed == {c for c in wkv_kernel.CHUNKS if c <= t}
+    for chunk in sorted(allowed):
+        y, s = wkv_kernel.wkv6_fwd_chunked_plain(r, k, v, w, u, s0,
+                                                 chunk=chunk)
         np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=ATOL,
-                                   rtol=RTOL, err_msg=f"{chunk}, {lanes}")
+                                   rtol=RTOL, err_msg=f"{chunk}")
         np.testing.assert_allclose(s.numpy(), s_0.numpy(), atol=ATOL,
-                                   rtol=RTOL, err_msg=f"{chunk}, {lanes}")
+                                   rtol=RTOL, err_msg=f"{chunk}")
 
 
-@pytest.mark.parametrize("lanes", [0, 4])
-def test_wkv6_resume_state_equals_full_run(lanes):
+@pytest.mark.parametrize("route", ["serial", "chunked"])
+def test_wkv6_resume_state_equals_full_run(route):
     """[0:T/2] then [T/2:T] from the carried state == the full run; and so
-    for T = 1 steps (decode) from the prefill's state."""
+    for T = 1 steps (decode, the serial route whatever the chunk) from the
+    prefill's state."""
     b, t, h, hd = 1, 64, 2, 16
     _, (r, k, v, w, u, s0) = wkv_inputs(b, t, h, hd)
-    kw = dict(chunk=16, lanes=lanes)
-    y_full, s_full = wkv_ops.wkv6(r, k, v, w, u, **kw)
+    y_full, s_full = wkv_route(route, r, k, v, w, u, chunk=16)
     half = t // 2
-    y1, s1 = wkv_ops.wkv6(*(x[:, :half] for x in (r, k, v, w)), u, **kw)
+    y1, s1 = wkv_route(route, *(x[:, :half] for x in (r, k, v, w)), u,
+                       chunk=16)
     ys, s = [y1], s1
+    assert wkv_kernel.route_of(1, hd, 16) == "serial"
     for i in range(half, t):
         y, s = wkv_ops.wkv6(*(x[:, i:i + 1] for x in (r, k, v, w)), u, s,
-                            **kw)
+                            chunk=16)
         ys.append(y)
     close(torch.cat(ys, dim=1), y_full.numpy())
     close(s, s_full.numpy())
 
 
-@pytest.mark.parametrize("t,chunk,lanes", [(1, 64, 0), (1, 16, 4),
-                                            (77, 32, 0), (77, 16, 2),
-                                            (77, 8, 8)])
-def test_wkv6_decode_step_and_ragged_t(t, chunk, lanes):
-    """T = 1 (a decode step) and a T that neither the chunk nor the span
-    divides, from a non-zero state, against the reference."""
+@pytest.mark.parametrize("t,chunk,route", [(1, 64, "serial"),
+                                            (1, 16, "chunked"),
+                                            (77, 32, "serial"),
+                                            (77, 16, "chunked"),
+                                            (77, 32, "chunked")])
+def test_wkv6_decode_step_and_ragged_t(t, chunk, route):
+    """T = 1 (a decode step) and a T the chunk does not divide, from a
+    non-zero state, against the reference."""
     jin, tin = wkv_inputs(2, t, 2, 32, seed=3, s0=True)
-    y, s = wkv_ops.wkv6(*tin, chunk=chunk, lanes=lanes)
+    y, s = wkv_route(route, *tin, chunk=chunk)
     ye, se = wkv6_ref(*jin)
     close(y, ye)
     close(s, se)
@@ -198,15 +214,15 @@ def test_selective_scan_one_token_and_ragged_t(t, chunk, lanes):
 # -- the wrappers' rules ------------------------------------------------------------
 
 @pytest.mark.parametrize("bad, match", [
-    (dict(block_threads=96), "block_h \\* hd \\* split"),
-    (dict(block_threads=48, lanes=2), "multiple of 32"),
-    (dict(chunk=128, lanes=2), "stability cap"),
-    (dict(block_h=3), "must divide H"),
-    (dict(chunk=1024, block_h=2, block_threads=128), "shared memory"),
+    (dict(split=16), "split=16 not in"),
+    (dict(chunk=256), "shared memory"),
+    (dict(chunk=12), "chunk=12 not built"),
+    (dict(cols=64), "cols=64 not in"),
+    (dict(block_h=3), "block_h=3 not in"),
 ])
 def test_wkv_wrapper_refuses_bad_launch_parameters(bad, match):
-    _, (r, k, v, w, u, s0) = wkv_inputs(1, 8, 4, 64)
-    kw = {"chunk": 32, "lanes": 0, "block_h": 1, "block_threads": 64, **bad}
+    _, (r, k, v, w, u, s0) = wkv_inputs(1, 256, 4, 64)
+    kw = {"chunk": 16, "split": 4, "cols": 16, "block_h": 1, **bad}
     with pytest.raises(ValueError, match=match):
         wkv_kernel.wkv6_fwd(r, k, v, w, u, s0, **kw)
 
@@ -275,15 +291,26 @@ def test_a_tensor_off_the_cpu_goes_to_the_kernel_or_raises(which,
 
 def test_smem_accounting_matches_the_sources():
     """The Python-side shared-memory sums are the .cu files' sums."""
-    assert wkv_kernel.smem_bytes(32, 0, 1, 64) == 4 * (4 * 32 * 64 + 32 + 64)
-    assert wkv_kernel.smem_bytes(16, 4, 2, 64) == 4 * (
-        4 * 16 * 64 + 16 * 16 + 16 + 2 * 4 * 64 * 64 + 2 * 4 * 64
-        + 2 * 64 * 64 + 2 * 64)
+    assert wkv_kernel.smem_bytes(32, 1, 64) == 4 * (4 * 32 * 64 + 32 + 64)
+    # the chunked route: the states program (two buffers of k, w, v tiles;
+    # the state out, hd x (hd + 4)); its chunk program is the serial
+    # program's block, min(chunk, 32) tokens staged at a time
+    assert wkv_kernel.smem_bytes_states(16, 64) == 4 * (
+        2 * 3 * 16 * 64 + 64 * 68)
+    assert wkv_kernel.CHUNKS_STAGE == 32
     assert ms_kernel.smem_bytes(16, 128, 64, 0) == 4 * 2 * 64 * 16
     assert ms_kernel.smem_bytes(16, 64, 32, 4) == 4 * (
         2 * 128 * 16 + 2 * 4 * 16 * 64)
-    assert wkv_ops.fit_threads(64, 1, 256) == 256
-    assert wkv_ops.fit_threads(16, 1, 256) == 64      # hd / split >= 4
+    # the serial program's column tile and block: 4 columns a thread up to
+    # 16 rows (256 threads at hd 64, split 4), fewer where the block would
+    # not be whole warps
+    assert wkv_kernel.serial_tile(64, 4, 1) == (4, 64)
+    assert wkv_kernel.serial_tile(64, 2, 1) == (2, 64)
+    assert wkv_kernel.serial_tile(64, 1, 1) == (1, 64)
+    assert wkv_kernel.serial_tile(16, 4, 1) == (2, 32)    # 4 x 4 = 16
+    assert wkv_kernel.serial_tile(48, 4, 1) == (2, 96)
+    assert wkv_kernel.serial_tile(64, 8, 1) == (4, 128)
+    assert wkv_kernel.serial_tile(64, 32, 1) is None      # hd / split = 2
 
 
 # -- launch-parameter spaces, store keys and tuning ------------------------------------
@@ -291,14 +318,30 @@ def test_smem_accounting_matches_the_sources():
 @pytest.mark.parametrize("name", ["mamba_scan", "rwkv6_wkv"])
 def test_scan_spaces_at_the_serve_shapes(name):
     """At least 64 valid configurations at the serve shape, both programs
-    among them, and a tune that trains on max(4, 5 % - 1) of the space
+    (the selective scan's serial and chunked forms; every chunk of the wkv
+    forward's chunked route) among them, configurations the kernels refuse
+    left out, and a tune that trains on max(4, 5 % - 1) of the space
     measures at most 5 %."""
     spec = ktune.get_kernel(name)
     meta = spec.default_shape
     space = spec.space(meta)
     valid = [c for c in space.enumerate() if spec.validate(c, meta) is None]
-    assert len(valid) >= 64 and len(valid) < space.size()
-    assert {c["lanes"] == 0 for c in valid} == {True, False}
+    assert len(valid) >= 64
+    assert len(valid) < space.size()
+    if name == "mamba_scan":
+        assert {c["lanes"] == 0 for c in valid} == {True, False}
+    else:
+        # every chunk whose states program fits shared memory (256 does
+        # not at hd 64)
+        assert {c["chunk"] for c in valid} == {
+            c for c in wkv_kernel.CHUNKS
+            if wkv_kernel.smem_bytes_states(c, meta["hd"]) <= 232448}
+        assert all(wkv_kernel.route_of(meta["t"], meta["hd"], c["chunk"])
+                   == "chunked" for c in valid)
+        # at hd 48 no 32-column states thread, at T 20 no chunk past it
+        for other in ({**meta, "hd": 48}, {**meta, "t": 20}):
+            assert 0 < sum(spec.validate(c, other) is None
+                           for c in space.enumerate()) < space.size()
     assert spec.default_config(space, meta) == dict(spec.defaults)
     n_train = max(4, int(0.05 * space.size()) - 1)
     assert (n_train + 1) / space.size() <= 0.05
@@ -365,12 +408,8 @@ def test_tuned_call_resolves_the_stored_config(tmp_path, monkeypatch):
         wkv_ops.wkv6(*args, tuned=True)
     finally:
         ktune.disable()
-    best = out.best_config
-    if best["lanes"] < 2:
-        best = {**best, "block_threads": wkv_ops.fit_threads(
-            16, best["block_h"], best["block_threads"])}
-    assert seen[0] == best
-    assert seen[1]["chunk"] == wkv_ops.DEFAULTS["chunk"]
+    assert seen[0] == out.best_config
+    assert seen[1] == wkv_ops.DEFAULTS
     assert out.timer.n_measured == out.n_measured
 
 
