@@ -1179,7 +1179,7 @@ def kernel_kind(name: str) -> str:
         return "selective_scan_bwd (B7)"
     if "wkv_bwd_scans_kernel" in low or "wkv_bwd_chunks_kernel" in low:
         return "wkv6_bwd (B9)"
-    if "scan_serial_kernel" in low or "scan_chunked_kernel" in low:
+    if "scan_fwd_kernel" in low:
         return "selective_scan (B6)"
     if "wkv_serial_kernel" in low or "wkv_fwd_states_kernel" in low:
         return "wkv6 (B8)"
@@ -1460,8 +1460,11 @@ def phase_scan_parity(seed: int) -> list[dict]:
     programs timed apart) is held against the serial plain version, also at
     T 1000, with a quarter of its decays below 2.1e-9 and some 0, at hd 48,
     and twice for the same bits; its serial route at T = 1 (a decode step,
-    also at hd 48).  B6 also at T = 1 and a ragged T."""
+    also at hd 48).  B6 also at the Jamba training shape (B 2, timed, its
+    own defaults and bound), at T 1000 and T = 1, with a quarter of its
+    channels' a_t = 0, every case twice for the same bits."""
     from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.mamba_scan.ops import DEFAULTS as MS
     from repro_torch.kernels.rwkv6_wkv import kernel as wkk
     from repro_torch.kernels.rwkv6_wkv.ops import DEFAULTS as WKV
@@ -1565,56 +1568,108 @@ def phase_scan_parity(seed: int) -> list[dict]:
             INSTR_PER_S)[0]})
     torch.cuda.empty_cache()
 
-    # -- B6: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0 ~ N
+    # -- B6: x ~ N, delta = |N| * 0.1, A = -(|N| + 0.5), B, C, D, h0 ~ N, at
+    # the prefill shape and the training shape (the first JAMBA_TRAIN_BATCH
+    # rows, its own defaults); then a quarter of the channels at delta =
+    # 1 + |N| * 0.1 and A = -(|N| + 110), so that a_t = exp(delta A) is 0
     bt, t, di, s = (metas["mamba_scan"][k] for k in ("bt", "t", "di", "s"))
     x = randn(bt, t, di)
     dl = randn(bt, t, di).abs() * 0.1
     a = -(randn(di, s).abs() + 0.5)
     bm, cm = randn(bt, t, s), randn(bt, t, s)
     d, h0 = randn(di), randn(bt, di, s)
-    chunked = {"block_d": 64, "chunk": 64, "lanes": 4}
-    got, want, ms, plain_ms = timed_pair(
-        lambda: msk.selective_scan_fwd(x, dl, a, bm, cm, d, h0, **MS),
-        lambda: msk.selective_scan_fwd_plain(x, dl, a, bm, cm, d, h0), 5)
-    ok, err = scan_gate(got, want)
-    cases.append({"kernel": "selective_scan", "t": t, "launch": dict(MS),
-                  "ok": ok, "max_abs_err": err, "ms": ms})
-    chunked_ms = device_ms(lambda: msk.selective_scan_fwd(
-        x, dl, a, bm, cm, d, h0, **chunked), 5)
-    ok_c, err_c = scan_gate(msk.selective_scan_fwd(x, dl, a, bm, cm, d, h0,
-                                                   **chunked), want)
-    cases.append({"kernel": "selective_scan", "t": t, "launch": chunked,
-                  "ok": ok_c, "max_abs_err": err_c, "ms": chunked_ms})
-    del got, want
-    cell = bt * t * di * s
-    n_bytes = 4 * (3 * bt * t * di + 2 * bt * t * s + di * s + di
-                   + 2 * bt * di * s)
-    by_sfu = roofline_ms(n_bytes, cell, SFU_OPS_PER_S)
-    by_fma = roofline_ms(n_bytes, 4 * cell, INSTR_PER_S)
-    bound_ms, bound_by = max(by_sfu, by_fma)
+    oks, errs, timed = [], [], {}
+
+    def scan_case(label, args, launch, want=None, timed_as=None):
+        if timed_as:
+            got, want, ms, plain_ms = timed_pair(
+                lambda: msk.selective_scan_fwd(*args, **launch),
+                lambda: msk.selective_scan_fwd_plain(*args), 5)
+            timed[timed_as] = (ms, plain_ms)
+        else:
+            got = msk.selective_scan_fwd(*args, **launch)
+            if want is None:
+                want = msk.selective_scan_fwd_plain(*args)
+        ok, err = scan_gate(got, want)
+        same = all(torch.equal(a_, g) for a_, g in
+                   zip(msk.selective_scan_fwd(*args, **launch), got))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        case = {"kernel": "selective_scan", "case": label,
+                "bt": args[0].shape[0], "t": args[0].shape[1],
+                "launch": dict(launch), "ok": ok and same and finite,
+                "deterministic": same, "finite": finite, "max_abs_err": err}
+        if timed_as:
+            case["ms"] = timed[timed_as][0]
+        cases.append(case)
+        oks.append(case["ok"])
+        errs.append(err)
+        return want
+
+    train_meta = {**metas["mamba_scan"], "bt": JAMBA_TRAIN_BATCH}
+    ms_train = ms_ops.defaults(train_meta)
+    other = {"block_d": 128, "chunk": 32, "split": 2}
+    full = (x, dl, a, bm, cm, d, h0)
+    want = scan_case("prefill", full, MS, timed_as="prefill")
+    scan_case("prefill, another launch", full, other, want)
+    cases[-1]["ms"] = device_ms(lambda: msk.selective_scan_fwd(*full,
+                                                               **other), 5)
+    del want
+    train = tuple(m[:JAMBA_TRAIN_BATCH] if m.shape[0] == bt and m.dim() == 3
+                  else m for m in full)
+    scan_case("training shape", train, ms_train, timed_as="train")
+    for tt in (1000, 1):
+        args = tuple(m[:, :tt].contiguous() if m.dim() == 3 and m.shape[1] == t
+                     else m for m in full)
+        scan_case(f"T {tt}", args, MS)
+    # dI 8190 (not a multiple of 4): the 4-byte staging copies and a
+    # ragged last channel block, at the training batch and T 1000
+    args = (x[:JAMBA_TRAIN_BATCH, :1000, :8190].contiguous(),
+            dl[:JAMBA_TRAIN_BATCH, :1000, :8190].contiguous(), a[:8190],
+            bm[:JAMBA_TRAIN_BATCH, :1000].contiguous(),
+            cm[:JAMBA_TRAIN_BATCH, :1000].contiguous(), d[:8190],
+            h0[:JAMBA_TRAIN_BATCH, :8190].contiguous())
+    want = scan_case("dI 8190, 4-byte staging", args, MS)
+    scan_case("dI 8190, 4-byte staging, training launch", args, ms_train,
+              want)
+    dl_u, a_u = dl.clone(), a.clone()
+    dl_u[..., ::4] += 1.0
+    a_u[::4] -= 110.0
+    zero_share = float((torch.exp(dl_u[0, :64, :, None] * a_u) == 0)
+                       .float().mean())
+    scan_case("a_t = 0", (x, dl_u, a_u, bm, cm, d, h0), MS)
+    cases[-1]["share_a_t_zero"] = zero_share
+    del x, dl, a, bm, cm, d, h0, full, train, args, want, dl_u, a_u
+    torch.cuda.empty_cache()
+
+    def scan_bound(b_):
+        # x, delta read and y written; B, C; A, D; h0 read and h_T written;
+        # one exp a cell on the SFUs, or four FMA-pipe instructions
+        cell = b_ * t * di * s
+        n_bytes = 4 * (3 * b_ * t * di + 2 * b_ * t * s + di * s + di
+                       + 2 * b_ * di * s)
+        return max(roofline_ms(n_bytes, cell, SFU_OPS_PER_S),
+                   roofline_ms(n_bytes, 4 * cell, INSTR_PER_S))
+
+    bound_ms, bound_by = scan_bound(bt)
+    train_bound_ms, train_bound_by = scan_bound(JAMBA_TRAIN_BATCH)
     records.append({
-        "name": "selective_scan_fwd", "ok": ok and ok_c, "route": "cuda",
+        "name": "selective_scan_fwd", "ok": all(oks), "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan/kernel.py:166",
-        "launches": 0, "max_abs_err": max(err, err_c), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None})
-    for tt, launch in ((1, MS), (1000, MS), (1000, chunked)):
-        args = (x[:, :tt].contiguous(), dl[:, :tt].contiguous(), a,
-                bm[:, :tt].contiguous(), cm[:, :tt].contiguous(), d, h0)
-        want = msk.selective_scan_fwd_plain(*args)
-        ok, err = scan_gate(msk.selective_scan_fwd(*args, **launch), want)
-        cases.append({"kernel": "selective_scan", "t": tt,
-                      "launch": dict(launch), "ok": ok, "max_abs_err": err})
-    del x, dl, a, bm, cm, d, h0, args, want
-    torch.cuda.empty_cache()
+        "launches": 0, "max_abs_err": max(errs), "ms": timed["prefill"][0],
+        "plain_ms": timed["prefill"][1], "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "train_ms": timed["train"][0], "train_plain_ms": timed["train"][1],
+        "train_bound_ms": train_bound_ms, "train_bound_by": train_bound_by})
 
     emit(phase="scan_parity", gate={"atol": 2e-4, "rtol": 2e-3},
          shapes=metas, cases=cases,
-         ptxas={"rwkv6_wkv": ptxas_report("rwkv6_wkv")},
+         ptxas={name: ptxas_report(name)
+                for name in ("rwkv6_wkv", "mamba_scan")},
          results=[{key: rec.get(key) for key in (
              "name", "ok", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "t1_ms", "t1_bound_ms")} for rec in records])
+             "bound_by", "t1_ms", "t1_bound_ms", "train_ms",
+             "train_plain_ms", "train_bound_ms")} for rec in records])
     for case in cases:
         check(case["ok"], f"scan_parity: {case}")
     return records
@@ -1810,9 +1865,8 @@ def plain_patches():
     def plain_wkv(r, k, v, w, u, s0, **launch):
         return wkk.wkv6_fwd_plain(r, k, v, w, u, s0)
 
-    def plain_scan(x, dl, a, b, c, d, h0, *, chunk, lanes, **launch):
-        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0,
-                                            chunk=chunk, lanes=lanes)
+    def plain_scan(x, dl, a, b, c, d, h0, **launch):
+        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0)
 
     return [mock.patch.object(fa_ops, "flash_attention_fwd",
                               plain_attention_fwd),
@@ -1874,10 +1928,11 @@ def logit_gap(got: list, want: list) -> list[float]:
 
 
 def chunked_plain_patches():
-    """The scans' plain versions in their chunked forms (B8's chunked route
-    at chunk 32; B6's at chunk 32, 4 lanes) whatever the launch parameters:
-    another float32 summation order of the same function, which gives the
-    bf16 model's own noise floor."""
+    """The scans' plain versions in other forms (B8's chunked route at
+    chunk 32; B6 with y_t's sum taken entry by entry, folded by halves as
+    its kernel folds its parts) whatever the launch parameters: another
+    float32 summation order of the same function, which gives the bf16
+    model's own noise floor."""
     from unittest import mock
 
     from repro_torch.kernels.mamba_scan import kernel as msk
@@ -1889,8 +1944,8 @@ def chunked_plain_patches():
         return wkk.wkv6_fwd_chunked_plain(r, k, v, w, u, s0, chunk=32)
 
     def scan(x, dl, a, b, c, d, h0, **launch):
-        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0, chunk=32,
-                                            lanes=4)
+        return msk.selective_scan_fwd_plain(x, dl, a, b, c, d, h0,
+                                            split=a.shape[1])
 
     return [p for p in plain_patches()
             if p.attribute not in ("wkv6_fwd", "selective_scan_fwd")] + [
@@ -1999,12 +2054,16 @@ SSM_LOSS_GATE, SSM_GRAD_GATE, GRAD_FLOOR_MARGIN = 1e-4, 1e-3, 1.5
 
 
 def ssm_train_metas() -> dict:
-    """The backward kernels' shapes on the training paths (the specs'
-    default shapes)."""
+    """The shapes the training paths give the backward kernels (the specs'
+    default shapes) and the selective scan's forward (Jamba's training
+    batch; RWKV-6 trains B8 at its serving shape)."""
     from repro_torch import configs
 
     rwkv, jamba = configs.get(RWKV_ARCH), configs.get(JAMBA_ARCH)
     return {
+        "mamba_scan": {"bt": JAMBA_TRAIN_BATCH, "t": TRAIN_SEQ,
+                       "di": jamba.mamba.expand * jamba.d_model,
+                       "s": jamba.mamba.d_state},
         "rwkv6_wkv_bwd": {"b": RWKV_TRAIN_BATCH, "t": TRAIN_SEQ,
                           "h": rwkv.d_model // rwkv.rwkv.head_dim,
                           "hd": rwkv.rwkv.head_dim},

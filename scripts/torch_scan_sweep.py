@@ -5,23 +5,23 @@
 
 At the shapes ``chip_smoke.py`` serves and trains (the wkv forward at
 RWKV-6 1.6B's prefill, B 8, T 2048, H 32, hd 64; the selective scan at
-Jamba's, B 8, T 2048, dI 8192, S 16; the wkv backward at RWKV-6's
-training shape, the same B 8 x 2048; the selective-scan backward at
-Jamba's, B 2 x 2048; float32), ``tune_kernel`` tunes each kernel as the
-``ssm_tune`` / ``ssm_bwd_tune`` phases do, and then the same
-``KernelTimer`` (parity-gated against the plain version, timed in batches
-of back-to-back calls) measures every other configuration of the spec's
-space.  Prints, per kernel, the tune's measurements, its winner, the
-default and the exhaustive best, the winner's rank, and the best time of
-each chunk length (the selective scan: of each program, serial and
-chunked, and serial thread count), with the programs of the kernels that
-have several timed apart at the default and at the best point
-(``chip_smoke.device_ms``): the wkv forward's ``states`` and ``chunks``
-(and its serial route at T = 1, a decode step), the wkv backward's
-``scans`` and ``chunks``, the selective-scan backward's ``summaries``,
-``carry`` and ``chunks``.  Writes every configuration's time to
-``scan_sweep.json`` in ``--out`` (default ``results/``).  The last line
-names the card.
+Jamba's prefill, B 8, T 2048, dI 8192, S 16, and at its training batch,
+B 2; the wkv backward at RWKV-6's training shape, the same B 8 x 2048;
+the selective-scan backward at Jamba's, B 2 x 2048; float32),
+``tune_kernel`` tunes each kernel as the ``ssm_tune`` / ``ssm_bwd_tune``
+phases do, and then the same ``KernelTimer`` (parity-gated against the
+plain version, timed in batches of back-to-back calls) measures every
+other configuration of the spec's space.  Prints, per kernel and shape,
+the tune's measurements, its winner, the default and the exhaustive best,
+the winner's rank, and the best time of each chunk length (the selective
+scan: of each split, chunk and block's thread count), with
+the programs of the kernels that have several timed apart at the default
+and at the best point (``chip_smoke.device_ms``): the wkv forward's
+``states`` and ``chunks`` (and its serial route at T = 1, a decode step),
+the wkv backward's ``scans`` and ``chunks``, the selective-scan backward's
+``summaries``, ``carry`` and ``chunks``.  Writes every configuration's
+time to ``scan_sweep.json`` in ``--out`` (default ``results/``).  The last
+line names the card.
 """
 
 from __future__ import annotations
@@ -144,8 +144,8 @@ def main() -> int:
     from repro_torch.tune import kernels as ktune
 
     report = []
-    metas = {**smoke.ssm_metas(), **smoke.ssm_train_metas()}
-    for name, meta in metas.items():
+    metas = [*smoke.ssm_metas().items(), *smoke.ssm_train_metas().items()]
+    for name, meta in metas:
         out = ktune.tune_kernel(name, meta, seed=0)
         n_tune = out.n_measured
         configs = out.timer.spec.space(out.shape).enumerate()
@@ -167,14 +167,12 @@ def main() -> int:
             "winner_rank": 1 + sum(s < winner_s for s, _ in valid),
             "all_ms": [[cfg, s * 1e3] for s, cfg in valid]})
         if name == "mamba_scan":
-            serial = [(s, cfg) for s, cfg in valid if cfg["lanes"] < 2]
             report[-1].update({
-                "best_ms_by_program": best_by(
-                    valid, lambda c: "serial" if c["lanes"] < 2
-                    else "chunked"),
-                "best_ms_by_lanes": best_by(valid, lambda c: c["lanes"]),
-                "serial_best_ms_by_threads": best_by(
-                    serial, lambda c: c["block_d"])})
+                key: best_by(valid, fn) for key, fn in (
+                    ("best_ms_by_split", lambda c: c["split"]),
+                    ("best_ms_by_chunk", lambda c: c["chunk"]),
+                    ("best_ms_by_threads",
+                     lambda c: c["block_d"] * c["split"]))})
         else:
             programs = {"rwkv6_wkv": wkv_fwd_programs,
                         "rwkv6_wkv_bwd": wkv_bwd_programs,

@@ -7,21 +7,25 @@ state through the tokens:
 
     h_t = exp(delta_t A) h_{t-1} + (delta_t x_t) B_t,   y_t = C_t . h_t + D x_t
 
-``lanes < 2`` is the serial program: one thread per (batch, channel), the
-state in registers.  ``lanes >= 2`` is the chunked form: spans of
-``lanes * chunk`` tokens, each lane scanning its chunk from a zero state
-(keeping its decay product and local state), a ``lanes``-step combine, and
-a re-scan of each chunk from its true entry state.  The kernel is CUDA C++
-in ``kernels/csrc/mamba_scan.cu``, compiled at first use and bound with
-``ctypes``; it computes in float32 on the CUDA cores.  T need not divide
-into chunks or spans: the ragged edge is masked where the reference clamps
-its chunk to a divisor of T.
+The kernel is CUDA C++ in ``kernels/csrc/mamba_scan.cu``, compiled at
+first use and bound with ``ctypes``; it computes in float32 on the CUDA
+cores.  ``split`` adjacent threads share a channel, each carrying S /
+split state entries; a block of ``block_d`` channels stages its x, delta,
+B and C in a ring of two chunks of ``chunk`` tokens by cp.async; a
+thread takes ``token_group(split)`` tokens at once; each lane sums its
+entries of y_t in order and the ``split`` parts are folded by halves (a
+butterfly reduce-scatter once every ``split`` tokens).  T need not divide
+into chunks: the ragged edge is masked where the reference clamps its
+chunk to a divisor of T.  The reference's ``lanes`` switch (its chunked
+form, two exps a cell) has no counterpart here.
 
 The wrapper launches the kernel for a CUDA tensor, or raises; it takes the
-plain PyTorch version (``selective_scan_fwd_plain``, which computes the
-same form with the state as a Python loop's carry and never holds a
-(B, T, dI, S) tensor) only for tensors on the CPU.  Launches are counted in
-``selective_scan_fwd.launches``.
+plain PyTorch version (``selective_scan_fwd_plain``: the serial recurrence
+with the state as a Python loop's carry, never a (B, T, dI, S) tensor)
+only for tensors on the CPU.  With ``split`` given, the plain version
+takes y_t's sum as the kernel takes it (the tests hold that form against
+the reference beside the wrapper; the CPU branch stays the oracle, whose
+order the reference's training tests were set against).  Launches are counted in ``selective_scan_fwd.launches``.
 
 ``selective_scan_bwd`` replaces the Pallas backward ``selective_scan_bwd``
 (the spans pre-pass and the reverse sweep).  Its kernel is CUDA C++ in
@@ -54,15 +58,17 @@ from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
 
 __all__ = ["BWD_CHUNKS", "BWD_MAX_KEPT", "BWD_MAX_THREADS", "BWD_SPANS",
-           "MAX_THREADS",
-           "STATE_SIZES", "bwd_launch_error", "bwd_splits",
-           "selective_scan_bwd", "selective_scan_bwd_chunked_plain",
-           "selective_scan_bwd_plain", "selective_scan_fwd",
-           "selective_scan_fwd_plain", "smem_bytes", "smem_bytes_bwd",
-           "smem_bytes_bwd_summaries", "threads"]
+           "MAX_THREADS", "STAGES", "STATE_SIZES", "bwd_launch_error",
+           "bwd_splits", "launch_error", "selective_scan_bwd",
+           "selective_scan_bwd_chunked_plain", "selective_scan_bwd_plain",
+           "selective_scan_fwd", "selective_scan_fwd_plain", "smem_bytes",
+           "smem_bytes_bwd", "smem_bytes_bwd_summaries", "token_group",
+           "y_pad"]
 
 MAX_THREADS = 512
 STATE_SIZES = (4, 8, 16)          # the kernel's templates
+# the forward's ring of staged chunks (the kernel's constant)
+STAGES = 2
 # the backward's chunk lengths (templates) and chunks a span; a
 # chunk-program thread keeps chunk x S / split floats of each of
 # a_t h_{t-1} and a_t and two per-token sums in registers: chunk x
@@ -82,7 +88,7 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load_library("mamba_scan")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mamba_scan_fwd.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+        lib.mamba_scan_fwd.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
         lib.mamba_scan_fwd.restype = ctypes.c_int
         lib.mamba_scan_error_string.argtypes = [ctypes.c_int]
         lib.mamba_scan_error_string.restype = ctypes.c_char_p
@@ -107,20 +113,50 @@ def _library_bwd() -> ctypes.CDLL:
     return _lib_bwd
 
 
-def smem_bytes(s: int, block_d: int, chunk: int, lanes: int) -> int:
-    """Shared memory one block asks for (the kernel's ``scan_smem_floats``):
-    B_t and C_t of a span, and the lanes' summaries in the chunked form."""
-    span = chunk * (lanes if lanes >= 2 else 1)
-    floats = 2 * span * s + (2 * lanes * s * block_d if lanes >= 2 else 0)
-    return 4 * floats
+def y_pad(split: int) -> int:
+    """The x (then y) tile's row pitch past block_d (the kernel's
+    ``y_pad``): split consecutive tokens of 32 / split channels land in
+    distinct banks, rows stay 16-byte."""
+    return 4 if split == 1 else max(4, 32 // split)
 
 
-def threads(block_d: int, lanes: int) -> int:
-    return block_d * (lanes if lanes >= 2 else 1)
+def smem_bytes(s: int, block_d: int, chunk: int, split: int) -> int:
+    """Shared memory one block asks for (the kernel's ``stage_floats``
+    times ``STAGES``): per stage the x / y tile (chunk x (block_d +
+    ``y_pad``)), the delta tile (chunk x block_d) and B_t, C_t (chunk x S
+    each)."""
+    return 4 * STAGES * (chunk * (block_d + y_pad(split)) + chunk * block_d
+                         + 2 * chunk * s)
 
 
-def _check(x, delta, a, b, c, d, h0, block_d: int, chunk: int,
-           lanes: int) -> None:
+def token_group(split: int) -> int:
+    """Tokens a thread takes at once (the kernel's ``token_group``): a
+    chunk is a whole number of them."""
+    return max(8, split) if split >= 4 else 4
+
+
+def launch_error(s: int, block_d: int, chunk: int,
+                 split: int) -> str | None:
+    """Why the forward cannot launch these parameters at state size ``s``,
+    or None."""
+    if split not in bwd_splits(s):
+        return f"split={split} not in {bwd_splits(s)} for S={s}"
+    n = block_d * split
+    if block_d < 4 or block_d % 4 or n % 32 or n > MAX_THREADS:
+        return (f"block_d={block_d} x split={split} = {n} threads: block_d a "
+                f"multiple of 4, threads a multiple of 32 up to {MAX_THREADS}")
+    if chunk < 1 or chunk % token_group(split):
+        return (f"chunk={chunk} must be a positive multiple of "
+                f"{token_group(split)} (the tokens a thread takes at once "
+                f"at split={split})")
+    need = smem_bytes(s, block_d, chunk, split)
+    if need > SMEM_LIMIT_BYTES:
+        return (f"block_d={block_d}, chunk={chunk}, split={split} need "
+                f"{need} bytes of shared memory (limit {SMEM_LIMIT_BYTES})")
+    return None
+
+
+def _check(x, delta, a, b, c, d, h0) -> None:
     for name, t in (("x", x), ("delta", delta), ("a", a), ("b", b), ("c", c),
                     ("d", d), ("h0", h0)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
@@ -147,102 +183,72 @@ def _check(x, delta, a, b, c, d, h0, block_d: int, chunk: int,
                          f"{tuple(h0.shape)}")
     if s not in STATE_SIZES:
         raise ValueError(f"state size {s} not in {STATE_SIZES}")
-    if chunk < 1 or block_d < 32 or block_d % 32:
-        raise ValueError(f"chunk={chunk} must be positive and block_d="
-                         f"{block_d} a multiple of 32")
-    n = threads(block_d, lanes)
-    if n > MAX_THREADS:
-        raise ValueError(f"block_d={block_d}, lanes={lanes}: {n} threads "
-                         f"(limit {MAX_THREADS})")
-    need = smem_bytes(s, block_d, chunk, lanes)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(f"block_d={block_d}, chunk={chunk}, lanes={lanes} "
-                         f"need {need} bytes of shared memory (limit "
-                         f"{SMEM_LIMIT_BYTES})")
 
 
-def _serial_plain(x, delta, a, b, c, d, h):
+def _split_sum(prod: torch.Tensor, split: int) -> torch.Tensor:
+    """sum_s of prod (..., S) as the kernel takes it: ``split`` parts of S
+    / split consecutive entries, each summed in order, then the parts
+    folded by halves (part i with part i + split / 2, and so on: the
+    butterfly's pairs)."""
+    parts = prod.unflatten(-1, (split, prod.shape[-1] // split))
+    acc = parts[..., 0]
+    for j in range(1, parts.shape[-1]):
+        acc = acc + parts[..., j]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def selective_scan_fwd_plain(x, delta, a, b, c, d, h0, *,
+                             split: int | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel, the oracle: the serial recurrence in
+    the operands' dtype, the state a Python loop's carry.  y_t's sum over
+    the state is one einsum, or with ``split`` given the kernel's order
+    (``_split_sum``)."""
     ys = []
+    h = h0
     for i in range(x.shape[1]):
         d_t, x_t = delta[:, i], x[:, i]
         h = (torch.exp(d_t[..., None] * a) * h
              + (d_t * x_t)[..., None] * b[:, i, None, :])
-        ys.append(torch.einsum("bds,bs->bd", h, c[:, i]) + d * x_t)
+        if split is None:
+            y = torch.einsum("bds,bs->bd", h, c[:, i])
+        else:
+            y = _split_sum(h * c[:, i, None, :], split)
+        ys.append(y + d * x_t)
     return torch.stack(ys, dim=1), h
 
 
-def _chunked_plain(x, delta, a, b, c, d, h, chunk: int):
-    """Every chunk of the sequence in lockstep (lanes within a span and the
-    spans after one another give the same combine order): a scan from a
-    zero state keeping (P_end, Hl_end), the combine chunk after chunk, and
-    a re-scan from each chunk's entry state.  The carry is (B, n_chunks,
-    dI, S)."""
-    bt, t, di = x.shape
-    n = -(-t // chunk)
-    pad = n * chunk - t
-
-    def chunks(m):
-        m = torch.nn.functional.pad(m, (0, 0, 0, pad))
-        return m.view(bt, n, chunk, m.shape[-1])
-
-    xs, ds, bs, cs = chunks(x), chunks(delta), chunks(b), chunks(c)
-    p = torch.ones((bt, n, di, a.shape[1]), dtype=torch.float32,
-                   device=x.device)
-    hl = torch.zeros_like(p)
-    for tk in range(chunk):
-        da = torch.exp(ds[:, :, tk, :, None] * a)
-        hl = da * hl + (ds[:, :, tk] * xs[:, :, tk])[..., None] \
-            * bs[:, :, tk, None, :]
-        p = p * da
-    starts = []
-    for i in range(n):                                 # the combine
-        starts.append(h)
-        h = p[:, i] * h + hl[:, i]
-    hc = torch.stack(starts, 1)
-    ys = []
-    for tk in range(chunk):
-        d_t, x_t = ds[:, :, tk], xs[:, :, tk]
-        hc = torch.exp(d_t[..., None] * a) * hc \
-            + (d_t * x_t)[..., None] * bs[:, :, tk, None, :]
-        ys.append(torch.einsum("bnds,bns->bnd", hc, cs[:, :, tk]) + d * x_t)
-    return torch.stack(ys, dim=2).reshape(bt, n * chunk, di)[:, :t], h
-
-
-def selective_scan_fwd_plain(x, delta, a, b, c, d, h0, *, chunk: int = 64,
-                             lanes: int = 0
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: the serial recurrence (``lanes < 2``)
-    or the chunked form over chunks of ``chunk`` tokens (``lanes >= 2``),
-    in float32."""
-    if lanes >= 2:
-        return _chunked_plain(x, delta, a, b, c, d, h0, chunk)
-    return _serial_plain(x, delta, a, b, c, d, h0)
-
-
 def selective_scan_fwd(x, delta, a, b, c, d, h0, *, block_d: int = 128,
-                       chunk: int = 64, lanes: int = 0
+                       chunk: int = 16, split: int = 1
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel: x, delta (B, T, dI); a (dI, S); b, c (B, T, S); d (dI,);
     h0 (B, dI, S), all float32 -> (y (B, T, dI), h_T (B, dI, S))."""
-    block_d, chunk, lanes = int(block_d), int(chunk), int(lanes)
-    _check(x, delta, a, b, c, d, h0, block_d, chunk, lanes)
+    block_d, chunk, split = int(block_d), int(chunk), int(split)
+    _check(x, delta, a, b, c, d, h0)
+    err = launch_error(a.shape[1], block_d, chunk, split)
+    if err:
+        raise ValueError(err)
     if x.device.type == "cpu":
-        return selective_scan_fwd_plain(x, delta, a, b, c, d, h0, chunk=chunk,
-                                        lanes=lanes)
+        return selective_scan_fwd_plain(x, delta, a, b, c, d, h0)
     bt, t, di = x.shape
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
+    vec = di % 4 == 0 and all(m.data_ptr() % 16 == 0
+                              for m in (x, delta, b, c, y))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mamba_scan_fwd(
             x.data_ptr(), delta.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), d.data_ptr(), h0.data_ptr(), y.data_ptr(),
-            h_out.data_ptr(), bt, t, di, a.shape[1], block_d, chunk, lanes,
-            stream)
+            h_out.data_ptr(), bt, t, di, a.shape[1], block_d, chunk, split,
+            int(vec), stream)
     if rc != 0:
         raise KernelLaunchError(
-            f"mamba_scan(block_d={block_d}, chunk={chunk}, lanes={lanes}): "
+            f"mamba_scan(block_d={block_d}, chunk={chunk}, split={split}): "
             f"launch refused ({rc}: "
             f"{lib.mamba_scan_error_string(rc).decode()})")
     selective_scan_fwd.launches += 1
@@ -255,8 +261,8 @@ selective_scan_fwd.launches = 0
 # -- backward ---------------------------------------------------------------------
 
 def bwd_splits(s: int) -> tuple[int, ...]:
-    """Threads per channel the backward kernel is built for at state size
-    ``s``: the powers of two that divide it."""
+    """Threads per channel either kernel is built for at state size ``s``:
+    the powers of two that divide it."""
     return tuple(p for p in (1, 2, 4, 8, 16) if p <= s and s % p == 0)
 
 
@@ -310,7 +316,7 @@ def bwd_launch_error(s: int, block_d: int, chunk: int, split: int,
 
 def _check_bwd(x, delta, a, b, c, d, h0, dy, dh_t, block_d: int, chunk: int,
                split: int, span: int) -> None:
-    _check(x, delta, a, b, c, d, h0, 32, 1, 0)
+    _check(x, delta, a, b, c, d, h0)
     for name, t, like in (("dy", dy, x), ("dh_t", dh_t, h0)):
         if not isinstance(t, torch.Tensor) or t.dtype != torch.float32 \
                 or t.shape != like.shape or t.device != x.device:

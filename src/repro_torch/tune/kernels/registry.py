@@ -37,7 +37,10 @@ __all__ = ["KernelSpec", "dtype_name", "register_kernel", "get_kernel",
 @dataclass(frozen=True)
 class KernelSpec:
     name: str
-    defaults: Mapping[str, Any]           # the ops.py hardcoded launch params
+    # the ops.py hardcoded launch params, or where they follow the shape
+    # the ops layer's function of meta giving them
+    defaults: Mapping[str, Any] | Callable[[Mapping[str, Any]],
+                                           Mapping[str, Any]]
     space_fn: Callable[[Mapping[str, Any]], ConfigSpace]
     validate_fn: Callable[[Mapping[str, Any], Mapping[str, Any]], str | None]
     make_inputs: Callable[[Mapping[str, Any], Any, np.random.Generator,
@@ -64,9 +67,14 @@ class KernelSpec:
         When ``meta`` is given and the raw defaults are invalid for that
         shape (e.g. a 2048-symbol chunk on a 1000-symbol text), returns the
         nearest valid config instead — mirroring the clamping the ops
-        layer applies to its hardcoded defaults at launch.
+        layer applies to its hardcoded defaults at launch.  Defaults that
+        follow the shape are taken at ``meta`` (at ``default_shape`` when
+        it is None).
         """
-        cfg = {p.name: self.defaults[p.name] for p in space.params}
+        base = self.defaults
+        if callable(base):
+            base = base(self.default_shape if meta is None else meta)
+        cfg = {p.name: base[p.name] for p in space.params}
         space.validate(cfg)
         if meta is None or self.validate(cfg, meta) is None:
             return cfg

@@ -22,9 +22,11 @@ record resolves from the same shape description in both packages; their
 default shapes are the serving shapes of ``qwen2.5-3b`` at batch 8 with a
 2048-token prompt and 128 generated tokens.  The scan specs keep the reference's ``{bt, t, di, s}`` and
 ``{b, t, h, hd}``; their default shapes are the prefill shapes of
-``jamba-v0.1-52b`` and ``rwkv6-1.6b`` at batch 8 with a 2048-token prompt,
-and the selective scan's space keeps the reference's ``lanes`` switch
-between the serial program (``lanes = 0``) and the chunked form.  The wkv
+``jamba-v0.1-52b`` and ``rwkv6-1.6b`` at batch 8 with a 2048-token prompt.
+The selective scan's space is channels a block (``block_d``) x tokens a
+staged chunk (``chunk``) x threads a channel (``split``); the reference's ``lanes`` switch (its chunked form) has
+no counterpart, and its defaults follow the shape (``ops.defaults``: more
+threads a channel where B * dI is small, as at the training shape).  The wkv
 forward's space is its chunked route's (chunk x threads a state column
 in the chunk program (``split``) x value columns a states thread carries
 (``cols``) x heads a chunk-program block walks (``block_h``)); its serial
@@ -62,7 +64,7 @@ from ...kernels.flash_attention import kernel as fa_kernel
 from ...kernels.flash_attention.ops import DEFAULTS as FA_DEFAULTS
 from ...kernels.mamba_scan import kernel as ms_kernel
 from ...kernels.mamba_scan.ops import BWD_DEFAULTS as MSB_DEFAULTS
-from ...kernels.mamba_scan.ops import DEFAULTS as MS_DEFAULTS
+from ...kernels.mamba_scan.ops import defaults as ms_defaults
 from ...kernels.rwkv6_wkv import kernel as wkv_kernel
 from ...kernels.rwkv6_wkv.ops import BWD_DEFAULTS as WKVB_DEFAULTS
 from ...kernels.rwkv6_wkv.ops import DEFAULTS as WKV_DEFAULTS
@@ -74,7 +76,7 @@ __all__ = ["ATTN_BLOCKS", "ATTN_BLOCKS_Q", "ATTN_STAGES", "ATTN_THREADS",
            "DECODE_BLOCK_S", "DECODE_SPLITS", "DECODE_STAGES",
            "DECODE_THREADS", "GRAMS",
            "SCAN_BLOCK_D", "SCAN_BWD_BLOCK_D", "SCAN_BWD_CHUNKS",
-           "SCAN_BWD_SPANS", "SCAN_CHUNKS", "SCAN_LANES",
+           "SCAN_BWD_SPANS", "SCAN_CHUNKS", "SCAN_SPLITS",
            "TEXT_CHUNKS", "WKV_BWD_CHUNKS", "WKV_BWD_COLS", "WKV_BWD_PARTS",
            "WKV_BLOCK_H", "WKV_BWD_THREADS", "WKV_CHUNKS", "WKV_COLS",
            "WKV_SPLITS"]
@@ -98,9 +100,11 @@ DECODE_SPLITS = (1, 2, 4, 8, 16)
 DECODE_BLOCK_S = da_kernel.BLOCK_S
 DECODE_THREADS = (32, 64, 128, 256)
 DECODE_STAGES = da_kernel.STAGES
-SCAN_CHUNKS = (8, 16, 32, 64, 128, 256, 512, 1024)
-SCAN_LANES = (0, 2, 4, 8, 16)        # 0 = the serial program
-SCAN_BLOCK_D = (32, 64, 128, 256, 512)
+# the selective scan: channels a block, tokens a staged chunk, threads a
+# channel
+SCAN_BLOCK_D = (16, 32, 64, 128, 256)
+SCAN_CHUNKS = (8, 16, 32, 64)
+SCAN_SPLITS = (1, 2, 4, 8, 16)
 # the wkv forward's chunked route: chunk length, threads a state column in
 # the chunk program, value columns a states thread carries, heads a
 # chunk-program block walks
@@ -360,21 +364,19 @@ def _ms_space(meta: Mapping[str, Any]) -> ConfigSpace:
     return ConfigSpace([
         Param("block_d", SCAN_BLOCK_D),
         Param("chunk", SCAN_CHUNKS),
-        Param("lanes", SCAN_LANES),
+        Param("split", SCAN_SPLITS),
     ])
 
 
 def _ms_validate(cfg, meta) -> str | None:
-    bd, chunk, lanes = cfg["block_d"], cfg["chunk"], cfg["lanes"]
+    bd, chunk = cfg["block_d"], cfg["chunk"]
     if meta["s"] not in ms_kernel.STATE_SIZES:
         return f"state size {meta['s']} not in {ms_kernel.STATE_SIZES}"
-    n = ms_kernel.threads(bd, lanes)
-    if n > ms_kernel.MAX_THREADS:
-        return f"{n} threads a block (limit {ms_kernel.MAX_THREADS})"
-    span = chunk * (lanes if lanes >= 2 else 1)
-    return (_not_above(meta["di"], bd, SCAN_BLOCK_D[0], "block_d")
-            or _not_above(meta["t"], span, SCAN_CHUNKS[0], "chunk*lanes")
-            or _smem(ms_kernel.smem_bytes(meta["s"], bd, chunk, lanes)))
+    # the kernel's own rules: threads (block_d x split), chunk a multiple
+    # of the tokens a thread takes at once, the ring's shared memory
+    return (ms_kernel.launch_error(meta["s"], bd, chunk, cfg["split"])
+            or _not_above(meta["di"], bd, SCAN_BLOCK_D[0], "block_d")
+            or _not_above(meta["t"], chunk, SCAN_CHUNKS[0], "chunk"))
 
 
 def _randn(rng, shape, device, gen=None) -> torch.Tensor:
@@ -408,9 +410,7 @@ def _ms_inputs(meta, dtype, rng, device):
 
 
 def _ms_run(cfg, inputs):
-    return ms_kernel.selective_scan_fwd(*inputs, block_d=cfg["block_d"],
-                                        chunk=cfg["chunk"],
-                                        lanes=cfg["lanes"])
+    return ms_kernel.selective_scan_fwd(*inputs, **cfg)
 
 
 def _ms_ref(inputs):
@@ -419,7 +419,7 @@ def _ms_ref(inputs):
 
 register_kernel(KernelSpec(
     name="mamba_scan",
-    defaults=MS_DEFAULTS,
+    defaults=ms_defaults,
     space_fn=_ms_space, validate_fn=_ms_validate,
     make_inputs=_ms_inputs, run=_ms_run, ref=_ms_ref,
     default_shape={"bt": 8, "t": 2048, "di": 8192, "s": 16},

@@ -208,7 +208,8 @@ def test_selective_scan_function_gives_the_plain_backward():
                                               chunk=bwd["chunk"])
     for name, leaf, w in zip(SCAN_NAMES, leaves, want):
         assert torch.equal(leaf.grad, w), name
-    y0, h0 = ms_kernel.selective_scan_fwd(*primals)
+    meta = {"bt": 2, "t": 20, "di": 32, "s": 8}
+    y0, h0 = ms_kernel.selective_scan_fwd(*primals, **ms_ops.defaults(meta))
     assert torch.equal(y.detach(), y0) and torch.equal(h_t.detach(), h0)
     with torch.no_grad():
         y, _ = ms_ops.selective_scan(*leaves)

@@ -1,11 +1,12 @@
 """The chunk-parallel forms of kernels B8 (the RWKV-6 wkv forward's chunked
-route) and B7 (the Mamba-1 selective-scan backward), on the CPU: their
-formulations in plain PyTorch (``wkv6_fwd_chunked_plain``,
-``selective_scan_bwd_chunked_plain``) held against the JAX package's oracles
-(``wkv6_ref``; ``jax.vjp`` of ``selective_scan_ref``) on the same
-numpy-seeded inputs, at every chunk of the new launch spaces, ragged T and
-T = 1, non-zero states, and decays that underflow; plus the routes and
-launch rules the kernels follow.
+route) and B7 (the Mamba-1 selective-scan backward), and the split-lane
+form of B6 (the selective-scan forward), on the CPU: their formulations in
+plain PyTorch (``wkv6_fwd_chunked_plain``, ``selective_scan_bwd_chunked_plain``,
+``selective_scan_fwd_plain`` with ``split``) held against the JAX package's
+oracles (``wkv6_ref``; ``selective_scan_ref`` and ``jax.vjp`` of it) on the
+same numpy-seeded inputs, at every chunk or split of the new launch
+spaces, ragged T and T = 1, non-zero states, and decays that underflow;
+plus the routes, launch rules and defaults the kernels follow.
 """
 
 import jax
@@ -21,6 +22,7 @@ from repro_torch.kernels.mamba_scan import ops as ms_ops
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.tune import kernels as ktune
+from repro_torch.tune.kernels import specs
 
 # the reference's kernel tests' float32 gates (tests/test_kernels.py): the
 # forward atol 2e-5 / rtol 2e-4, the backward atol 1e-5 / rtol 1e-4 (the
@@ -153,6 +155,93 @@ def test_wkv6_defaults_are_the_chunked_routes_at_the_model_shapes():
         y, s = wkv_kernel.wkv6_fwd(*args, chunk=chunk)
         y0, s_0 = wkv_kernel.wkv6_fwd_plain(*args)
         assert torch.equal(y, y0) and torch.equal(s, s_0)
+
+
+# -- B6: the selective-scan forward's split-lane form ----------------------------
+
+def scan_fwd(arrays, split):
+    """The forward's formulation (y_t's sum over the state in ``split``
+    parts folded by halves) and the reference on the same inputs."""
+    x, dl, a, b, c, d, h0 = arrays[:7]
+    got = ms_kernel.selective_scan_fwd_plain(*tensors(arrays[:7]), split=split)
+    want = selective_scan_ref(*(jnp.asarray(m) for m in (x, dl, a, b, c, d,
+                                                         h0)))
+    return got, want
+
+
+SPLITS_BY_S = [(s, split) for s in ms_kernel.STATE_SIZES
+               for split in ms_kernel.bwd_splits(s)]
+
+
+@pytest.mark.parametrize("s,split", SPLITS_BY_S)
+def test_selective_scan_fwd_split_form_matches_the_reference(s, split):
+    """Every split the forward is built for at S 4, 8 and 16 (all of the
+    space's splits at S 16), from a non-zero state, at a ragged T."""
+    assert set(ms_kernel.bwd_splits(16)) == set(specs.SCAN_SPLITS)
+    got, want = scan_fwd(scan_arrays(2, 45, 24, s, seed=s + split), split)
+    close(got, want, FWD_TOL, ("y", "h_T"))
+
+
+@pytest.mark.parametrize("t,split", [(1, 1), (1, 16), (7, 4), (33, 8)])
+def test_selective_scan_fwd_split_form_at_one_token_and_ragged_t(t, split):
+    got, want = scan_fwd(scan_arrays(2, t, 32, 16, seed=t), split)
+    close(got, want, FWD_TOL, ("y", "h_T"))
+
+
+@pytest.mark.parametrize("split", [2, 16])
+def test_selective_scan_fwd_split_form_takes_underflowing_decays(split):
+    """A quarter of the channels with a_t = 0 in float32: finite, the
+    reference's."""
+    arrays = scan_arrays(2, 50, 32, 16, seed=split, underflow=True)
+    dl, a = torch.from_numpy(arrays[1]), torch.from_numpy(arrays[2])
+    assert (torch.exp(dl[..., ::4, None] * a[::4]) == 0).all()
+    got, want = scan_fwd(arrays, split)
+    assert all(torch.isfinite(g).all() for g in got)
+    close(got, want, FWD_TOL, ("y", "h_T"))
+
+
+def test_selective_scan_fwd_split_sum_order():
+    """The kernel's order of y_t's sum, exactly: each part's S / split
+    entries in order, then the parts folded by halves (part i with part
+    i + split / 2: the butterfly's pairs).  float32 values whose sums
+    round make every order give other bits."""
+    vals = [1.0, 0.5, 3.0, 1e8, 2.0, 2.0, 2.0, -1e8]
+    p = [torch.tensor(v, dtype=torch.float32) for v in vals]
+    want = {
+        1: ((((((p[0] + p[1]) + p[2]) + p[3]) + p[4]) + p[5]) + p[6]) + p[7],
+        2: (((p[0] + p[1]) + p[2]) + p[3]) + (((p[4] + p[5]) + p[6]) + p[7]),
+        4: ((p[0] + p[1]) + (p[4] + p[5])) + ((p[2] + p[3]) + (p[6] + p[7])),
+        8: ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7])),
+    }
+    assert len({float(w) for w in want.values()}) == 4
+    prod = torch.tensor([vals], dtype=torch.float32)
+    for split, w in want.items():
+        assert torch.equal(ms_kernel._split_sum(prod, split), w.reshape(1))
+
+
+def test_selective_scan_fwd_defaults_follow_the_shape():
+    """``ops.defaults``: a thread a channel where B * dI fills the card
+    (the Jamba prefill shape, B 8: ``DEFAULTS``), four at the training
+    shape (B 2), more as B * dI shrinks, never more than the
+    state entries; 128 threads a block (256 once block_d reaches 16); every
+    default a valid point of its space, and the spec's default there."""
+    spec = ktune.get_kernel("mamba_scan")
+    prefill = dict(spec.default_shape)
+    train = {**prefill, "bt": 2}
+    assert ms_ops.defaults(prefill) == ms_ops.DEFAULTS
+    assert ms_ops.DEFAULTS["split"] == 1
+    assert spec.default_config(spec.space(prefill)) == ms_ops.DEFAULTS
+    assert ms_ops.defaults(train) == {"block_d": 32, "chunk": 64, "split": 4}
+    small = {**train, "di": 64}
+    assert ms_ops.defaults(small)["split"] == 16
+    assert ms_ops.defaults({**small, "s": 4})["split"] == 4
+    for meta in (prefill, train, small, {**small, "s": 4}):
+        cfg = ms_ops.defaults(meta)
+        assert cfg["split"] <= meta["s"]
+        assert cfg["block_d"] * cfg["split"] in (128, 256)
+        assert ms_kernel.launch_error(meta["s"], **cfg) is None
+        assert spec.validate(cfg, meta) is None
+        assert spec.default_config(spec.space(meta), meta) == cfg
 
 
 # -- B7: the selective-scan backward's chunk-parallel form -----------------------

@@ -152,63 +152,85 @@ def test_wkv6_decode_step_and_ragged_t(t, chunk, route):
 
 # -- B6: selective scan ------------------------------------------------------------
 
+def scan_forms(split, x, dl, a, b, c, d, h0=None, **launch) -> dict:
+    """(y, h_T) at ``split`` in both of the CPU's forms: the wrapper (its
+    launch rules at that split; its CPU branch the serial oracle) and the
+    kernel's formulation (``selective_scan_fwd_plain`` with ``split``: y_t's
+    sum over the state in the kernel's order)."""
+    if h0 is None:
+        h0 = torch.zeros((x.shape[0], x.shape[2], a.shape[1]))
+    return {"wrapper": ms_ops.selective_scan(x, dl, a, b, c, d, h0,
+                                             split=split, **launch),
+            "kernel order": ms_kernel.selective_scan_fwd_plain(
+                x, dl, a, b, c, d, h0, split=split)}
+
+
 @pytest.mark.parametrize("bt,t,di,s,block_d,chunk", [
     (2, 64, 128, 8, 64, 16), (1, 128, 64, 16, 64, 32), (3, 32, 96, 4, 32, 8),
 ])
-@pytest.mark.parametrize("lanes", [0, 2])
+@pytest.mark.parametrize("split", [1, 4])
 def test_selective_scan_matches_reference(bt, t, di, s, block_d, chunk,
-                                          lanes):
+                                          split):
     jin, tin = scan_inputs(bt, t, di, s)
-    y, h = ms_ops.selective_scan(*tin[:6], block_d=block_d, chunk=chunk,
-                                 lanes=lanes)
     ye, he = selective_scan_ref(*jin[:6])
-    close(y, ye)
-    close(h, he)
+    for y, h in scan_forms(split, *tin[:6], block_d=block_d,
+                           chunk=chunk).values():
+        close(y, ye)
+        close(h, he)
 
 
 def test_selective_scan_chunked_matches_serial_at_every_chunk_size():
+    """Every (block_d, chunk, split) the space allows at this shape is one
+    the kernel's own rules take, and y_t's sum in the kernel's order at
+    each of its splits gives the serial oracle's function; the staged
+    chunk changes no arithmetic."""
     bt, t, di, s = 2, 128, 64, 4
     _, (x, dl, a, b, c, d, h0) = scan_inputs(bt, t, di, s, h0=True)
-    y0, h_0 = ms_ops.selective_scan(x, dl, a, b, c, d, h0, lanes=0)
+    y0, h_0 = ms_kernel.selective_scan_fwd_plain(x, dl, a, b, c, d, h0)
     spec = ktune.get_kernel("mamba_scan")
     meta = {"bt": bt, "t": t, "di": di, "s": s}
     space = spec.space(meta)
-    allowed = {(cfg["chunk"], cfg["lanes"]) for cfg in space.enumerate()
-               if cfg["lanes"] >= 2 and spec.validate(cfg, meta) is None}
-    assert {ch for ch, _ in allowed} == {8, 16, 32, 64}
-    for chunk, lanes in sorted(allowed):
+    allowed = [cfg for cfg in space.enumerate()
+               if spec.validate(cfg, meta) is None]
+    assert {cfg["chunk"] for cfg in allowed} == {8, 16, 32, 64}
+    assert {cfg["split"] for cfg in allowed} == {1, 2, 4}
+    for cfg in allowed:
+        assert ms_kernel.launch_error(s, **cfg) is None, cfg
+    for split in sorted({cfg["split"] for cfg in allowed}):
         y, h = ms_kernel.selective_scan_fwd_plain(x, dl, a, b, c, d, h0,
-                                                  chunk=chunk, lanes=lanes)
+                                                  split=split)
         np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=ATOL,
-                                   rtol=RTOL, err_msg=f"{chunk}, {lanes}")
+                                   rtol=RTOL, err_msg=f"split {split}")
         np.testing.assert_allclose(h.numpy(), h_0.numpy(), atol=ATOL,
-                                   rtol=RTOL, err_msg=f"{chunk}, {lanes}")
+                                   rtol=RTOL, err_msg=f"split {split}")
 
 
-@pytest.mark.parametrize("lanes", [0, 4])
-def test_selective_scan_resume_state_equals_full_run(lanes):
+@pytest.mark.parametrize("split", [1, 4])
+def test_selective_scan_resume_state_equals_full_run(split):
     bt, t, di, s = 2, 64, 32, 8
     _, (x, dl, a, b, c, d, _) = scan_inputs(bt, t, di, s, seed=5)
-    kw = dict(chunk=8, lanes=lanes, block_d=32)
-    y_full, h_full = ms_ops.selective_scan(x, dl, a, b, c, d, **kw)
+    kw = dict(chunk=8, block_d=32)
     half = 40
-    y1, h1 = ms_ops.selective_scan(x[:, :half], dl[:, :half], a,
-                                   b[:, :half], c[:, :half], d, **kw)
-    y2, h2 = ms_ops.selective_scan(x[:, half:], dl[:, half:], a,
-                                   b[:, half:], c[:, half:], d, h1, **kw)
-    close(torch.cat([y1, y2], dim=1), y_full.numpy())
-    close(h2, h_full.numpy())
+    full = scan_forms(split, x, dl, a, b, c, d, **kw)
+    first = scan_forms(split, x[:, :half], dl[:, :half], a, b[:, :half],
+                       c[:, :half], d, **kw)
+    for form, (y_full, h_full) in full.items():
+        y1, h1 = first[form]
+        y2, h2 = scan_forms(split, x[:, half:], dl[:, half:], a,
+                            b[:, half:], c[:, half:], d, h1, **kw)[form]
+        close(torch.cat([y1, y2], dim=1), y_full.numpy())
+        close(h2, h_full.numpy())
 
 
-@pytest.mark.parametrize("t,chunk,lanes", [(1, 64, 0), (1, 8, 4),
-                                            (77, 32, 0), (77, 16, 2),
-                                            (77, 8, 16)])
-def test_selective_scan_one_token_and_ragged_t(t, chunk, lanes):
+@pytest.mark.parametrize("t,chunk,split", [(1, 64, 1), (1, 8, 4),
+                                            (77, 32, 1), (77, 16, 2),
+                                            (77, 16, 16)])
+def test_selective_scan_one_token_and_ragged_t(t, chunk, split):
     jin, tin = scan_inputs(2, t, 64, 16, seed=4, h0=True)
-    y, h = ms_ops.selective_scan(*tin, chunk=chunk, lanes=lanes, block_d=32)
     ye, he = selective_scan_ref(*jin)
-    close(y, ye)
-    close(h, he)
+    for y, h in scan_forms(split, *tin, chunk=chunk, block_d=32).values():
+        close(y, ye)
+        close(h, he)
 
 
 # -- the wrappers' rules ------------------------------------------------------------
@@ -241,13 +263,13 @@ def test_wkv_wrapper_refuses_bad_tensors():
 
 
 @pytest.mark.parametrize("bad, match", [
-    (dict(block_d=48), "multiple of 32"),
-    (dict(block_d=256, lanes=4), "threads"),
-    (dict(block_d=32, chunk=1024, lanes=16), "shared memory"),
+    (dict(block_d=24, split=1), "multiple of 32"),
+    (dict(block_d=256, split=4), "threads"),
+    (dict(block_d=256, chunk=256, split=2), "shared memory"),
 ])
 def test_scan_wrapper_refuses_bad_launch_parameters(bad, match):
     _, args = scan_inputs(1, 8, 64, 16)
-    kw = {"block_d": 64, "chunk": 16, "lanes": 0, **bad}
+    kw = {"block_d": 64, "chunk": 16, "split": 4, **bad}
     with pytest.raises(ValueError, match=match):
         ms_kernel.selective_scan_fwd(*args, **kw)
 
@@ -298,9 +320,15 @@ def test_smem_accounting_matches_the_sources():
     assert wkv_kernel.smem_bytes_states(16, 64) == 4 * (
         2 * 3 * 16 * 64 + 64 * 68)
     assert wkv_kernel.CHUNKS_STAGE == 32
-    assert ms_kernel.smem_bytes(16, 128, 64, 0) == 4 * 2 * 64 * 16
-    assert ms_kernel.smem_bytes(16, 64, 32, 4) == 4 * (
-        2 * 128 * 16 + 2 * 4 * 16 * 64)
+    # the selective scan: per stage of its two-chunk ring, the x / y tile
+    # (rows padded by 32 / split floats, at least 4), the delta tile, B_t
+    # and C_t
+    assert ms_kernel.STAGES == 2
+    assert ms_kernel.smem_bytes(16, 64, 16, 4) == 4 * 2 * (
+        16 * (64 + 8) + 16 * 64 + 2 * 16 * 16)
+    assert ms_kernel.smem_bytes(16, 32, 32, 8) == 4 * 2 * (
+        32 * (32 + 4) + 32 * 32 + 2 * 32 * 16)
+    assert [ms_kernel.y_pad(sp) for sp in (1, 2, 4, 8, 16)] == [4, 16, 8, 4, 4]
     # the serial program's column tile and block: 4 columns a thread up to
     # 16 rows (256 threads at hd 64, split 4), fewer where the block would
     # not be whole warps
@@ -317,11 +345,11 @@ def test_smem_accounting_matches_the_sources():
 
 @pytest.mark.parametrize("name", ["mamba_scan", "rwkv6_wkv"])
 def test_scan_spaces_at_the_serve_shapes(name):
-    """At least 64 valid configurations at the serve shape, both programs
-    (the selective scan's serial and chunked forms; every chunk of the wkv
-    forward's chunked route) among them, configurations the kernels refuse
-    left out, and a tune that trains on max(4, 5 % - 1) of the space
-    measures at most 5 %."""
+    """At least 64 valid configurations at the serve shape (the selective
+    scan's also at its training shape, B 2), every split of the selective
+    scan and every chunk of the wkv forward's chunked route among them,
+    configurations the kernels refuse left out, and a tune that trains on
+    max(4, 5 % - 1) of the space measures at most 5 %."""
     spec = ktune.get_kernel(name)
     meta = spec.default_shape
     space = spec.space(meta)
@@ -329,7 +357,12 @@ def test_scan_spaces_at_the_serve_shapes(name):
     assert len(valid) >= 64
     assert len(valid) < space.size()
     if name == "mamba_scan":
-        assert {c["lanes"] == 0 for c in valid} == {True, False}
+        assert {c["split"] for c in valid} == set(ms_kernel.bwd_splits(16))
+        train = {**meta, "bt": 2}
+        assert sum(spec.validate(c, train) is None
+                   for c in space.enumerate()) >= 64
+        assert all(ms_kernel.launch_error(meta["s"], **c) is None
+                   for c in valid)
     else:
         # every chunk whose states program fits shared memory (256 does
         # not at hd 64)
@@ -342,7 +375,8 @@ def test_scan_spaces_at_the_serve_shapes(name):
         for other in ({**meta, "hd": 48}, {**meta, "t": 20}):
             assert 0 < sum(spec.validate(c, other) is None
                            for c in space.enumerate()) < space.size()
-    assert spec.default_config(space, meta) == dict(spec.defaults)
+    want = spec.defaults(meta) if callable(spec.defaults) else spec.defaults
+    assert spec.default_config(space, meta) == dict(want)
     n_train = max(4, int(0.05 * space.size()) - 1)
     assert (n_train + 1) / space.size() <= 0.05
 
