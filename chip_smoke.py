@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--t SYMBOLS] [--seed N]
+    python3 chip_smoke.py [--t SYMBOLS] [--seed N] [--out DIR]
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's seven paths once each, at full width, through the entry
+drives the port's eight paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -15,6 +15,21 @@ points a user would call:
   ``configure`` the store and answer five motif-count requests through
   ``fa_match(tuned=True)``, each again under the profiler for its device
   time split into the state map (B1), the count (B2) and the rest;
+* the streamed split (the paper's step): the same text copied back once
+  into pinned host memory as 3072 rows of 2^20 symbols, 256 rows a batch;
+  ``tune_stream_split`` searches the paper's split space (host threads x
+  host affinity x host fraction, 108 points on 8 CPUs) with SAML within 5 %
+  measured, once more from its store with no measurement; then
+  ``serve_stream`` streams every batch through ``StreamingPipeline`` from
+  the tuned split with the EWMA controller on: a ``host`` group runs the
+  plain DFA on CPU threads, the ``card`` group copies its chunks on a side
+  stream and counts them with B1 and B2 (``fa_match_rows``, one launch of
+  each a chunk).  Every row's count must equal ``fa_match_rows_plain`` on
+  the card, no group may fail, and the B1/B2 launches must equal the card
+  group's dispatches; the same holds for two batches at a fixed host share
+  of 2 rows a batch (both groups at work).  The same stream on the card
+  alone (before and after it), the bare host -> card copy and the resident
+  ``fa_match`` are timed beside it;
 * LM serving: ``tune_kernel`` the flash-attention and decode-attention
   kernels at Qwen2.5-3B's serving shapes into one store, ``configure`` it,
   then ``serve_session`` a batch of 8 random 2048-token prompts and decode
@@ -180,8 +195,16 @@ def roofline_ms(n_bytes: float, n_ops: float, ops_per_s: float
                                    else "operations")
 
 
+# files every emitted line is appended to as well (``--out``)
+EMIT_TO: list = []
+
+
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    line = json.dumps(fields)
+    print(line, flush=True)
+    for path in EMIT_TO:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -486,6 +509,290 @@ def phase_serve(text, store_path: Path, tuned) -> None:
           "serve: answering requests measured new configurations")
     ktune.disable()
     emit(phase="serve", ok=True, requests=requests)
+
+
+# -- the streamed host/card split (A1) ----------------------------------------------
+
+# the stream: the text laid out as rows of 2^20 symbols, 256 rows a batch
+STREAM_ROW_LEN, STREAM_BATCH, STREAM_MOTIF = 2 ** 20, 256, "ACGTAC"
+# chunks a group's share of a batch is cut into (copy k + 1 overlaps the
+# kernels of chunk k)
+STREAM_CHUNKS = 4
+# the two-group run: the host's rows of a batch, and its batches
+HOST_SPLIT_ROWS, STREAM_SPLIT_BATCHES = 2, 2
+
+
+def phase_stream(text, store_path: Path, seed: int):
+    """The paper's step on its workload: the text streamed from pinned host
+    memory and split between a host group (the plain DFA on CPU threads)
+    and the card (B1/B2 through ``fa_match_rows``) at the split
+    ``tune_stream_split`` finds in the paper's space, then every batch
+    through ``serve_stream``'s ``StreamingPipeline`` with the EWMA
+    controller on, and two batches at a fixed host share of 2 rows a batch.
+    In both runs per-row counts must equal ``fa_match_rows_plain`` on the
+    card; no group may fail; the card group must stay live, its B1/B2
+    launches equal to its dispatches.  Beside them: the same stream on the
+    card alone (before, between and after), the bare host -> card copy, the
+    resident ``fa_match``.  Returns each run's launches by path
+    (``dna_stream``, ``dna_stream_split``)."""
+    import numpy as np
+
+    from repro_torch.core.hetero import DeviceGroup
+    from repro_torch.kernels.dna_automaton import kernel, ops
+    from repro_torch.launch.serve import (serve_stream, split_space,
+                                          tune_stream_split)
+    from repro_torch.runtime import TuningStore, dna_stream_builder
+    from repro_torch.tune import kernels as ktune
+
+    t0_phase = time.perf_counter()
+    card = text.device
+    t = text.shape[0]
+    rows = t // STREAM_ROW_LEN
+    batch = min(STREAM_BATCH, rows)
+    n_batches = rows // batch
+    rows = n_batches * batch
+    # the text starts in pinned host memory: the resident text copied back
+    t0 = time.perf_counter()
+    host = torch.empty(rows * STREAM_ROW_LEN, dtype=torch.uint8,
+                       pin_memory=card.type == "cuda")
+    host.copy_(text[:rows * STREAM_ROW_LEN])
+    host_rows = host.view(rows, STREAM_ROW_LEN)
+    pin_s = time.perf_counter() - t0
+    batches = [{"text": host_rows[i * batch:(i + 1) * batch],
+                "row": torch.arange(i * batch, (i + 1) * batch)}
+               for i in range(n_batches)]
+    gb = rows * STREAM_ROW_LEN / 1e9
+
+    table, accept = ops.build_motif_dfa(STREAM_MOTIF)
+    # B1/B2 tuned at the card group's chunk (a quarter of a batch) into
+    # the same store: a store keyed by the whole text's length misses a
+    # chunk's, and B2's default count chunk leaves a chunk of 64 rows
+    # 1024 walkers
+    chunk_t = batch * STREAM_ROW_LEN // STREAM_CHUNKS
+    t0 = time.perf_counter()
+    kt = ktune.tune_kernel("dna_automaton", {"t": chunk_t},
+                           store=store_path, seed=seed, device=card)
+    kernel_tune = {"t": chunk_t, "seconds": time.perf_counter() - t0,
+                   "n_measured": kt.n_measured,
+                   "measured_fraction": kt.measured_fraction,
+                   "default_config": kt.default_config,
+                   "default_ms": kt.default_time() * 1e3,
+                   "best_config": kt.best_config,
+                   "best_ms": kt.best_time() * 1e3}
+    check(kt.measured_fraction <= 0.05 and kt.timer.n_launch_failed == 0,
+          f"stream: B1/B2 tune at the chunk shape {kernel_tune}")
+    ktune.configure(store_path, device=card)
+    groups = [DeviceGroup("host", [torch.device("cpu")]),
+              DeviceGroup("card", [card])]
+    builder = dna_stream_builder(table, accept)
+
+    # the split tune over the paper's space, on one representative batch
+    workload = {"stream": "dna", "motif": STREAM_MOTIF, "rows": batch,
+                "row_len": STREAM_ROW_LEN, "host_cpus": os.cpu_count()}
+    split_store = TuningStore(store_path.with_name("split.json"),
+                              device=card)
+    measured: list = []
+    kw = dict(groups=groups, space="paper", sample=batches[0],
+              step_builder=builder, store=split_store, seed=seed,
+              workload=workload, chunks_per_group=STREAM_CHUNKS,
+              row_quantum=1, iterations=300, measurements=measured,
+              device=card)
+    t0 = time.perf_counter()
+    shares, tuned = tune_stream_split(None, **kw)
+    tune_s = time.perf_counter() - t0
+    space = split_space()
+    fraction = tuned.n_measured / space.size()
+    check(not tuned.from_cache, "stream: first split tune came from the cache")
+    check(fraction <= 0.05, f"stream: split tune measured {tuned.n_measured}"
+                            f" of {space.size()} ({fraction})")
+    before = dict(builder.dispatches)
+    shares_again, again = tune_stream_split(None, **kw)
+    check(again.from_cache and builder.dispatches == before
+          and len(measured) == tuned.n_measured,
+          "stream: the repeat split tune measured again")
+    check(again.best_config == tuned.best_config
+          and list(shares_again) == list(shares),
+          "stream: the cached split differs")
+    host_rates = [{"host_threads": m["host_threads"],
+                   "host_affinity": m["host_affinity"],
+                   "rows": m["rows_host"],
+                   "gb_per_s": m["rows_host"] * STREAM_ROW_LEN / 1e9
+                   / m["t_host"]} for m in measured if m["rows_host"] > 0]
+
+    # every run below streams the same batches and is timed alike; they are
+    # kept in the order they ran (the card alone before and after the
+    # stream, and after the profiler) so that an order effect shows
+    runs: list = []
+
+    def timed(label, run_groups, run_shares, step_builder, run_batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_stream(None, groups=run_groups, batch=batch,
+                           batches=run_batches, initial_shares=run_shares,
+                           step_builder=step_builder,
+                           chunks_per_group=STREAM_CHUNKS, row_quantum=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t = [r["t_step"] for r in out["records"]]
+        n_gb = sum(b["text"].numel() for b in run_batches) / 1e9
+        runs.append({"run": label, "s": seconds, "gb_per_s": n_gb / seconds,
+                     "t_step_ms": [x * 1e3 for x in t],
+                     "t_step_ms_median": float(np.median(t)) * 1e3,
+                     "t_step_ms_std": float(np.std(t)) * 1e3})
+        return out, seconds
+
+    def capturing(seen):
+        def wrap(group):
+            fn = builder(group)
+
+            def step(chunk):
+                handle = fn(chunk)
+                seen.append((chunk["row"], handle))
+                return handle
+            return step
+        return wrap
+
+    def exact_rows(seen, n_rows, what):
+        got = torch.full((n_rows,), -1, dtype=torch.int32)
+        for row, handle in seen:
+            got[row] = handle.value.cpu()
+        want = ops.fa_match_rows_plain(
+            text[:n_rows * STREAM_ROW_LEN].view(n_rows, STREAM_ROW_LEN),
+            table, accept).cpu()
+        check(torch.equal(got, want), f"{what}: per-row counts differ from "
+              f"fa_match_rows_plain in {int((got != want).sum())} rows")
+
+    def counted_run(label, run_shares, run_batches):
+        """One run with the launch counters from 0 just before it and read
+        just after: no failure, the card group live, B1 = B2 = the card
+        group's dispatches, every row exact."""
+        seen: list = []
+        kernel.state_map.launches = 0
+        kernel.count_hits.launches = 0
+        builder.dispatches.clear()
+        out, seconds = timed(label, groups, run_shares, capturing(seen),
+                             run_batches)
+        launches = {"dna_state_map": kernel.state_map.launches,
+                    "dna_count_hits": kernel.count_hits.launches}
+        dispatches = dict(builder.dispatches)
+        s = out["summary"]
+        n_rows = len(run_batches) * batch
+        check(s["failures"] == 0, f"{label}: {s['failures']} group failures")
+        check(s["live_final"][1], f"{label}: the card group was demoted")
+        check(launches["dna_state_map"] == launches["dna_count_hits"]
+              == dispatches.get("card", 0) > 0,
+              f"{label}: launches {launches}, card dispatches {dispatches}")
+        check(s["rows_total"] == n_rows,
+              f"{label}: {s['rows_total']} of {n_rows} rows")
+        exact_rows(seen, n_rows, label)
+        return out, seconds, launches, dispatches
+
+    def rate(recs, gi):
+        rows_g = sum(r["rows_completed"][gi] for r in recs)
+        busy = sum(r["t_group"][gi] for r in recs if r["rows"][gi] > 0)
+        return {"rows": rows_g, "busy_s": busy,
+                "rows_per_s": rows_g / busy if busy > 0 else None,
+                "gb_per_s": (rows_g * STREAM_ROW_LEN / 1e9 / busy
+                             if busy > 0 else None)}
+
+    timed("card_alone", groups[1:], None, builder, batches)
+    # the streamed run: the tuned split, the EWMA controller on
+    out, stream_s, launches, dispatches = counted_run("stream", shares,
+                                                      batches)
+    s, recs = out["summary"], out["records"]
+    resolved = ktune.resolve_config(
+        "dna_automaton", {"t": chunk_t, "s": table.shape[0]}, "uint8",
+        device=card)
+    check(resolved == kt.best_config,
+          f"stream: the chunk shape resolved {resolved}")
+    timed("card_alone", groups[1:], None, builder, batches)
+    timed("stream", groups, shares, builder, batches)
+
+    # the two-group path at a fixed host share (2 rows of a 256-row batch,
+    # floored by the controller's minimum share): the host worker's plain
+    # DFA beside the card's side-stream copies and kernels, the EWMA
+    # moving rows; the card's chunks are not the tuned 2^26 shape, so B1/B2
+    # resolve their defaults there
+    host_pct = HOST_SPLIT_ROWS / batch * 100
+    split_batches = batches[:STREAM_SPLIT_BATCHES]
+    two, two_s, two_launches, two_dispatches = counted_run(
+        "two_group", [host_pct / 100, 1 - host_pct / 100], split_batches)
+    two_recs = two["records"]
+    check(all(r["rows"][0] > 0 for r in two_recs),
+          f"two_group: host rows {[r['rows'][0] for r in two_recs]}")
+    check(two_dispatches.get("host", 0) > 0,
+          f"two_group: host dispatches {two_dispatches}")
+
+    # one batch of the stream under the profiler: the card's busy share;
+    # then the card alone once more
+    split = device_split(lambda: serve_stream(
+        None, groups=groups, batch=batch, batches=batches[:1],
+        initial_shares=shares, step_builder=builder,
+        chunks_per_group=STREAM_CHUNKS, row_quantum=1))
+    timed("card_alone_after_profiler", groups[1:], None, builder, batches)
+    builder.close()
+
+    # the yardsticks: the bare copy, the resident fa_match
+    dst = torch.empty((batch, STREAM_ROW_LEN), dtype=torch.uint8,
+                      device=card)
+    copies = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in batches:
+            dst.copy_(b["text"], non_blocking=True)
+        end.record()
+        end.synchronize()
+        copies.append(start.elapsed_time(end))
+    del dst
+    fa_match_ms = device_ms(lambda: ops.fa_match(text, table, accept,
+                                                 tuned=True), 3)
+    ktune.disable()
+
+    t_steps = [r["t_step"] for r in recs]
+    emit(phase="stream", ok=True, rows=rows, row_len=STREAM_ROW_LEN,
+         batch=batch, batches=n_batches, gb=gb, motif=STREAM_MOTIF,
+         pin_copy_back_s=pin_s,
+         split_tune={"space_size": space.size(),
+                     "axes": {p.name: list(p.values) for p in space.params},
+                     "best_config": tuned.best_config,
+                     "n_measured": tuned.n_measured,
+                     "measured_fraction": fraction, "seconds": tune_s,
+                     "best_ms": tuned.best_energy_measured * 1e3,
+                     "measured": measured, "host_rates": host_rates,
+                     "repeat_from_cache": again.from_cache,
+                     "repeat_new_dispatches": 0},
+         shares=[float(x) for x in shares],
+         stream={"s": stream_s, "gb_per_s": gb / stream_s,
+                 "t_step_ms": [x * 1e3 for x in t_steps],
+                 "t_step_ms_median": float(np.median(t_steps)) * 1e3,
+                 "t_step_ms_std": float(np.std(t_steps)) * 1e3,
+                 "host": rate(recs, 0), "card": rate(recs, 1),
+                 "ewma_host_share": [float(r["shares"][0]) for r in recs],
+                 "live_final": s["live_final"], "failures": s["failures"],
+                 "launches": launches, "card_dispatches": dispatches,
+                 "b1_b2_resolved": resolved},
+         two_group={"host_pct": host_pct, "batches": len(split_batches),
+                    "s": two_s, "host_setting": list(builder.host),
+                    "rows_host": [r["rows"][0] for r in two_recs],
+                    "t_step_ms": [r["t_step"] * 1e3 for r in two_recs],
+                    "host": rate(two_recs, 0), "card": rate(two_recs, 1),
+                    "ewma_host_share": [float(r["shares"][0])
+                                        for r in two_recs],
+                    "failures": two["summary"]["failures"],
+                    "live_final": two["summary"]["live_final"],
+                    "launches": two_launches,
+                    "dispatches": two_dispatches},
+         kernel_tune=kernel_tune,
+         profiled_batch=split,
+         runs=runs,
+         copy_alone={"ms": copies, "gb_per_s": [gb / (c / 1e3)
+                                                for c in copies]},
+         fa_match_resident_ms=fa_match_ms,
+         rows_exact=True, seconds=time.perf_counter() - t0_phase)
+    del host, host_rows, batches
+    return {"dna_stream": launches, "dna_stream_split": two_launches}
 
 
 # -- the LM-serving path ------------------------------------------------------------
@@ -2675,6 +2982,8 @@ def main() -> int:
     ap.add_argument("--t", type=int, default=FULL_T,
                     help="symbols of DNA text (default: 3 * 2**30)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, metavar="DIR",
+                    help="also append every JSON line to DIR/chip_smoke.jsonl")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2683,6 +2992,9 @@ def main() -> int:
         return 1
     from repro_torch.kernels.dna_automaton import kernel, ops
 
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+        EMIT_TO.append(Path(args.out) / "chip_smoke.jsonl")
     smi = phase_env()
     phase_build()
     phase_oracle(args.seed)
@@ -2696,8 +3008,11 @@ def main() -> int:
         store_path = Path(tmp) / "kernels.json"
         tuned = phase_tune(args.t, args.seed, store_path)
         phase_serve(text, store_path, tuned)
-    launches = {"dna_state_map": kernel.state_map.launches,
-                "dna_count_hits": kernel.count_hits.launches}
+        launches = {"dna_state_map": kernel.state_map.launches,
+                    "dna_count_hits": kernel.count_hits.launches}
+        # the streamed split (A1): the same text, from pinned host memory,
+        # on the same store; its counters start from 0 inside the phase
+        stream_launches = phase_stream(text, store_path, args.seed)
     del text
     torch.cuda.empty_cache()
 
@@ -2752,8 +3067,12 @@ def main() -> int:
 
     records += attention + [backward] + scans + bwd_scans
     by_path = {
-        "dna_state_map": {"dna_serve": launches["dna_state_map"]},
-        "dna_count_hits": {"dna_serve": launches["dna_count_hits"]},
+        "dna_state_map": {"dna_serve": launches["dna_state_map"],
+                          **{path: n["dna_state_map"]
+                             for path, n in stream_launches.items()}},
+        "dna_count_hits": {"dna_serve": launches["dna_count_hits"],
+                           **{path: n["dna_count_hits"]
+                              for path, n in stream_launches.items()}},
         "flash_attention_fwd": {
             "lm_serve": launches["flash_attention_fwd"],
             "lm_train": train_launches["flash_attention_fwd"],

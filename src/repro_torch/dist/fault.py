@@ -34,9 +34,8 @@ class GroupFailure(RuntimeError):
     from the last checkpoint), while the *serving* path recognizes it
     structurally: the reference's ``runtime.ChunkedScheduler`` demotes
     the raising group, re-projects the surviving shares and re-dispatches
-    the group's unfinished chunks to survivors (see
-    ``docs/resilience.md``).  The port's runtime layer is not there yet;
-    the type is here so that both layers share it when it is.
+    the group's unfinished chunks to survivors, as the port's
+    ``repro_torch.runtime.ChunkedScheduler`` does.
     """
 
 

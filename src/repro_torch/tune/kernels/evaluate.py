@@ -116,10 +116,6 @@ class KernelTimer:
     def __init__(self, spec: KernelSpec, meta: Mapping[str, Any], dtype: Any,
                  *, device=None, repeats: int = 3, seed: int = 0,
                  observer=None):
-        if observer is not None:
-            raise NotImplementedError(
-                "KernelTimer(observer=...) needs the observability layer "
-                "(obs), which is not ported to repro_torch yet")
         self.spec = spec
         self.meta = dict(meta)
         self.dtype = dtype
@@ -139,6 +135,14 @@ class KernelTimer:
         self.n_measured = 0          # actual kernel executions (deduplicated)
         self.n_launch_failed = 0     # launches the CUDA runtime refused
         self.rejected: dict[tuple, str] = {}   # cfg key -> invalidity reason
+        from ...obs import as_observer
+        self._obs = as_observer(observer)
+        if self._obs is not None:
+            m = self._obs.metrics
+            self._m_measured = m.counter(f"kernel.{spec.name}.measured")
+            self._m_rejected = m.counter(f"kernel.{spec.name}.rejected")
+            self._m_cached = m.counter(f"kernel.{spec.name}.cache_hits")
+            self._h_time = m.histogram(f"kernel.{spec.name}.t_best_s")
 
     def _key(self, cfg: Mapping[str, Any]) -> tuple:
         return tuple(sorted((str(k), cfg[k]) for k in cfg))
@@ -170,14 +174,29 @@ class KernelTimer:
     def __call__(self, cfg: Mapping[str, Any]) -> float:
         key = self._key(cfg)
         if key in self._cache:
+            if self._obs is not None:
+                self._m_cached.inc()
             return self._cache[key]
         reason = self.spec.validate(cfg, self.meta)
         if reason is not None:
             self.rejected[key] = reason
             self._cache[key] = float("inf")
+            if self._obs is not None:
+                self._m_rejected.inc()
             return float("inf")
-        score = self._guarded_measure(cfg, key)
+        if self._obs is not None:
+            with self._obs.tracer.span(f"measure.{self.spec.name}",
+                                       cat="tune", args=dict(cfg)):
+                score = self._guarded_measure(cfg, key)
+        else:
+            score = self._guarded_measure(cfg, key)
         self._cache[key] = score
+        if self._obs is not None:
+            if np.isfinite(score):
+                self._m_measured.inc()
+                self._h_time.observe(score)
+            else:
+                self._m_rejected.inc()
         return score
 
     def _guarded_measure(self, cfg: Mapping[str, Any], key: tuple) -> float:

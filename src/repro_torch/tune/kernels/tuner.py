@@ -42,7 +42,7 @@ from ..strategy import get_strategy
 from .evaluate import KernelTimer
 from .registry import get_kernel, kernel_workload
 
-__all__ = ["KernelTuneOutcome", "tune_kernel"]
+__all__ = ["KernelTuneOutcome", "tune_kernel", "tune_space"]
 
 
 @dataclass
@@ -78,7 +78,7 @@ class KernelTuneOutcome:
         return float(self.result.best_energy_measured)
 
 
-def _axis_corner(space, spec, meta, base, pick):
+def _axis_corner(space, validate, base, pick):
     """Greedily move each ordinal parameter to the ``pick``-most valid
     candidate (holding the rest) — the standard design-of-experiments
     anchors that give the surrogate the slope of every axis."""
@@ -88,23 +88,23 @@ def _axis_corner(space, spec, meta, base, pick):
             continue
         for v in sorted(p.values, reverse=(pick == "max")):
             cand = dict(cfg, **{p.name: v})
-            if spec.validate(cand, meta) is None:
+            if validate(cand) is None:
                 cfg = cand
                 break
     return cfg
 
 
-def _training_sample(space, spec, meta, default_cfg, n_train, seed):
+def _training_sample(space, validate, default_cfg, n_train, seed):
     """Seeded design: default + per-axis extreme corners + random valid
     draws, deduplicated (an experiment is never measured twice)."""
     rng = np.random.default_rng(seed)
     anchors = [default_cfg,
-               _axis_corner(space, spec, meta, default_cfg, "max"),
-               _axis_corner(space, spec, meta, default_cfg, "min")]
+               _axis_corner(space, validate, default_cfg, "max"),
+               _axis_corner(space, validate, default_cfg, "min")]
     cfgs, seen = [], set()
     for cand in anchors:
         key = tuple(sorted(cand.items()))
-        if key not in seen and spec.validate(cand, meta) is None:
+        if key not in seen and validate(cand) is None:
             seen.add(key)
             cfgs.append(cand)
     attempts = 0
@@ -112,19 +112,47 @@ def _training_sample(space, spec, meta, default_cfg, n_train, seed):
         attempts += 1
         cand = space.random(rng)
         key = tuple(sorted(cand.items()))
-        if key in seen or spec.validate(cand, meta) is not None:
+        if key in seen or validate(cand) is not None:
             continue
         seen.add(key)
         cfgs.append(cand)
     return cfgs[:n_train]
 
 
-def _measured_best(result, timer: KernelTimer, warm: Mapping[str, Any],
+class _Measured:
+    """The oracle as the search sees it, keeping each point's seconds
+    (``seconds``) for :func:`_measured_best`.  The oracle measures a
+    point once and answers a repeat from its own memory, as a
+    ``KernelTimer`` does; ``n_measured`` is its count where it keeps one
+    (a ``KernelTimer`` does not count a point it rejects unrun), else the
+    points seen."""
+
+    def __init__(self, oracle):
+        self.oracle = oracle
+        self.seconds: dict[tuple, float] = {}
+
+    @property
+    def n_measured(self) -> int:
+        n = getattr(self.oracle, "n_measured", None)
+        return len(self.seconds) if n is None else int(n)
+
+    def __call__(self, cfg: Mapping[str, Any]):
+        out = self.oracle(cfg)
+        self.seconds[tuple(sorted(cfg.items()))] = float(
+            out["time"] if isinstance(out, Mapping) else out)
+        return out
+
+    def time(self, cfg: Mapping[str, Any]) -> float:
+        self(cfg)
+        return self.seconds[tuple(sorted(cfg.items()))]
+
+
+def _measured_best(result, measured: _Measured, warm: Mapping[str, Any],
                    training: list) -> tuple[Any, str]:
-    """The result moved to the fastest point ``timer`` measured, and which
+    """The result moved to the fastest point that was measured, and which
     point that is; the pick itself when nothing measured beat it."""
     best_key, best_s = None, float(result.best_energy_measured)
-    for key, seconds in timer._cache.items():
+    for key, seconds in measured.seconds.items():
         if np.isfinite(seconds) and seconds < best_s:
             best_key, best_s = key, float(seconds)
     if best_key is None:
@@ -139,6 +167,73 @@ def _measured_best(result, timer: KernelTimer, warm: Mapping[str, Any],
     return replace(result, best_config=cfg, best_energy_measured=best_s,
                    best_metrics={**result.best_metrics, "time": best_s}
                    ), source
+
+
+def tune_space(space, oracle, *, default: Mapping[str, Any], workload: Any,
+               store: Any = None, strategy: str = "saml",
+               iterations: int = 300, seed: int = 0,
+               n_train: int | None = None, budget_fraction: float = 0.05,
+               validate=None, device: Any = None, what: str = "space",
+               **opts) -> tuple[Any, str]:
+    """The paper's loop (steps 1–5 above) over any configuration space.
+
+    ``oracle(cfg)`` measures one point: seconds, or a metrics dict whose
+    ``"time"`` is the seconds; it measures each distinct point once and
+    answers a repeat from memory.
+    ``validate(cfg)`` gives the reason a point cannot run, or ``None``
+    (default: every point runs); ``default`` is the warm start without a
+    surrogate and the training sample's first point.  ``store`` (a
+    ``TuningStore`` or ``None``) keys the result by ``workload``; a hit
+    measures nothing.  Returns the ``TuneResult`` (its ``n_measured`` the
+    points measured) and which measured point it is (``best_source`` of
+    :class:`KernelTuneOutcome`).
+    """
+    validate = validate or (lambda cfg: None)
+    measured = _Measured(oracle)
+    info = get_strategy(strategy)
+    surrogate = None
+    n_train_used = 0
+    cfgs: list = []
+    warm = dict(default)
+    cached = (store.lookup(space, workload, strategy.upper())
+              if store is not None else None)
+    if cached is None and info.uses_surrogate:
+        if n_train is None:
+            n_train = max(4, int(budget_fraction * space.size()) - 1)
+        cfgs = _training_sample(space, validate, dict(default), n_train, seed)
+        times = np.asarray([measured.time(c) for c in cfgs])
+        ok = np.isfinite(times)
+        if ok.sum() < 2:
+            raise ValueError(f"{what}: too few valid training "
+                             f"measurements ({int(ok.sum())}) to fit a "
+                             "surrogate; use a measurement strategy")
+        X = space.encode_many([c for c, k in zip(cfgs, ok) if k])
+        model = BoostedTreesRegressor(
+            n_estimators=60, learning_rate=0.1, max_depth=3,
+            min_samples_leaf=1, tree_method="hist").fit(X, times[ok])
+        n_train_used = measured.n_measured
+
+        def surrogate(cfg):
+            # validity is free — keep the search inside the runnable
+            # region without spending measurements on invalid configs
+            if validate(cfg) is not None:
+                return float("inf")
+            return float(model.predict(space.encode(cfg)[None, :])[0])
+
+        best_i = int(np.argmin(np.where(ok, times, np.inf)))
+        warm = dict(cfgs[best_i])
+
+    session = TuningSession(
+        space, evaluator=measured, surrogate=surrogate,
+        n_training_experiments=n_train_used, warm_start=warm,
+        workload=workload, store=store, seed=seed, device=device)
+    result = session.run(strategy, iterations=iterations, **opts)
+    if result.from_cache:
+        return result, "cache"
+    result, source = _measured_best(result, measured, warm, cfgs)
+    if source != "pick" and store is not None:
+        store.record(space, workload, session._store_key(strategy), result)
+    return result, source
 
 
 def tune_kernel(name: str, shape: Mapping[str, Any] | None = None, *,
@@ -169,52 +264,13 @@ def tune_kernel(name: str, shape: Mapping[str, Any] | None = None, *,
                         repeats=repeats, seed=seed, observer=observer)
     workload = kernel_workload(name, meta, dtype)
     default_cfg = spec.default_config(space, meta)
-    tstore = TuningSession._as_store(store, timer.device)
-    info = get_strategy(strategy)
-
-    surrogate = None
-    n_train_used = 0
-    cfgs: list = []
-    warm = dict(default_cfg)
-    cached = (tstore.lookup(space, workload, strategy.upper())
-              if tstore is not None else None)
-    if cached is None and info.uses_surrogate:
-        if n_train is None:
-            n_train = max(4, int(budget_fraction * space.size()) - 1)
-        cfgs = _training_sample(space, spec, meta, default_cfg, n_train, seed)
-        times = np.asarray([timer(c) for c in cfgs])
-        ok = np.isfinite(times)
-        if ok.sum() < 2:
-            raise ValueError(f"kernel {name!r}: too few valid training "
-                             f"measurements ({int(ok.sum())}) to fit a "
-                             "surrogate; use a measurement strategy")
-        X = space.encode_many([c for c, k in zip(cfgs, ok) if k])
-        model = BoostedTreesRegressor(
-            n_estimators=60, learning_rate=0.1, max_depth=3,
-            min_samples_leaf=1, tree_method="hist").fit(X, times[ok])
-        n_train_used = timer.n_measured
-
-        def surrogate(cfg):
-            # validity is free — keep the search inside the launchable
-            # region without spending measurements on invalid configs
-            if spec.validate(cfg, meta) is not None:
-                return float("inf")
-            return float(model.predict(space.encode(cfg)[None, :])[0])
-
-        best_i = int(np.argmin(np.where(ok, times, np.inf)))
-        warm = dict(cfgs[best_i])
-
-    session = TuningSession(
-        space, evaluator=timer, surrogate=surrogate,
-        n_training_experiments=n_train_used, warm_start=warm,
-        workload=workload, store=tstore, seed=seed, device=timer.device)
-    result = session.run(strategy, iterations=iterations, **opts)
-    source = "cache"
-    if not result.from_cache:
-        result, source = _measured_best(result, timer, warm, cfgs)
-        if source != "pick" and tstore is not None:
-            tstore.record(space, workload, session._store_key(strategy),
-                          result)
+    result, source = tune_space(
+        space, timer, default=default_cfg, workload=workload,
+        store=TuningSession._as_store(store, timer.device),
+        strategy=strategy, iterations=iterations, seed=seed,
+        n_train=n_train, budget_fraction=budget_fraction,
+        validate=lambda cfg: spec.validate(cfg, meta), device=timer.device,
+        what=f"kernel {name!r}", **opts)
     return KernelTuneOutcome(
         kernel=name, shape=dict(meta), dtype=workload["dtype"],
         result=result, default_config=default_cfg,

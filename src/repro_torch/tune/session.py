@@ -33,11 +33,15 @@ Wiring notes:
   * ``device`` is where the session's tensor work runs (the vectorized
     SA chains) and what keys the store's device topology; ``None``
     means the card.
-  * ``observer``, ``ledger`` and ``online`` keep their places in the
-    signature, but the layers behind them (the observability bundle,
-    the ``MeasurementLedger`` write-ahead log, the
-    ``OnlineSurrogateLoop`` feedback loop) are not ported yet: passing
-    one raises ``NotImplementedError`` rather than being ignored.
+  * ``observer`` (a ``repro_torch.obs.Observer``) journals each run
+    (``tuning_start``, ``store_hit``/``store_miss``, ``tuning_stop`` with
+    the measurement accounting), counts store hits and misses, and
+    traces the strategy's search as a ``tune.<strategy>`` span.
+  * ``ledger`` and ``online`` keep their places in the signature, but
+    the layers behind them (the ``MeasurementLedger`` write-ahead log,
+    the ``OnlineSurrogateLoop`` feedback loop) are not ported yet:
+    passing one raises ``NotImplementedError`` rather than being
+    ignored.
 """
 
 from __future__ import annotations
@@ -79,7 +83,6 @@ class TuningSession:
         device: Any = None,
     ):
         for name, given, layer in (
-                ("observer", observer, "the observability layer (obs)"),
                 ("ledger", ledger, "MeasurementLedger (runtime.checkpoint)"),
                 ("online", online, "OnlineSurrogateLoop (runtime.feedback)")):
             if given is not None:
@@ -104,6 +107,8 @@ class TuningSession:
             space.validate(warm_start)
             warm_start = dict(warm_start)
         self.warm_start = warm_start
+        from ..obs import as_observer
+        self._obs = as_observer(observer)
 
     @staticmethod
     def _as_store(store, device=None):
@@ -227,20 +232,54 @@ class TuningSession:
             raise ValueError("no strategy: pass run('sam') or "
                              "TuningSession(strategy='sam')")
         info = get_strategy(name)
+        if self._obs is not None:
+            self._obs.journal.event("tuning_start", strategy=name,
+                                    objective=self.objective.key,
+                                    space_size=self.space.size())
         if self.store is not None:
             hit = self.store.lookup(self.space, self.workload,
                                     self._store_key(name))
+            if self._obs is not None:
+                self._obs.metrics.counter(
+                    "tune.store_hits" if hit is not None
+                    else "tune.store_misses").inc()
+                self._obs.journal.event(
+                    "store_hit" if hit is not None else "store_miss",
+                    strategy=name, key=self._store_key(name))
             if hit is not None:
+                if self._obs is not None:
+                    self._obs.journal.event(
+                        "tuning_stop", strategy=name, from_cache=True,
+                        n_experiments=hit.n_experiments,
+                        n_measured=hit.n_measured,
+                        space_size=hit.space_size)
                 return hit
         if self.seed is not None:
             opts.setdefault("seed", self.seed)
         if self.device is not None:
             opts.setdefault("device", self.device)
-        outcome = info.fn(self._context(), **opts)
+        if self._obs is not None:
+            with self._obs.tracer.span(f"tune.{name}",
+                                       args={"objective":
+                                             self.objective.key}):
+                outcome = info.fn(self._context(), **opts)
+        else:
+            outcome = info.fn(self._context(), **opts)
         result = self._finalize(name, info, outcome)
         if self.store is not None:
             self.store.record(self.space, self.workload,
                               self._store_key(name), result)
+        if self._obs is not None:
+            # the paper's effort accounting in one event: how many real
+            # measurements bought the winner, out of how large a space
+            self._obs.journal.event(
+                "tuning_stop", strategy=name, from_cache=False,
+                n_experiments=result.n_experiments,
+                n_predictions=result.n_predictions,
+                n_measured=result.n_measured,
+                space_size=result.space_size,
+                experiments_fraction=round(result.experiments_fraction, 6),
+                best_score=round(result.best_energy_measured, 9))
         return result
 
     def _finalize(self, name: str, info, outcome: StrategyOutcome

@@ -290,10 +290,19 @@ def test_host_timer_times_single_calls():
 
 
 def test_timer_observer_is_not_silently_ignored():
+    from repro_torch.obs import Observer
+
     spec = ktune.get_kernel("dna_automaton")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        KernelTimer(spec, spec.smoke_shape, "uint8", device="cpu",
-                    observer=object())
+    obs = Observer()
+    timer = KernelTimer(spec, spec.smoke_shape, "uint8", device="cpu",
+                        repeats=1, observer=obs)
+    cfg = smoke_default(spec)
+    assert timer(cfg) == timer(cfg) < float("inf")
+    counters = obs.metrics.to_dict()["counters"]
+    assert counters["kernel.dna_automaton.measured"] == 1
+    assert counters["kernel.dna_automaton.cache_hits"] == 1
+    assert [e["name"] for e in obs.tracer.events] == [
+        "measure.dna_automaton"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             KernelTimer(spec, spec.smoke_shape, "uint8")

@@ -37,9 +37,21 @@ WORKLOAD = {"kernel": "toy", "shape": {"t": 4096, "s": 7}, "dtype": "uint8"}
 
 @pytest.mark.parametrize("name", ["observer", "ledger", "online"])
 def test_unported_hooks_raise_instead_of_being_ignored(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """``ledger`` and ``online`` are refused until their layers are ported;
+    ``observer`` now is (``repro_torch.obs``), and it must record the run
+    rather than be ignored."""
+    if name == "observer":
+        from repro_torch.obs import Observer
+
+        obs = Observer()
         TuningSession(make_space(), evaluator=measure, device="cpu",
-                      **{name: object()})
+                      observer=obs).run("sam", iterations=5, seed=0)
+        assert [e["kind"] for e in obs.journal.events] == [
+            "tuning_start", "tuning_stop"]
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TuningSession(make_space(), evaluator=measure, device="cpu",
+                          **{name: object()})
     TuningSession(make_space(), evaluator=measure, device="cpu",
                   **{name: None})
 
