@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's eight paths once each, at full width, through the entry
+drives the port's ten paths once each, at full width, through the entry
 points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -30,12 +30,35 @@ points a user would call:
   of 2 rows a batch (both groups at work).  The same stream on the card
   alone (before and after it), the bare host -> card copy and the resident
   ``fa_match`` are timed beside it;
+* the paper's search (no kernel of ours): ``fit_emil_surrogates`` fits
+  the BDTR pair to the Emil platform model's 7200-experiment grid on the
+  host; both models' ``predict_fn_torch`` and ``energy_fn_torch_builder``
+  on the card must agree with numpy's float64 predictions within 1e-5
+  relative over all 57,267 configurations of ``paper_space()``; then
+  ``TuningSession(...).run("saml", engine="vectorized")`` runs 32 chains
+  for 2000 iterations on the card for seeds 0, 1 and 2 (and on the CPU
+  beside them), and each winner's measured time must lie within 5 % of
+  EM's (the batched platform model over the whole space, on the host);
 * LM serving: ``tune_kernel`` the flash-attention and decode-attention
   kernels at Qwen2.5-3B's serving shapes into one store, ``configure`` it,
   then ``serve_session`` a batch of 8 random 2048-token prompts and decode
   128 tokens greedily with the full-width model (36 layers, random weights
   from ``--seed``, bfloat16), prefill through the flash-attention kernel
   and every decoded token through the split-KV decode kernel;
+* LM request serving: the same model, store and kernels under request
+  traffic: ``serve_requests`` answers 96 requests arriving at 16 a second
+  (a seeded Poisson source; 1, 2 or 4 rows each of a 32-token prompt and
+  16 new tokens; 70 % interactive with a 1 s SLO, 30 % batch with 4 s)
+  through SLO-aware admission, the continuous batcher and the chunked
+  scheduler, each chunk a prefill and 15 decode steps on the card.  Every
+  admitted request must end completed or shed exactly once, at least one
+  must complete, serving must measure no configuration, the kernels'
+  launches must be 36 (B3) and 36 x 15 (B4) a dispatch, and one recorded
+  chunk's tokens must come out bit for bit the same when the same step
+  runs it again; that chunk, teacher-forced on its own tokens, must hold
+  every B3 and B4 call (at the request path's shapes and launches)
+  against its plain version and its logits within 5 % of a run through
+  the plain versions;
 * LM training: ``train_loop`` takes four AdamW steps of the same model
   at full width and depth (float32 parameters and moments, bf16 compute,
   batch 2 x 2048 tokens from ``SyntheticPipeline(seed)``, each layer
@@ -168,6 +191,13 @@ LIBRARIES = ("dna_automaton", "flash_attention", "flash_attention_bwd",
              "rwkv6_wkv_bwd")
 # the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
+# the request path: the same model under 96 requests at 16 a second, each
+# of 1, 2 or 4 rows of a 32-token prompt and 16 new tokens (the reference
+# CLI's prompt and gen, the source's default mix)
+REQ_N, REQ_RATE, REQ_PROMPT, REQ_GEN = 96, 16.0, 32, 16
+# the paper's search: vectorized SAML chains, iterations, seeds; the gates
+SEARCH_CHAINS, SEARCH_ITERATIONS, SEARCH_SEEDS = 32, 2000, (0, 1, 2)
+SEARCH_PREDICT_RTOL, SEARCH_EM_GAP = 1e-5, 0.05
 # the training path: the same model, batch 2 x 2048 tokens, 4 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # the recurrent serving paths: batch 8, a 2048-token prompt, 128 new tokens;
@@ -797,6 +827,91 @@ def phase_stream(text, store_path: Path, seed: int):
 
 # -- the LM-serving path ------------------------------------------------------------
 
+def phase_paper_search(seed: int) -> None:
+    """The paper's search (A2): the surrogate pair fit on the host, its
+    predictions on the card held against numpy's over the whole space,
+    then vectorized SAML on the card (and on the CPU beside it) against EM.
+
+    Tolerance: 1e-5 relative.  The card walks the trees in float32 (the
+    numpy path in float64): the grid's features are small integers and
+    multiples of 2.5, exact in both, so a threshold cannot flip, and 150
+    float32 leaf values summed per model leave ~1e-6.  EM is exact here
+    (noise-free oracle over all 57,267 points); each SAML winner's
+    measured time must lie within 5 % of it.
+    """
+    import numpy as np
+
+    from repro_torch.core import (DATASETS_GB, EmilPlatformModel,
+                                  fit_emil_surrogates, paper_space)
+    from repro_torch.tune import TuningSession
+
+    platform = EmilPlatformModel()
+    gb = DATASETS_GB["human"]
+    t0 = time.perf_counter()
+    sur, n_exp = fit_emil_surrogates(platform, gb,
+                                     datasets_gb=list(DATASETS_GB.values()),
+                                     seed=seed)
+    fit_s = time.perf_counter() - t0
+    check(n_exp == 7200, f"paper_search: {n_exp} grid experiments")
+
+    space = paper_space()
+    grid = space.index_grid()
+    cols = space.enumerate_columns(grid)
+    feats = torch.as_tensor(space.encode_indices(grid), dtype=torch.float32,
+                            device="cuda")
+
+    def rel_gap(got: torch.Tensor, want: np.ndarray) -> float:
+        got = got.double().cpu().numpy()
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    gaps = {}
+    for side, model, features in (
+            ("host", sur.host, sur.host_features_cols),
+            ("device", sur.device, sur.device_features_cols)):
+        X = features(cols)
+        gaps[side] = rel_gap(model.predict_fn_torch("cuda")(
+            torch.as_tensor(X, device="cuda")), model.predict(X))
+    energy = sur.energy_fn_torch_builder(space, "cuda")
+    gaps["energy"] = rel_gap(energy(feats), sur.predict_energy_batch(cols))
+    check(max(gaps.values()) <= SEARCH_PREDICT_RTOL,
+          f"paper_search: card predictions off numpy's by {gaps}")
+
+    def session(device):
+        return TuningSession(space, evaluator=platform.evaluator(gb),
+                             surrogate=sur, n_training_experiments=n_exp,
+                             device=device)
+
+    t0 = time.perf_counter()
+    em = session("cpu").run("em")
+    em_s = time.perf_counter() - t0
+    runs = {}
+    for device in ("cuda", "cpu"):
+        for s in SEARCH_SEEDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = session(device).run(
+                "saml", engine="vectorized", iterations=SEARCH_ITERATIONS,
+                n_chains=SEARCH_CHAINS, seed=s)
+            torch.cuda.synchronize()
+            runs.setdefault(device, []).append({
+                "seed": s, "s": time.perf_counter() - t0,
+                "predictions": res.n_predictions,
+                "best_s": res.best_energy_measured,
+                "over_em": res.best_energy_measured
+                / em.best_energy_measured - 1,
+                "best_config": res.best_config})
+    for run in runs["cuda"]:
+        check(run["over_em"] <= SEARCH_EM_GAP,
+              f"paper_search: card SAML seed {run['seed']} lies "
+              f"{100 * run['over_em']:.2f} % above EM")
+    emit(phase="paper_search", ok=True, dataset_gb=gb,
+         grid_experiments=n_exp, fit_s=fit_s, space_size=space.size(),
+         predict_rel_gap=gaps, em_best_s=em.best_energy_measured,
+         em_config=em.best_config, em_s=em_s, chains=SEARCH_CHAINS,
+         iterations=SEARCH_ITERATIONS, saml_card=runs["cuda"],
+         saml_cpu=runs["cpu"], cpu_threads=torch.get_num_threads())
+
+
 def attention_bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return roofline_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
 
@@ -1157,6 +1272,202 @@ def phase_lm_parity(model, generated, seed: int) -> None:
 
 
 # -- the LM-training path ---------------------------------------------------------
+
+def phase_lm_requests(model, seed: int, store_path: Path,
+                      tunes: dict) -> dict:
+    """Request serving (A3) on the LM path's model and store: its launch
+    counters go to 0 just before ``serve_requests`` and are read just
+    after.  The step builder is the one ``serve_requests`` builds,
+    wrapped here to count the card group's dispatches and keep one
+    chunk's tokens and output; after serving, the same step runs that
+    chunk again (its output must be the same bits), teacher-forced
+    against the plain versions (``request_parity``), and once more under
+    the profiler for the device's busy share of a step."""
+    from repro_torch.core.hetero import DeviceGroup
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.launch import serve as launch
+    from repro_torch.tune import kernels as ktune
+
+    cfg = model.cfg
+    ktune.configure(store_path)
+    measured = {name: tuned.timer.n_measured
+                for name, tuned in tunes.items()}
+    step = launch._memoize_per_group(launch._stream_step_builder(
+        model, prompt_len=REQ_PROMPT, gen=REQ_GEN, seed=seed))
+    dispatches = []
+    kept = {}
+
+    def counted(group):
+        fn = step(group)
+
+        def run(chunk):
+            handle = fn(chunk)
+            dispatches.append(int(chunk["tokens"].shape[0]))
+            if not kept:
+                kept.update(tokens=chunk["tokens"].clone(), handle=handle)
+            return handle
+        return run
+
+    group = DeviceGroup("all", [torch.device("cuda", 0)])
+    fak.flash_attention_fwd.launches = 0
+    dak.decode_attention.launches = 0
+    t0 = time.perf_counter()
+    out = launch.serve_requests(
+        cfg, groups=[group], model=model, n_requests=REQ_N,
+        rate_rps=REQ_RATE, prompt_len=REQ_PROMPT, gen=REQ_GEN, seed=seed,
+        step_builder=counted)
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fak.flash_attention_fwd.launches,
+                "decode_attention": dak.decode_attention.launches}
+    want = {"flash_attention_fwd": cfg.n_layers * len(dispatches),
+            "decode_attention": cfg.n_layers * (REQ_GEN - 1)
+            * len(dispatches)}
+    check(launches == want,
+          f"lm_requests: launches {launches}, want {want}")
+    check(all(tuned.timer.n_measured == measured[name]
+              for name, tuned in tunes.items()),
+          "lm_requests: serving measured new configurations")
+    s = out["summary"]
+    records = out["records"]
+    rids = [r["rid"] for r in records]
+    check(len(rids) == REQ_N and len(set(rids)) == REQ_N
+          and s["requests"] == REQ_N
+          and all(r["status"] in ("completed", "shed") for r in records),
+          f"lm_requests: {len(set(rids))} of {REQ_N} requests terminal "
+          f"({len(rids)} records)")
+    check(s["completed"] >= 1, f"lm_requests: nothing completed ({s})")
+
+    # the same step on the kept chunk again: the same bits
+    first = kept["handle"].block_until_ready().value
+    again = step(group)(
+        {"tokens": kept["tokens"]}).block_until_ready().value
+    check(bool(torch.equal(first, again)),
+          "lm_requests: a re-run of a served chunk gave other tokens")
+    check(first.shape == (kept["tokens"].shape[0], REQ_GEN)
+          and bool(((first >= 0) & (first < cfg.vocab_size)).all()),
+          f"lm_requests: generated tokens {tuple(first.shape)}")
+    parity = request_parity(model, kept["tokens"].to("cuda"), first)
+    split = device_split(
+        lambda: step(group)({"tokens": kept["tokens"]}).block_until_ready())
+    ktune.disable()
+
+    completed = [r for r in records if r["status"] == "completed"]
+    in_slo = [r for r in completed if r["slo_ok"]]
+    by_class = {}
+    for r in records:
+        c = by_class.setdefault(r["klass"], {"requests": 0, "completed": 0,
+                                             "slo_ok": 0})
+        c["requests"] += 1
+        c["completed"] += r in completed
+        c["slo_ok"] += r in in_slo
+    emit(phase="lm_requests", ok=True, arch=cfg.name, requests=REQ_N,
+         rate_rps=REQ_RATE, prompt_len=REQ_PROMPT, gen=REQ_GEN,
+         wall_s=wall_s, dispatches=len(dispatches),
+         rows_a_dispatch=[min(dispatches), max(dispatches)]
+         if dispatches else None,
+         steps=s["steps"], completed=s["completed"], shed=s["shed"],
+         shed_rate=s["shed_rate"], shed_reasons=s["shed_reasons"],
+         slo_violations=s["slo_violations"],
+         slo_attainment=len(in_slo) / REQ_N,
+         by_class=by_class,
+         goodput_rows_per_s=s.get("goodput_rows_per_s"),
+         tokens_per_s=s.get("tokens_per_s"),
+         e2e_s={q: s.get(f"e2e_{q}") for q in ("p50", "p95", "p99")},
+         queue_delay_s={q: s.get(f"queue_delay_{q}")
+                        for q in ("p50", "p95")},
+         service_s={q: s.get(f"service_{q}") for q in ("p50", "p95")},
+         service_first_s=min(completed, key=lambda r: r["t_done"])[
+             "service_s"] if completed else None,
+         launches=launches, step_split=split,
+         rerun_rows=int(kept["tokens"].shape[0]),
+         first_tokens=first[:, :8].tolist(), parity=parity)
+    return launches
+
+
+def request_parity(model, prompt, generated) -> dict:
+    """One served chunk teacher-forced on its own tokens, with the kernels
+    at the launches the request path resolves and with the plain versions.
+
+    Every B3 and B4 call of the kernels' run is held against its plain
+    version on the same inputs (B3 2e-2 in bf16, its lse 1e-3; B4 2e-4,
+    float32 out: ``attention_parity``'s gates), and the logits of the two
+    runs against each other (``lm_parity``'s 5 %)."""
+    import numpy as np
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen = {"flash_attention_fwd": [], "decode_attention": []}
+
+    def checked_fwd(q, k, v, *, causal, q_offset, **launch):
+        o, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=q_offset, **launch)
+        o_p, lse_p = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   q_offset=q_offset)
+        seen["flash_attention_fwd"].append({
+            "shape": list(q.shape), "tk": k.shape[1], "launch": launch,
+            "max_abs_err": float_err(o, o_p),
+            "lse_max_abs_err": float_err(lse, lse_p),
+            "ok": torch.allclose(o.float(), o_p.float(), atol=2e-2, rtol=2e-2)
+            and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3)})
+        return o, lse
+
+    def checked_decode(q, k, v, length, **launch):
+        got = dak.decode_attention(q, k, v, length, **launch)
+        want = dak.decode_attention_plain(q, k, v, length)
+        seen["decode_attention"].append({
+            "shape": list(q.shape), "cache": k.shape[1], "length": length,
+            "launch": launch, "max_abs_err": float_err(got, want),
+            "ok": torch.allclose(got, want, atol=2e-4, rtol=2e-4)})
+        return got
+
+    with_kernels, _, _ = teacher_forced(model, prompt, generated, [
+        mock.patch.object(fa_ops, "flash_attention_fwd", checked_fwd),
+        mock.patch.object(da_ops, "decode_attention_kernel",
+                          checked_decode)])
+    with_plain, _, _ = teacher_forced(model, prompt, generated,
+                                      plain_patches())
+    n = model.cfg.n_layers
+    check(len(seen["flash_attention_fwd"]) == n
+          and len(seen["decode_attention"]) == n * (generated.shape[1] - 1),
+          f"lm_requests: the teacher-forced chunk made "
+          f"{ {k: len(v) for k, v in seen.items()} } kernel calls")
+    for name, calls in seen.items():
+        bad = [c for c in calls if not c["ok"]]
+        check(not bad, f"lm_requests: {name} disagrees with its plain "
+                       f"version in {len(bad)} of {len(calls)} calls, "
+                       f"first {bad[:1]}")
+    rel = logit_gap(with_kernels, with_plain)
+    check(bool(torch.isfinite(torch.stack(with_kernels)).all()),
+          "lm_requests: non-finite logits")
+    check(max(rel) <= 0.05, f"lm_requests: relative logit error {max(rel)}")
+    served = float(np.mean([
+        float((step[:, -1].argmax(-1) == generated[:, i]).float().mean())
+        for i, step in enumerate(with_kernels)]))
+    fwd, dec = seen["flash_attention_fwd"], seen["decode_attention"]
+    return {"tolerance": 0.05, "prefill_rel_err": rel[0],
+            "decode_rel_err_max": max(rel[1:]),
+            "argmax_agreement": float(np.mean([
+                float((a.argmax(-1) == p.argmax(-1)).float().mean())
+                for a, p in zip(with_kernels, with_plain)])),
+            "served_argmax_agreement": served,
+            "flash_attention_fwd": {
+                "calls": len(fwd), "shape": fwd[0]["shape"],
+                "launch": fwd[0]["launch"],
+                "max_abs_err": max(c["max_abs_err"] for c in fwd),
+                "lse_max_abs_err": max(c["lse_max_abs_err"] for c in fwd)},
+            "decode_attention": {
+                "calls": len(dec), "shape": dec[0]["shape"],
+                "cache": dec[0]["cache"],
+                "lengths": [min(c["length"] for c in dec),
+                            max(c["length"] for c in dec)],
+                "launch": dec[0]["launch"],
+                "max_abs_err": max(c["max_abs_err"] for c in dec)}}
+
 
 def grad_err(got, want) -> float:
     """Largest |got - want| over the largest |want|."""
@@ -3016,15 +3327,20 @@ def main() -> int:
     del text
     torch.cuda.empty_cache()
 
-    # the LM path
+    # the paper's search (A2): no kernel of ours
+    phase_paper_search(args.seed)
+
+    # the LM path, then the same model and store under request traffic (A3)
     attention = phase_attention_parity(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
         store_path = Path(tmp) / "kernels.json"
         tunes = phase_lm_tune(args.seed, store_path)
         model, generated, lm_launches = phase_lm_serve(args.seed, store_path,
                                                        tunes)
+        phase_lm_parity(model, generated, args.seed)
+        request_launches = phase_lm_requests(model, args.seed, store_path,
+                                             tunes)
     launches.update(lm_launches)
-    phase_lm_parity(model, generated, args.seed)
     del model
     torch.cuda.empty_cache()
 
@@ -3075,6 +3391,7 @@ def main() -> int:
                               for path, n in stream_launches.items()}},
         "flash_attention_fwd": {
             "lm_serve": launches["flash_attention_fwd"],
+            "lm_requests": request_launches["flash_attention_fwd"],
             "lm_train": train_launches["flash_attention_fwd"],
             "jamba_serve": jamba_launches["flash_attention_fwd"],
             "jamba_train": jamba_train["flash_attention_fwd"]},
@@ -3083,6 +3400,7 @@ def main() -> int:
             "jamba_train": jamba_train["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
+            "lm_requests": request_launches["decode_attention"],
             "jamba_serve": jamba_launches["decode_attention"]},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
                      "rwkv_train": rwkv_train["wkv6_fwd"]},

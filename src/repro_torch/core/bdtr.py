@@ -385,6 +385,7 @@ class BoostedTreesRegressor:
     base_: float = 0.0
     trees_: list = field(default_factory=list)
     _packed: tuple | None = None
+    _walk: list | None = None
 
     def fit(self, X: np.ndarray, y: np.ndarray) -> "BoostedTreesRegressor":
         X = np.asarray(X, dtype=np.float64)
@@ -428,7 +429,7 @@ class BoostedTreesRegressor:
             self.trees_.append(tree)
             pred = pred + self.learning_rate * (
                 tpred if tpred is not None else tree.predict(X))
-        self._packed = None
+        self._packed = self._walk = None
         return self
 
     def fit_more(self, X: np.ndarray, y: np.ndarray, n_more: int, *,
@@ -470,15 +471,36 @@ class BoostedTreesRegressor:
                 tpred = tree.predict(X)
             self.trees_.append(tree)
             pred = pred + self.learning_rate * tpred
-        self._packed = None
+        self._packed = self._walk = None
         return self
 
     # -- numpy prediction ----------------------------------------------------
     def predict(self, X: np.ndarray) -> np.ndarray:
         X = np.asarray(X, dtype=np.float64)
+        if X.shape[0] == 1:
+            return np.asarray([self._predict_row(X[0].tolist())])
         out = np.full(X.shape[0], self.base_)
         for t in self.trees_:
             out += self.learning_rate * t.predict(X)
+        return out
+
+    def _predict_row(self, x: list) -> float:
+        """One row walked through every tree in plain Python floats.
+
+        The same float64 comparisons, products and sums in the same order
+        as the array path, so the same bits; a scalar search's one-row
+        queries skip numpy's per-call cost (two array passes a tree)."""
+        if self._walk is None:
+            self._walk = [(t.feature.tolist(), t.threshold.tolist(),
+                           t.left.tolist(), t.right.tolist(),
+                           t.value.tolist()) for t in self.trees_]
+        lr = self.learning_rate
+        out = float(self.base_)
+        for feat, thr, left, right, value in self._walk:
+            i = 0
+            while feat[i] >= 0:
+                i = left[i] if x[feat[i]] <= thr[i] else right[i]
+            out += lr * value[i]
         return out
 
     # -- packed PyTorch prediction ---------------------------------------------

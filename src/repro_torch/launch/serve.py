@@ -45,9 +45,27 @@ against simulated serial-device groups on a ``VirtualClock`` (no model
 build, deterministic timestamps); ``python -m repro_torch.obs`` checks its
 artifacts against ``docs/obs_schema.json``.
 
-The reference's ``--serve-requests`` mode rides on its request-level
-serving layer (``repro.serve``) and its crash durability on
-``runtime.checkpoint``; neither is ported yet.
+``--serve-requests N`` switches to the request-level serving engine
+(``repro_torch.serve``): N requests from a deterministic arrival source
+(``--request-rate`` requests/s, ``--serve-seed``) flow through SLO-aware
+admission and the continuous batcher into the chunked scheduler, with
+per-request completion records.  With ``--sim-serve`` or ``--fault-plan``
+the engine runs the deterministic sim rig (``VirtualClock``, no model
+build); otherwise the arch's model serves each formed batch (prefill and
+greedy decode) on ``--device``, the card by default.  ``--tune-batcher``
+tunes the batcher knobs on the sim rig through ``TuningSession`` first
+(persisted in ``--batcher-store``).
+
+    python -m repro_torch.launch.serve --serve-requests 200 --sim-serve
+
+Crash durability (``runtime.checkpoint``; sim rig only): ``--wal PATH``
+appends every admit/retire/step to a write-ahead request log and
+``--snapshot PATH`` checkpoints the engine's soft state; after a crash
+(scripted with ``--fault-plan 'crash:0@N'`` or ``'torn:0@N'``, raising
+and exiting with code 17, or a real ``SIGKILL`` with ``--crash-sigkill``)
+the same command plus ``--resume`` replays the unretired requests and
+finishes the run with every admitted request accounted;
+``python -m repro_torch.obs --wal PATH --wal-complete`` checks the log.
 """
 
 from __future__ import annotations
@@ -67,8 +85,9 @@ from ..core.space import ConfigSpace, Param
 from ..models import LM, build_model
 from ..obs import get_logger
 
-__all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_session",
-           "serve_stream", "split_space", "tune_stream_split"]
+__all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
+           "serve_session", "serve_stream", "split_space",
+           "tune_stream_split"]
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -439,6 +458,71 @@ def serve_stream(cfg, *, groups: list[DeviceGroup], n_batches: int = 4,
     return {"records": records, "summary": summary}
 
 
+def serve_requests(cfg, *, groups: list[DeviceGroup] | None = None,
+                   n_requests: int, rate_rps: float, prompt_len: int,
+                   gen: int, seed: int = 0, batcher_config=None,
+                   guard: bool = False, observer=None, row_quantum: int = 1,
+                   model=None, step_builder=None) -> dict:
+    """Request-level serving on real devices: the ``repro_torch.serve``
+    engine over a prefill+decode step builder.
+
+    Every request asks for rows of one ``(prompt_len, gen)`` shape (the
+    arrival process, priorities and SLOs come from the source's default
+    mix); the continuous batcher re-forms a scheduler batch per step from
+    whatever is queued, and the chunked scheduler splits each batch across
+    ``groups`` (default: one group on the card).
+    ``model`` serves an already-built ``LM`` on the groups that share its
+    device.  A card group's step returns once its work is enqueued; the
+    scheduler's drain thread stamps each row's completion when the card's
+    event completes, and a request completes at the latest of its rows.
+    Arrival waits are real ``time.sleep`` — for the deterministic
+    virtual-clock rig use ``repro_torch.serve.make_sim_engine`` (the
+    ``--sim-serve`` / ``--fault-plan`` path).
+    """
+    from ..runtime import ChunkedScheduler, ServeGuard
+    from ..serve import (AdmissionController, BatcherConfig,
+                         ContinuousBatcher, RequestSource, ServeEngine,
+                         SloPolicy)
+
+    if groups is None:
+        groups = [DeviceGroup("all", [resolve_device(None)])]
+    if step_builder is None:
+        step_builder = _memoize_per_group(_stream_step_builder(
+            model, prompt_len=prompt_len, gen=gen, seed=seed, cfg=cfg))
+    # anchor arrivals on the engine's wall clock (the sim rig's
+    # VirtualClock starts at 0; perf_counter does not)
+    source = RequestSource(n_requests=n_requests, rate_rps=rate_rps,
+                           seed=seed, shapes=((prompt_len, gen),),
+                           rows_choices=(1, 2, 4),
+                           start=time.perf_counter())
+    rng = np.random.default_rng(seed)
+    pin = any(getattr(d, "type", None) == "cuda" for g in groups
+              for d in g.devices)
+
+    def payload_fn(shape, rows):
+        # the reference's integers, as a host tensor (pinned for a card
+        # group, whose step copies its rows without blocking)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                              (rows, shape[0])))
+        return {"tokens": tokens.pin_memory() if pin else tokens}
+
+    scheduler = ChunkedScheduler(step_builder, groups,
+                                 row_quantum=max(row_quantum, 1),
+                                 observer=observer)
+    target = ServeGuard(scheduler) if guard else scheduler
+    bcfg = batcher_config or BatcherConfig()
+    engine = ServeEngine(
+        target, source=source,
+        admission=AdmissionController(
+            SloPolicy(max_queue_rows=bcfg.queue_depth_rows)),
+        batcher=ContinuousBatcher(bcfg),
+        payload_fn=payload_fn, observer=observer)
+    summary = engine.run()
+    summary["tokens_per_s"] = summary.get("goodput_rows_per_s", 0.0) * gen
+    return {"summary": summary,
+            "records": [r.record() for r in engine.done]}
+
+
 def dna_stream_batches(n_batches: int, rows: int, row_len: int, *,
                        seed: int = 0, pin: bool = False) -> list[dict]:
     """``n_batches`` batches of ``{"text": (rows, row_len) uint8}`` random
@@ -515,15 +599,57 @@ def main(argv=None) -> None:
                     help="filter the structured log (default info; also "
                     "REPRO_LOG_LEVEL)")
     ap.add_argument("--fault-plan", default=None, metavar="SPEC",
-                    help="scripted failure drill for --stream, e.g. "
-                    "'kill:0@3,slow:1@9:4' — runs against simulated "
-                    "serial groups on a virtual clock (no model build); "
-                    "see repro_torch.runtime.parse_fault_plan")
+                    help="scripted failure drill for --stream or "
+                    "--serve-requests, e.g. 'kill:0@3,slow:1@9:4' (also "
+                    "crash:0@N / torn:0@N for --serve-requests) — runs "
+                    "against simulated serial groups on a virtual clock "
+                    "(no model build); see "
+                    "repro_torch.runtime.parse_fault_plan")
     ap.add_argument("--sim-devices", type=int, default=8,
                     help="device count of the simulated groups under "
                     "--fault-plan")
+    ap.add_argument("--serve-requests", type=int, default=None, metavar="N",
+                    help="request-level serving (repro_torch.serve): N "
+                    "requests from a deterministic arrival source through "
+                    "admission -> continuous batching -> the chunked "
+                    "scheduler")
+    ap.add_argument("--request-rate", type=float, default=200.0,
+                    help="offered load for --serve-requests (requests/s)")
+    ap.add_argument("--serve-seed", type=int, default=0,
+                    help="seed of the request arrival source")
+    ap.add_argument("--sim-serve", action="store_true",
+                    help="run --serve-requests on the deterministic sim "
+                    "rig (VirtualClock, no model build) even without a "
+                    "--fault-plan")
+    ap.add_argument("--tune-batcher", action="store_true",
+                    help="tune the continuous-batcher knobs through a "
+                    "TuningSession (sim-rig evaluations) before serving")
+    ap.add_argument("--batcher-store", default=None, metavar="PATH",
+                    help="TuningStore JSON caching tuned batcher configs "
+                    "per workload signature")
+    ap.add_argument("--wal", default=None, metavar="PATH",
+                    help="write-ahead request log for --serve-requests "
+                    "(sim rig): every admit/retire/step is appended "
+                    "before the engine proceeds, so a crashed run can "
+                    "restart with --resume")
+    ap.add_argument("--snapshot", default=None, metavar="PATH",
+                    help="periodic checksummed snapshot of the engine's "
+                    "soft state (controller shares, kill-switch, service "
+                    "estimator) next to the --wal")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from --wal (and --snapshot if given) "
+                    "before serving: unretired admitted requests replay "
+                    "through admission, the clock and fault plan fast-"
+                    "forward to the crash point")
+    ap.add_argument("--crash-sigkill", action="store_true",
+                    help="scripted crash faults (--fault-plan 'crash:0@N') "
+                    "kill the process with SIGKILL instead of raising — "
+                    "the real-process recovery drill")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    if args.serve_requests:
+        _main_requests(ap, args)
+        return
     if args.stream:
         _main_stream(ap, args)
         return
@@ -539,6 +665,126 @@ def main(argv=None) -> None:
     log.info(f"prefill {out['prefill_s']:.3f}s  decode {out['decode_s']:.3f}s"
              f"  {out['tokens_per_s']:.1f} tok/s on {dev}")
     log.info(f"sample tokens: {out['generated'][0, :12]}")
+
+
+def _main_requests(ap, args) -> None:
+    """``--serve-requests``: the request engine on the sim rig (with the
+    crash drill and its recovery) or on the arch's model."""
+    from ..obs import Observer, configure
+    from ..serve import make_sim_engine, tune_batcher
+
+    slog = get_logger("repro_torch.serve")
+    if args.log_level:
+        configure(level=args.log_level)
+    observer = None
+    journal_sink = None
+    if args.trace_out or args.journal_out or args.metrics_out:
+        observer = Observer()
+        if args.journal_out:
+            # stream every event as it happens (line-buffered + per-event
+            # flush): a SIGKILL mid-run still leaves the journal on disk
+            # up to the last decision.  save_journal rewrites the same
+            # bytes at a clean exit.
+            from pathlib import Path
+            Path(args.journal_out).parent.mkdir(parents=True, exist_ok=True)
+            journal_sink = open(args.journal_out, "w", buffering=1)
+            observer.journal.sink = journal_sink
+        configure(journal=observer.journal)
+    sim = bool(args.fault_plan or args.sim_serve)
+    if (args.wal or args.resume) and not sim:
+        ap.error("--wal/--resume need the sim rig "
+                 "(--sim-serve or --fault-plan)")
+    if args.resume and not args.wal:
+        ap.error("--resume needs --wal")
+    bcfg = None
+    if args.tune_batcher:
+        # tune on the sim rig (cheap, deterministic); the store re-serves
+        # a known workload with zero new measurements
+        from ..runtime import TuningStore
+        store = (TuningStore(args.batcher_store, device="cpu")
+                 if args.batcher_store else None)
+        workload = {"n_requests": args.serve_requests,
+                    "rate_rps": args.request_rate, "seed": args.serve_seed}
+
+        def evaluate(cand):
+            eng = make_sim_engine(n_requests=args.serve_requests,
+                                  rate_rps=args.request_rate,
+                                  seed=args.serve_seed, batcher_config=cand)
+            s = eng.run()
+            return {"time": s.get("e2e_p95", 10.0) + 0.1 * s["shed_rate"],
+                    "shed_rate": s["shed_rate"]}
+
+        bcfg, tuned = tune_batcher(evaluate, store=store, workload=workload,
+                                   observer=observer)
+        slog.info(f"tuned batcher: {bcfg} "
+                  f"({tuned.n_experiments} measurements, "
+                  f"{100 * tuned.experiments_fraction:.1f}% of space"
+                  f"{', cached' if tuned.from_cache else ''})")
+    if sim:
+        from ..runtime.checkpoint import SimulatedCrash
+        from ..runtime.simulate import parse_fault_plan
+        plan = parse_fault_plan(args.fault_plan) if args.fault_plan else None
+        engine = make_sim_engine(
+            n_requests=args.serve_requests, rate_rps=args.request_rate,
+            seed=args.serve_seed, fault_plan=plan,
+            guard=args.guard or bool(plan), batcher_config=bcfg,
+            observer=observer, wal=args.wal, snapshot=args.snapshot,
+            resume=args.resume,
+            crash_mode="sigkill" if args.crash_sigkill else "raise")
+        try:
+            s = engine.run()
+        except SimulatedCrash as exc:
+            # scripted crash drill (crash_mode="raise"): the WAL and the
+            # streamed journal are already durable — flush what there is
+            # and exit with the drill's code, so a caller can tell that
+            # the crash fired before the restart
+            slog.warning(f"simulated crash: {exc}", steps=engine.steps)
+            if engine.wal is not None:
+                engine.wal.sync()
+            if journal_sink is not None:
+                journal_sink.close()
+            raise SystemExit(17)
+    else:
+        cfg = configs.get(args.arch)
+        if args.smoke:
+            cfg = cfg.smoke()
+        dev = resolve_device(args.device)
+        if args.tuned_kernels:
+            from ..tune import kernels as ktune
+            ktune.configure(args.tuned_kernels, device=dev)
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev])[:max(args.batch, 1)]
+        if 0 < args.slow < len(devs):
+            groups = [DeviceGroup("fast", devs[:-args.slow]),
+                      DeviceGroup("slow", devs[-args.slow:])]
+        else:
+            groups = [DeviceGroup("all", devs)]
+        out = serve_requests(
+            cfg, groups=groups, n_requests=args.serve_requests,
+            rate_rps=args.request_rate, prompt_len=args.prompt_len,
+            gen=args.gen, seed=args.serve_seed, batcher_config=bcfg,
+            guard=args.guard, observer=observer)
+        s = out["summary"]
+    replayed = f"  {s['replayed']} replayed" if s.get("replayed") else ""
+    slog.info(f"serve: {s['completed']}/{s['requests']} completed  "
+              f"{s['shed']} shed {s['shed_reasons']}  "
+              f"{s['retries']} retries{replayed}  "
+              f"e2e p99 {s.get('e2e_p99', float('nan')):.4f}s")
+    if observer is not None:
+        if args.trace_out:
+            path = observer.save_trace(args.trace_out)
+            slog.info(f"trace: {path} ({len(observer.tracer)} events)")
+        if args.journal_out:
+            # close the stream first; save() rewrites the identical bytes
+            if journal_sink is not None:
+                journal_sink.close()
+                observer.journal.sink = None
+            path = observer.save_journal(args.journal_out)
+            slog.info(f"journal: {path} ({len(observer.journal)} events)")
+        if args.metrics_out:
+            observer.write_summary(args.metrics_out, extra={"serve": s})
+            slog.info(f"metrics: {args.metrics_out}")
 
 
 def _main_stream(ap, args) -> None:

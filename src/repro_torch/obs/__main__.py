@@ -16,8 +16,13 @@ once and their *first* occurrences are in the given order — the causal
 assertion "the demotion preceded the re-dispatch preceded the guard
 trip" as an exit code.
 
-The reference checker's ``--wal`` mode (write-ahead request logs of
-``runtime.checkpoint``) waits for that layer's port.
+``--wal wal.jsonl`` additionally validates a write-ahead request log
+(``runtime.checkpoint``): every record parses with a matching CRC and a
+dense LSN (a torn tail is an error here — the engine truncates it on
+reopen, so a *post-recovery* WAL must be clean), no request retires
+twice, and with ``--wal-complete`` every admitted request has a
+terminal retire record — the crash drill's "no request lost, none
+double-retired" assertion as an exit code.
 """
 
 from __future__ import annotations
@@ -58,6 +63,49 @@ def check_required_order(events: list[dict], kinds: list[str]) -> list[str]:
     return errors
 
 
+def check_wal(path: str, *, complete: bool = False) -> tuple[list[str], dict]:
+    """(errors, stats) of a write-ahead request log.
+
+    Structural: every line parses, CRCs match, LSNs are dense (the
+    reader stops at the first bad line, so a surviving torn tail shows
+    up as ``torn``).  Semantic: at most one valid retire per request id;
+    with ``complete=True`` every admitted id must also retire — the
+    crash-drill accounting invariant.
+    """
+    from ..runtime.checkpoint import read_wal
+    errors: list[str] = []
+    records, torn = read_wal(path)
+    if torn is not None:
+        errors.append(f"torn tail at line {torn['line']} "
+                      f"({torn['reason']}); run the engine once with "
+                      "--resume to truncate it")
+    admits: set[int] = set()
+    retired: dict[int, int] = {}
+    for rec in records:
+        kind = rec.get("kind")
+        if kind == "admit":
+            admits.add(rec["rid"])
+        elif kind == "retire":
+            rid = rec["rid"]
+            if rid in retired:
+                errors.append(f"request {rid} retired twice "
+                              f"(lsn {retired[rid]} and {rec['lsn']})")
+            else:
+                retired[rid] = rec["lsn"]
+    ghost = set(retired) - admits
+    if ghost:
+        errors.append(f"retired but never admitted: {sorted(ghost)[:8]}")
+    if complete:
+        lost = admits - set(retired)
+        if lost:
+            errors.append(f"admitted but never retired (lost): "
+                          f"{sorted(lost)[:8]} "
+                          f"({len(lost)}/{len(admits)})")
+    stats = {"records": len(records), "admitted": len(admits),
+             "retired": len(retired), "torn": torn is not None}
+    return errors, stats
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.obs",
@@ -69,9 +117,15 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--require", default=None,
                     help="comma-separated journal kinds that must occur, "
                          "first occurrences in this causal order")
+    ap.add_argument("--wal", help="write-ahead request log (JSONL) to "
+                    "validate: CRCs, dense LSNs, no double retire")
+    ap.add_argument("--wal-complete", action="store_true",
+                    help="with --wal: every admitted request must have "
+                    "a terminal retire record (post-recovery accounting)")
     args = ap.parse_args(argv)
-    if not args.trace and not args.journal:
-        ap.error("nothing to validate: pass --trace and/or --journal")
+    if not args.trace and not args.journal and not args.wal:
+        ap.error("nothing to validate: pass --trace, --journal "
+                 "and/or --wal")
 
     schema = _load_schema(args.schema)
     errors: list[str] = []
@@ -107,6 +161,12 @@ def main(argv: list[str] | None = None) -> int:
             by_kind[ev.get("kind", "?")] = by_kind.get(ev.get("kind", "?"), 0) + 1
         summary = "  ".join(f"{k}×{n}" for k, n in sorted(by_kind.items()))
         print(f"[obs] journal {args.journal}: {len(events)} events  {summary}")
+
+    if args.wal:
+        wal_errors, stats = check_wal(args.wal, complete=args.wal_complete)
+        errors += [f"wal: {e}" for e in wal_errors]
+        print(f"[obs] wal     {args.wal}: {stats['records']} records  "
+              f"{stats['admitted']} admitted  {stats['retired']} retired")
 
     if errors:
         for e in errors:

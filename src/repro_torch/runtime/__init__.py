@@ -11,6 +11,12 @@ work split with SAML; this package keeps the loop closed at run time:
     :func:`~repro_torch.runtime.scheduler.ewma_rebalance` — the N-group
     generalization of ``proportional_rebalance``.
 
+``feedback`` — online surrogate refits.
+    :class:`~repro_torch.runtime.feedback.OnlineSurrogateLoop` appends
+    live (config, time) observations and warm-refits the BDTR pair in
+    place (``fit_more`` + incremental hist binning), so the next
+    ``saml`` searches a surrogate grounded in live data.
+
 ``store`` — persistent tuning cache.
     :class:`~repro_torch.runtime.store.TuningStore` keys recorded
     ``TuneResult``s by workload signature (space hash + shapes + device
@@ -38,11 +44,21 @@ work split with SAML; this package keeps the loop closed at run time:
     (kill/slow/transient/recover, plus process-level crash/torn)
     against the serial-device sim or real dispatch, deterministically.
 
-The reference's ``feedback`` (online surrogate refits) and
-``checkpoint`` (write-ahead log, snapshots, measurement ledger) layers
-are not ported yet.
+``checkpoint`` — crash durability.
+    :class:`~repro_torch.runtime.checkpoint.WalWriter` appends a CRC'd
+    write-ahead request log that survives ``kill -9`` and truncates
+    torn tails on reopen; :func:`~repro_torch.runtime.checkpoint.save_snapshot`
+    / :func:`~repro_torch.runtime.checkpoint.load_snapshot` checkpoint
+    soft state with checksums (corruption quarantines via
+    :func:`~repro_torch.runtime.checkpoint.quarantine` instead of
+    crashing); :class:`~repro_torch.runtime.checkpoint.MeasurementLedger`
+    makes tuning runs resumable — a crashed search replays its measured
+    prefix from the ledger instead of re-spending the budget.
 """
 
+from .checkpoint import (MeasurementLedger, SimulatedCrash, WalWriter,
+                         load_snapshot, quarantine, read_wal, save_snapshot)
+from .feedback import OnlineSurrogateLoop
 from .guard import KillSwitch, ServeGuard, fallback_from_store
 from .scheduler import ChunkedScheduler, EwmaController, ewma_rebalance
 from .simulate import (FaultInjector, FaultPlan, GroupFailure, VirtualClock,
@@ -54,8 +70,11 @@ from .stream import StreamingPipeline, dna_stream_builder
 __all__ = [
     "ChunkedScheduler", "EwmaController", "ewma_rebalance",
     "KillSwitch", "ServeGuard", "fallback_from_store",
+    "MeasurementLedger", "SimulatedCrash", "WalWriter",
+    "load_snapshot", "quarantine", "read_wal", "save_snapshot",
     "FaultInjector", "FaultPlan", "GroupFailure", "VirtualClock",
     "make_serial_sim_builder", "parse_fault_plan", "sim_skew_groups",
+    "OnlineSurrogateLoop",
     "TuningStore", "space_fingerprint", "workload_signature",
     "StreamingPipeline", "dna_stream_builder",
 ]

@@ -29,10 +29,11 @@ real-dispatch builder via :meth:`FaultInjector.wrap` — raising
 ``repro_torch.dist.fault.GroupFailure`` so every scenario exercises the
 production demotion path of ``ChunkedScheduler``.
 
-Process-level faults (``crash``/``torn``) raise :class:`SimulatedCrash`
-(or deliver a real ``SIGKILL``); the write-ahead log and snapshots that
-recover from them (the reference's ``runtime.checkpoint``) are not
-ported yet, so :class:`SimulatedCrash` lives here until they are.
+Process-level faults (``crash``/``torn``) raise
+:class:`~repro_torch.runtime.checkpoint.SimulatedCrash` (or deliver a
+real ``SIGKILL``); the write-ahead log and snapshots of
+``runtime.checkpoint`` recover from them.  ``SimulatedCrash`` is
+importable from here too.
 """
 
 from __future__ import annotations
@@ -44,19 +45,11 @@ from dataclasses import dataclass
 
 from ..core.hetero import DeviceGroup, tree_leaves
 from ..dist.fault import GroupFailure
+from .checkpoint import SimulatedCrash
 
 __all__ = ["FakeDevice", "FaultEvent", "FaultInjector", "FaultPlan",
            "GroupFailure", "SimReadyAt", "SimulatedCrash", "VirtualClock",
            "make_serial_sim_builder", "parse_fault_plan", "sim_skew_groups"]
-
-
-class SimulatedCrash(BaseException):
-    """An injected process fault (``FaultPlan.crash`` in ``raise`` mode).
-
-    Derives from ``BaseException`` so no recovery-minded ``except
-    Exception`` handler on the dispatch path can absorb it — exactly
-    like the ``SystemExit``/``KeyboardInterrupt`` it stands in for.
-    """
 
 
 class VirtualClock:
@@ -368,7 +361,7 @@ class FaultInjector:
 
     def attach_wal(self, wal) -> "FaultInjector":
         """``wal`` must expose ``append_torn(kind, **fields)`` (a
-        ``runtime.checkpoint.WalWriter`` in the reference); ``torn`` events flush a
+        ``runtime.checkpoint.WalWriter``); ``torn`` events flush a
         partial record through it before dying."""
         self._wal = wal
         return self

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import logging
 import os
 import zipfile
 from dataclasses import asdict
@@ -36,28 +35,10 @@ import torch
 from .. import resolve_device
 from ..core.space import ConfigSpace
 from ..tune.result import TuneResult
+from .checkpoint import quarantine
 
 __all__ = ["TuningStore", "device_topology", "quarantine",
            "space_fingerprint", "workload_signature"]
-
-_log = logging.getLogger("repro_torch.runtime.store")
-
-
-def quarantine(path: str | os.PathLike, reason: str = "corrupt") -> Path:
-    """Move a corrupt durable file aside to ``<name>.corrupt-<sha8>``.
-
-    The suffix is a hash of the file's raw bytes, so repeated
-    quarantines of distinct corruptions never collide and identical
-    corruptions are idempotent.  The original path is free afterwards
-    (the caller starts fresh).  Returns the quarantine path.
-    """
-    p = Path(path)
-    sha8 = hashlib.sha256(p.read_bytes()).hexdigest()[:8]
-    dest = p.with_name(p.name + f".corrupt-{sha8}")
-    os.replace(p, dest)
-    _log.warning("quarantined corrupt file %s -> %s (%s)", p, dest.name,
-                 reason)
-    return dest
 
 
 def _canon(obj: Any):
@@ -171,8 +152,8 @@ class TuningStore:
 
         A truncated/unparsable file, a non-object payload, or a
         checksummed file whose digest mismatches is moved aside to
-        ``<name>.corrupt-<sha8>`` (:func:`quarantine`) with a logged
-        warning, and the store starts fresh — a
+        ``<name>.corrupt-<sha8>`` (``runtime.checkpoint.quarantine``)
+        with a structured warning, and the store starts fresh — a
         corrupt cache must never take the tuner down with it.  Both
         layouts load: the legacy flat ``{sig: entry}`` and the
         checksummed ``{"checksum", "entries"}`` that :meth:`_flush`

@@ -37,11 +37,16 @@ Wiring notes:
     (``tuning_start``, ``store_hit``/``store_miss``, ``tuning_stop`` with
     the measurement accounting), counts store hits and misses, and
     traces the strategy's search as a ``tune.<strategy>`` span.
-  * ``ledger`` and ``online`` keep their places in the signature, but
-    the layers behind them (the ``MeasurementLedger`` write-ahead log,
-    the ``OnlineSurrogateLoop`` feedback loop) are not ported yet:
-    passing one raises ``NotImplementedError`` rather than being
-    ignored.
+  * ``online`` hooks an ``OnlineSurrogateLoop``: pending live
+    observations are folded in (``refit``) before the search, and every
+    measurement taken during the search whose metrics carry per-side
+    times (``t_host`` / ``t_device``) is observed back into the loop.
+  * ``ledger`` hooks a
+    :class:`~repro_torch.runtime.checkpoint.MeasurementLedger`: every
+    real measurement is appended to its write-ahead log before the
+    search proceeds, so a crash mid-tune loses nothing — rerunning the
+    same seeded session replays the measured prefix from the ledger
+    (zero re-measurement) and only spends budget on the tail.
 """
 
 from __future__ import annotations
@@ -82,18 +87,19 @@ class TuningSession:
         ledger: Any = None,
         device: Any = None,
     ):
-        for name, given, layer in (
-                ("ledger", ledger, "MeasurementLedger (runtime.checkpoint)"),
-                ("online", online, "OnlineSurrogateLoop (runtime.feedback)")):
-            if given is not None:
-                raise NotImplementedError(
-                    f"TuningSession({name}=...) needs {layer}, which is "
-                    "not ported to repro_torch yet")
         self.space = space
         self.device = device
+        self.ledger = ledger
+        if ledger is not None and evaluator is not None:
+            # Wrap the raw scalar/metrics oracle before MetricsEvaluator
+            # normalization so ledger hits and misses share one shape.
+            evaluator = ledger.wrap(evaluator)
         self.evaluator = as_metrics_evaluator(evaluator, evaluator_batch)
         self.objective = objective if objective is not None else Time()
         self.strategy = strategy
+        self.online = online
+        if surrogate is None and online is not None:
+            surrogate = online.surrogate
         self.surrogate = surrogate
         self.n_training_experiments = n_training_experiments
         self.budget = budget
@@ -120,22 +126,52 @@ class TuningSession:
 
     # -- oracle composition --------------------------------------------------
     def _measure(self) -> Callable | None:
-        """cfg -> objective score of one real measurement."""
+        """cfg -> objective score of one real measurement (+ online feed)."""
         ev = self.evaluator
         if ev is None:
             return None
-        objective = self.objective
+        objective, online = self.objective, self.online
 
         def scored(cfg):
-            return float(objective(ev.metrics(cfg)))
+            m = ev.metrics(cfg)
+            if online is not None:
+                th, td = m.get("t_host"), m.get("t_device")
+                if th is not None or td is not None:
+                    # a zero per-side time is the E = max(...) collapse
+                    # (that side did no work), not a measurement
+                    online.observe(cfg, th or None, td or None,
+                                   auto_refit=False)
+            return float(objective(m))
         return scored
 
+    def _observe_batch(self, columns, metrics) -> None:
+        """Feed a column batch of measurements into the online loop."""
+        th = metrics.get("t_host")
+        td = metrics.get("t_device")
+        if th is None and td is None:
+            return
+        names = list(columns)
+        n = len(next(iter(metrics.values())))
+        for i in range(n):
+            cfg = {k: columns[k][i] for k in names}
+            h = float(th[i]) if th is not None else 0.0
+            d = float(td[i]) if td is not None else 0.0
+            # a zero per-side time is the E = max(...) collapse
+            self.online.observe(cfg, h or None, d or None, auto_refit=False)
+
     def _metrics_batch(self) -> Callable | None:
-        """Column batch -> metric columns."""
+        """Column batch -> metric columns, observing into the online loop."""
         ev = self.evaluator
         if ev is None or not ev.has_batch:
             return None
-        return ev.metrics_batch
+        if self.online is None:
+            return ev.metrics_batch
+
+        def observed(columns):
+            m = ev.metrics_batch(columns)
+            self._observe_batch(columns, m)
+            return m
+        return observed
 
     def _measure_batch(self) -> Callable | None:
         metrics_batch = self._metrics_batch()
@@ -254,6 +290,10 @@ class TuningSession:
                         n_measured=hit.n_measured,
                         space_size=hit.space_size)
                 return hit
+        if self.online is not None:
+            # fold pending live observations into the surrogate first, so
+            # the search starts from live data (respects refit_every)
+            self.online.refit()
         if self.seed is not None:
             opts.setdefault("seed", self.seed)
         if self.device is not None:

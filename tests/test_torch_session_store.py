@@ -36,10 +36,12 @@ WORKLOAD = {"kernel": "toy", "shape": {"t": 4096, "s": 7}, "dtype": "uint8"}
 # -- the session ------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["observer", "ledger", "online"])
-def test_unported_hooks_raise_instead_of_being_ignored(name):
-    """``ledger`` and ``online`` are refused until their layers are ported;
-    ``observer`` now is (``repro_torch.obs``), and it must record the run
-    rather than be ignored."""
+def test_unported_hooks_raise_instead_of_being_ignored(name, tmp_path):
+    """Every hook of the reference's session is wired, none ignored:
+    ``observer`` records the run (``repro_torch.obs``), ``ledger`` (a
+    ``runtime.checkpoint.MeasurementLedger``) logs every real measurement,
+    ``online`` (a ``runtime.feedback.OnlineSurrogateLoop``) observes every
+    measurement that carries per-side times."""
     if name == "observer":
         from repro_torch.obs import Observer
 
@@ -48,10 +50,38 @@ def test_unported_hooks_raise_instead_of_being_ignored(name):
                       observer=obs).run("sam", iterations=5, seed=0)
         assert [e["kind"] for e in obs.journal.events] == [
             "tuning_start", "tuning_stop"]
+    elif name == "ledger":
+        from repro_torch.runtime import MeasurementLedger
+
+        ledger = MeasurementLedger(tmp_path / "ledger.jsonl")
+        res = TuningSession(make_space(), evaluator=measure, device="cpu",
+                            ledger=ledger).run("sam", iterations=5, seed=0)
+        assert ledger.n_real == res.n_experiments > 0
+        assert ledger.total_real == ledger.n_real
+        ledger.close()
     else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TuningSession(make_space(), evaluator=measure, device="cpu",
-                          **{name: object()})
+        from repro_torch.core import BoostedTreesRegressor, SurrogatePair
+        from repro_torch.runtime import OnlineSurrogateLoop
+
+        def feats(cfg):
+            return np.asarray([float(cfg["x"]), float(cfg["y"])])
+
+        X = np.asarray([[x, y] for x in range(8) for y in (1, 2, 4, 8)],
+                       dtype=float)
+        pair = SurrogatePair(
+            host=BoostedTreesRegressor(n_estimators=5).fit(X, X[:, 0]),
+            device=BoostedTreesRegressor(n_estimators=5).fit(X, X[:, 1]),
+            host_features=feats, device_features=feats)
+        loop = OnlineSurrogateLoop(pair, refit_every=1000)
+
+        def sides(cfg):
+            return {"time": measure(cfg), "t_host": float(cfg["x"]),
+                    "t_device": float(cfg["y"])}
+
+        res = TuningSession(make_space(), evaluator=sides, device="cpu",
+                            online=loop).run("sam", iterations=5, seed=0)
+        # cfg x = 0 is a zero host time: the side did no work, unobserved
+        assert 0 < loop.n_observations <= 2 * res.n_experiments
     TuningSession(make_space(), evaluator=measure, device="cpu",
                   **{name: None})
 
