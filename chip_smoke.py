@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's ten paths once each, at full width, through the entry
-points a user would call:
+drives the port's sixteen paths once each, at full width, through the
+entry points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
   automaton's launch parameters (map chunk, count chunk, threads, symbols
@@ -65,6 +65,25 @@ points a user would call:
   recomputed in the backward pass), every attention layer's forward
   through the flash-attention kernel and its gradient through the
   flash-attention backward kernels;
+* four more decoders served (batch 8, a 2048-token prompt, 32 greedy
+  tokens, random weights from ``--seed``, bf16, the kernels at their
+  defaults): Phi-3-mini at full size (32 layers, 32 heads of 96, so the
+  decode kernel at one query head a kv head), Qwen2-MoE-A2.7B at full size
+  (60 experts top-4 plus 4 shared, in plain PyTorch), Nemotron-4-340B at
+  full width cut to 2 of its 96 layers and built in bf16 (heads of 192),
+  and InternVL2-76B at full width cut to 8 of its 80 layers, its prompt
+  1024 patch embeddings and 1024 tokens through ``LM.prefill(
+  patch_embeds=)``; each prefill through the flash-attention kernel, every
+  decode step through the split-KV decode kernel;
+* the encoder-decoder: Whisper-base at full size served (batch 8 of 1500
+  frames, 128 greedy tokens): the encoder through the flash-attention
+  kernel unmasked, every decode step's self-attention and its
+  cross-attention over the whole encoder cache through the decode kernel;
+  then trained (``train_loop``, 3 AdamW steps, float32 parameters, bf16
+  compute, batch 8 x (1500 frames, 448 tokens), each layer recomputed in
+  the backward pass): the encoder, the decoder's self-attention and its
+  cross-attention (448 queries over 1500 keys) through the flash-attention
+  kernel and its backward kernels;
 * RWKV-6 serving: ``tune_kernel`` the wkv kernel at RWKV-6 1.6B's prefill
   shape and the selective-scan kernel at Jamba's into one store,
   ``configure`` it, then ``serve_session`` RWKV-6 1.6B at full width and
@@ -111,7 +130,9 @@ measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
 recurrent paths also in float32, where the gate sits, with the MoE
-choices pinned to the kernel run's);
+choices pinned to the kernel run's; Whisper's run holds every kernel call
+against its plain version as well); the new serving paths also check that
+serving measured no launch configuration;
 before each training path it compares the loss and every parameter's
 gradient the same way (the recurrent ones in float32 compute, each held
 against a float64 pass by its parameter's gate, with one wrong backward
@@ -161,6 +182,7 @@ exp per cell on the SFUs and eight float32 instructions per cell.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -213,6 +235,20 @@ SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
 RWKV_TRAIN_BATCH, JAMBA_TRAIN_BATCH = 8, 2
 SSM_PARITY_BATCH = 2
 SSM_PARITY_SEQ = {"rwkv6-1.6b": 1024, "jamba-v0.1-52b": 2048}
+# the other decoders served at full width (A4) and the VLM (A5): batch 8, a
+# 2048-token prompt (the VLM's: 1024 patch embeddings, then 1024 tokens),
+# 32 new tokens; nemotron-4 cut to 2 of its 96 layers and built in bf16,
+# InternVL2 to 8 of its 80 (phase, arch, layers kept or None, build dtype)
+DEC_BATCH, DEC_PROMPT, DEC_GEN = 8, 2048, 32
+DECODER_PHASES = (("phi3_serve", "phi3-mini-3.8b", None, None),
+                  ("moe_serve", "qwen2-moe-a2.7b", None, None),
+                  ("nemotron_serve", "nemotron-4-340b", 2, "bfloat16"),
+                  ("vlm_serve", "internvl2-76b", 8, None))
+# the encoder-decoder (A5): Whisper-base at full size, batch 8 of 1500
+# frames (a 30 s window after its conv stem), 128 new tokens served;
+# trained at batch 8 x (1500 frames, 448 tokens) for 3 steps
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_FRAMES = "whisper-base", 8, 1500
+WHISPER_GEN, WHISPER_TRAIN_STEPS = 128, 3
 
 
 def roofline_ms(n_bytes: float, n_ops: float, ops_per_s: float
@@ -1036,6 +1072,37 @@ def phase_attention_parity(seed: int) -> list[dict]:
                         for dt in ("bfloat16", "float32")},
         "lse_max_abs_err": max(r["lse_max_abs_err"] for r in ragged)}
 
+    # the encoder-decoder's shapes (Whisper-base: 8 heads of 64): the
+    # encoder unmasked at T 1500 and cross-attention, 448 queries over 1500
+    # keys (a ragged last key block), both builds; and B3 at nemotron-4's
+    # hd 192 at the wrapper's bf16 launch (fit_launch: a warp a 16-row
+    # tile, 256 threads)
+    from repro_torch.kernels.flash_attention.ops import fit_launch as fa_fit
+    new_shapes = []
+    for hd_, h_, tq, tk, causal, dtypes in (
+            (64, 8, 1500, 1500, False, (torch.bfloat16, torch.float32)),
+            (64, 8, 448, 1500, False, (torch.bfloat16, torch.float32)),
+            (192, 4, 333, 333, True, (torch.bfloat16,))):
+        for dtype in dtypes:
+            qr, kr, vr = (randn(2, n, h_, hd_, dtype=dtype)
+                          for n in (tq, tk, tk))
+            launch = fa_fit(FA if dtype == torch.bfloat16 else FA32, dtype,
+                            hd_)
+            o, lse = fak.flash_attention_fwd(qr, kr, vr, causal=causal,
+                                             **launch)
+            o_p, lse_p = fak.flash_attention_fwd_plain(qr, kr, vr,
+                                                       causal=causal)
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+            new_shapes.append({"hd": hd_, "dtype": str(dtype)[6:], "tq": tq,
+                               "tk": tk, "causal": causal, "launch": launch,
+                               "max_abs_err": float_err(o, o_p),
+                               "lse_max_abs_err": float_err(lse, lse_p)})
+            check(torch.allclose(o.float(), o_p.float(), atol=tol, rtol=tol)
+                  and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3),
+                  f"flash_attention_fwd: {new_shapes[-1]}")
+    flash_case["new_shapes"] = new_shapes
+    del qr, kr, vr, o, lse, o_p, lse_p
+
     # -- B4: decode shape (cache S = prompt + gen), bf16 cache, float32 out;
     # one launch a call (the split combine inside); the two serving fill
     # levels and length 37, where most segments lie past `length` and must
@@ -1104,6 +1171,27 @@ def phase_attention_parity(seed: int) -> list[dict]:
                               q, k, v, length, **launch), 50)})
         check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
               f"decode_attention hd {hd_}: {head_dims[-1]}")
+    del q, k, v
+
+    # cross-attention decode through the wrapper (length=None: the whole
+    # cache, S 1500, a multiple of no tile; rep 1) at Whisper's shape, and
+    # its self-attention cache (1628) at fill 37
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    for s_, length in ((WHISPER_FRAMES, None),
+                       (WHISPER_FRAMES + WHISPER_GEN, 37)):
+        q = randn(WHISPER_BATCH, 8, 64)
+        k, v = (randn(WHISPER_BATCH, s_, 8, 64) for _ in range(2))
+        got = da_ops.decode_attention(q, k, v, length=length)
+        want = dak.decode_attention_plain(q.reshape(WHISPER_BATCH, 8, 1, 64),
+                                          k, v, s_ if length is None
+                                          else length).reshape(got.shape)
+        head_dims.append({"shape": [WHISPER_BATCH, 8, 1, 64, s_],
+                          "length": length, "launch": "wrapper",
+                          "max_abs_err": float_err(got, want),
+                          "ms": device_ms(lambda: da_ops.decode_attention(
+                              q, k, v, length=length), 50)})
+        check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
+              f"decode_attention: {head_dims[-1]}")
     del q, k, v
 
     emit(phase="attention_parity",
@@ -1596,6 +1684,21 @@ def phase_train_attention_parity(seed: int) -> dict:
                               "rel_err": err, "tol": tol,
                               "same_bits_twice": same})
                 check(err <= tol and same, f"flash_attention_bwd: {cases[-1]}")
+    # Whisper's cross-attention, 448 queries over 1500 keys unmasked, 8
+    # heads of 64, both builds at their defaults
+    for dtype, launch in ((torch.bfloat16, BWD), (torch.float32, BWD32)):
+        _, (kernel_fn, plain_fn) = case(448, 1500, 0, False, dtype, launch,
+                                        hd=64, h=8)
+        got, want = kernel_fn(), plain_fn()
+        err = max(grad_err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(a, g) for a, g in zip(kernel_fn(), got))
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+        cases.append({"hd": 64, "tq": 448, "tk": 1500, "q_offset": 0,
+                      "causal": False, "dtype": str(dtype)[6:],
+                      "launch": [launch[k] for k in (
+                          "block_q", "block_k", "block_threads")],
+                      "rel_err": err, "tol": tol, "same_bits_twice": same})
+        check(err <= tol and same, f"flash_attention_bwd: {cases[-1]}")
     # C6: bf16 at hd 192 (nemotron4's head size), at the wrapper's launch
     # point (fit_bwd_launch: 64 x 64): dq stages its do rows, dk/dv runs as
     # dv and dk halves of one grid; ragged T, a q_offset, no mask, and the
@@ -1674,11 +1777,27 @@ KEY_BIAS = "mixer.bk"
 GRAD_GATE = 0.05
 
 
+# the float32 scores the plain forward materialises at once, at most: it
+# runs in slices of heads beyond (nemotron-4's 96 heads at batch 8 x 2048
+# would take 12 GiB, twice over, beside 30 GiB of weights)
+PLAIN_SCORE_BYTES = 2 ** 31
+
+
 def plain_attention_fwd(q, k, v, *, causal, q_offset, **launch):
+    """B3's plain version, in slices of heads whose float32 scores stay
+    within ``PLAIN_SCORE_BYTES`` (each head's attention is its own)."""
     from repro_torch.kernels.flash_attention import kernel as fak
 
-    return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
-                                         q_offset=q_offset)
+    b, tq, h, _ = q.shape
+    step = max(1, PLAIN_SCORE_BYTES // (4 * b * tq * k.shape[1]))
+    if step >= h:
+        return fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             q_offset=q_offset)
+    outs = [fak.flash_attention_fwd_plain(
+        q[:, :, i:i + step], k[:, :, i:i + step], v[:, :, i:i + step],
+        causal=causal, q_offset=q_offset) for i in range(0, h, step)]
+    return (torch.cat([o for o, _ in outs], dim=2),
+            torch.cat([lse for _, lse in outs], dim=1))
 
 
 def plain_attention_bwd(q, k, v, o, lse, do, *, causal, q_offset, **launch):
@@ -1718,7 +1837,7 @@ def grad_gaps(grads, want) -> dict:
                   for n in grads), key=lambda kv: -kv[1])
     worst = {"key_bias": [kv for kv in rel if kv[0].endswith(KEY_BIAS)][:3],
              "other": [kv for kv in rel if not kv[0].endswith(KEY_BIAS)][:3]}
-    return {"max": {g: kvs[0][1] for g, kvs in worst.items()},
+    return {"max": {g: kvs[0][1] for g, kvs in worst.items() if kvs},
             "worst": worst, "mean": sum(v for _, v in rel) / len(rel)}
 
 
@@ -1817,12 +1936,14 @@ def device_time_us(evt, total: bool = False) -> float:
     return 0.0
 
 
-def device_split(fn, trace: Path | None = None) -> dict:
+def device_split(fn, trace: Path | None = None, ranges: tuple = ()) -> dict:
     """``fn`` once under ``torch.profiler``: the card's kernel time by
     ``kernel_kind`` against the wall time, the device time of the host
     range ``adamw`` (the optimizer) taken out of "other" where the trace
     has one, the number of device activities (kernels and copies) and the
-    longest kernels.  ``trace`` receives the Chrome trace."""
+    longest kernels.  The device time under each host range of ``ranges``
+    (``record_function`` names) is reported apart, in ``ranges_ms``: its
+    kernels stay in their kinds.  ``trace`` receives the Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1837,9 +1958,14 @@ def device_split(fn, trace: Path | None = None) -> dict:
     split: dict = {}
     top = []
     adamw_ms = None
+    ranges_ms = {name: "not measured" for name in ranges}
     launches = 0
     for evt in prof.key_averages():
         on_card = "cuda" in str(evt.device_type).lower()
+        if evt.key in ranges_ms:
+            if not on_card:
+                ranges_ms[evt.key] = device_time_us(evt, total=True) / 1e3
+            continue
         if evt.key == "adamw":
             if not on_card:
                 adamw_ms = device_time_us(evt, total=True) / 1e3
@@ -1858,11 +1984,14 @@ def device_split(fn, trace: Path | None = None) -> dict:
             split["other"] -= adamw_ms
         else:
             split["AdamW"] = "not measured (inside other)"
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if busy > 0 else "not measured",
-            "idle_share": 1 - busy / wall_ms if busy > 0 else "not measured",
-            "device_launches": launches, "split_ms": split,
-            "top": sorted(top, reverse=True)[:12]}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy if busy > 0 else "not measured",
+           "idle_share": 1 - busy / wall_ms if busy > 0 else "not measured",
+           "device_launches": launches, "split_ms": split,
+           "top": sorted(top, reverse=True)[:12]}
+    if ranges:
+        out["ranges_ms"] = ranges_ms
+    return out
 
 
 def phase_lm_train(model, seed: int) -> dict:
@@ -2344,30 +2473,31 @@ def phase_ssm_tune(seed: int, store_path: Path, metas: dict | None = None,
 
 
 def ssm_cfg(arch: str):
-    import dataclasses
-
-    from repro_torch import configs
-
-    cfg = configs.get(arch)
-    if arch == JAMBA_ARCH:
-        cfg = dataclasses.replace(cfg, n_layers=JAMBA_LAYERS,
-                                  layer_kinds=cfg.layer_kinds[:JAMBA_LAYERS])
-    return cfg
+    return decoder_cfg(arch, JAMBA_LAYERS if arch == JAMBA_ARCH else None)
 
 
-def serve_split(model, seed: int) -> dict:
-    """One prefill of the batch and one decode step at the last position,
-    each under ``torch.profiler`` (``device_split``), after a warm run."""
+def seed_prompt(cfg, seed: int, batch: int, n: int) -> torch.Tensor:
+    """The prompt ``serve_session`` draws from ``seed``, on the card."""
     import numpy as np
 
-    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, model.cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")
-    _, state = model.prefill(prompt, max_len=SSM_PROMPT + SSM_GEN)
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, n)), device="cuda")
+
+
+def serve_split(model, prompt, gen: int, patch_embeds=None,
+                ranges: tuple = ()) -> dict:
+    """One prefill of ``prompt`` (after ``patch_embeds`` where given) and
+    one decode step at the last position, each under ``torch.profiler``
+    (``device_split``, with ``ranges``), after a warm run."""
+    n = prompt.shape[1] + (0 if patch_embeds is None
+                           else patch_embeds.shape[1])
+    _, state = model.prefill(prompt, max_len=n + gen,
+                             patch_embeds=patch_embeds)
     tok = prompt[:, -1:]
-    pos = SSM_PROMPT + SSM_GEN - 1
+    pos = n + gen - 1
 
     def prefill():
-        model.prefill(prompt, max_len=SSM_PROMPT + SSM_GEN)
+        model.prefill(prompt, max_len=n + gen, patch_embeds=patch_embeds)
 
     def decode():
         model.decode_step(state, tok, pos)
@@ -2375,10 +2505,11 @@ def serve_split(model, seed: int) -> dict:
     out = {}
     for label, fn in (("prefill", prefill), ("decode_step", decode)):
         fn()
-        row = device_split(fn)
+        row = device_split(fn, ranges=ranges)
         out[label] = {k: row[k] for k in ("wall_ms", "device_busy_ms",
                                           "idle_share", "device_launches",
-                                          "split_ms")}
+                                          "split_ms", *(("ranges_ms",)
+                                                        if ranges else ()))}
         out[label]["top"] = row["top"][:6]
     del state
     return out
@@ -2451,7 +2582,8 @@ def phase_ssm_serve(arch: str, seed: int, store_path: Path, tunes: dict):
     check(generated.shape == (SSM_BATCH, SSM_GEN)
           and ((0 <= generated) & (generated < cfg.vocab_size)).all(),
           f"{arch}: generated tokens {generated.shape}")
-    split = serve_split(model, seed)
+    split = serve_split(model, seed_prompt(cfg, seed, SSM_BATCH, SSM_PROMPT),
+                        SSM_GEN)
     ktune.disable()
     phase = "rwkv_serve" if arch == RWKV_ARCH else "jamba_serve"
     emit(phase=phase, ok=True, arch=arch, n_layers=cfg.n_layers,
@@ -2493,10 +2625,11 @@ def plain_patches():
             mock.patch.object(ms_ops, "selective_scan_fwd", plain_scan)]
 
 
-def teacher_forced(model, prompt, feed, patches=(), routes=None
-                   ) -> tuple[list, list, int]:
-    """Prefill ``prompt``, then decode ``feed`` (the generated tokens, all but
-    the last) token by token; returns each
+def teacher_forced(model, prompt, feed, patches=(), routes=None,
+                   patch_embeds=None) -> tuple[list, list, int]:
+    """Prefill ``prompt`` (after a VLM's ``patch_embeds`` where given), then
+    decode ``feed`` (the generated tokens, all but the last) token by
+    token; returns each
     step's logits, the expert choices of every MoE call of each step, and
     how many (token, choice) pairs the router would have chosen otherwise.
 
@@ -2524,12 +2657,14 @@ def teacher_forced(model, prompt, feed, patches=(), routes=None
         seen[-1].append(idx)
         return vals, idx
 
-    n = prompt.shape[1]
+    n = prompt.shape[1] + (0 if patch_embeds is None
+                           else patch_embeds.shape[1])
     with contextlib.ExitStack() as stack:
         for patch in (mock.patch.object(moe, "top_k", top_k), *patches):
             stack.enter_context(patch)
         seen.append([])
-        logits, state = model.prefill(prompt, max_len=n + feed.shape[1])
+        logits, state = model.prefill(prompt, max_len=n + feed.shape[1],
+                                      patch_embeds=patch_embeds)
         steps = [logits]
         for i in range(feed.shape[1] - 1):
             seen.append([])
@@ -3039,11 +3174,11 @@ def rel_l2(grads, want) -> dict:
 def leaf_kind(name: str) -> str:
     """A parameter's name with its layer index left out: the leaves of one
     parameter in every layer."""
-    return re.sub(r"^layers\.\d+\.", "layers.*.", name)
+    return re.sub(r"^(layers|encoder|decoder)\.\d+\.", r"\1.*.", name)
 
 
-def leaf_gates(plain: dict) -> dict:
-    """Each parameter's gradient gate (``SSM_GRAD_GATE``, or
+def leaf_gates(plain: dict, floor: float = SSM_GRAD_GATE) -> dict:
+    """Each parameter's gradient gate (``floor``, or
     ``GRAD_FLOOR_MARGIN`` times the plain float32 path's largest distance
     from float64 over the same parameter's leaves where that is larger),
     keyed by ``leaf_kind``.  One leaf's own reading is a single draw of
@@ -3052,8 +3187,7 @@ def leaf_gates(plain: dict) -> dict:
     worst: dict[str, float] = {}
     for n, e in plain.items():
         worst[leaf_kind(n)] = max(worst.get(leaf_kind(n), 0.0), e)
-    return {k: max(SSM_GRAD_GATE, GRAD_FLOOR_MARGIN * e)
-            for k, e in worst.items()}
+    return {k: max(floor, GRAD_FLOOR_MARGIN * e) for k, e in worst.items()}
 
 
 def over_gate(rel: dict, gates: dict) -> dict:
@@ -3288,6 +3422,600 @@ def phase_ssm_train(model, seed: int, store_path: Path, tunes: dict) -> dict:
     return launches
 
 
+# -- the other decoders (A4), the VLM and the encoder-decoder (A5) ----------------
+
+@contextlib.contextmanager
+def counted_measurements():
+    """Counts the configurations ``KernelTimer`` measures inside it (the
+    yielded dict's ``"n"``); serving must measure none."""
+    from unittest import mock
+
+    from repro_torch.tune.kernels.evaluate import KernelTimer
+
+    measured = {"n": 0}
+    real = KernelTimer._measure
+
+    def measure(timer, cfg, key):
+        measured["n"] += 1
+        return real(timer, cfg, key)
+
+    with mock.patch.object(KernelTimer, "_measure", measure):
+        yield measured
+
+
+def attention_fns() -> dict:
+    """B3's, B4's and B5's kernel wrappers, whose ``launches`` count."""
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.flash_attention import kernel as fak
+
+    return {"flash_attention_fwd": fak.flash_attention_fwd,
+            "decode_attention": dak.decode_attention,
+            "flash_attention_bwd": fak.flash_attention_bwd}
+
+
+def zero_attention_counters() -> None:
+    for fn in attention_fns().values():
+        fn.launches = 0
+    attention_fns()["flash_attention_bwd"].program_launches = {"dq": 0,
+                                                               "dkv": 0}
+
+
+def attention_launches() -> dict:
+    fns = attention_fns()
+    out = {name: fn.launches for name, fn in fns.items()}
+    out.update({f"flash_attention_bwd_{p_}": n for p_, n in
+                fns["flash_attention_bwd"].program_launches.items()})
+    return out
+
+
+def decoder_cfg(arch: str, n_layers: int | None = None,
+                param_dtype: str | None = None):
+    """``arch`` at full width, cut to its first ``n_layers`` (as
+    ``ssm_cfg`` cuts Jamba) and built in ``param_dtype`` where given."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers,
+                                  layer_kinds=cfg.layer_kinds[:n_layers])
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
+    return cfg
+
+
+def build_timed(cfg, seed: int):
+    """(model cast for serving, build seconds, build peak GiB, GiB still
+    allocated before the build)."""
+    import gc
+
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed).cast_for_serving()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    return model, build_s, peak, before
+
+
+def serve_with_patches(model, tokens, patch_embeds, gen: int) -> dict:
+    """The VLM path with its patches (the reference's prefill step,
+    ``LM.prefill(patch_embeds=)``), then ``gen - 1`` greedy decode steps
+    from position P + T; timed as ``serve_session`` times."""
+    b = tokens.shape[0]
+    n = tokens.shape[1] + patch_embeds.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(tokens, max_len=n + gen,
+                                  patch_embeds=patch_embeds)
+    last = logits[:, -1:].argmax(dim=-1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [last]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, state = model.decode_step(state, last, n + i)
+        last = logits[:, -1:].argmax(dim=-1)
+        out.append(last)
+    generated = torch.cat(out, dim=1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"generated": generated.cpu().numpy(), "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "tokens_per_s": b * (gen - 1) / max(decode_s, 1e-9)}
+
+
+def moe_range():
+    """Each MoE layer's call inside a profiler range named ``moe``."""
+    from unittest import mock
+
+    from torch.profiler import record_function
+
+    from repro_torch.models import blocks
+
+    real = blocks.apply_moe
+
+    def apply_moe(p, h, cfg):
+        with record_function("moe"):
+            return real(p, h, cfg)
+
+    return mock.patch.object(blocks, "apply_moe", apply_moe)
+
+
+def serving_parity(model, prompt, generated, patch_embeds=None) -> dict:
+    """``lm_parity``'s gate on a served decoder: the same weights with the
+    kernels and with the plain versions, teacher-forced on the generated
+    tokens, MoE choices pinned to the kernel run's; each step's largest
+    logit difference at most 5 % of its largest logit."""
+    import numpy as np
+
+    feed = torch.as_tensor(generated, device="cuda")
+    kern, routes, _ = teacher_forced(model, prompt, feed,
+                                     patch_embeds=patch_embeds)
+    plain, _, moved = teacher_forced(model, prompt, feed, plain_patches(),
+                                     routes, patch_embeds=patch_embeds)
+    rel = logit_gap(kern, plain)
+    served = float(np.mean([
+        float((step[:, -1].argmax(-1) == feed[:, i]).float().mean())
+        for i, step in enumerate(kern)]))
+    out = {"tolerance": 0.05, "steps": len(rel), "prefill_rel_err": rel[0],
+           "decode_rel_err_max": max(rel[1:]),
+           "decode_rel_err_mean": float(np.mean(rel[1:])),
+           "argmax_agreement": float(np.mean([
+               float((a.argmax(-1) == p.argmax(-1)).float().mean())
+               for a, p in zip(kern, plain)])),
+           "served_argmax_agreement": served, "choices_pinned": moved,
+           "logit_abs_max": float(kern[0].abs().max()),
+           "finite": bool(torch.isfinite(torch.stack(kern)).all()),
+           "prefill_shape": list(kern[0].shape)}
+    del kern, plain
+    return out
+
+
+def phase_decoder_serve(phase: str, arch: str, n_layers, param_dtype,
+                        seed: int) -> dict:
+    """One more decoder served at full width (cut in depth where it must
+    fit the card): its launch counters go to 0 just before the entry point
+    (``serve_session``; the VLM: ``LM.prefill(patch_embeds=)`` and the
+    decode loop) and are read just after; no configuration is measured;
+    then a profiled prefill and decode step, and ``serving_parity``."""
+    from repro_torch.launch.serve import serve_session
+
+    cfg = decoder_cfg(arch, n_layers, param_dtype)
+    check(cfg.compute_dtype == "bfloat16", f"{arch} computes in "
+                                           f"{cfg.compute_dtype}")
+    vlm = cfg.frontend == "stub_patches"
+    model, build_s, build_peak, before = build_timed(cfg, seed)
+    patches = None
+    if vlm:
+        text = DEC_PROMPT - cfg.n_patches
+        prompt = seed_prompt(cfg, seed, DEC_BATCH, text)
+        gen = torch.Generator("cuda")
+        gen.manual_seed(seed)
+        patches = (torch.randn((DEC_BATCH, cfg.n_patches, cfg.d_model),
+                               generator=gen, device="cuda") * 0.02)
+    else:
+        prompt = seed_prompt(cfg, seed, DEC_BATCH, DEC_PROMPT)
+    n_attn = cfg.layer_kinds.count("attn")
+    want = {"flash_attention_fwd": n_attn,
+            "decode_attention": n_attn * (DEC_GEN - 1),
+            "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    zero_attention_counters()
+    with counted_measurements() as measured:
+        if vlm:
+            out = serve_with_patches(model, prompt, patches, DEC_GEN)
+        else:
+            out = serve_session(cfg, batch=DEC_BATCH, prompt_len=DEC_PROMPT,
+                                gen=DEC_GEN, seed=seed, model=model)
+    launches = attention_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == want, f"{phase}: launches {launches}, want {want}")
+    check(measured["n"] == 0, f"{phase}: serving measured "
+                              f"{measured['n']} configurations")
+    generated = out["generated"]
+    check(generated.shape == (DEC_BATCH, DEC_GEN)
+          and ((0 <= generated) & (generated < cfg.vocab_size)).all(),
+          f"{phase}: generated tokens {generated.shape}")
+    if cfg.moe is not None:
+        with moe_range():
+            split = serve_split(model, prompt, DEC_GEN, patches,
+                                ranges=("moe",))
+    else:
+        split = serve_split(model, prompt, DEC_GEN, patches)
+    parity = serving_parity(model, prompt, generated, patches)
+    emit(phase=phase, ok=True, arch=arch, n_layers=cfg.n_layers,
+         param_dtype=cfg.param_dtype, batch=DEC_BATCH,
+         prompt_len=DEC_PROMPT, patches=cfg.n_patches if vlm else 0,
+         gen=DEC_GEN, params=sum(p.numel() for p in model.parameters()),
+         build_s=build_s, build_peak_gib=build_peak,
+         allocated_before_gib=before,
+         prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+         tokens_per_s=out["tokens_per_s"], launches=launches,
+         measured=measured["n"], peak_gib=peak_gib, profiled=split,
+         parity=parity, first_tokens=generated[:, :8].tolist())
+    check(parity["finite"], f"{phase}: non-finite logits")
+    check(parity["prefill_shape"] == [DEC_BATCH, 1, cfg.vocab_size],
+          f"{phase}: prefill logits {parity['prefill_shape']}")
+    check(max(parity["prefill_rel_err"], parity["decode_rel_err_max"])
+          <= 0.05, f"{phase}: relative logit error {parity}")
+    del model, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_frames(cfg, seed: int, batch: int, n: int) -> torch.Tensor:
+    """The frames ``serve_session`` draws for an encoder-decoder: after the
+    prompt tokens, from the same ``default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab_size, (batch, n))
+    return torch.as_tensor(rng.standard_normal((batch, n, cfg.d_model))
+                           .astype(np.float32) * np.float32(0.02),
+                           device="cuda")
+
+
+def checked_attention(seen: dict):
+    """Patches running every B3, B4 and B5 call's plain version on the same
+    inputs beside it, each result appended to ``seen[name]`` with its
+    shape and gap (``attention_parity``'s gates: B3 2e-2 in bf16 and 2e-4
+    in float32, lse 1e-3; B4 2e-4; B5 2e-2 of the largest |grad| in bf16,
+    2e-4 in float32)."""
+    from unittest import mock
+
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    def fwd(q, k, v, *, causal, q_offset, **launch):
+        o, lse = fak.flash_attention_fwd(q, k, v, causal=causal,
+                                         q_offset=q_offset, **launch)
+        o_p, lse_p = fak.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   q_offset=q_offset)
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-4
+        seen.setdefault("flash_attention_fwd", []).append({
+            "tq": q.shape[1], "tk": k.shape[1], "causal": causal,
+            "max_abs_err": float_err(o, o_p),
+            "lse_max_abs_err": float_err(lse, lse_p),
+            "ok": torch.allclose(o.float(), o_p.float(), atol=tol, rtol=tol)
+            and torch.allclose(lse, lse_p, atol=1e-3, rtol=1e-3)})
+        return o, lse
+
+    def bwd(q, k, v, o, lse, do, *, causal, q_offset, **launch):
+        got = fak.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      q_offset=q_offset, **launch)
+        want = fak.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal, q_offset=q_offset)
+        err = max(grad_err(g, w) for g, w in zip(got, want))
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-4
+        seen.setdefault("flash_attention_bwd", []).append({
+            "tq": q.shape[1], "tk": k.shape[1], "causal": causal,
+            "rel_err": err, "ok": err <= tol})
+        return got
+
+    def decode(q, k, v, length, **launch):
+        got = dak.decode_attention(q, k, v, length, **launch)
+        want = dak.decode_attention_plain(q, k, v, length)
+        seen.setdefault("decode_attention", []).append({
+            "cache": k.shape[1], "length": length,
+            "max_abs_err": float_err(got, want),
+            "ok": torch.allclose(got, want, atol=2e-4, rtol=2e-4)})
+        return got
+
+    return [mock.patch.object(fa_ops, "flash_attention_fwd", fwd),
+            mock.patch.object(fa_ops, "flash_attention_bwd", bwd),
+            mock.patch.object(da_ops, "decode_attention_kernel", decode)]
+
+
+def summarize_calls(seen: dict, phase: str) -> dict:
+    """Each kernel's checked calls grouped by shape: how many, the worst
+    gap; fails the phase on any call over its gate."""
+    out = {}
+    for name, calls in seen.items():
+        bad = [c for c in calls if not c["ok"]]
+        check(not bad, f"{phase}: {name} disagrees with its plain version "
+                       f"in {len(bad)} of {len(calls)} calls, first "
+                       f"{bad[:1]}")
+        groups: dict = {}
+        for c in calls:
+            key = (f"cache {c['cache']}" if "cache" in c else
+                   f"{c['tq']}x{c['tk']} {'causal' if c['causal'] else 'full'}")
+            g = groups.setdefault(key, {"calls": 0, "max_err": 0.0})
+            g["calls"] += 1
+            g["max_err"] = max(g["max_err"], c.get("max_abs_err",
+                                                   c.get("rel_err", 0.0)))
+        out[name] = groups
+    return out
+
+
+def whisper_teacher_forced(model, frames, feed, patches=()) -> list:
+    """``prefill_cross`` on ``frames``, then the decoder fed ``feed`` (the
+    served tokens, all but the last) from position 0; each step's logits."""
+
+    b, n = frames.shape[:2]
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        state = model.init_decode_state(b, n + feed.shape[1], cross_len=n)
+        state = model.prefill_cross(state, frames)
+        steps = []
+        for i in range(feed.shape[1] - 1):
+            logits, state = model.decode_step(state, feed[:, i:i + 1], i)
+            steps.append(logits)
+    del state
+    return steps
+
+
+def phase_whisper_serve(seed: int) -> dict:
+    """The encoder-decoder served: its launch counters go to 0 just before
+    ``serve_session`` and are read just after (B3 once an encoder layer;
+    B4 twice a decoder layer and step: self-attention, and cross-attention
+    over the whole encoder cache, ``length=None``); no configuration is
+    measured; a profiled encoder pass and decode step; then the served
+    tokens teacher-forced with every B3/B4 call held against its plain
+    version, and the logits against a run through the plain versions
+    (5 %)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_session
+
+    cfg = configs.get(WHISPER_ARCH)
+    b, n, gen = WHISPER_BATCH, WHISPER_FRAMES, WHISPER_GEN
+    model, build_s, build_peak, before = build_timed(cfg, seed)
+    want = {"flash_attention_fwd": cfg.n_encoder_layers,
+            "decode_attention": 2 * cfg.n_layers * (gen - 1),
+            "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    zero_attention_counters()
+    with counted_measurements() as measured:
+        out = serve_session(cfg, batch=b, prompt_len=n, gen=gen, seed=seed,
+                            model=model)
+    launches = attention_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == want, f"whisper_serve: launches {launches}, want "
+                            f"{want}")
+    check(measured["n"] == 0, f"whisper_serve: serving measured "
+                              f"{measured['n']} configurations")
+    generated = out["generated"]
+    check(generated.shape == (b, gen) and (generated[:, 0] == 0).all()
+          and ((0 <= generated) & (generated < cfg.vocab_size)).all(),
+          f"whisper_serve: generated tokens {generated.shape}")
+
+    frames = whisper_frames(cfg, seed, b, n)
+    state = model.prefill_cross(
+        model.init_decode_state(b, n + gen, cross_len=n), frames)
+    tok = torch.zeros((b, 1), dtype=torch.int64, device="cuda")
+
+    def encode():
+        model.prefill_cross(state, frames)
+
+    def decode():
+        model.decode_step(state, tok, gen - 1)
+
+    split = {}
+    for label, fn in (("prefill_cross", encode), ("decode_step", decode)):
+        fn()
+        row = device_split(fn)
+        split[label] = {k: row[k] for k in ("wall_ms", "device_busy_ms",
+                                            "idle_share", "device_launches",
+                                            "split_ms")}
+        split[label]["top"] = row["top"][:6]
+    del state
+
+    feed = torch.as_tensor(generated, device="cuda")
+    seen: dict = {}
+    kern = whisper_teacher_forced(model, frames, feed,
+                                  checked_attention(seen))
+    plain = whisper_teacher_forced(model, frames, feed, plain_patches())
+    calls = summarize_calls(seen, "whisper_serve")
+    cross = [c for c in seen["decode_attention"] if c["cache"] == n]
+    check(len(cross) == cfg.n_layers * (gen - 1)
+          and all(c["length"] == n for c in cross),
+          f"whisper_serve: {len(cross)} cross-attention decode calls over "
+          "the whole encoder cache")
+    rel = logit_gap(kern, plain)
+    served = float(np.mean([
+        float((step[:, -1].argmax(-1) == feed[:, i + 1]).float().mean())
+        for i, step in enumerate(kern)]))
+    parity = {"tolerance": 0.05, "steps": len(rel),
+              "rel_err_max": max(rel), "rel_err_mean": float(np.mean(rel)),
+              "argmax_agreement": float(np.mean([
+                  float((a.argmax(-1) == p.argmax(-1)).float().mean())
+                  for a, p in zip(kern, plain)])),
+              "served_argmax_agreement": served,
+              "logit_abs_max": float(kern[0].abs().max()),
+              "kernel_calls": calls}
+    finite = bool(torch.isfinite(torch.stack(kern)).all())
+    shape = tuple(kern[0].shape)
+    del kern, plain
+    emit(phase="whisper_serve", ok=True, arch=WHISPER_ARCH,
+         n_encoder_layers=cfg.n_encoder_layers, n_layers=cfg.n_layers,
+         batch=b, frames=n, gen=gen,
+         params=sum(p.numel() for p in model.parameters()),
+         build_s=build_s, build_peak_gib=build_peak,
+         allocated_before_gib=before,
+         prefill_s=out["prefill_s"], decode_s=out["decode_s"],
+         tokens_per_s=out["tokens_per_s"], launches=launches,
+         measured=measured["n"], peak_gib=peak_gib, profiled=split,
+         parity=parity, first_tokens=generated[:, :8].tolist())
+    check(finite, "whisper_serve: non-finite logits")
+    check(shape == (b, 1, cfg.vocab_size),
+          f"whisper_serve: decode logits {shape}")
+    check(max(rel) <= 0.05, f"whisper_serve: relative logit error "
+                            f"{max(rel)}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_grads(model, batch, phase: str, checked: bool):
+    """``lm_grads`` of ``model`` with the kernels, every B3/B5 call then
+    held against its plain version (``checked``), or with the plain
+    versions; returns (loss, grads, the checked calls' summary)."""
+
+    if not checked:
+        loss, grads = lm_grads(model, batch, plain_attention_fwd,
+                               plain_attention_bwd)
+        return loss, grads, None
+    seen: dict = {}
+    with contextlib.ExitStack() as stack:
+        for patch in checked_attention(seen):
+            stack.enter_context(patch)
+        loss, grads = lm_grads(model, batch)
+    cfg = model.cfg
+    cross = [c for c in seen["flash_attention_bwd"]
+             if (c["tq"], c["tk"]) == (cfg.decoder_len, WHISPER_FRAMES)]
+    check(len(cross) == cfg.n_layers,
+          f"{phase}: {len(cross)} cross-attention backward calls")
+    return loss, grads, summarize_calls(seen, phase)
+
+
+def phase_whisper_train(seed: int) -> dict:
+    """The encoder-decoder trained at full size (float32 parameters and
+    AdamW, bf16 compute, each layer recomputed in the backward pass).
+
+    First its gradient parity, every B3 and B5 call of the kernel passes
+    held against its plain version on the same inputs (the
+    cross-attention's 448 queries over 1500 keys among them):
+    ``lm_train_parity``'s gates, the loss within 1 % and each parameter's
+    gradient within ``GRAD_GATE`` relative L2 of the plain versions', held
+    in float32 compute (TF32 off), where they measure the kernels.  In
+    bf16 the cross-attention's query and key gradients are rounding noise
+    at random weights (its attention is near-uniform over 1500 keys, so
+    ``dp - delta`` cancels: the plain versions' own bf16 gradients of
+    ``cross.wq``/``wk`` and ``norm_x`` lie 3-6x their norm from float32, on
+    the CPU too), so the bf16 pass holds each parameter's distance from
+    the float32 plain gradient to the larger of ``GRAD_GATE`` and 1.5x
+    the plain bf16 pass's largest distance over that parameter's leaves
+    (``leaf_gates``), and reports the direct bf16 gap.
+
+    Then its launch counters go to 0 just before ``train_loop`` and are
+    read just after: a step runs 18 attentions (6 encoder, 6 decoder self,
+    6 cross), B3 twice each under remat, each B5 program once."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    cfg = configs.get(WHISPER_ARCH)
+    b, n, steps = WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TRAIN_STEPS
+    batch = train_batch(cfg, seed, batch=b, seq=n)
+    check(batch["frame_embeds"].shape == (b, n, cfg.d_model)
+          and batch["tokens"].shape == (b, cfg.decoder_len),
+          f"whisper_train: batch {[tuple(v.shape) for v in batch.values()]}")
+
+    # float32 compute: the gates
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                          seed=seed)
+    loss32_k, grads32_k, calls32 = whisper_grads(model32, batch,
+                                                 "whisper_train", True)
+    loss32_p, grads32_p, _ = whisper_grads(model32, batch, "whisper_train",
+                                           False)
+    del model32
+    finite = all(bool(torch.isfinite(g).all()) for g in grads32_k.values())
+    gaps32 = grad_gaps(grads32_k, grads32_p)
+    loss32_rel = float((loss32_k - loss32_p).abs() / loss32_p.abs())
+    del grads32_k
+
+    # bf16 compute, as trained: each pass against the float32 plain one
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    loss_k, grads_k, calls = whisper_grads(model, batch, "whisper_train",
+                                           True)
+    loss_p, grads_p, _ = whisper_grads(model, batch, "whisper_train", False)
+    finite = finite and all(bool(torch.isfinite(g).all())
+                            for g in grads_k.values())
+    gaps = grad_gaps(grads_k, grads_p)
+    rel_k = rel_l2_leaves(grads_k, grads32_p)
+    rel_p = rel_l2_leaves(grads_p, grads32_p)
+    gates = leaf_gates(rel_p, floor=GRAD_GATE)
+    over = over_gate(rel_k, gates)
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    del grads_k, grads_p, grads32_p
+    torch.cuda.empty_cache()
+    parity = {
+        "float32": {"loss_kernels": float(loss32_k),
+                    "loss_plain": float(loss32_p),
+                    "loss_rel_err": loss32_rel,
+                    "grad_rel_l2_max": gaps32["max"],
+                    "grad_rel_l2_worst": gaps32["worst"],
+                    "grad_rel_l2_mean": gaps32["mean"],
+                    "tolerance": GRAD_GATE, "kernel_calls": calls32},
+        "bfloat16": {"loss_kernels": float(loss_k),
+                     "loss_plain": float(loss_p), "loss_rel_err": loss_rel,
+                     "grad_rel_l2_max": gaps["max"],
+                     "grad_rel_l2_worst": gaps["worst"],
+                     "grad_rel_l2_mean": gaps["mean"],
+                     "kernels_vs_float32": summary(rel_k),
+                     "plain_vs_float32": summary(rel_p),
+                     "over_gate": over, "kernel_calls": calls}}
+    emit(phase="whisper_train_parity", arch=WHISPER_ARCH, batch=b, frames=n,
+         tokens=cfg.decoder_len, remat=True, **parity)
+    check(finite and bool(torch.isfinite(loss_k)),
+          "whisper_train: non-finite loss or gradient")
+    check(loss32_rel <= 0.01 and loss_rel <= 0.01,
+          f"whisper_train: losses {parity}")
+    check(max(gaps32["max"].values()) <= GRAD_GATE,
+          f"whisper_train: float32 gradients {gaps32}")
+    check(not over, f"whisper_train: bf16 gradients over their gates {over}")
+
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    want = {"flash_attention_fwd": 2 * n_attn * steps,
+            "decode_attention": 0,
+            "flash_attention_bwd": n_attn * steps,
+            "flash_attention_bwd_dq": n_attn * steps,
+            "flash_attention_bwd_dkv": n_attn * steps}
+    zero_attention_counters()
+    out = train_loop(cfg, steps_total=steps, batch=b, seq_len=n, seed=seed,
+                     remat=True, log_every=0, model=model)
+    launches = attention_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["losses"]
+    warm = sorted(out["step_seconds"][1:])
+    warm_s = warm[len(warm) // 2]
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 20, steps))
+    split = device_split(lambda: train_step(
+        model, out["state"]["opt"], train_batch(cfg, seed, steps, b, n),
+        opt_cfg, remat=True))
+    emit(phase="whisper_train", ok=True, arch=WHISPER_ARCH, batch=b,
+         frames=n, tokens=cfg.decoder_len, steps=steps, remat=True,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         params=sum(p.numel() for p in model.parameters()), build_s=build_s,
+         losses=losses, ln_vocab=math.log(cfg.vocab_size),
+         step_seconds=out["step_seconds"], warm_step_s=warm_s,
+         decoder_tokens_per_s=b * cfg.decoder_len / warm_s,
+         frames_per_s=b * n / warm_s, launches=launches, peak_gib=peak_gib,
+         profiled_step=split)
+    check(launches == want, f"whisper_train: launches {launches}, want "
+                            f"{want}")
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"whisper_train: losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"whisper_train: first loss {losses[0]}, ln V "
+          f"{math.log(cfg.vocab_size)}")
+    del model, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -3352,6 +4080,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_restart(args.seed)
 
+    # the other decoders (A4), the VLM and the encoder-decoder (A5): B3, B4
+    # and B5 on new paths and shapes
+    new_paths = {phase: phase_decoder_serve(phase, arch, n_layers, dtype,
+                                            args.seed)
+                 for phase, arch, n_layers, dtype in DECODER_PHASES}
+    new_paths["whisper_serve"] = phase_whisper_serve(args.seed)
+    new_paths["whisper_train"] = phase_whisper_train(args.seed)
+
     # the recurrent serving paths, then their training paths on the same
     # store (RWKV-6 trains at the serving shape, where B8 is tuned)
     scans = phase_scan_parity(args.seed)
@@ -3394,14 +4130,19 @@ def main() -> int:
             "lm_requests": request_launches["flash_attention_fwd"],
             "lm_train": train_launches["flash_attention_fwd"],
             "jamba_serve": jamba_launches["flash_attention_fwd"],
-            "jamba_train": jamba_train["flash_attention_fwd"]},
+            "jamba_train": jamba_train["flash_attention_fwd"],
+            **{path: n["flash_attention_fwd"]
+               for path, n in new_paths.items()}},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
-            "jamba_train": jamba_train["flash_attention_bwd"]},
+            "jamba_train": jamba_train["flash_attention_bwd"],
+            "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "lm_requests": request_launches["decode_attention"],
-            "jamba_serve": jamba_launches["decode_attention"]},
+            "jamba_serve": jamba_launches["decode_attention"],
+            **{path: n["decode_attention"] for path, n in new_paths.items()
+               if n["decode_attention"]}},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
                      "rwkv_train": rwkv_train["wkv6_fwd"]},
         "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"]},

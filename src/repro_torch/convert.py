@@ -6,9 +6,9 @@ surrogate, (c) a ``TuningStore`` file, (d) a language model's weights and
 The store needs no converter: both packages write the same checksummed
 JSON envelope, so a file written by one loads in the other (keys differ by
 device topology by design).  The others are handed over as numpy arrays:
-``dfa_to_device``, ``bdtr_from_arrays``, ``lm_from_jax_params`` and
-``train_state_from_jax``.  Checkpoints are not shared: the reference keys
-leaves by a JAX treedef, the port by name.
+``dfa_to_device``, ``bdtr_from_arrays``, ``lm_from_jax_params`` /
+``encdec_from_jax_params`` and ``train_state_from_jax``.  Checkpoints are
+not shared: the reference keys leaves by a JAX treedef, the port by name.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import torch
 from . import resolve_device
 from .core.bdtr import BoostedTreesRegressor, Tree
 
-__all__ = ["bdtr_from_arrays", "dfa_to_device", "lm_from_jax_params",
-           "train_state_from_jax"]
+__all__ = ["bdtr_from_arrays", "dfa_to_device", "encdec_from_jax_params",
+           "lm_from_jax_params", "train_state_from_jax"]
 
 
 def dfa_to_device(table, accept, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,6 +71,39 @@ def bdtr_from_arrays(trees: Sequence[Mapping[str, Any]], base: float,
     return model
 
 
+def _put(dst: Mapping[str, Any], src: Mapping[str, Any], where: str,
+         stack: tuple[int, int] | None = None) -> None:
+    """Copy the reference leaves ``src`` into the parameters ``dst`` (nested
+    dicts alike); ``stack = (i, n)`` cuts entry ``i`` of a leading axis of
+    ``n`` from every leaf.  Every leaf must be used and match its
+    parameter's shape, or ``ValueError`` says which does not."""
+    if set(dst) != set(src):
+        raise ValueError(f"{where}: reference leaves {sorted(src)} vs "
+                         f"port parameters {sorted(dst)}")
+    for name, p in dst.items():
+        if isinstance(src[name], Mapping):      # a nested dict (MoE shared)
+            if isinstance(p, torch.nn.Parameter):
+                raise ValueError(f"{where}.{name}: the reference has a "
+                                 "dict where the port has a parameter")
+            _put(p, src[name], f"{where}.{name}", stack)
+            continue
+        if not isinstance(p, torch.nn.Parameter):
+            raise ValueError(f"{where}.{name}: the reference has a leaf "
+                             "where the port has a dict")
+        arr = np.asarray(src[name], dtype=np.float32)
+        if stack is not None:
+            i, n = stack
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{where}.{name}: {arr.shape[:1]} on the "
+                                 f"stacked axis, config has {n}")
+            arr = arr[i]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{where}.{name}: shape {arr.shape} vs "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(arr))
+
+
 def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
     """The port's ``LM`` holding the reference's weights.
 
@@ -91,35 +124,8 @@ def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
     model = LM(cfg, device="meta").to_empty(device=dev)
     period = len(cfg.group_pattern)
 
-    def put(dst: Mapping[str, Any], src: Mapping[str, Any], where: str,
-            group: int | None = None) -> None:
-        if set(dst) != set(src):
-            raise ValueError(f"{where}: reference leaves {sorted(src)} vs "
-                             f"port parameters {sorted(dst)}")
-        for name, p in dst.items():
-            if isinstance(src[name], Mapping):      # a nested dict (MoE shared)
-                if isinstance(p, torch.nn.Parameter):
-                    raise ValueError(f"{where}.{name}: the reference has a "
-                                     "dict where the port has a parameter")
-                put(p, src[name], f"{where}.{name}", group)
-                continue
-            if not isinstance(p, torch.nn.Parameter):
-                raise ValueError(f"{where}.{name}: the reference has a leaf "
-                                 "where the port has a dict")
-            arr = np.asarray(src[name], dtype=np.float32)
-            if group is not None:
-                if arr.shape[:1] != (cfg.n_groups,):
-                    raise ValueError(f"{where}.{name}: {arr.shape[:1]} "
-                                     f"groups, config has {cfg.n_groups}")
-                arr = arr[group]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{where}.{name}: shape {arr.shape} vs "
-                                 f"{tuple(p.shape)}")
-            with torch.no_grad():
-                p.copy_(torch.tensor(arr))
-
-    put(model.embed, params["embed"], "embed")
-    put(model.final_norm, params["final_norm"], "final_norm")
+    _put(model.embed, params["embed"], "embed")
+    _put(model.final_norm, params["final_norm"], "final_norm")
     for i, layer in enumerate(model.layers):
         group, slot = divmod(i, period)
         src = params["layers"][f"slot{slot}"]
@@ -127,7 +133,36 @@ def lm_from_jax_params(params: Mapping[str, Any], cfg, device=None):
             raise ValueError(f"layers.slot{slot}: {sorted(src)} vs "
                              f"{sorted(layer)}")
         for part, dst in layer.items():
-            put(dst, src[part], f"layers.slot{slot}.{part}", group)
+            _put(dst, src[part], f"layers.slot{slot}.{part}",
+                 (group, cfg.n_groups))
+    return model
+
+
+def encdec_from_jax_params(params: Mapping[str, Any], cfg, device=None):
+    """The port's ``EncDec`` holding the reference's weights.
+
+    ``params`` is the reference's ``EncDec(cfg).init(key)`` tree with numpy
+    leaves: ``embed``, ``enc_norm``, ``final_norm``, and ``encoder`` /
+    ``decoder``, each layer part's leaves stacked on a leading layer axis
+    (``jax.vmap`` of the layer init).  Encoder layer ``i`` of the port
+    takes entry ``i`` of ``params["encoder"]``, decoder layer ``i`` entry
+    ``i`` of ``params["decoder"]``.  Every leaf must be used and match its
+    parameter's shape, or ``ValueError`` says which does not.
+    """
+    from .models import EncDec
+
+    dev = resolve_device(device)
+    model = EncDec(cfg, device="meta").to_empty(device=dev)
+    for part in ("embed", "enc_norm", "final_norm"):
+        _put(getattr(model, part), params[part], part)
+    for stack in ("encoder", "decoder"):
+        layers = getattr(model, stack)
+        src = params[stack]
+        for i, layer in enumerate(layers):
+            if set(src) != set(layer):
+                raise ValueError(f"{stack}: {sorted(src)} vs {sorted(layer)}")
+            for part, dst in layer.items():
+                _put(dst, src[part], f"{stack}.{part}", (i, len(layers)))
     return model
 
 
@@ -135,26 +170,32 @@ def _reference_leaf(tree: Mapping[str, Any], name: str, cfg) -> Any:
     """The leaf of a reference tree shaped like its parameters (the
     parameters, or an AdamW moment tree) for the port's parameter
     ``name``: layer ``g * len(group_pattern) + i`` is group ``g`` of
-    ``tree["layers"]["slot<i>"]``.  An int8 moment's leaf is the dict of
-    its codes and scales, each cut to the group."""
+    ``tree["layers"]["slot<i>"]``, and an encoder-decoder's ``encoder.<i>``
+    / ``decoder.<i>`` entry ``i`` of ``tree["encoder"]`` /
+    ``tree["decoder"]``.  An int8 moment's leaf is the dict of its codes
+    and scales, each cut to the layer."""
     parts = name.split(".")
-    group = None
+    index = None
     node = tree
     if parts[0] == "layers":
-        group, slot = divmod(int(parts[1]), len(cfg.group_pattern))
+        index, slot = divmod(int(parts[1]), len(cfg.group_pattern))
         node, parts = tree["layers"][f"slot{slot}"], parts[2:]
+    elif parts[0] in ("encoder", "decoder"):
+        index = int(parts[1])
+        node, parts = tree[parts[0]], parts[2:]
     for key in parts:
         node = node[key]
-    if group is None:
+    if index is None:
         return node
     if isinstance(node, Mapping):
-        return {k: np.asarray(v)[group] for k, v in node.items()}
-    return np.asarray(node)[group]
+        return {k: np.asarray(v)[index] for k, v in node.items()}
+    return np.asarray(node)[index]
 
 
 def train_state_from_jax(state: Mapping[str, Any], cfg, device=None):
-    """The port's ``(LM, opt_state)`` holding the reference's training
-    state ``{"params", "opt", "step"}`` with numpy leaves.
+    """The port's ``(model, opt_state)`` holding the reference's training
+    state ``{"params", "opt", "step"}`` with numpy leaves: an ``EncDec``
+    for an encoder-decoder config, else an ``LM``.
 
     The moments are float32 arrays or, for int8 moments, the reference's
     ``{"q", "scale"[, "minv"]}`` dicts; each is keyed here by the port's
@@ -162,7 +203,8 @@ def train_state_from_jax(state: Mapping[str, Any], cfg, device=None):
     them.  With the same batch both packages then compute the same step.
     """
     dev = resolve_device(device)
-    model = lm_from_jax_params(state["params"], cfg, dev)
+    convert = encdec_from_jax_params if cfg.encdec else lm_from_jax_params
+    model = convert(state["params"], cfg, dev)
     opt = {"m": {}, "v": {},
            "count": torch.tensor(int(np.asarray(state["opt"]["count"])),
                                  dtype=torch.int32)}

@@ -16,7 +16,8 @@ k/v heads; autograd sums them back through the caller's repeat.
 
 Each build has its own launch points.  The bfloat16 forward's
 (``DEFAULTS``) is the tuning space's default and what the store's records
-replace; the float32 forward, the parity path, keeps ``F32_DEFAULTS``
+replace, fitted to the head size (``fit_launch``: above hd 128 a warp
+takes 16 query rows, not 32, so nemotron-4's hd 192 runs 256 threads); the float32 forward, the parity path, keeps ``F32_DEFAULTS``
 (the space is the bfloat16 build's, and a float32 record is never
 written).  The backward's are ``BWD_DEFAULTS`` (bfloat16) and
 ``BWD_F32_DEFAULTS``, as ``fit_bwd_launch`` cuts them to the card's
@@ -31,8 +32,9 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_launch_params
-from .kernel import (BWD_LAUNCH, FWD_LAUNCH, fit_bwd_launch,
-                     flash_attention_bwd, flash_attention_fwd)
+from .kernel import (BWD_LAUNCH, FWD_LAUNCH, MAX_HD_TWO_TILES,
+                     MMA_MAX_THREADS, fit_bwd_launch, flash_attention_bwd,
+                     flash_attention_fwd)
 
 DEFAULTS = dict(FWD_LAUNCH[torch.bfloat16])
 F32_DEFAULTS = dict(FWD_LAUNCH[torch.float32])
@@ -40,6 +42,22 @@ BWD_DEFAULTS = dict(BWD_LAUNCH[torch.bfloat16])
 # 32 query rows: the dk/dv program's float32 tiles at hd 128 then take
 # 183 KB of shared memory (64 x 64 would take all 227 KB a block can have)
 BWD_F32_DEFAULTS = dict(BWD_LAUNCH[torch.float32])
+
+
+def fit_launch(launch: dict, dtype: torch.dtype, hd: int) -> dict:
+    """``launch`` made buildable at ``hd``: the bfloat16 forward gives a
+    warp two tiles of 16 query rows (``block_threads == block_q``) only up
+    to hd 128, whose accumulators then fill the registers; above, a warp
+    takes one tile, so the threads double (the rows halve first where that
+    would pass ``MMA_MAX_THREADS``).  Other launches are returned as they
+    are."""
+    p = dict(launch)
+    if (dtype == torch.bfloat16 and hd > MAX_HD_TWO_TILES
+            and p["block_threads"] == p["block_q"]):
+        while 2 * p["block_q"] > MMA_MAX_THREADS:
+            p["block_q"] //= 2
+        p["block_threads"] = 2 * p["block_q"]
+    return p
 
 
 class FlashAttention(torch.autograd.Function):
@@ -89,6 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         overrides={"block_q": block_q, "block_k": block_k,
                    "block_threads": block_threads, "stages": stages},
         tuned=tuned, device=q.device)
+    p = fit_launch(p, q.dtype, hd)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, bool(causal), int(q_offset), p)
     out, _ = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,

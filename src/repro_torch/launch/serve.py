@@ -82,7 +82,7 @@ import torch
 from .. import configs, resolve_device
 from ..core.hetero import DeviceGroup
 from ..core.space import ConfigSpace, Param
-from ..models import LM, build_model
+from ..models import LM, EncDec, build_model
 from ..obs import get_logger
 
 __all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
@@ -99,11 +99,17 @@ def _sync(dev: torch.device) -> None:
 
 @torch.inference_mode()
 def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
-                  seed: int = 0, greedy: bool = True, model: LM | None = None,
-                  device=None) -> dict:
+                  seed: int = 0, greedy: bool = True,
+                  model: LM | EncDec | None = None, device=None) -> dict:
     """Prefill a random prompt batch, then decode ``gen`` tokens.
 
-    ``model`` takes an already-built ``LM`` (its device is used); otherwise
+    An encoder-decoder (``cfg.encdec``) encodes ``prompt_len`` random
+    frames instead (drawn after the tokens from the same generator, as the
+    reference draws them), fills its cross-attention caches, and decodes
+    from position 0 starting with token 0; a VLM is served on its text
+    alone, as the reference's ``serve_session`` serves it.
+
+    ``model`` takes an already-built model (its device is used); otherwise
     one is built from ``seed`` on ``device`` (``None`` = the card) and cast
     for serving.  Times are host clock readings taken after a device
     synchronize, so they cover the device's work.  Runs under
@@ -117,6 +123,7 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
     dev = model.device
+    max_len = prompt_len + gen
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (batch, prompt_len)),
@@ -132,15 +139,25 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = model.prefill(tokens, max_len=prompt_len + gen)
-    last = pick(logits)
+    if cfg.encdec:
+        frames = torch.as_tensor(
+            (rng.standard_normal((batch, prompt_len, cfg.d_model))
+             .astype(np.float32) * np.float32(0.02)), device=dev)
+        state = model.init_decode_state(batch, max_len, cross_len=prompt_len)
+        state = model.prefill_cross(state, frames)
+        start_pos = 0
+        last = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    else:
+        logits, state = model.prefill(tokens, max_len=max_len)
+        start_pos = prompt_len
+        last = pick(logits)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     out = [last]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, state = model.decode_step(state, last, prompt_len + i)
+        logits, state = model.decode_step(state, last, start_pos + i)
         last = pick(logits)
         out.append(last)
     generated = torch.cat(out, dim=1)
@@ -487,6 +504,9 @@ def serve_requests(cfg, *, groups: list[DeviceGroup] | None = None,
     if groups is None:
         groups = [DeviceGroup("all", [resolve_device(None)])]
     if step_builder is None:
+        if cfg.encdec:
+            raise ValueError("serve_requests serves decoder-only models "
+                             "(its step prefills a token prompt)")
         step_builder = _memoize_per_group(_stream_step_builder(
             model, prompt_len=prompt_len, gen=gen, seed=seed, cfg=cfg))
     # anchor arrivals on the engine's wall clock (the sim rig's

@@ -5,9 +5,10 @@ The port of the body of the reference's ``make_train_step``
 (``launch/steps.py``).  The rest of that module (``StepBundle``, the
 sharding trees, ``make_prefill_step``, ``make_serve_step``) is ``jit`` and
 sharding plumbing with no counterpart on one card: PyTorch runs eagerly,
-``LM.prefill``/``LM.decode_step`` are the serving steps, and the step below
-updates the parameters and the optimizer state in place where the
-reference donates and returns them.
+``LM.prefill``/``LM.decode_step`` (an encoder-decoder's
+``EncDec.prefill_cross``/``decode_step``) are the serving steps, and the
+step below takes either model and updates the parameters and the
+optimizer state in place where the reference donates and returns them.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from ..models import LM
+from ..models import LM, EncDec
 from ..optim.adamw import AdamWConfig, apply_updates
 
 __all__ = ["train_step"]
@@ -30,8 +31,9 @@ def _split(batch: dict, n: int) -> list[dict]:
              for k, v in batch.items()} for i in range(n)]
 
 
-def train_step(model: LM, opt_state: dict, batch: dict, opt_cfg: AdamWConfig,
-               *, microbatches: int = 1, remat: bool | str = False,
+def train_step(model: LM | EncDec, opt_state: dict, batch: dict,
+               opt_cfg: AdamWConfig, *, microbatches: int = 1,
+               remat: bool | str = False,
                grad_compression: str = "none") -> dict:
     """One optimizer step on ``batch`` (tensors on the model's device).
 

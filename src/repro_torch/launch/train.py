@@ -5,7 +5,9 @@
         --smoke --steps 3 --device cpu
 
 The port of the reference's ``launch/train.py`` on one card, for every
-decoder-only family (dense, MoE, RWKV-6, Jamba).  Fault
+family: the decoder-only ones (dense, MoE, RWKV-6, Jamba, the VLM with its
+patch embeddings) and the encoder-decoder (frame embeddings into the
+encoder, tokens of ``decoder_len`` into the decoder).  Fault
 tolerance is the reference's: checkpoints every ``ckpt_every`` steps
 (async, atomic), auto-resume from the latest complete checkpoint, and a
 data pipeline that regenerates its stream from the step counter, so a run
@@ -28,7 +30,7 @@ import torch
 from .. import configs, resolve_device
 from ..ckpt.manager import CheckpointManager
 from ..data.pipeline import DataConfig, SyntheticPipeline
-from ..models import LM, build_model
+from ..models import LM, EncDec, build_model
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..optim.schedule import warmup_cosine
 from .steps import train_step
@@ -45,8 +47,8 @@ def make_data_cfg(cfg, batch: int, seq_len: int, seed: int = 0) -> DataConfig:
         n_patches=cfg.n_patches, decoder_len=cfg.decoder_len)
 
 
-def _restore(mgr: CheckpointManager, model: LM, opt_cfg: AdamWConfig,
-             dev: torch.device) -> tuple[int, dict]:
+def _restore(mgr: CheckpointManager, model: LM | EncDec,
+             opt_cfg: AdamWConfig, dev: torch.device) -> tuple[int, dict]:
     """Load the latest checkpoint into ``model``; returns (step, opt
     state).  Raises ``ValueError``/``KeyError`` when it does not fit."""
     step, state, _ = mgr.restore(device=dev)
@@ -80,7 +82,7 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                opt_cfg: AdamWConfig | None = None, log_every: int = 10,
                seed: int = 0, fail_at_step: int | None = None,
                remat: bool | str = False, microbatches: int = 1,
-               model: LM | None = None, device=None) -> dict:
+               model: LM | EncDec | None = None, device=None) -> dict:
     """Train ``cfg`` for ``steps_total`` steps; returns ``{"losses",
     "resumed_from", "final_loss", "state", "step_seconds"}``.
 

@@ -7,9 +7,16 @@ has one: the CUDA kernels of ``repro_torch.kernels``, whose plain PyTorch
 versions run for tensors on the CPU.  ``attn_impl`` keeps its field;
 ``"auto"`` and ``"pallas"`` both mean the kernels and ``"xla"`` is refused.
 
-Not ported yet: the sequence-sharded decode branch (``dist.seq_decode``)
-and cross-attention (encoder-decoder models).  The reference's
-``constrain`` sharding hints have no effect on one card and are dropped.
+Cross-attention (the encoder-decoder's decoder) takes its keys and values
+from the encoder stream, with no RoPE on either side: ``full_attention``
+with ``kv_states`` runs the flash-attention kernel unmasked over
+``Tq != Tk``, and ``decode_attention(cross=True)`` reads the precomputed
+encoder cache (``precompute_cross_kv``) whole through the decode kernel,
+writing nothing.
+
+Not ported yet: the sequence-sharded decode branch (``dist.seq_decode``).
+The reference's ``constrain`` sharding hints have no effect on one card
+and are dropped.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from .config import ArchConfig
 from .layers import apply_rope, dense_init, param, torch_dtype
 
 __all__ = ["NEG_INF", "decode_attention", "full_attention",
-           "init_attention", "init_kv_cache"]
+           "init_attention", "init_kv_cache", "precompute_cross_kv"]
 
 NEG_INF = -1e30
 
@@ -37,7 +44,10 @@ def _check_impl(cfg: ArchConfig) -> None:
             "decode_attention_plain) run for tensors on the CPU")
 
 
-def init_attention(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
+def init_attention(gen, cfg: ArchConfig, device,
+                   cross: bool = False) -> nn.ParameterDict:
+    """q/k/v/o projections, and q/k/v biases where ``cfg.qkv_bias`` asks
+    for them, except in a ``cross`` block."""
     d, hd, dt = cfg.d_model, cfg.head_dim, cfg.param_dtype
     p = nn.ParameterDict({
         "wq": param(dense_init(gen, (d, cfg.n_heads, hd), dt, device)),
@@ -46,7 +56,7 @@ def init_attention(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
         "wo": param(dense_init(gen, (cfg.n_heads, hd, d), dt, device,
                                in_axis=0)),
     })
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         pdt = torch_dtype(dt)
         for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                         ("bv", cfg.n_kv_heads)):
@@ -102,13 +112,24 @@ def _out_proj(p, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, causal: bool = True,
+                   kv_states: torch.Tensor | None = None,
+                   kv_positions: torch.Tensor | None = None,
                    return_kv: bool = False):
-    """Training / prefill self-attention over full sequences through the
-    flash-attention kernel.  ``return_kv`` also returns the (pre-repeat)
+    """Training / prefill attention over full sequences through the
+    flash-attention kernel.
+
+    ``kv_states`` switches to cross-attention: the keys and values come
+    from that stream (B, Tk, D), and neither side gets RoPE.
+    ``kv_positions`` are the keys' RoPE positions in self-attention
+    (default ``positions``).  ``return_kv`` also returns the (pre-repeat)
     keys/values for cache fills."""
     _check_impl(cfg)
-    q = _project_q(p, x, cfg, positions)
-    k, v = _project_kv(p, x, cfg, positions)
+    cross = kv_states is not None
+    q = _project_q(p, x, cfg, None if cross else positions)
+    if kv_positions is None:
+        kv_positions = positions
+    k, v = _project_kv(p, kv_states if cross else x, cfg,
+                       None if cross else kv_positions)
     # tuned=None: resolves the cached best launch params when kernel
     # tuning is enabled (repro_torch.tune.kernels.configure; serve.py's
     # --tuned-kernels), hardcoded defaults otherwise
@@ -132,21 +153,33 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device,
 
 
 def decode_attention(p, x: torch.Tensor, cache: dict, cfg: ArchConfig, *,
-                     pos: int) -> tuple[torch.Tensor, dict]:
+                     pos: int, cross: bool = False
+                     ) -> tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, D); cache k/v: (B, S, KV, hd).
 
     ``pos`` is the current position: the new KV is written into the cache
     at ``pos`` in place (the reference returns an updated copy and donates
-    the old one) and attention spans positions <= pos.
+    the old one) and attention spans positions <= pos.  With ``cross`` the
+    cache holds the encoder's keys and values (``precompute_cross_kv``):
+    nothing is written, no RoPE is applied, and every position is read.
     """
     _check_impl(cfg)
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, device=x.device)
+    positions = None if cross else torch.full((b, 1), pos, device=x.device)
     q = _project_q(p, x, cfg, positions)
-    k_new, v_new = _project_kv(p, x, cfg, positions)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
+    if not cross:
+        k_new, v_new = _project_kv(p, x, cfg, positions)
+        cache["k"][:, pos] = k_new[:, 0]
+        cache["v"][:, pos] = v_new[:, 0]
     out = da_ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                  length=pos + 1, tuned=None)
+                                  length=None if cross else pos + 1,
+                                  tuned=None)
     dt = torch_dtype(cfg.compute_dtype)
     return _out_proj(p, out.to(dt)[:, None], cfg), cache
+
+
+def precompute_cross_kv(p, enc: torch.Tensor, cfg: ArchConfig) -> dict:
+    """The cross-attention cache of one decoder layer: the encoder
+    states' keys and values (B, S_enc, KV, hd), without RoPE."""
+    k, v = _project_kv(p, enc, cfg, None)
+    return {"k": k, "v": v}

@@ -27,7 +27,7 @@ from .config import ArchConfig
 __all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
            "embed_init", "embed_tokens", "group_norm", "init_embed",
            "init_mlp", "init_norm", "param", "rand_init", "rope_frequencies",
-           "torch_dtype"]
+           "sinusoidal_positions", "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -140,6 +140,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """(n_pos, d_model) float32: the sines of ``pos / 10000^(2i/d)`` in
+    the first half, their cosines in the second (the encoder-decoder's
+    positions on both streams)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / (10_000.0 ** (2 * dim / d_model))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
 # -- MLPs --------------------------------------------------------------------

@@ -14,8 +14,10 @@ nothing saved) and ``chunked_xent``, which never holds the full
 runs under ``torch.inference_mode()``: the parameters require grad, and
 the KV caches are written in place.
 
-Serving and training run every mixer kind and the MoE channel.  Not
-ported yet: the encoder-decoder family and the VLM patch frontend.
+Serving and training run every mixer kind and the MoE channel.  The VLM
+frontend (``frontend="stub_patches"``) prepends precomputed patch
+embeddings to the token embeddings and masks them out of the loss; the
+encoder-decoder family is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from .config import ArchConfig
 from .layers import (apply_norm, embed_tokens, init_embed, init_norm,
                      torch_dtype)
 
-__all__ = ["FLOAT32_LEAVES", "LM", "chunked_xent", "missing_layer",
-           "serving_dtype"]
+__all__ = ["FLOAT32_LEAVES", "FRONTENDS", "LM", "POSITIONS", "check_remat",
+           "chunked_xent", "missing_layer", "serving_dtype"]
 
 # leaves the reference reads in float32 whatever the compute dtype: the
 # mamba scan's A_log, D, dt_bias and dt_proj (models/mamba.py _ssm_inputs)
@@ -68,18 +70,33 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor,
     return loss_sum / mask.sum().clamp_min(1.0)
 
 
+# the frontends and position kinds the port runs: "stub_frames" and
+# "sinusoidal" are the encoder-decoder's (models/encdec.py)
+FRONTENDS = ("tokens", "stub_patches", "stub_frames")
+POSITIONS = ("rope", "none", "sinusoidal")
+
+
 def missing_layer(cfg: ArchConfig) -> str | None:
-    """The first part of ``cfg`` the port cannot run yet, or ``None``."""
-    if cfg.encdec:
-        return "the encoder-decoder model (models/encdec.py)"
-    if cfg.frontend != "tokens":
-        return f"the {cfg.frontend!r} frontend (VLM patch embeddings)"
+    """The first part of ``cfg`` the port cannot run, or ``None``."""
+    if cfg.frontend not in FRONTENDS:
+        return f"the {cfg.frontend!r} frontend"
     for kind in cfg.layer_kinds:
         if kind not in MIXERS:
             return f"the {kind!r} mixer"
-    if cfg.positions not in ("rope", "none"):
+    if cfg.positions not in POSITIONS:
         return f"{cfg.positions!r} positions"
     return None
+
+
+def check_remat(remat: bool | str) -> None:
+    """``remat`` True or ``"full"`` recomputes each layer from its input;
+    the reference's ``"save_dots"`` policy is not ported."""
+    if remat == "save_dots":
+        raise NotImplementedError(
+            "remat='save_dots' (the reference's save_only_these_names "
+            "policy) is not ported; use remat=True")
+    if remat not in (False, True, "full"):
+        raise ValueError(f"remat={remat!r}")
 
 
 def serving_dtype(name: str, cfg: ArchConfig) -> torch.dtype:
@@ -158,12 +175,7 @@ class LM(nn.Module):
         pass from its input (``torch.utils.checkpoint``, nothing saved
         inside the layer: the reference's default policy).
         """
-        if remat == "save_dots":
-            raise NotImplementedError(
-                "remat='save_dots' (the reference's save_only_these_names "
-                "policy) is not ported; use remat=True")
-        if remat not in (False, True, "full"):
-            raise ValueError(f"remat={remat!r}")
+        check_remat(remat)
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, kind, is_moe in zip(self.layers, self.kinds,
@@ -178,7 +190,10 @@ class LM(nn.Module):
 
     def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor, torch.Tensor]:
-        """Returns (x, positions, targets, loss_mask)."""
+        """Returns (x, positions, targets, loss_mask).  A VLM's
+        ``patch_embeds`` (B, P, D), where the batch has them, are
+        prepended to the token embeddings, with target 0 and loss mask 0
+        over the patches; without them the VLM runs on its text alone."""
         tokens = batch["tokens"]
         x = embed_tokens(self.embed, tokens, self.cfg)
         targets = batch["labels"]
@@ -186,6 +201,15 @@ class LM(nn.Module):
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=targets.device)
+        patches = batch.get("patch_embeds")
+        if self.cfg.frontend == "stub_patches" and patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+            n = patches.shape[:2]
+            targets = torch.cat([torch.zeros(n, dtype=targets.dtype,
+                                             device=targets.device),
+                                 targets], dim=1)
+            mask = torch.cat([torch.zeros(n, dtype=mask.dtype,
+                                          device=mask.device), mask], dim=1)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[:2])
         return x, positions, targets, mask
@@ -205,17 +229,21 @@ class LM(nn.Module):
 
     # -- prefill ---------------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, max_len: int = 0
+    def prefill(self, tokens: torch.Tensor, *, max_len: int = 0,
+                patch_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, list[dict]]:
-        """Process a full prompt (B, S); returns (last-position logits
-        (B, 1, V) float32, decode state).  Attention layers' KV caches are
-        padded to ``max_len`` positions (at least the prompt length); the
-        recurrent layers' states are their prefill's."""
+        """Process a full prompt (B, S), after a VLM's ``patch_embeds``
+        (B, P, D) where given; returns (last-position logits (B, 1, V)
+        float32, decode state).  Attention layers' KV caches are padded to
+        ``max_len`` positions (at least the prompt's P + S); the recurrent
+        layers' states are their prefill's."""
         cfg = self.cfg
-        b, s = tokens.shape
+        batch = {"tokens": tokens, "labels": torch.zeros_like(tokens)}
+        if patch_embeds is not None:
+            batch["patch_embeds"] = patch_embeds
+        x, positions, _, _ = self.embed_inputs(batch)
+        b, s = x.shape[:2]
         max_len = max(max_len, s)
-        x = embed_tokens(self.embed, tokens, cfg)
-        positions = torch.arange(s, device=x.device).expand(b, s)
         states = []
         for layer, kind, is_moe in zip(self.layers, self.kinds,
                                        self.moe_mask):

@@ -202,6 +202,27 @@ def test_flash_defaults_take_the_serving_and_training_shapes(hd):
         fa_kernel.flash_attention_bwd(q, q, q, o, lse, q, **b)
 
 
+@pytest.mark.parametrize("hd", [32, 64, 96, 128, 192])
+def test_flash_wrapper_fits_its_defaults_to_the_head_dim(hd):
+    """The wrapper's bfloat16 defaults pass the build's checks at every
+    head_dim the repo's configs carry (at hd 192, nemotron-4's, a warp
+    takes 16 rows: 256 threads for 128 rows), and the call gives its plain
+    version's output; below hd 192 the defaults are kept."""
+    fit = fa_ops.fit_launch(fa_ops.DEFAULTS, torch.bfloat16, hd)
+    if hd <= fa_kernel.MAX_HD_TWO_TILES:
+        assert fit == fa_ops.DEFAULTS
+    else:
+        assert fit == {**fa_ops.DEFAULTS, "block_threads": 256}
+    assert fa_ops.fit_launch(fa_ops.F32_DEFAULTS, torch.float32,
+                             hd) == fa_ops.F32_DEFAULTS
+    gen = torch.Generator().manual_seed(hd)
+    q, k, v = (torch.randn((2, 37, 3, hd), generator=gen).bfloat16()
+               for _ in range(3))
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    want, _ = fa_kernel.flash_attention_fwd_plain(q, k, v, causal=True)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("hd", [64, 96, 128])
 def test_flash_space_keeps_64_points(hd):
     """The bfloat16 build's space at the prefill shape holds at least 64

@@ -18,10 +18,11 @@ import torch
 
 from repro import configs as ref_configs
 from repro.models import LM as RefLM
+from repro.models import build_model as ref_build_model
 from repro_torch import configs
 from repro_torch.convert import lm_from_jax_params
 from repro_torch.launch.serve import serve_session
-from repro_torch.models import build_model
+from repro_torch.models import EncDec, build_model, missing_layer
 from repro_torch.models.attention import full_attention
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -141,10 +142,30 @@ def test_cast_for_serving_keeps_the_norms_in_param_dtype():
         assert p.dtype == want, name
 
 
-@pytest.mark.parametrize("name", ["internvl2-76b", "whisper-base"])
-def test_unported_families_name_the_missing_layer(name):
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
+def test_every_config_builds_with_the_reference_trees_parameter_count(name):
+    """Every config builds at full size on ``meta`` (``missing_layer``
+    refuses none), with as many parameters as the reference's tree
+    (``jax.eval_shape`` of its ``build_model(cfg).init``)."""
+    cfg = configs.get(name)
+    assert missing_layer(cfg) is None
+    model = build_model(cfg, device="meta")
+    assert isinstance(model, EncDec) == cfg.encdec
+    shapes = jax.eval_shape(ref_build_model(ref_configs.get(name)).init,
+                            jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+
+
+@pytest.mark.parametrize("field, value, named", [
+    ("layer_kinds", ("attn", "hyena"), "'hyena' mixer"),
+    ("frontend", "stub_video", "'stub_video' frontend"),
+    ("positions", "alibi", "'alibi' positions")])
+def test_an_unknown_layer_is_still_named(field, value, named):
+    cfg = dataclasses.replace(configs.get(ARCH).smoke(), **{field: value})
+    assert named in missing_layer(cfg)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(configs.get(name).smoke(), device="meta")
+        build_model(cfg, device="meta")
 
 
 # leaves of the reference's parameter tree that ArchConfig.param_breakdown

@@ -271,9 +271,12 @@ def logits_runs(arch: str, dtype: str, b=2, t=12, n_decode=4):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "phi4-mini-3.8b",
+                                  "phi3-mini-3.8b", "nemotron-4-340b",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_prefill_and_decode_logits_match_reference(arch):
-    """float32, 1e-4, through the whole model."""
+    """float32, 1e-4, through the whole model (the dense decoders phi4-mini,
+    phi3-mini and nemotron-4 and the MoE phi3.5-moe too)."""
     for step, got, want in logits_runs(arch, "float32"):
         close(got, want, MODEL_TOL["float32"], step)
 

@@ -41,7 +41,10 @@ ROOT = Path(__file__).resolve().parents[1]
 # ~1e-5 of each leaf's largest gradient at the smoke size
 TOL = 1e-4
 B, T = 2, 16
-VARIANTS = ["rwkv6-1.6b", "jamba-v0.1-52b", "jamba-no-experts"]
+# the recurrent families, and the other decoder configs' loss and gradients
+VARIANTS = ["rwkv6-1.6b", "jamba-v0.1-52b", "jamba-no-experts",
+            "phi4-mini-3.8b", "phi3-mini-3.8b", "nemotron-4-340b",
+            "phi3.5-moe-42b-a6.6b"]
 
 
 def cfgs(variant: str):
