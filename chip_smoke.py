@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's sixteen paths once each, at full width, through the
+drives the port's eighteen paths once each, at full width, through the
 entry points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -107,7 +107,32 @@ entry points a user would call:
   without experts (every channel the dense SwiGLU: with its experts the
   period's 13.3e9 parameters need 213 GB of training state), batch 2 x
   2048: seven Mamba layers through the selective-scan kernel and its
-  backward kernel, the attention layer through the flash-attention kernels.
+  backward kernel, the attention layer through the flash-attention kernels;
+* distribution over ranks (``repro_torch.dist``): processes spawned from
+  this script after the build share the card (gloo through a file
+  rendezvous; each loads the built libraries and builds nothing).  Phase
+  ``seq_decode_parity``: B4 over each rank's stripe of a 32768-position
+  cache at Qwen2.5-3B's decode heads (B 8), two ranks with
+  ``kv_shard="seq"`` and a (2, 2) mesh of four with ``"batch_seq"``, at
+  positions 37 (the second stripe empty: no launch), 16383, 16384 and
+  32767, bf16 and float32, the combined output against B4 and the plain
+  version over the whole cache within 2e-4, each stripe's lse against the
+  plain lse within 1e-4, the stripes against the whole updated cache, B4
+  launches exact; ``compressed_allreduce``: 2^20 float32 a rank, int8
+  within max|x| / 100 of the mean and top-k equal to the mean of the
+  decompressed contributions, with the wire bytes of ``dp_train``'s
+  gradients; ``seq_serve``: two ranks serve Qwen2.5-3B at full size with
+  each attention cache in two stripes of 8208 (batch 1, a 16384-token
+  prompt prefilled whole on both, 32 greedy tokens), the same tokens on
+  both, B3 36 and B4 36 x 31 a rank, no configuration measured, a decode
+  step profiled for the combine's share, and on rank 0 the logits within
+  5 % of a one-process run with the whole cache; ``dp_train``: Qwen2.5-3B
+  cut to 4 of its 36 layers at full width trained data-parallel (4 x 2048
+  a step, 3 steps, remat) on two ranks against one rank of the same
+  global batch in float32 with TF32 off (losses within 2e-4), then in bf16
+  with and without int8 gradient compression (final losses within 0.1),
+  B3/B5 launches exact on each rank.  Two ranks time-slice one card: their
+  times say nothing about two cards.
 
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes (the DNA kernels
@@ -299,8 +324,13 @@ def phase_env() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    # two ranks on one card (the dist/ phases) need compute mode Default
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
-         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+         compute_mode=mode)
     return smi
 
 
@@ -1133,6 +1163,23 @@ def phase_attention_parity(seed: int) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "gbytes_per_s": n_bytes / ms / 1e6})
+    # the logsumexp output (the sequence-sharded decode's combine): the
+    # same output bits, lse within 1e-4 of the plain version's, its time
+    # beside the output-only call's
+    length = s_len
+    got, lse = dak.decode_attention(q, k, v, length, **DA, return_lse=True)
+    want, lse_p = dak.decode_attention_plain(q, k, v, length,
+                                             return_lse=True)
+    lse_case = {"length": length,
+                "same_out_bits": torch.equal(
+                    got, dak.decode_attention(q, k, v, length, **DA)),
+                "lse_max_abs_err": float_err(lse, lse_p),
+                "lse_ms": device_ms(lambda: dak.decode_attention(
+                    q, k, v, length, **DA, return_lse=True), 50)}
+    check(lse_case["same_out_bits"]
+          and torch.allclose(lse, lse_p, atol=1e-4, rtol=1e-4),
+          f"decode_attention return_lse: {lse_case}")
+    cases[1]["lse"] = lse_case
     full = cases[1]
     decode = {"name": "decode_attention", "ok": all(c["ok"] for c in cases),
               "route": "cuda",
@@ -1141,17 +1188,24 @@ def phase_attention_parity(seed: int) -> list[dict]:
               "launches": 0,
               "max_abs_err": max(c["max_abs_err"] for c in cases),
               **{key: full[key] for key in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}}
+                                            "bound_by", "library_ms")},
+              "lse_ms": lse_case["lse_ms"]}
     del q, k, v
 
     # float32 cache at a smaller shape, gate 2e-4
     q32 = randn(2, 2, 4, 64, dtype=torch.float32)
     k32, v32 = (randn(2, 1000, 2, 64, dtype=torch.float32) for _ in range(2))
-    got = dak.decode_attention(q32, k32, v32, 777, **DA)
-    want = dak.decode_attention_plain(q32, k32, v32, 777)
+    got, lse = dak.decode_attention(q32, k32, v32, 777, **DA,
+                                    return_lse=True)
+    want, lse_p = dak.decode_attention_plain(q32, k32, v32, 777,
+                                             return_lse=True)
     d32_err = float_err(got, want)
-    check(torch.allclose(got, want, atol=2e-4, rtol=2e-4),
-          f"decode_attention float32: max abs err {d32_err}")
+    check(torch.allclose(got, want, atol=2e-4, rtol=2e-4)
+          and torch.allclose(lse, lse_p, atol=1e-4, rtol=1e-4)
+          and torch.equal(got, dak.decode_attention(q32, k32, v32, 777,
+                                                    **DA)),
+          f"decode_attention float32: max abs err {d32_err}, lse "
+          f"{float_err(lse, lse_p)}")
 
     # hd 96 at phi3-mini's decode shape (32 kv heads, rep 1, batch 8, cache
     # 2176), and hd 192 at nemotron4's grouping (8 kv heads, rep 12), bf16
@@ -4016,6 +4070,426 @@ def phase_whisper_train(seed: int) -> dict:
     return launches
 
 
+# -- A6: ranks on the one card (dist/) ---------------------------------------------
+#
+# The ranks are processes spawned from this script after the build (they load
+# the built libraries from build/ and build nothing), joined by gloo through
+# a file rendezvous: NCCL refuses two ranks on one device.  Each rank writes
+# its JSON (launch counters zeroed just before its entry point and read just
+# after, its times, its peak GiB) for the parent to emit and check.  Two
+# ranks time-slice one card: their times say nothing about two cards.
+
+RANK_TIMEOUT_S = 300.0
+# B4 alone over stripes: Qwen2.5-3B's decode heads, a 32768 cache, B 8
+SEQ_B, SEQ_CACHE, SEQ_POSITIONS = 8, 32768, (37, 16383, 16384, 32767)
+# Qwen2.5-3B served with the cache in two stripes: batch 1, 16384 prompt
+SEQ_SERVE_PROMPT, SEQ_SERVE_GEN = 16384, 32
+# Qwen2.5-3B cut to 4 of 36 layers trained data-parallel: 4 x 2048, 3 steps
+DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 4, 4, 2048, 3
+ALLREDUCE_N = 2 ** 20
+
+
+def rank_main(rank: int, world: int, init_file: str, shape, axes, fn,
+              args, out_dir: str) -> None:
+    """One rank: join the group, make the mesh, run ``fn(rank, mesh,
+    *args)`` and write what it returns (a dict) as JSON."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.ranks import init_ranks
+    from repro_torch.launch.mesh import make_host_mesh
+
+    backend = init_ranks(rank, world, init_method=f"file://{init_file}",
+                         device_type="cuda", timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_host_mesh(axes=tuple(axes), shape=tuple(shape))
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(rank, mesh, *args)
+        out.update(rank=rank, backend=backend,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   imports_jax="jax" in sys.modules,
+                   imports_repro="repro" in sys.modules)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, shape, axes, args=(),
+                timeout: float = RANK_TIMEOUT_S) -> list[dict]:
+    """``world`` ranks of ``fn`` on the card; their JSON in rank order.  A
+    rank that raises, or a run past ``timeout``, fails the phase."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        ctx = mp.start_processes(
+            rank_main, args=(world, str(Path(tmp) / "rendezvous"), shape,
+                             axes, fn, args, tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                check(time.monotonic() < deadline,
+                      f"{fn.__name__}: {world} ranks past {timeout} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        out = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+               for r in range(world)]
+    for r in out:
+        check(not (r["imports_jax"] or r["imports_repro"]),
+              f"{fn.__name__}: rank {r['rank']} imported jax or repro")
+    return out
+
+
+def rank_seq_decode(rank: int, mesh, kv_shard: str, seed: int,
+                    allreduce: bool) -> dict:
+    """B4 over this rank's stripe (and rows) of a seeded cache through
+    ``seq_decode_attention`` at every position of ``SEQ_POSITIONS``, bf16
+    and float32; each against B4 and ``decode_attention_plain`` over the
+    whole updated cache in this process, the stripe's lse against the
+    plain lse, the stripe against the whole cache's, and the B4 launches
+    of the call (0 on an empty stripe).  With ``allreduce`` also the
+    compressed all-reduce on this mesh."""
+    from repro_torch.dist.seq_decode import seq_decode_attention
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.kernels.decode_attention import kernel as dak
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rules = ShardingConfig(data_axes=("data",), model_axes=("model",),
+                           kv_shard=kv_shard).rules(mesh)
+    seq, bax = rules.axes("kv_seq"), rules.axes("batch")
+    kv, rep, hd = 2, 8, 128                       # Qwen2.5-3B's decode heads
+    bl = SEQ_B // mesh.axes_size(bax)
+    sl = SEQ_CACHE // mesh.axes_size(seq)
+    b0, s0 = mesh.index(bax) * bl, mesh.index(seq) * sl
+    rows = slice(b0, b0 + bl)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator("cuda")
+        gen.manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, kn, vn = randn(SEQ_B, kv * rep, hd), randn(SEQ_B, kv, hd), \
+            randn(SEQ_B, kv, hd)
+        ck, cv = randn(SEQ_B, SEQ_CACHE, kv, hd), randn(SEQ_B, SEQ_CACHE,
+                                                       kv, hd)
+        for pos in SEQ_POSITIONS:
+            lk = ck[rows, s0:s0 + sl].clone()
+            lv = cv[rows, s0:s0 + sl].clone()
+            torch.cuda.synchronize()
+            dak.decode_attention.launches = 0
+            t0 = time.perf_counter()
+            out, lk, lv = seq_decode_attention(
+                q[rows], kn[rows], vn[rows], lk, lv, pos, mesh=mesh,
+                seq_axes=seq, batch_axes=bax)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launches = dak.decode_attention.launches
+            fk, fv = ck.clone(), cv.clone()
+            fk[:, pos], fv[:, pos] = kn, vn
+            whole = da_ops.decode_attention(q, fk, fv, length=pos + 1)[rows]
+            plain = dak.decode_attention_plain(
+                q.view(SEQ_B, kv, rep, hd), fk, fv, pos + 1).view(
+                    SEQ_B, kv * rep, hd)[rows]
+            n = min(pos + 1 - s0, sl)
+            lse_err = None
+            if n >= 1:
+                _, lse = da_ops.decode_attention(q[rows], lk, lv, length=n,
+                                                 return_lse=True)
+                _, lse_p = dak.decode_attention_plain(
+                    q[rows].view(bl, kv, rep, hd), lk, lv, n,
+                    return_lse=True)
+                lse_err = float_err(lse, lse_p)
+            case = {"dtype": str(dtype).split(".")[-1], "pos": pos,
+                    "stripe_len": n if n >= 1 else 0,
+                    "launches": launches, "want_launches": int(n >= 1),
+                    "err_vs_b4": float_err(out, whole),
+                    "err_vs_plain": float_err(out, plain),
+                    "lse_err": lse_err,
+                    "stripe_equal": torch.equal(lk, fk[rows, s0:s0 + sl])
+                    and torch.equal(lv, fv[rows, s0:s0 + sl]),
+                    "step_ms": step_ms}
+            case["ok"] = (case["launches"] == case["want_launches"]
+                          and case["err_vs_b4"] <= 2e-4
+                          and case["err_vs_plain"] <= 2e-4
+                          and (lse_err is None or lse_err <= 1e-4)
+                          and case["stripe_equal"])
+            cases.append(case)
+            del fk, fv
+        del q, kn, vn, ck, cv
+    out = {"kv_shard": kv_shard, "mesh": mesh.shape, "b0": b0, "s0": s0,
+           "cases": cases}
+    if allreduce:
+        out["allreduce"] = rank_allreduce(rank, mesh, seed)
+    return out
+
+
+def rank_allreduce(rank: int, mesh, seed: int) -> dict:
+    """``compressed_allreduce_mean`` of one row of 2^20 float32 a rank:
+    int8 within max|x| / 100 of the true mean (the reference's gate), top-k
+    0.25 equal to the mean of each rank's decompressed top-k."""
+    from repro_torch.dist.compression import (CompressionConfig,
+                                              _compress_leaf,
+                                              compressed_allreduce_mean)
+
+    world = mesh.shape["data"]
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed + 1)
+    x_all = torch.randn((world, ALLREDUCE_N), generator=gen, device="cuda")
+    x = x_all[rank:rank + 1]
+    out = {}
+    for scheme in ("int8", "topk"):
+        compressed_allreduce_mean(x, mesh, "data", scheme=scheme)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = compressed_allreduce_mean(x, mesh, "data", scheme=scheme)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cfg = CompressionConfig(scheme=scheme)
+        want = torch.stack([_compress_leaf(x_all[r:r + 1], cfg)
+                            for r in range(world)]).mean(0)
+        out[scheme] = {"ms": ms, "err_vs_compressed_mean":
+                       float_err(got, want),
+                       "err_vs_mean": float_err(got, x_all.mean(0,
+                                                                keepdim=True)),
+                       "gate_int8": float(x_all.abs().max()) / 100}
+    out["ok"] = (out["int8"]["err_vs_mean"] < out["int8"]["gate_int8"]
+                 and out["int8"]["err_vs_compressed_mean"] <= 1e-6
+                 and out["topk"]["err_vs_compressed_mean"] <= 1e-6)
+    return out
+
+
+def phase_seq_decode_parity(seed: int) -> list[dict]:
+    """B4 over stripes on two ranks (``kv_shard="seq"``, the batch on
+    both; with them the compressed all-reduce) and on a (2, 2) mesh of
+    four (``"batch_seq"``)."""
+    two = spawn_ranks(rank_seq_decode, 2, (2,), ("data",),
+                      ("seq", seed, True))
+    four = spawn_ranks(rank_seq_decode, 4, (2, 2), ("data", "model"),
+                       ("batch_seq", seed, False))
+    for r in two + four:
+        emit(phase="seq_decode_parity", **{k: v for k, v in r.items()
+                                           if k != "allreduce"})
+        check(all(c["ok"] for c in r["cases"]),
+              f"seq_decode_parity: rank {r['rank']} of {r['mesh']}: "
+              f"{[c for c in r['cases'] if not c['ok']]}")
+    return two
+
+
+def phase_compressed_allreduce(two: list[dict], cfg) -> None:
+    """The compressed all-reduce's results (from ``seq_decode_parity``'s
+    two ranks) and the bytes a step of ``dp_train``'s gradients would put
+    on the wire under each scheme, the reference's stacked leaves each one
+    tensor."""
+    from repro_torch.dist.compression import (CompressionConfig,
+                                              stack_groups, wire_bytes)
+    from repro_torch.models import build_model
+
+    params = dict(build_model(cfg, device="meta").named_parameters())
+    groups = stack_groups(params, len(cfg.group_pattern))
+    stacked = {k: torch.empty((len(ns), *params[ns[0]].shape),
+                              device="meta") for k, ns in groups.items()}
+    wire = {scheme: wire_bytes(stacked, CompressionConfig(scheme))
+            for scheme in ("none", "int8", "topk")}
+    for r in two:
+        emit(phase="compressed_allreduce", rank=r["rank"], n=ALLREDUCE_N,
+             backend=r["backend"], **r["allreduce"],
+             dp_train_wire_bytes=wire)
+        check(r["allreduce"]["ok"], f"compressed_allreduce: {r['allreduce']}")
+
+
+def rank_seq_serve(rank: int, mesh, seed: int) -> dict:
+    """Qwen2.5-3B served with each attention cache in two stripes: the
+    launch counters go to 0 just before ``serve_session`` and are read just
+    after; then a profiled decode step (both ranks) for the combine's
+    share, and on rank 0 the same weights teacher-forced on the tokens in
+    one process with the whole cache."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.dist.api import use_rules
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.serve import serve_session
+
+    cfg = configs.get(LM_ARCH)
+    scfg = ShardingConfig(data_axes=("data",), model_axes=(),
+                          kv_shard="seq")
+    model, build_s, build_peak, _ = build_timed(cfg, seed)
+    zero_attention_counters()
+    with counted_measurements() as measured:
+        out = serve_session(cfg, batch=1, prompt_len=SEQ_SERVE_PROMPT,
+                            gen=SEQ_SERVE_GEN, seed=seed, model=model,
+                            scfg=scfg, mesh=mesh, return_logits=True)
+    launches = attention_launches()
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one decode step under the profiler, every rank (the collectives
+    # need them all): a short prompt prefilled into the same stripes, the
+    # step at a position whose stripes are both long
+    max_len = SEQ_SERVE_PROMPT + SEQ_SERVE_GEN
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, SEQ_SERVE_PROMPT)), device="cuda")
+    with use_rules(scfg.rules(mesh)), torch.inference_mode():
+        _, state = model.prefill(prompt[:, :1024], max_len=max_len)
+        tok = prompt[:, :1]
+        model.decode_step(state, tok, SEQ_SERVE_PROMPT - 1)
+        torch.cuda.synchronize()
+        # the card's activity traced by rank 0 alone; the combine is host
+        # time (gloo), read on both
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if rank == 0 else [])) as prof:
+            t0 = time.perf_counter()
+            model.decode_step(state, tok, SEQ_SERVE_PROMPT - 1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        del state
+    combine = [e for e in prof.key_averages()
+               if e.key == "seq_decode_combine"
+               and "cuda" not in str(e.device_type).lower()]
+    combine_ms = sum(e.cpu_time_total for e in combine) / 1e3
+    busy_ms = sum(device_time_us(e) for e in prof.key_averages()
+                  if "cuda" in str(e.device_type).lower()) / 1e3
+    result = {"params": sum(p.numel() for p in model.parameters()),
+              "build_s": build_s, "build_peak_gib": build_peak,
+              "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+              "tokens_per_s": out["tokens_per_s"], "launches": launches,
+              "measured": measured["n"], "serve_peak_gib": serve_peak,
+              "generated": out["generated"].tolist(),
+              "profiled_step": {"wall_ms": wall_ms, "combine_ms": combine_ms,
+                                "combine_calls": sum(e.count
+                                                     for e in combine),
+                                "combine_share": combine_ms / wall_ms,
+                                "device_busy_ms": busy_ms if rank == 0
+                                else "not measured"}}
+    if rank == 0:
+        feed = torch.as_tensor(out["generated"], device="cuda")
+        whole, _, _ = teacher_forced(model, prompt, feed)
+        rel = logit_gap([g.cuda() for g in out["logits"]], whole)
+        result["parity"] = {"steps": len(rel), "rel_err_max": max(rel),
+                            "prefill_rel_err": rel[0],
+                            "finite": all(bool(torch.isfinite(g).all())
+                                          for g in out["logits"])}
+    return result
+
+
+def phase_seq_serve(seed: int) -> dict:
+    """Two ranks serve Qwen2.5-3B with the sequence-sharded decode."""
+    from repro_torch import configs
+
+    cfg = configs.get(LM_ARCH)
+    ranks = spawn_ranks(rank_seq_serve, 2, (2,), ("data",), (seed,))
+    want = {"flash_attention_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (SEQ_SERVE_GEN - 1),
+            "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    for r in ranks:
+        emit(phase="seq_serve", arch=LM_ARCH, batch=1,
+             prompt_len=SEQ_SERVE_PROMPT, gen=SEQ_SERVE_GEN,
+             max_len=SEQ_SERVE_PROMPT + SEQ_SERVE_GEN,
+             stripe=(SEQ_SERVE_PROMPT + SEQ_SERVE_GEN) // 2,
+             **{k: v for k, v in r.items() if k != "generated"},
+             first_tokens=r["generated"][0][:8])
+        check(r["launches"] == want, f"seq_serve: rank {r['rank']} "
+                                     f"launches {r['launches']}, want {want}")
+        check(r["measured"] == 0, f"seq_serve: rank {r['rank']} measured "
+                                  f"{r['measured']} configurations")
+    check(ranks[0]["generated"] == ranks[1]["generated"],
+          "seq_serve: the ranks' tokens differ")
+    parity = ranks[0]["parity"]
+    check(parity["finite"] and parity["rel_err_max"] <= 0.05,
+          f"seq_serve: logits vs the one-process run {parity}")
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in want}
+
+
+def dp_cfg(compute_dtype: str | None = None):
+    """Qwen2.5-3B at full width cut to ``DP_LAYERS`` layers."""
+    import dataclasses
+
+    cfg = decoder_cfg(LM_ARCH, DP_LAYERS)
+    if compute_dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    return cfg
+
+
+def dp_run(cfg, seed: int, mesh=None, compression: str = "none") -> dict:
+    """``train_loop`` of ``cfg`` (remat) on the global batch; its losses,
+    step and all-reduce seconds and attention launches (counters zeroed
+    just before it, read just after)."""
+    import gc
+
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.train import train_loop
+
+    scfg = ShardingConfig(data_axes=("data",), model_axes=(), remat=True,
+                          grad_compression=compression)
+    zero_attention_counters()
+    out = train_loop(cfg, steps_total=DP_STEPS, batch=DP_BATCH,
+                     seq_len=DP_SEQ, seed=seed, log_every=0, scfg=scfg,
+                     mesh=mesh)
+    launches = attention_launches()
+    result = {"compute_dtype": cfg.compute_dtype, "compression": compression,
+              "losses": out["losses"], "step_seconds": out["step_seconds"],
+              "allreduce_seconds": out["allreduce_seconds"],
+              "launches": launches}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def rank_dp_train(rank: int, mesh, seed: int) -> dict:
+    """Three data-parallel runs on this rank's half of each step's rows:
+    float32 compute with TF32 off (the gate), then bf16 without and with
+    int8 gradient compression."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"runs": [dp_run(dp_cfg("float32"), seed, mesh),
+                     dp_run(dp_cfg(), seed, mesh),
+                     dp_run(dp_cfg(), seed, mesh, "int8")]}
+
+
+def phase_dp_train(seed: int) -> dict:
+    """One rank (this process) and two ranks of the same global batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one = dp_run(dp_cfg("float32"), seed)
+    ranks = spawn_ranks(rank_dp_train, 2, (2,), ("data",), (seed,))
+    n = DP_LAYERS * DP_STEPS
+    want = {"flash_attention_fwd": 2 * n, "decode_attention": 0,
+            "flash_attention_bwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n}
+    emit(phase="dp_train", ranks=1, arch=LM_ARCH, n_layers=DP_LAYERS,
+         batch=DP_BATCH, seq_len=DP_SEQ, **one)
+    for r in ranks:
+        emit(phase="dp_train", ranks=2, arch=LM_ARCH, n_layers=DP_LAYERS,
+             batch=DP_BATCH, seq_len=DP_SEQ, **r)
+        f32, bf16, int8 = r["runs"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(f32["losses"],
+                                                    one["losses"])]
+        check(len(rel) == DP_STEPS and max(rel) <= 2e-4,
+              f"dp_train: rank {r['rank']} float32 losses {f32['losses']} "
+              f"vs one rank {one['losses']}")
+        finals = (bf16["losses"][-1], int8["losses"][-1])
+        check(all(map(math.isfinite, finals))
+              and abs(finals[0] - finals[1]) < 0.1,
+              f"dp_train: bf16 final losses {finals}")
+        for run in r["runs"]:
+            check(run["launches"] == want,
+                  f"dp_train: rank {r['rank']} {run['compute_dtype']} "
+                  f"{run['compression']}: launches {run['launches']}")
+    return {name: sum(run["launches"][name] for r in ranks
+                      for run in r["runs"]) for name in want}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -4117,6 +4591,12 @@ def main() -> int:
             torch.cuda.empty_cache()
     rwkv_train, jamba_train = train_runs[RWKV_ARCH], train_runs[JAMBA_ARCH]
 
+    # dist/ (A6): ranks sharing the card, spawned after the build
+    two = phase_seq_decode_parity(args.seed)
+    phase_compressed_allreduce(two, dp_cfg())
+    seq_launches = phase_seq_serve(args.seed)
+    dp_launches = phase_dp_train(args.seed)
+
     records += attention + [backward] + scans + bwd_scans
     by_path = {
         "dna_state_map": {"dna_serve": launches["dna_state_map"],
@@ -4132,17 +4612,21 @@ def main() -> int:
             "jamba_serve": jamba_launches["flash_attention_fwd"],
             "jamba_train": jamba_train["flash_attention_fwd"],
             **{path: n["flash_attention_fwd"]
-               for path, n in new_paths.items()}},
+               for path, n in new_paths.items()},
+            "seq_serve": seq_launches["flash_attention_fwd"],
+            "dp_train": dp_launches["flash_attention_fwd"]},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
             "jamba_train": jamba_train["flash_attention_bwd"],
-            "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"]},
+            "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"],
+            "dp_train": dp_launches["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "lm_requests": request_launches["decode_attention"],
             "jamba_serve": jamba_launches["decode_attention"],
             **{path: n["decode_attention"] for path, n in new_paths.items()
-               if n["decode_attention"]}},
+               if n["decode_attention"]},
+            "seq_serve": seq_launches["decode_attention"]},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
                      "rwkv_train": rwkv_train["wkv6_fwd"]},
         "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"]},

@@ -1,10 +1,37 @@
-"""Distribution and fault tolerance: the restart supervisor
-(``fault.py``) and the rules API chunks are annotated through
-(``api.py``); sharding rules tables, gradient compression and
-sequence-sharded decode follow."""
+"""Distribution subsystem: mesh rules, compression, seq-decode, restarts.
 
+The port of the reference's work-distribution runtime over a mesh of
+**ranks** (processes joined by ``torch.distributed``; ``ranks``), packaged
+as the reference's four substrates:
+
+``sharding`` / ``api`` — the mesh-rules system.
+    :class:`~repro_torch.dist.sharding.ShardingConfig` declares how a
+    workload maps onto mesh axes; ``scfg.rules(mesh)`` compiles it to a
+    logical-axis table that :func:`~repro_torch.dist.api.use_rules`
+    installs and :func:`~repro_torch.dist.api.constrain` consults.  The
+    ``*_specs`` helpers derive per-leaf layouts.  Each rank holds its own
+    part of every tensor, so the layouts are realised where data enters a
+    rank (the batch rows, the cache stripes), and placing is the identity.
+
+``compression`` — gradient wire formats.
+    Per-tensor int8 and top-k substrates, the error-feedback wrapper
+    (``compress_with_feedback``), a compressed all-reduce-mean over a
+    rank group, and ``wire_bytes`` accounting.
+
+``seq_decode`` — sequence-sharded decode attention.
+    The decode kernel over each rank's stripe of the KV cache with a
+    cross-rank logsumexp combine; ``models.attention.decode_attention``
+    dispatches here for a cache allocated as a stripe.
+
+``fault`` — supervised restarts.
+    ``run_with_restarts`` re-invokes a checkpointing training loop after
+    failures.
+"""
+
+from . import api, compression, fault, seq_decode, sharding  # noqa: F401
 from .api import constrain, constrain_leading, current_rules, use_rules
 from .fault import GroupFailure, RestartReport, run_with_restarts
 
-__all__ = ["GroupFailure", "RestartReport", "constrain", "constrain_leading",
-           "current_rules", "run_with_restarts", "use_rules"]
+__all__ = ["GroupFailure", "RestartReport", "api", "compression",
+           "constrain", "constrain_leading", "current_rules", "fault",
+           "run_with_restarts", "seq_decode", "sharding", "use_rules"]

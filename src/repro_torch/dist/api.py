@@ -17,11 +17,17 @@ so unsharded paths never pay for the subsystem.  Dimensions whose extent
 the mapped axes do not divide are left unplaced rather than erroring —
 the rules are hints, not hard partitioning.
 
-A rules table is any object with ``spec_dim(name, extent) -> axis | None``
-and ``place(x, dims) -> x``: the reference's ``MeshRules`` (a logical
-name -> mesh axes table over a JAX mesh) is not ported yet, so this
-module holds the rule stack and the resolution, and the table decides
-what a placement means for a tensor.
+The table is a :class:`~repro_torch.dist.sharding.MeshRules` (a logical
+name -> mesh axes table over a mesh of ranks, or over a shape-only mesh),
+or any object with ``spec_dim(name, extent) -> axis | None`` and
+``place(x, dims) -> x``.  In the port every tensor is already its rank's
+local part, so ``MeshRules.place`` returns ``x`` unchanged; ``constrain``
+still computes the resolution and the divisibility fallback.  The layouts
+are realised where data enters a rank: the batch rows by ``batch_specs``
+(``launch.train`` slices each step's global batch by the rank's
+coordinate along the batch axes), the decode cache stripes by the
+``"kv_seq"`` rule (``models.attention.kv_stripe`` allocates the rank's
+stripe, ``models.lm.LM.prefill`` fills it).
 """
 
 from __future__ import annotations

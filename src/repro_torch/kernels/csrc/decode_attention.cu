@@ -15,7 +15,9 @@
 // A segment that starts at or beyond `length` reads nothing and holds
 // m = -1e30, l = 0, acc = 0, so its combine weight exp(m - m_tot) is exactly
 // 0.  The partials are merged by one logsumexp rescale into the normalised
-// float32 output (B, KV, rep, hd).
+// float32 output (B, KV, rep, hd), and, when asked for, the logsumexp of the
+// scores itself (B, KV, rep), which a caller holding the cache in stripes
+// (the sequence-sharded decode) combines across stripes.
 //
 // The combine runs inside the launch: the `splits` blocks of one (batch, kv
 // head) form a thread block cluster (cluster dims = splits; 16 takes the
@@ -90,15 +92,34 @@ __device__ __forceinline__ float warp_max(float x) {
 // the same shared-memory offsets: pm[rep] (in base-2 units when LOG2, else
 // natural), pl[rep] and pacc[rep * HD].  Block c of the cluster writes
 // output elements [c * per, (c + 1) * per) of the group's (rep, HD) float32
-// output, reading the splits' partials in split order.
+// output, reading the splits' partials in split order.  With `lse` (else
+// null) the cluster's leader, block 0, also writes the group's rep
+// natural-log normalisers ln(sum_j exp(s_j)) = m_tot + ln(l_tot), merged in
+// the same split order (log2 units: (m_tot + log2(l_tot)) * ln 2).
 template <int HD, bool LOG2>
 __device__ __forceinline__ void cluster_combine(const float* pm, const float* pl,
                                                 const float* pacc,
                                                 float* __restrict__ out,
+                                                float* __restrict__ lse,
                                                 int rep, int splits) {
     cg::cluster_group cluster = cg::this_cluster();
     cluster.sync();                      // every block's partial is in place
     const int rank = (int)cluster.block_rank();
+    if (lse != nullptr && rank == 0) {
+        for (int r = (int)threadIdx.x; r < rep; r += blockDim.x) {
+            float mt = NEG_INF;
+            for (int c = 0; c < splits; ++c)
+                mt = fmaxf(mt, cluster.map_shared_rank(pm, c)[r]);
+            float lt = 0.f;
+            for (int c = 0; c < splits; ++c) {
+                const float mc = cluster.map_shared_rank(pm, c)[r];
+                const float wgt = LOG2 ? exp2f(mc - mt) : expf(mc - mt);
+                lt = fmaf(cluster.map_shared_rank(pl, c)[r], wgt, lt);
+            }
+            lse[r] = LOG2 ? (mt + log2f(lt)) * 0.69314718055994531f
+                          : mt + logf(lt);
+        }
+    }
     const int n = rep * HD;
     const int per = (n + splits - 1) / splits;
     const int e1 = min(n, (rank + 1) * per);
@@ -135,6 +156,7 @@ template <int HD>
 __global__ void __launch_bounds__(F32_MAX_THREADS)
 decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse,
                   int s_len, int kv, int rep, int length, int seg, int splits,
                   int block_s, float scale) {
     constexpr int V = HD / 32;            // elements of a row per lane
@@ -260,7 +282,8 @@ decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int w = 0; w < nwarps; ++w) s += red[(int64_t)w * rep * HD + e];
         red[e] = s;
     }
-    cluster_combine<HD, false>(m_s, l_s, red, out + (int64_t)bg * rep * HD, rep,
+    cluster_combine<HD, false>(m_s, l_s, red, out + (int64_t)bg * rep * HD,
+                               lse ? lse + (int64_t)bg * rep : nullptr, rep,
                                splits);
 }
 
@@ -309,7 +332,7 @@ __global__ void __launch_bounds__(BF16_MAX_THREADS)
 decode_bf16_kernel(const flash::bf16* __restrict__ q,
                    const flash::bf16* __restrict__ k,
                    const flash::bf16* __restrict__ v, float* __restrict__ out,
-                   int s_len, int kv, int rep, int length, int seg, int splits,
+                   float* __restrict__ lse, int s_len, int kv, int rep, int length, int seg, int splits,
                    int stages, float scale) {
     using namespace flash;
     constexpr int KT = HD / 16;           // k16 steps over hd
@@ -524,7 +547,8 @@ decode_bf16_kernel(const flash::bf16* __restrict__ q,
         pm[r] = mb;
         pl[r] = lb;
     }
-    cluster_combine<HD, true>(pm, pl, wacc, out + (int64_t)bg * rep * HD, rep,
+    cluster_combine<HD, true>(pm, pl, wacc, out + (int64_t)bg * rep * HD,
+                              lse ? lse + (int64_t)bg * rep : nullptr, rep,
                               splits);
 }
 
@@ -566,19 +590,19 @@ bool bad_common(int s_len, int rep, int splits) {
 
 template <int HD>
 int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
-                  int batch, int s_len, int kv, int rep, int length, int splits,
+                  void* lse, int batch, int s_len, int kv, int rep, int length, int splits,
                   int block_s, int threads, float scale, void* stream) {
     const size_t smem = (size_t)f32_smem_floats(rep, HD, block_s, threads) * sizeof(float);
     const int seg = (s_len + splits - 1) / splits;
     return launch_cluster(decode_f32_kernel<HD>, (int64_t)batch * kv * splits,
                           threads, smem, splits, stream, (const float*)q,
-                          (const float*)k, (const float*)v, (float*)out, s_len,
+                          (const float*)k, (const float*)v, (float*)out, (float*)lse, s_len,
                           kv, rep, length, seg, splits, block_s, scale);
 }
 
 template <int HD, int TK>
 int launch_bf16_tk(const void* q, const void* k, const void* v, void* out,
-                   int batch, int s_len, int kv, int rep, int length,
+                   void* lse, int batch, int s_len, int kv, int rep, int length,
                    int splits, int threads, int stages, float scale,
                    void* stream) {
     const size_t smem = (size_t)bf16_smem_bytes(HD, TK, threads / 32, stages);
@@ -586,23 +610,24 @@ int launch_bf16_tk(const void* q, const void* k, const void* v, void* out,
     return launch_cluster(decode_bf16_kernel<HD, TK>,
                           (int64_t)batch * kv * splits, threads, smem, splits,
                           stream, (const flash::bf16*)q, (const flash::bf16*)k,
-                          (const flash::bf16*)v, (float*)out, s_len, kv, rep,
+                          (const flash::bf16*)v, (float*)out, (float*)lse, s_len, kv,
+                          rep,
                           length, seg, splits, stages, scale);
 }
 
 template <int HD>
 int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
-                   int batch, int s_len, int kv, int rep, int length,
+                   void* lse, int batch, int s_len, int kv, int rep, int length,
                    int splits, int block_s, int threads, int stages,
                    float scale, void* stream) {
     switch (block_s) {
-        case 16: return launch_bf16_tk<HD, 16>(q, k, v, out, batch, s_len, kv, rep,
+        case 16: return launch_bf16_tk<HD, 16>(q, k, v, out, lse, batch, s_len, kv, rep,
                                                length, splits, threads, stages,
                                                scale, stream);
-        case 32: return launch_bf16_tk<HD, 32>(q, k, v, out, batch, s_len, kv, rep,
+        case 32: return launch_bf16_tk<HD, 32>(q, k, v, out, lse, batch, s_len, kv, rep,
                                                length, splits, threads, stages,
                                                scale, stream);
-        case 64: return launch_bf16_tk<HD, 64>(q, k, v, out, batch, s_len, kv, rep,
+        case 64: return launch_bf16_tk<HD, 64>(q, k, v, out, lse, batch, s_len, kv, rep,
                                                length, splits, threads, stages,
                                                scale, stream);
         default: return (int)cudaErrorInvalidValue;
@@ -614,11 +639,12 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // q: (B, KV, rep, hd); k, v: (B, S, KV, hd), all contiguous and 16-byte
-// aligned; out: (B, KV, rep, hd) float32.  hd in {32, 64, 96, 128, 192};
+// aligned; out: (B, KV, rep, hd) float32; lse: (B, KV, rep) float32 or null
+// (then not written).  hd in {32, 64, 96, 128, 192};
 // rep <= 16; splits a power of two <= 16 (one cluster a group); threads a
 // multiple of 32 in [32, 512]; `stages` is the bfloat16 build's.
 int decode_attention_f32(const void* q, const void* k, const void* v,
-                         void* out, int batch, int s_len, int kv, int rep,
+                         void* out, void* lse, int batch, int s_len, int kv, int rep,
                          int hd, int length, int splits, int block_s,
                          int threads, int stages, float scale, void* stream) {
     (void)stages;
@@ -627,22 +653,22 @@ int decode_attention_f32(const void* q, const void* k, const void* v,
         || threads < 32 || threads > F32_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     switch (hd) {
-        case 32: return launch_f32_hd<32>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 32: return launch_f32_hd<32>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                           splits, block_s, threads, scale, stream);
-        case 64: return launch_f32_hd<64>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 64: return launch_f32_hd<64>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                           splits, block_s, threads, scale, stream);
-        case 96: return launch_f32_hd<96>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 96: return launch_f32_hd<96>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                           splits, block_s, threads, scale, stream);
-        case 128: return launch_f32_hd<128>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 128: return launch_f32_hd<128>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                             splits, block_s, threads, scale, stream);
-        case 192: return launch_f32_hd<192>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 192: return launch_f32_hd<192>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                             splits, block_s, threads, scale, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 int decode_attention_bf16(const void* q, const void* k, const void* v,
-                          void* out, int batch, int s_len, int kv, int rep,
+                          void* out, void* lse, int batch, int s_len, int kv, int rep,
                           int hd, int length, int splits, int block_s,
                           int threads, int stages, float scale, void* stream) {
     if (batch <= 0 || kv <= 0 || rep <= 0) return 0;
@@ -651,15 +677,15 @@ int decode_attention_bf16(const void* q, const void* k, const void* v,
         || stages > MAX_STAGES)
         return (int)cudaErrorInvalidValue;
     switch (hd) {
-        case 32: return launch_bf16_hd<32>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 32: return launch_bf16_hd<32>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                            splits, block_s, threads, stages, scale, stream);
-        case 64: return launch_bf16_hd<64>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 64: return launch_bf16_hd<64>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                            splits, block_s, threads, stages, scale, stream);
-        case 96: return launch_bf16_hd<96>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 96: return launch_bf16_hd<96>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                            splits, block_s, threads, stages, scale, stream);
-        case 128: return launch_bf16_hd<128>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 128: return launch_bf16_hd<128>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                              splits, block_s, threads, stages, scale, stream);
-        case 192: return launch_bf16_hd<192>(q, k, v, out, batch, s_len, kv, rep, length,
+        case 192: return launch_bf16_hd<192>(q, k, v, out, lse, batch, s_len, kv, rep, length,
                                              splits, block_s, threads, stages, scale, stream);
         default: return (int)cudaErrorInvalidValue;
     }

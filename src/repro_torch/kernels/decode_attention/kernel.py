@@ -27,6 +27,13 @@ or raises; it takes the plain PyTorch version (``decode_attention_plain``:
 ``decode_partials_plain``, which materialises the float32 scores, then
 ``combine_splits``) only for tensors on the CPU.  Launches are counted in
 ``decode_attention.launches``.
+
+``return_lse=True`` also returns the logsumexp of the scaled scores over
+the positions below ``length`` (``m_tot + ln l_tot``; the bfloat16 build
+keeps its maxima in log2 units and writes ``(m_tot + log2 l_tot) ln 2``),
+the cluster's leader writing it after the merge: still one launch a call,
+and the same output bits as without it.  The sequence-sharded decode
+(``dist.seq_decode``) combines stripes with it.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for suffix in DTYPES.values():
             fn = getattr(lib, f"decode_attention_{suffix}")
-            fn.argtypes = [ptr] * 4 + [i32] * 10 + [ctypes.c_float, ptr]
+            fn.argtypes = [ptr] * 5 + [i32] * 10 + [ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -139,18 +146,23 @@ def _check(q, k, v, length, splits: int, block_s: int, block_threads: int,
                          f"memory (limit {SMEM_LIMIT_BYTES})")
 
 
-def combine_splits(acc: torch.Tensor, m: torch.Tensor,
-                   l: torch.Tensor) -> torch.Tensor:
+def combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor, *,
+                   return_lse: bool = False):
     """Merge per-split partials with one logsumexp rescale.
 
     acc: (B, splits, KV, rep, hd); m, l: (B, splits, KV, rep), all float32.
-    Returns (B, KV, rep, hd) float32.
+    Returns (B, KV, rep, hd) float32, and with ``return_lse`` also the
+    natural log of the summed exponentials, ``m_tot + log(l_tot)``
+    (B, KV, rep) float32.
     """
     m_tot = m.amax(dim=1)
     w = torch.exp(m - m_tot[:, None])
     l_tot = (l * w).sum(dim=1)
     o = (acc * w[..., None]).sum(dim=1)
-    return o / l_tot.clamp_min(1e-30)[..., None]
+    out = o / l_tot.clamp_min(1e-30)[..., None]
+    if return_lse:
+        return out, m_tot + torch.log(l_tot)
+    return out
 
 
 def decode_partials_plain(q, k, v, length: int, *, splits: int
@@ -173,41 +185,48 @@ def decode_partials_plain(q, k, v, length: int, *, splits: int
     return acc, m.permute(0, 3, 1, 2), p.sum(dim=-1).permute(0, 3, 1, 2)
 
 
-def decode_attention_plain(q, k, v, length: int, *,
-                           splits: int = 1) -> torch.Tensor:
+def decode_attention_plain(q, k, v, length: int, *, splits: int = 1,
+                           return_lse: bool = False):
     """Plain version of :func:`decode_attention`: partials, then combine."""
     return combine_splits(*decode_partials_plain(q, k, v, length,
-                                                 splits=splits))
+                                                 splits=splits),
+                          return_lse=return_lse)
 
 
 def decode_attention(q, k, v, length: int, *, splits: int = 4,
                      block_s: int = 16, block_threads: int = 256,
-                     stages: int = 3) -> torch.Tensor:
+                     stages: int = 3, return_lse: bool = False):
     """The kernel: q (B, KV, rep, hd); k, v (B, S, KV, hd); attends to
     positions ``< length``.  Returns (B, KV, rep, hd) float32, the splits
-    merged inside the launch."""
+    merged inside the launch; with ``return_lse`` also the logsumexp of
+    the scaled scores over those positions, (B, KV, rep) float32, which
+    the cluster's leader writes in the same launch."""
     splits, block_s = int(splits), int(block_s)
     block_threads, stages = int(block_threads), int(stages)
     _check(q, k, v, length, splits, block_s, block_threads, stages)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length, splits=splits)
+        return decode_attention_plain(q, k, v, length, splits=splits,
+                                      return_lse=return_lse)
     b, kv, rep, hd = q.shape
     s_len = k.shape[1]
     out = torch.empty((b, kv, rep, hd), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, kv, rep), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _library()
     fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                s_len, kv, rep, hd, length, splits, block_s, block_threads,
-                stages, hd ** -0.5, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, s_len, kv, rep,
+                hd, length, splits, block_s, block_threads, stages,
+                hd ** -0.5, stream)
     if rc != 0:
         raise KernelLaunchError(
             f"decode_attention(splits={splits}, block_s={block_s}, "
             f"block_threads={block_threads}, stages={stages}): launch refused "
             f"({rc}: {lib.decode_attention_error_string(rc).decode()})")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

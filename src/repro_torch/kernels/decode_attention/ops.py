@@ -47,8 +47,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      block_s: int | None = None,
                      block_threads: int | None = None,
                      stages: int | None = None,
-                     tuned: bool | None = None) -> torch.Tensor:
-    """q: (B, H, hd); k/v: (B, S, KV, hd). Returns (B, H, hd) float32.
+                     tuned: bool | None = None, return_lse: bool = False):
+    """q: (B, H, hd); k/v: (B, S, KV, hd). Returns (B, H, hd) float32;
+    with ``return_lse`` also the logsumexp of each head's scaled scores
+    over the attended positions, (B, KV, rep) float32.
 
     ``length`` (a Python int; ``None`` = all S) masks positions >= length.
     ``tuned=True`` resolves the cached best launch parameters for this
@@ -73,5 +75,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = decode_attention_kernel(
         q.reshape(b, kv, rep, hd), k, v, s_len if length is None
         else int(length), splits=splits, block_s=p["block_s"],
-        block_threads=p["block_threads"], stages=p["stages"])
+        block_threads=p["block_threads"], stages=p["stages"],
+        **({"return_lse": True} if return_lse else {}))
+    if return_lse:
+        return out[0].reshape(b, h, hd), out[1]
     return out.reshape(b, h, hd)

@@ -78,12 +78,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import configs, resolve_device
 from ..core.hetero import DeviceGroup
 from ..core.space import ConfigSpace, Param
+from ..dist.api import use_rules
+from ..dist.sharding import ShardingConfig
 from ..models import LM, EncDec, build_model
 from ..obs import get_logger
+from .mesh import check_executable, make_host_mesh
 
 __all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
            "serve_session", "serve_stream", "split_space",
@@ -97,10 +101,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _checksum_agrees(model, group) -> bool:
+    """Whether every rank of ``group`` holds the same parameters: the
+    largest of a float64 checksum and of its negation over the ranks
+    (their max and min) must agree (a broadcast of GBs of weights would
+    cost seconds)."""
+    c = torch.zeros(2, dtype=torch.float64, device=model.device)
+    for i, p in enumerate(model.parameters()):
+        c[0] += p.detach().sum(dtype=torch.float64) * (1 + i % 7)
+    c[1] = -c[0]
+    dist.all_reduce(c, op=dist.ReduceOp.MAX, group=group)
+    return bool(c[0] == -c[1])
+
+
 @torch.inference_mode()
 def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
+                  scfg: ShardingConfig | None = None, mesh=None,
                   seed: int = 0, greedy: bool = True,
-                  model: LM | EncDec | None = None, device=None) -> dict:
+                  model: LM | EncDec | None = None, device=None,
+                  return_logits: bool = False) -> dict:
     """Prefill a random prompt batch, then decode ``gen`` tokens.
 
     An encoder-decoder (``cfg.encdec``) encodes ``prompt_len`` random
@@ -115,7 +134,27 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     synchronize, so they cover the device's work.  Runs under
     ``torch.inference_mode()``: the parameters require grad, and nothing
     here needs a graph.
+
+    With a ``mesh`` of ranks (``launch.mesh.make_host_mesh``) every rank
+    builds the model from ``seed`` (a parameter checksum must agree across
+    ranks) and draws the same prompt.  Under rules whose ``kv_shard`` is
+    ``"seq"`` or ``"batch_seq"`` each attention layer's cache is the
+    rank's stripe and decode runs ``dist.seq_decode`` (the prefill runs
+    the whole prompt on every rank); ``"batch_seq"`` also splits the rows
+    over the batch axes, which must divide ``batch``.  Every rank of a
+    stripe group must pick the same token at each step (its first rank's
+    token is broadcast and compared), and ``generated`` holds the whole
+    batch on every rank.  ``return_logits`` adds ``"logits"``: the
+    prefill's last-position logits and each decode step's, float32, this
+    rank's rows.
     """
+    rules = None
+    if mesh is not None:
+        scfg = scfg or ShardingConfig(
+            data_axes=mesh.axis_names[:1], model_axes=(), fsdp_axes=(),
+            kv_shard="none", remat=False)
+        check_executable(scfg, mesh, serving=True)
+        rules = scfg.rules(mesh)
     if model is None:
         model = build_model(cfg, seed=seed,
                             device=resolve_device(device)).cast_for_serving()
@@ -128,47 +167,94 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (batch, prompt_len)),
                              dtype=torch.int64, device=dev)
+    rows = slice(0, batch)
+    seq_group = batch_group = None
+    if mesh is not None and dist.get_world_size() > 1:
+        if not _checksum_agrees(model, None):
+            raise RuntimeError("serve_session: the ranks' parameters differ "
+                               "(each rank builds the model from the seed)")
+        bax = rules.axes("batch")
+        nb = mesh.axes_size(bax)
+        if nb > 1:
+            if batch % nb:
+                raise ValueError(f"batch {batch} does not split over "
+                                 f"{nb} ranks of {bax}")
+            per = batch // nb
+            rows = slice(mesh.index(bax) * per, (mesh.index(bax) + 1) * per)
+            batch_group = mesh.group(bax)
+        if mesh.axes_size(rules.axes("kv_seq")) > 1:
+            seq_group = mesh.group(rules.axes("kv_seq"))
+    tokens = tokens[rows]
+    lead = (None if seq_group is None
+            else dist.get_global_rank(seq_group, 0))
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(int(seed))
 
+    kept: list[torch.Tensor] = []
+
     def pick(logits: torch.Tensor) -> torch.Tensor:
+        if return_logits:
+            kept.append(logits[:, -1:].float().cpu())
         if greedy:
-            return logits[:, -1:].argmax(dim=-1)
-        probs = torch.softmax(logits[:, -1], dim=-1)
-        return torch.multinomial(probs, 1, generator=sampler)
+            tok = logits[:, -1:].argmax(dim=-1)
+        else:
+            probs = torch.softmax(logits[:, -1], dim=-1)
+            tok = torch.multinomial(probs, 1, generator=sampler)
+        if seq_group is not None:
+            # every rank of a stripe group must pick the same token
+            lead_tok = tok.clone()
+            dist.broadcast(lead_tok, src=lead, group=seq_group)
+            if not torch.equal(lead_tok, tok):
+                raise RuntimeError(
+                    f"serve_session: rank {dist.get_rank()} picked "
+                    f"{tok.flatten().tolist()}, rank {lead} "
+                    f"{lead_tok.flatten().tolist()}")
+        return tok
 
-    _sync(dev)
-    t0 = time.perf_counter()
-    if cfg.encdec:
-        frames = torch.as_tensor(
-            (rng.standard_normal((batch, prompt_len, cfg.d_model))
-             .astype(np.float32) * np.float32(0.02)), device=dev)
-        state = model.init_decode_state(batch, max_len, cross_len=prompt_len)
-        state = model.prefill_cross(state, frames)
-        start_pos = 0
-        last = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
-    else:
-        logits, state = model.prefill(tokens, max_len=max_len)
-        start_pos = prompt_len
-        last = pick(logits)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    b = tokens.shape[0]
+    with use_rules(rules):
+        _sync(dev)
+        t0 = time.perf_counter()
+        if cfg.encdec:
+            frames = torch.as_tensor(
+                (rng.standard_normal((batch, prompt_len, cfg.d_model))
+                 .astype(np.float32) * np.float32(0.02))[rows], device=dev)
+            state = model.init_decode_state(b, max_len,
+                                            cross_len=prompt_len)
+            state = model.prefill_cross(state, frames)
+            start_pos = 0
+            last = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+        else:
+            logits, state = model.prefill(tokens, max_len=max_len)
+            start_pos = prompt_len
+            last = pick(logits)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
 
-    out = [last]
-    t0 = time.perf_counter()
-    for i in range(gen - 1):
-        logits, state = model.decode_step(state, last, start_pos + i)
-        last = pick(logits)
-        out.append(last)
-    generated = torch.cat(out, dim=1)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-    return {
+        out = [last]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            logits, state = model.decode_step(state, last, start_pos + i)
+            last = pick(logits)
+            out.append(last)
+        generated = torch.cat(out, dim=1)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    if batch_group is not None:
+        # the whole batch on every rank: each rank's rows, zeros elsewhere
+        whole = torch.zeros((batch, gen), dtype=torch.int64, device=dev)
+        whole[rows] = generated
+        dist.all_reduce(whole, group=batch_group)
+        generated = whole
+    result = {
         "generated": generated.cpu().numpy(),
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "tokens_per_s": batch * (gen - 1) / max(t_decode, 1e-9),
     }
+    if return_logits:
+        result["logits"] = kept
+    return result
 
 
 def _stream_step_builder(model, *, prompt_len: int, gen: int, seed: int,
@@ -567,6 +653,11 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-shard", default="none",
+                    choices=["none", "seq", "batch_seq"],
+                    help="under torchrun: the decode caches' layout over the "
+                    "ranks (seq: each rank a stripe of the sequence, the "
+                    "batch on every rank)")
     ap.add_argument("--tuned-kernels", default=None, metavar="STORE",
                     help="kernel tuning store (JSON from "
                     "repro_torch.tune.kernels.tune_kernel): the kernels "
@@ -680,11 +771,26 @@ def main(argv=None) -> None:
     if args.tuned_kernels:
         from ..tune import kernels as ktune
         ktune.configure(args.tuned_kernels, device=dev)
+    # under torchrun: the ranks of the group, the caches laid out by
+    # --kv-shard ("seq" and "batch_seq" run the sequence-sharded decode)
+    mesh = scfg = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        world = int(os.environ["WORLD_SIZE"])
+        shape = (2, world // 2) if args.kv_shard == "batch_seq" else None
+        mesh = make_host_mesh(axes=("data", "model") if shape else
+                              ("data",), shape=shape, device=dev)
+        scfg = ShardingConfig(data_axes=("data",), model_axes=("model",),
+                              kv_shard=args.kv_shard)
     out = serve_session(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                        gen=args.gen, seed=args.seed, device=dev)
+                        gen=args.gen, seed=args.seed, device=dev, mesh=mesh,
+                        scfg=scfg)
+    ranks = ("" if mesh is None else
+             f" on rank {dist.get_rank()} of {dist.get_world_size()}")
     log.info(f"prefill {out['prefill_s']:.3f}s  decode {out['decode_s']:.3f}s"
-             f"  {out['tokens_per_s']:.1f} tok/s on {dev}")
+             f"  {out['tokens_per_s']:.1f} tok/s on {dev}{ranks}")
     log.info(f"sample tokens: {out['generated'][0, :12]}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 def _main_requests(ap, args) -> None:

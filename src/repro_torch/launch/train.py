@@ -14,8 +14,25 @@ data pipeline that regenerates its stream from the step counter, so a run
 restarted by ``dist.run_with_restarts`` ends bitwise where an uninterrupted
 one does (on the card, with ``torch.use_deterministic_algorithms(True)``).
 ``remat`` and ``microbatches`` are the reference's ``ShardingConfig``
-fields; its mesh has no counterpart on one card.  Logging goes through
-``logging`` until the port has ``obs/``.
+fields.  Logging goes through ``logging``.
+
+Data parallelism (``scfg=``, ``mesh=`` a mesh of ranks,
+``launch.mesh.make_host_mesh``): every rank builds the same model from
+the seed, and rank 0's parameters are broadcast once so no rank can
+drift; each step every rank regenerates the step's global batch and
+takes the rows of its coordinate along the batch axes (``batch_specs``),
+and ``train_step`` reduces the loss and gradients to the global mean
+(optionally compressed with error feedback, the residual checkpointed
+with the state).  Only rank 0 writes checkpoints; the others wait at a
+barrier until each is complete.  The DP state is replicated, so a run
+resumes from a checkpoint written by a different number of ranks.  Mesh
+axes that the rules map to tensor, expert or FSDP parameter sharding
+(other than FSDP over the batch axes, which runs replicated and gives
+DP's numbers) are refused (ROADMAP A6b).  Under ``torchrun`` the CLI
+joins the group the environment names:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen2.5-3b --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -25,14 +42,20 @@ import logging
 import time
 from pathlib import Path
 
+import os
+
 import torch
+import torch.distributed as dist
 
 from .. import configs, resolve_device
 from ..ckpt.manager import CheckpointManager
 from ..data.pipeline import DataConfig, SyntheticPipeline
+from ..dist.compression import init_error_state
+from ..dist.sharding import ShardingConfig, batch_specs
 from ..models import LM, EncDec, build_model
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..optim.schedule import warmup_cosine
+from .mesh import check_executable, make_host_mesh
 from .steps import train_step
 
 __all__ = ["main", "make_data_cfg", "train_loop"]
@@ -48,9 +71,11 @@ def make_data_cfg(cfg, batch: int, seq_len: int, seed: int = 0) -> DataConfig:
 
 
 def _restore(mgr: CheckpointManager, model: LM | EncDec,
-             opt_cfg: AdamWConfig, dev: torch.device) -> tuple[int, dict]:
+             opt_cfg: AdamWConfig, dev: torch.device
+             ) -> tuple[int, dict, dict | None]:
     """Load the latest checkpoint into ``model``; returns (step, opt
-    state).  Raises ``ValueError``/``KeyError`` when it does not fit."""
+    state, error-feedback state or None).  Raises ``ValueError``/
+    ``KeyError`` when it does not fit."""
     step, state, _ = mgr.restore(device=dev)
     params = dict(model.named_parameters())
     saved = state["params"]
@@ -74,24 +99,64 @@ def _restore(mgr: CheckpointManager, model: LM | EncDec,
             p.copy_(saved[name])
     opt = state["opt"]
     opt["count"] = opt["count"].cpu()
-    return step, opt
+    return step, opt, state.get("err")
+
+
+def _rows(host_batch: dict, mesh, scfg: ShardingConfig) -> dict:
+    """This rank's rows of a global batch: the rank's coordinate along the
+    axes ``batch_specs`` gives the leading dimension (all rows where they
+    do not divide it)."""
+    spec = batch_specs(host_batch, mesh, scfg)
+    out = {}
+    for key, arr in host_batch.items():
+        axes = spec[key][0] if spec[key] else None
+        if axes is None:
+            out[key] = arr
+            continue
+        axes = (axes,) if isinstance(axes, str) else axes
+        per = arr.shape[0] // mesh.axes_size(axes)
+        i = mesh.index(axes)
+        out[key] = arr[i * per:(i + 1) * per]
+    return out
 
 
 def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                ckpt_dir: str | Path | None = None, ckpt_every: int = 50,
-               opt_cfg: AdamWConfig | None = None, log_every: int = 10,
-               seed: int = 0, fail_at_step: int | None = None,
-               remat: bool | str = False, microbatches: int = 1,
+               scfg: ShardingConfig | None = None,
+               opt_cfg: AdamWConfig | None = None, mesh=None,
+               log_every: int = 10, seed: int = 0,
+               fail_at_step: int | None = None,
+               remat: bool | str | None = None,
+               microbatches: int | None = None,
                model: LM | EncDec | None = None, device=None) -> dict:
     """Train ``cfg`` for ``steps_total`` steps; returns ``{"losses",
     "resumed_from", "final_loss", "state", "step_seconds"}``.
 
     ``model`` carries weights in (its device is used); otherwise one is
     built from ``seed`` on ``device`` (``None`` = the card).  ``state`` is
-    ``{"params": {name: tensor}, "opt": ..., "step": int32}``, the
-    parameters being the model's own.  ``step_seconds`` is each step's
-    host-clock time, which ends with reading its loss (a synchronize).
+    ``{"params": {name: tensor}, "opt": ..., "step": int32}`` (and
+    ``"err"``, the error-feedback residual, under ``grad_compression``),
+    the parameters being the model's own.  ``step_seconds`` is each step's
+    host-clock time, which ends with reading its loss (a synchronize);
+    ``allreduce_seconds`` the host-clock time of each step's gradient
+    all-reduce (a synchronize before and after it) on a mesh of several
+    ranks.  ``remat``/``microbatches`` default to ``scfg``'s (else off /
+    1).  ``mesh`` is a mesh of ranks (``make_host_mesh``); ``scfg``
+    defaults to data parallelism over its first axis.
     """
+    if scfg is None:
+        scfg = ShardingConfig(
+            data_axes=mesh.axis_names[:1] if mesh is not None else
+            ("data",), model_axes=(), fsdp_axes=(), microbatches=1,
+            remat=False)
+    remat = scfg.remat if remat is None else remat
+    microbatches = microbatches or scfg.microbatches
+    batch_axes: tuple = ()
+    rank = 0
+    if mesh is not None:
+        check_executable(scfg, mesh)
+        batch_axes = scfg.batch_axes(mesh)
+        rank = dist.get_rank()
     if model is None:
         model = build_model(cfg, seed=seed, device=resolve_device(device))
     elif device is not None \
@@ -100,28 +165,54 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
     dev = model.device
     opt_cfg = opt_cfg or AdamWConfig(
         learning_rate=warmup_cosine(3e-4, 20, steps_total))
+    # every rank regenerates the global batch of a step (a pure function
+    # of seed and step) and keeps its rows, so 1 rank and n ranks see the
+    # same data and a resume on another rank count continues it
     data = SyntheticPipeline(make_data_cfg(cfg, batch, seq_len, seed))
     params = dict(model.named_parameters())
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    start_step, resumed_from, opt = 0, None, None
+    start_step, resumed_from, opt, err = 0, None, None, None
     if mgr and mgr.latest_step() is not None:
         try:
-            start_step, opt = _restore(mgr, model, opt_cfg, dev)
+            start_step, opt, err = _restore(mgr, model, opt_cfg, dev)
             resumed_from = start_step
         except (KeyError, ValueError) as e:
             log.warning(f"WARNING: checkpoint in {ckpt_dir} is incompatible "
                         f"with this model ({type(e).__name__}: {e}); "
                         "starting fresh")
+    if mesh is not None and dist.get_world_size() > 1:
+        # one broadcast from rank 0, so no rank's parameters can drift
+        with torch.no_grad():
+            for p in params.values():
+                dist.broadcast(p.data, src=0)
     if opt is None:
         opt = init_opt_state(params, opt_cfg)
+    compress = scfg.grad_compression
+    if compress == "none":
+        err = None
+    elif err is None or set(err) != set(params):
+        err = init_error_state(params)
+    writer = mgr if rank == 0 else None
 
     def state(step: int) -> dict:
-        return {"params": params, "opt": opt,
-                "step": torch.tensor(step, dtype=torch.int32)}
+        out = {"params": params, "opt": opt,
+               "step": torch.tensor(step, dtype=torch.int32)}
+        if err is not None:
+            out["err"] = err
+        return out
+
+    def save(step: int, extra: dict) -> None:
+        if writer:
+            writer.save(step, state(step), extra=extra)
+        if mesh is not None and dist.get_world_size() > 1:
+            if writer:
+                writer.wait()            # complete before anyone reads it
+            dist.barrier()
 
     losses: list[float] = []
     step_seconds: list[float] = []
+    allreduce_seconds: list[float] = []
     t0 = time.time()
     try:
         for step, host_batch in data.iterate(start_step):
@@ -130,10 +221,16 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
             if fail_at_step is not None and step == fail_at_step:
                 raise RuntimeError(f"injected failure at step {step}")
             t_step = time.perf_counter()
+            if mesh is not None:
+                host_batch = _rows(host_batch, mesh, scfg)
             dev_batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in host_batch.items()}
             metrics = train_step(model, opt, dev_batch, opt_cfg,
-                                 microbatches=microbatches, remat=remat)
+                                 microbatches=microbatches, remat=remat,
+                                 grad_compression=compress, err=err,
+                                 mesh=mesh, batch_axes=batch_axes)
+            if "allreduce_s" in metrics:
+                allreduce_seconds.append(metrics["allreduce_s"])
             loss = float(metrics["loss"])
             step_seconds.append(time.perf_counter() - t_step)
             losses.append(loss)
@@ -142,21 +239,23 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                          f"gnorm {float(metrics['gnorm']):7.3f}  "
                          f"{time.time() - t0:6.1f}s")
             if mgr and ckpt_every and (step + 1) % ckpt_every == 0:
-                mgr.save(step + 1, state(step + 1), extra={"loss": loss})
+                save(step + 1, {"loss": loss})
     except BaseException:
         # flush in-flight async saves so a supervised restart
         # (dist.run_with_restarts) sees every completed checkpoint —
         # otherwise resume races the writer thread
-        if mgr:
-            mgr.wait()
+        if writer:
+            writer.wait()
         raise
     final = state(max(steps_total, start_step))
     if mgr:
-        mgr.save(steps_total, final, extra={"final": True})
-        mgr.wait()
+        save(steps_total, {"final": True})
+        if writer:
+            writer.wait()
     return {"losses": losses, "resumed_from": resumed_from,
             "final_loss": losses[-1] if losses else None, "state": final,
-            "step_seconds": step_seconds}
+            "step_seconds": step_seconds,
+            "allreduce_seconds": allreduce_seconds}
 
 
 def main(argv=None) -> None:
@@ -173,17 +272,30 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                     "kernels' plain PyTorch versions)")
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="error-feedback gradient compression")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     dev = resolve_device(args.device)
+    # under torchrun: data parallelism over every rank of the group
+    mesh = (make_host_mesh(device=dev)
+            if int(os.environ.get("WORLD_SIZE", "1")) > 1 else None)
+    scfg = ShardingConfig(data_axes=("data",), model_axes=(),
+                          grad_compression=args.grad_compression)
     out = train_loop(cfg, steps_total=args.steps, batch=args.batch,
                      seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
-                     ckpt_every=args.ckpt_every, seed=args.seed, device=dev)
+                     ckpt_every=args.ckpt_every, seed=args.seed, device=dev,
+                     scfg=scfg, mesh=mesh)
+    ranks = ("" if mesh is None else
+             f" on rank {dist.get_rank()} of {dist.get_world_size()}")
     log.info(f"final loss: {out['final_loss']:.4f} "
-             f"(first: {out['losses'][0]:.4f}) on {dev}")
+             f"(first: {out['losses'][0]:.4f}) on {dev}{ranks}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -14,23 +14,36 @@ with ``kv_states`` runs the flash-attention kernel unmasked over
 encoder cache (``precompute_cross_kv``) whole through the decode kernel,
 writing nothing.
 
-Not ported yet: the sequence-sharded decode branch (``dist.seq_decode``).
-The reference's ``constrain`` sharding hints have no effect on one card
-and are dropped.
+Sequence-sharded decode (``dist.seq_decode``): when the active rules map
+``"kv_seq"`` to mesh axes of ranks whose count divides the **global** cache
+length, ``init_kv_cache(stripe=kv_stripe(...))`` allocates only this
+rank's stripe of the positions and marks the cache with its ``Stripe``;
+a self-attention decode of a marked cache goes through
+``seq_decode_attention`` (B4 over the stripe, a logsumexp combine across
+ranks), cross-attention never.  The decision is taken where the cache is
+allocated, from the global length: at the decode site the cache is
+already local.  Otherwise the dense path runs, as the reference falls
+back.  The reference's ``constrain`` sharding hints place nothing in the
+port (each rank holds its own part) and are dropped.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 from torch import nn
 
+from ..dist.api import current_rules
+from ..dist.ranks import RankMesh
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, param, torch_dtype
 
-__all__ = ["NEG_INF", "decode_attention", "full_attention",
-           "init_attention", "init_kv_cache", "precompute_cross_kv"]
+__all__ = ["NEG_INF", "Stripe", "decode_attention", "full_attention",
+           "init_attention", "init_kv_cache", "kv_stripe",
+           "precompute_cross_kv"]
 
 NEG_INF = -1e30
 
@@ -144,12 +157,50 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
 
 # -- decode -------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class Stripe:
+    """This rank's stripe of a sequence-sharded KV cache: positions
+    ``[s0, s0 + length)``, along ``seq_axes`` of ``mesh`` (a
+    ``dist.ranks.RankMesh``)."""
+
+    mesh: object
+    seq_axes: tuple
+    batch_axes: tuple
+    s0: int
+    length: int
+
+
+def kv_stripe(max_len: int) -> Stripe | None:
+    """The stripe the active rules give a self-attention cache of
+    ``max_len`` global positions, or ``None`` for a whole cache: no rules,
+    no ``"kv_seq"`` axes, a mesh with no ranks behind it (a
+    ``ShapeMesh``: its layouts are derived, never run), or a shard count
+    that does not divide ``max_len`` (the reference's fallback)."""
+    rules = current_rules()
+    if rules is None or not isinstance(rules.mesh, RankMesh):
+        return None
+    seq = rules.axes("kv_seq")
+    n = rules.axes_size(seq)
+    if n <= 1 or max_len % n:
+        return None
+    length = max_len // n
+    return Stripe(mesh=rules.mesh, seq_axes=seq,
+                  batch_axes=rules.axes("batch"),
+                  s0=rules.mesh.index(seq) * length, length=length)
+
+
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device,
-                  dtype=None) -> dict:
+                  dtype=None, stripe: Stripe | None = None) -> dict:
+    """A zero cache (batch, max_len, KV, hd); with ``stripe`` only its
+    ``stripe.length`` positions, the cache marked ``"stripe"``."""
     dt = dtype or torch_dtype(cfg.compute_dtype)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    length = max_len if stripe is None else stripe.length
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if stripe is not None:
+        cache["stripe"] = stripe
+    return cache
 
 
 def decode_attention(p, x: torch.Tensor, cache: dict, cfg: ArchConfig, *,
@@ -162,11 +213,23 @@ def decode_attention(p, x: torch.Tensor, cache: dict, cfg: ArchConfig, *,
     the old one) and attention spans positions <= pos.  With ``cross`` the
     cache holds the encoder's keys and values (``precompute_cross_kv``):
     nothing is written, no RoPE is applied, and every position is read.
+    A self-attention cache marked with a ``Stripe`` holds this rank's
+    positions only, and the step runs ``dist.seq_decode``.
     """
     _check_impl(cfg)
     b = x.shape[0]
     positions = None if cross else torch.full((b, 1), pos, device=x.device)
     q = _project_q(p, x, cfg, positions)
+    dt = torch_dtype(cfg.compute_dtype)
+    stripe = None if cross else cache.get("stripe")
+    if stripe is not None:
+        from ..dist.seq_decode import seq_decode_attention
+        k_new, v_new = _project_kv(p, x, cfg, positions)
+        out, _, _ = seq_decode_attention(
+            q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], pos,
+            mesh=stripe.mesh, seq_axes=stripe.seq_axes,
+            batch_axes=stripe.batch_axes)
+        return _out_proj(p, out.to(dt)[:, None], cfg), cache
     if not cross:
         k_new, v_new = _project_kv(p, x, cfg, positions)
         cache["k"][:, pos] = k_new[:, 0]
@@ -174,7 +237,6 @@ def decode_attention(p, x: torch.Tensor, cache: dict, cfg: ArchConfig, *,
     out = da_ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                   length=None if cross else pos + 1,
                                   tuned=None)
-    dt = torch_dtype(cfg.compute_dtype)
     return _out_proj(p, out.to(dt)[:, None], cfg), cache
 
 

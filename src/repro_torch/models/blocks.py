@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from .attention import (decode_attention, full_attention, init_attention,
-                        init_kv_cache)
+                        init_kv_cache, kv_stripe)
 from .config import ArchConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .mamba import apply_mamba, decode_mamba, init_mamba, init_mamba_state
@@ -82,8 +82,13 @@ def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
 
 def init_layer_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      device) -> dict:
+    """A layer's zero decode state.  An attention layer's cache is this
+    rank's stripe of ``max_len`` where the active rules shard the cache
+    sequence (``attention.kv_stripe``); recurrent states are never
+    sequence-sharded."""
     if kind == "attn":
-        return init_kv_cache(cfg, batch, max_len, device)
+        return init_kv_cache(cfg, batch, max_len, device,
+                             stripe=kv_stripe(max_len))
     if kind == "mamba":
         return init_mamba_state(cfg, batch, device)
     return init_rwkv_state(cfg, batch, device)

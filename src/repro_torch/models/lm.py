@@ -236,7 +236,9 @@ class LM(nn.Module):
         (B, P, D) where given; returns (last-position logits (B, 1, V)
         float32, decode state).  Attention layers' KV caches are padded to
         ``max_len`` positions (at least the prompt's P + S); the recurrent
-        layers' states are their prefill's."""
+        layers' states are their prefill's.  Where the active rules shard
+        the cache sequence, every rank runs the whole prompt and keeps the
+        keys and values of its stripe ``[s0, s0 + S_local)``."""
         cfg = self.cfg
         batch = {"tokens": tokens, "labels": torch.zeros_like(tokens)}
         if patch_embeds is not None:
@@ -250,8 +252,12 @@ class LM(nn.Module):
             x, state = prefill_layer(layer, x, cfg, kind, is_moe, positions)
             if kind == "attn":
                 cache = init_layer_state(cfg, kind, b, max_len, x.device)
-                cache["k"][:, :s] = state["k"]
-                cache["v"][:, :s] = state["v"]
+                stripe = cache.get("stripe")
+                s0, n = (0, s) if stripe is None else (
+                    stripe.s0, max(0, min(s, stripe.s0 + stripe.length)
+                                   - stripe.s0))
+                cache["k"][:, :n] = state["k"][:, s0:s0 + n]
+                cache["v"][:, :n] = state["v"][:, s0:s0 + n]
                 state = cache
             states.append(state)
         x = apply_norm(self.final_norm, x, cfg)

@@ -1,0 +1,185 @@
+"""Multi-rank helpers for the ``tests/test_torch_dist_*.py`` files.
+
+``run_ranks`` spawns ``world`` CPU ranks (``torch.multiprocessing``,
+``spawn``), joined through a ``file://`` rendezvous in the test's
+``tmp_path`` (no port to collide under ``pytest-xdist``), each with one
+thread and a mesh of ``shape`` over ``axes``; every rank runs
+``fn(rank, world, mesh, *args)``.  A rank that raises fails the test, and
+a run that outlives ``timeout`` seconds is killed and fails it, so a
+collective that hangs costs one test, not the suite.
+
+The rank functions live here, not in the test modules: a spawned rank
+imports the module of the function it runs, and a rank never imports
+``jax`` (the test modules do).  They write what they computed with
+``torch.save`` for the test to hold against the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+RANK_TIMEOUT_S = 60.0
+
+
+def _rank_main(rank, world, init_file, shape, axes, fn, args):
+    import torch.distributed as dist
+
+    from repro_torch.dist.ranks import init_ranks
+    from repro_torch.launch.mesh import make_host_mesh
+
+    init_ranks(rank, world, init_method=f"file://{init_file}",
+               device_type="cpu", timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_host_mesh(axes=axes, shape=shape, device="cpu")
+        fn(rank, world, mesh, *args)
+        if "jax" in sys.modules:
+            raise AssertionError(f"rank {rank} imported jax")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_path: Path, *, shape: tuple,
+              axes: tuple, args: tuple = (),
+              timeout: float = RANK_TIMEOUT_S) -> None:
+    init_file = Path(tmp_path) / f"rendezvous_{time.monotonic_ns()}"
+    ctx = mp.start_processes(_rank_main, args=(world, str(init_file), shape,
+                                               axes, fn, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks of {fn.__name__} still "
+                                   f"running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+# -- rank functions ----------------------------------------------------------------
+
+def allreduce_rank(rank, world, mesh, x_path, out_path):
+    """``compressed_allreduce_mean`` of row ``rank`` of the saved matrix
+    under each scheme; rank 0 writes what every rank got back."""
+    import json
+
+    from repro_torch.dist.compression import compressed_allreduce_mean
+
+    x = torch.from_numpy(np.load(x_path))[rank:rank + 1]
+    out = {}
+    for scheme in ("int8", "topk", "none"):
+        got = compressed_allreduce_mean(x, mesh, "data", scheme=scheme,
+                                        topk_frac=0.25)
+        out[scheme] = got.numpy().tolist()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def seq_decode_rank(rank, world, mesh, kv_shard, inputs_path, out_dir,
+                    positions):
+    """The rank's rows and stripe of the saved inputs through
+    ``seq_decode_attention`` at every position (each from the saved
+    cache); saves the outputs and the stripes after each write."""
+    from repro_torch.dist.seq_decode import seq_decode_attention
+    from repro_torch.dist.sharding import ShardingConfig
+
+    x = torch.load(inputs_path)
+    rules = ShardingConfig(data_axes=("data",), model_axes=("model",),
+                           kv_shard=kv_shard).rules(mesh)
+    seq, bax = rules.axes("kv_seq"), rules.axes("batch")
+    b, s = x["ck"].shape[:2]
+    bl, sl = b // mesh.axes_size(bax), s // mesh.axes_size(seq)
+    b0, s0 = mesh.index(bax) * bl, mesh.index(seq) * sl
+    rows = slice(b0, b0 + bl)
+    out = {"b0": b0, "s0": s0, "runs": {}}
+    for pos in positions:
+        ck = x["ck"][rows, s0:s0 + sl].clone()
+        cv = x["cv"][rows, s0:s0 + sl].clone()
+        o, ck, cv = seq_decode_attention(
+            x["q"][rows], x["kn"][rows], x["vn"][rows], ck, cv, pos,
+            mesh=mesh, seq_axes=seq, batch_axes=bax)
+        out["runs"][pos] = {"out": o, "ck": ck, "cv": cv}
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
+def serve_rank(rank, world, mesh, cfg, kw, out_dir):
+    """``serve_session`` of ``cfg`` on the CPU under ``kv_shard="seq"``,
+    counting the decode steps' calls of ``seq_decode_attention``."""
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.serve import serve_session
+
+    from repro_torch.dist import seq_decode
+
+    scfg = ShardingConfig(data_axes=("data",), model_axes=(),
+                          kv_shard="seq")
+    calls = [0]
+    real = seq_decode.seq_decode_attention
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    seq_decode.seq_decode_attention = counted
+    try:
+        out = serve_session(cfg, scfg=scfg, mesh=mesh, device="cpu",
+                            return_logits=True, **kw)
+    finally:
+        seq_decode.seq_decode_attention = real
+    torch.save({"generated": out["generated"], "logits": out["logits"],
+                "seq_decode_calls": calls[0]},
+               Path(out_dir) / f"rank{rank}.pt")
+
+
+def stripe_rank(rank, world, mesh, cfg, out_dir):
+    """``LM.prefill`` of 10 tokens under ``kv_shard="seq"`` rules with
+    ``max_len`` 16: each rank keeps its stripe of 8 positions."""
+    from repro_torch.dist.api import use_rules
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, seed=0, device="cpu").cast_for_serving()
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 10)))
+    rules = ShardingConfig(data_axes=("data",), model_axes=(),
+                           kv_shard="seq").rules(mesh)
+    with use_rules(rules):
+        _, state = model.prefill(tokens, max_len=16)
+    torch.save({"caches": [{"k": c["k"], "v": c["v"]} for c in state],
+                "s0": [c["stripe"].s0 for c in state]},
+               Path(out_dir) / f"rank{rank}.pt")
+
+
+def train_rank(rank, world, mesh, cfg, kw, scfg_kw, out_dir):
+    """``train_loop`` of ``cfg`` on the CPU over the mesh's ranks."""
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.train import train_loop
+
+    scfg = ShardingConfig(**scfg_kw)
+    out = train_loop(cfg, scfg=scfg, mesh=mesh, device="cpu", log_every=0,
+                     **kw)
+    params = {k: v.detach().clone() for k, v in
+              out["state"]["params"].items()}
+    torch.save({"losses": out["losses"], "resumed_from": out["resumed_from"],
+                "params": params}, Path(out_dir) / f"rank{rank}.pt")
+
+
+def load_ranks(out_dir: Path, world: int) -> list:
+    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def float32(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+__all__ = ["allreduce_rank", "float32", "load_ranks", "run_ranks",
+           "seq_decode_rank", "serve_rank", "stripe_rank", "train_rank"]

@@ -362,16 +362,6 @@ def test_train_loop_matches_three_reference_steps(ref_params, ref_step):
                 lr=3 * 3e-4 / 20, eps=ocfg.eps)
 
 
-def test_grad_compression_is_not_ported_yet():
-    cfg, _ = cfgs("float32")
-    model = build_model(cfg, device="cpu")
-    opt = adamw.init_opt_state(dict(model.named_parameters()),
-                               adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="compression"):
-        train_step(model, opt, to_torch(np_batch(0)), adamw.AdamWConfig(),
-                   grad_compression="int8")
-
-
 # -- data ------------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed, index, count", [(0, 0, 1), (3, 1, 2),
