@@ -128,11 +128,25 @@ entry points a user would call:
   step profiled for the combine's share, and on rank 0 the logits within
   5 % of a one-process run with the whole cache; ``dp_train``: Qwen2.5-3B
   cut to 4 of its 36 layers at full width trained data-parallel (4 x 2048
-  a step, 3 steps, remat) on two ranks against one rank of the same
+  a step, 2 steps, remat) on two ranks against one rank of the same
   global batch in float32 with TF32 off (losses within 2e-4), then in bf16
   with and without int8 gradient compression (final losses within 0.1),
-  B3/B5 launches exact on each rank.  Two ranks time-slice one card: their
-  times say nothing about two cards.
+  B3/B5 launches exact on each rank.  Tensor, expert and FSDP parameter
+  sharding (A6b): ``tp_serve``: two ranks of a (1, 2) mesh serve
+  Qwen2.5-3B at full size with its heads split (``kv_shard="heads"``: 8 q
+  heads over 1 kv head a rank; batch 4, prompt 1024, 16 tokens), the same
+  tokens on both, B3 36 and B4 36 x 15 a rank, every B3 and B4 call of a
+  prefill and a decode step on rank 0 within its plain version's gate, a
+  decode step's collectives counted, and the logits within 5 % of the
+  same weights teacher-forced in one process; ``sharded_train``:
+  Qwen2-MoE at full width cut to its first layer, float32 with TF32 off,
+  on a (2, 2) mesh of four (the model axis splitting the heads, the shared
+  expert's columns, the vocabulary and the 60 experts, FSDP over data,
+  ``seq_parallel``, 2 microbatches, remat; 4 x 512, 2 steps) against the
+  same run in one process (losses within 2e-4, B3/B5 launches equal on
+  every rank), each rank's resident parameter and moment bytes and the
+  collectives of a step by op and axes.  Ranks time-slice one card: their
+  times say nothing about two or four cards.
 
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes (the DNA kernels
@@ -154,7 +168,8 @@ tune must store a point no slower than the default it
 measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits (the
-recurrent paths also in float32, where the gate sits, with the MoE
+recurrent paths on their first 64 tokens, also in float32, where the gate
+sits, with the MoE
 choices pinned to the kernel run's; Whisper's run holds every kernel call
 against its plain version as well); the new serving paths also check that
 serving measured no launch configuration;
@@ -225,6 +240,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
+STARTED = time.perf_counter()       # each JSON line's "at_s" counts from it
 sys.path.insert(0, str(ROOT / "src"))
 
 FULL_T = 3 * 2 ** 30
@@ -251,15 +267,19 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 # Jamba cut to its first 8-layer period
 RWKV_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "rwkv6-1.6b", "jamba-v0.1-52b", 8
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
+# the recurrent parity phases teacher-force the first SSM_PARITY_STEPS of
+# the SSM_GEN served tokens (room in the time limit for the sharded phases)
+SSM_PARITY_STEPS = 64
 # the recurrent training paths: RWKV-6 1.6B at batch 8 x 2048 (B.H = 256
 # recurrences, the serving shape) and Jamba's first period without experts
 # at batch 2 x 2048, 4 steps each.  Their kernels-vs-plain gradient passes
-# run at batch 2: Jamba at its training sequence, RWKV-6 at 1024 tokens (the
-# plain versions are Python loops over the tokens, the parity phase runs
-# them three times, and RWKV-6 has 24 recurrent layers to Jamba's 7)
+# run at batch 2: Jamba at 1024 tokens, RWKV-6 at 512 (the plain versions
+# are Python loops over the tokens, the parity phase runs them three times,
+# and RWKV-6 has 24 recurrent layers to Jamba's 7; scan_bwd_parity holds
+# B7 and B9 at the training shapes)
 RWKV_TRAIN_BATCH, JAMBA_TRAIN_BATCH = 8, 2
 SSM_PARITY_BATCH = 2
-SSM_PARITY_SEQ = {"rwkv6-1.6b": 1024, "jamba-v0.1-52b": 2048}
+SSM_PARITY_SEQ = {"rwkv6-1.6b": 512, "jamba-v0.1-52b": 1024}
 # the other decoders served at full width (A4) and the VLM (A5): batch 8, a
 # 2048-token prompt (the VLM's: 1024 patch embeddings, then 1024 tokens),
 # 32 new tokens; nemotron-4 cut to 2 of its 96 layers and built in bf16,
@@ -291,6 +311,7 @@ EMIT_TO: list = []
 
 
 def emit(**fields) -> None:
+    fields.setdefault("at_s", round(time.perf_counter() - STARTED, 3))
     line = json.dumps(fields)
     print(line, flush=True)
     for path in EMIT_TO:
@@ -2770,8 +2791,8 @@ BF16_FLOOR_MARGIN = 1.5
 
 def phase_ssm_parity(model, generated, seed: int) -> None:
     """The same weights with the kernels and with the plain versions, on
-    the card, teacher-forced on the generated tokens, first as served
-    (bf16) and then in float32.
+    the card, teacher-forced on the first ``SSM_PARITY_STEPS`` generated
+    tokens, first as served (bf16) and then in float32.
 
     Every run after the first is pinned to the first's expert choices
     (``teacher_forced``), and reports how many choices its own router
@@ -2797,7 +2818,7 @@ def phase_ssm_parity(model, generated, seed: int) -> None:
     cfg = model.cfg
     prompt = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")
-    feed = torch.as_tensor(generated, device="cuda")
+    feed = torch.as_tensor(generated, device="cuda")[:, :SSM_PARITY_STEPS]
     phase = "rwkv_parity" if "rwkv" in cfg.layer_kinds else "jamba_parity"
 
     kern, routes, _ = teacher_forced(model, prompt, feed)
@@ -3596,9 +3617,9 @@ def moe_range():
 
     real = blocks.apply_moe
 
-    def apply_moe(p, h, cfg):
+    def apply_moe(p, h, cfg, **kw):
         with record_function("moe"):
-            return real(p, h, cfg)
+            return real(p, h, cfg, **kw)
 
     return mock.patch.object(blocks, "apply_moe", apply_moe)
 
@@ -4084,9 +4105,17 @@ RANK_TIMEOUT_S = 300.0
 SEQ_B, SEQ_CACHE, SEQ_POSITIONS = 8, 32768, (37, 16383, 16384, 32767)
 # Qwen2.5-3B served with the cache in two stripes: batch 1, 16384 prompt
 SEQ_SERVE_PROMPT, SEQ_SERVE_GEN = 16384, 32
-# Qwen2.5-3B cut to 4 of 36 layers trained data-parallel: 4 x 2048, 3 steps
-DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 4, 4, 2048, 3
+# Qwen2.5-3B cut to 4 of 36 layers trained data-parallel: 4 x 2048, 2 steps
+DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 4, 4, 2048, 2
 ALLREDUCE_N = 2 ** 20
+# A6b: Qwen2.5-3B served with its heads over two ranks (a (1, 2) mesh, each
+# rank 8 q heads over 1 kv head); Qwen2-MoE at full width, cut to
+# SHARDED_LAYERS of 24 (a step of 2 layers moved 44.6 GB a rank through
+# gloo in 47 s), trained on a (2, 2) mesh (TP, 30 experts a rank, FSDP
+# over data, seq_parallel, 2 microbatches, remat), float32
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 1024, 16
+SHARDED_ARCH, SHARDED_LAYERS = "qwen2-moe-a2.7b", 1
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 512, 2
 
 
 def rank_main(rank: int, world: int, init_file: str, shape, axes, fn,
@@ -4490,6 +4519,239 @@ def phase_dp_train(seed: int) -> dict:
                       for run in r["runs"]) for name in want}
 
 
+# -- A6b: tensor, expert and FSDP parameter sharding, ranks sharing the card
+
+def collective_totals(counts: dict) -> dict:
+    """The collectives' counters (``dist.collectives.COUNTERS``) summed."""
+    return {f"collective_{k}": sum(v[k] for v in counts.values())
+            for k in ("calls", "bytes", "seconds")}
+
+
+def counted_step(fn):
+    """``fn()`` with the collectives' counters reset just before it and
+    read just after, each collective between two synchronizes; (result,
+    {wall seconds, counters by op and axes, their sums})."""
+    from repro_torch.dist.collectives import COUNTERS
+
+    torch.cuda.synchronize()
+    COUNTERS.reset()
+    COUNTERS.synchronize = True
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        COUNTERS.synchronize = False
+    counts = COUNTERS.snapshot()
+    return out, {"wall_s": time.perf_counter() - t0, "collectives": counts,
+                 **collective_totals(counts)}
+
+
+def rank_tp_serve(rank: int, mesh, seed: int, out_dir: str) -> dict:
+    """Qwen2.5-3B served over the mesh's model axis through
+    ``serve_session`` (launch counters zeroed just before it and read just
+    after); then, on the same prompt, one prefill and one decode step
+    (rank 0: every B3 and B4 call held against its plain version) and one
+    more decode step, its collectives counted.  Rank 0 saves the
+    session's logits."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.serve import serve_session
+
+    cfg = configs.get(LM_ARCH)
+    scfg = ShardingConfig(data_axes=("data",), model_axes=("model",),
+                          kv_shard="heads")
+    model, build_s, build_peak, _ = build_timed(cfg, seed)
+    whole_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    zero_attention_counters()
+    with counted_measurements() as measured:
+        out, session = counted_step(lambda: serve_session(
+            cfg, batch=TP_BATCH, prompt_len=TP_PROMPT, gen=TP_GEN,
+            seed=seed, model=model, scfg=scfg, mesh=mesh,
+            return_logits=True))
+    launches = attention_launches()
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank == 0:
+        torch.save(out["logits"], Path(out_dir) / "tp_serve_logits.pt")
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT)), device="cuda")
+    seen: dict = {}
+    tok = torch.as_tensor(out["generated"][:, :2], device="cuda")
+    with torch.inference_mode():
+        with contextlib.ExitStack() as stack:
+            if rank == 0:
+                for patch in checked_attention(seen):
+                    stack.enter_context(patch)
+            _, state = model.prefill(prompt, max_len=TP_PROMPT + TP_GEN)
+            model.decode_step(state, tok[:, :1], TP_PROMPT)
+        # the next step without the checks, counted
+        _, step = counted_step(lambda: model.decode_step(
+            state, tok[:, 1:], TP_PROMPT + 1))
+        del state
+    result = {"build_s": build_s, "build_peak_gib": build_peak,
+              "whole_param_bytes": whole_bytes,
+              "resident_param_bytes": sum(p.numel() * p.element_size()
+                                          for p in model.parameters()),
+              "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+              "tokens_per_s": out["tokens_per_s"], "launches": launches,
+              "measured": measured["n"], "serve_peak_gib": serve_peak,
+              "session": {k: v for k, v in session.items()
+                          if k != "collectives"},
+              "decode_step": step,
+              "generated": out["generated"].tolist()}
+    if rank == 0:
+        result["checked"] = summarize_calls(seen, "tp_serve")
+    return result
+
+
+def phase_tp_serve(seed: int) -> dict:
+    """Two ranks serve Qwen2.5-3B, each on its 8 q heads and 1 kv head;
+    then the same weights in this process, teacher-forced on the ranks'
+    tokens, against the ranks' logits (``seq_serve``'s gate)."""
+    import numpy as np
+
+    from repro_torch import configs
+
+    cfg = configs.get(LM_ARCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        ranks = spawn_ranks(rank_tp_serve, 2, (1, 2), ("data", "model"),
+                            (seed, tmp))
+        kept = torch.load(Path(tmp) / "tp_serve_logits.pt")
+    want = {"flash_attention_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (TP_GEN - 1),
+            "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    for r in ranks:
+        emit(phase="tp_serve", arch=LM_ARCH, mesh=[1, 2], kv_shard="heads",
+             batch=TP_BATCH, prompt_len=TP_PROMPT, gen=TP_GEN,
+             heads_a_rank=cfg.n_heads // 2,
+             kv_heads_a_rank=max(1, cfg.n_kv_heads // 2),
+             **{k: v for k, v in r.items() if k != "generated"},
+             first_tokens=r["generated"][0][:8])
+        check(r["launches"] == want, f"tp_serve: rank {r['rank']} launches "
+                                     f"{r['launches']}, want {want}")
+        check(r["measured"] == 0, f"tp_serve: rank {r['rank']} measured "
+                                  f"{r['measured']} configurations")
+    check(ranks[0]["generated"] == ranks[1]["generated"],
+          "tp_serve: the ranks' tokens differ")
+    model, _, _, _ = build_timed(cfg, seed)
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (TP_BATCH, TP_PROMPT)), device="cuda")
+    feed = torch.as_tensor(ranks[0]["generated"], device="cuda")
+    whole, _, _ = teacher_forced(model, prompt, feed)
+    rel = logit_gap([g.cuda() for g in kept], whole)
+    parity = {"steps": len(rel), "rel_err_max": max(rel),
+              "prefill_rel_err": rel[0],
+              "finite": all(bool(torch.isfinite(g).all()) for g in kept)}
+    emit(phase="tp_serve", parity_vs_one_process=parity)
+    check(parity["finite"] and parity["rel_err_max"] <= 0.05,
+          f"tp_serve: logits vs the one-process run {parity}")
+    del model, whole, kept
+    torch.cuda.empty_cache()
+    return {name: sum(r["launches"][name] for r in ranks) for name in want}
+
+
+def sharded_cfg():
+    """Qwen2-MoE at full width, cut to ``SHARDED_LAYERS`` layers, float32."""
+    import dataclasses
+
+    return dataclasses.replace(decoder_cfg(SHARDED_ARCH, SHARDED_LAYERS),
+                               compute_dtype="float32")
+
+
+def sharded_run(seed: int, mesh=None) -> dict:
+    """``train_loop`` of ``sharded_cfg`` under the phase's layout (on
+    ``mesh``; without one in this process, at the same microbatches and
+    remat): losses, step seconds, B3/B5 launches (counters zeroed just
+    before, read just after), the collectives' counters, resident
+    parameter and moment bytes and peak GiB."""
+    import gc
+
+    from repro_torch.dist.collectives import COUNTERS
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.train import train_loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scfg = ShardingConfig(data_axes=("data",), model_axes=("model",),
+                          fsdp_axes=("data",), expert_axes=("model",),
+                          seq_parallel=True, microbatches=2, remat=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attention_counters()
+    COUNTERS.reset()
+    COUNTERS.synchronize = True
+    try:
+        out = train_loop(sharded_cfg(), steps_total=SHARDED_STEPS,
+                         batch=SHARDED_BATCH, seq_len=SHARDED_SEQ, seed=seed,
+                         log_every=0, scfg=scfg, mesh=mesh)
+    finally:
+        COUNTERS.synchronize = False
+    counts = COUNTERS.snapshot()
+
+    def nbytes(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+
+    state = out["state"]
+    result = {"losses": out["losses"], "step_seconds": out["step_seconds"],
+              "launches": attention_launches(),
+              "param_bytes": nbytes(state["params"]),
+              "moment_bytes": nbytes(state["opt"]["m"])
+              + nbytes(state["opt"]["v"]),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "collectives_per_step": {
+                  k: {f: v[f] / SHARDED_STEPS for f in v}
+                  for k, v in counts.items()},
+              **{k: v / SHARDED_STEPS for k, v in
+                 collective_totals(counts).items()}}
+    del out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def rank_sharded_train(rank: int, mesh, seed: int) -> dict:
+    return sharded_run(seed, mesh)
+
+
+def phase_sharded_train(seed: int) -> dict:
+    """The one-process run here first (then freed), then four ranks on a
+    (2, 2) mesh: losses within ``dp_train``'s 2e-4 of it, B3/B5 launches
+    exact a rank (each runs every layer on its heads)."""
+    one = sharded_run(seed)
+    emit(phase="sharded_train", ranks=1, arch=SHARDED_ARCH,
+         n_layers=SHARDED_LAYERS, batch=SHARDED_BATCH, seq_len=SHARDED_SEQ,
+         **one)
+    ranks = spawn_ranks(rank_sharded_train, 4, (2, 2), ("data", "model"),
+                        (seed,))
+    for r in ranks:
+        emit(phase="sharded_train", ranks=4, mesh=[2, 2], arch=SHARDED_ARCH,
+             n_layers=SHARDED_LAYERS, batch=SHARDED_BATCH,
+             seq_len=SHARDED_SEQ, **r,
+             resident_vs_one_process=(r["param_bytes"] + r["moment_bytes"])
+             / (one["param_bytes"] + one["moment_bytes"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                    one["losses"])]
+        check(len(rel) == SHARDED_STEPS and max(rel) <= 2e-4,
+              f"sharded_train: rank {r['rank']} losses {r['losses']} vs one "
+              f"process {one['losses']}")
+        check(r["launches"] == one["launches"],
+              f"sharded_train: rank {r['rank']} launches {r['launches']}, "
+              f"one process {one['launches']}")
+    n = SHARDED_LAYERS * 2 * SHARDED_STEPS      # layers x microbatches x steps
+    check(one["launches"]["flash_attention_fwd"] == 2 * n
+          and one["launches"]["flash_attention_bwd"] == n,
+          f"sharded_train: one-process launches {one['launches']}")
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in one["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -4596,6 +4858,9 @@ def main() -> int:
     phase_compressed_allreduce(two, dp_cfg())
     seq_launches = phase_seq_serve(args.seed)
     dp_launches = phase_dp_train(args.seed)
+    # A6b: the heads, experts and parameters split over ranks
+    tp_launches = phase_tp_serve(args.seed)
+    sharded_launches = phase_sharded_train(args.seed)
 
     records += attention + [backward] + scans + bwd_scans
     by_path = {
@@ -4614,19 +4879,23 @@ def main() -> int:
             **{path: n["flash_attention_fwd"]
                for path, n in new_paths.items()},
             "seq_serve": seq_launches["flash_attention_fwd"],
-            "dp_train": dp_launches["flash_attention_fwd"]},
+            "dp_train": dp_launches["flash_attention_fwd"],
+            "tp_serve": tp_launches["flash_attention_fwd"],
+            "sharded_train": sharded_launches["flash_attention_fwd"]},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
             "jamba_train": jamba_train["flash_attention_bwd"],
             "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"],
-            "dp_train": dp_launches["flash_attention_bwd"]},
+            "dp_train": dp_launches["flash_attention_bwd"],
+            "sharded_train": sharded_launches["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "lm_requests": request_launches["decode_attention"],
             "jamba_serve": jamba_launches["decode_attention"],
             **{path: n["decode_attention"] for path, n in new_paths.items()
                if n["decode_attention"]},
-            "seq_serve": seq_launches["decode_attention"]},
+            "seq_serve": seq_launches["decode_attention"],
+            "tp_serve": tp_launches["decode_attention"]},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
                      "rwkv_train": rwkv_train["wkv6_fwd"]},
         "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"]},

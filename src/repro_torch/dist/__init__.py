@@ -1,8 +1,9 @@
-"""Distribution subsystem: mesh rules, compression, seq-decode, restarts.
+"""Distribution subsystem: mesh rules, collectives, compression,
+seq-decode, restarts.
 
 The port of the reference's work-distribution runtime over a mesh of
 **ranks** (processes joined by ``torch.distributed``; ``ranks``), packaged
-as the reference's four substrates:
+as the reference's four substrates and the collectives between ranks:
 
 ``sharding`` / ``api`` — the mesh-rules system.
     :class:`~repro_torch.dist.sharding.ShardingConfig` declares how a
@@ -10,8 +11,15 @@ as the reference's four substrates:
     logical-axis table that :func:`~repro_torch.dist.api.use_rules`
     installs and :func:`~repro_torch.dist.api.constrain` consults.  The
     ``*_specs`` helpers derive per-leaf layouts.  Each rank holds its own
-    part of every tensor, so the layouts are realised where data enters a
-    rank (the batch rows, the cache stripes), and placing is the identity.
+    part of every tensor: the layouts are realised where data enters a
+    rank (the batch rows, the cache stripes, ``LM.shard``'s parameter
+    blocks), and the compute layout (``sharding.compute_layout``) tells
+    the models which heads, columns, vocabulary and experts are theirs.
+
+``collectives`` — the collectives between the ranks.
+    All-reduce, all-gather, reduce-scatter and max over a mesh's axes,
+    each an ``autograd.Function`` (the others' transposes), counted by op
+    and axes.
 
 ``compression`` — gradient wire formats.
     Per-tensor int8 and top-k substrates, the error-feedback wrapper
@@ -28,10 +36,12 @@ as the reference's four substrates:
     failures.
 """
 
-from . import api, compression, fault, seq_decode, sharding  # noqa: F401
+from . import (api, collectives, compression, fault,  # noqa: F401
+               seq_decode, sharding)
 from .api import constrain, constrain_leading, current_rules, use_rules
 from .fault import GroupFailure, RestartReport, run_with_restarts
 
-__all__ = ["GroupFailure", "RestartReport", "api", "compression",
-           "constrain", "constrain_leading", "current_rules", "fault",
-           "run_with_restarts", "seq_decode", "sharding", "use_rules"]
+__all__ = ["GroupFailure", "RestartReport", "api", "collectives",
+           "compression", "constrain", "constrain_leading", "current_rules",
+           "fault", "run_with_restarts", "seq_decode", "sharding",
+           "use_rules"]

@@ -20,10 +20,12 @@ the rules are hints, not hard partitioning.
 The table is a :class:`~repro_torch.dist.sharding.MeshRules` (a logical
 name -> mesh axes table over a mesh of ranks, or over a shape-only mesh),
 or any object with ``spec_dim(name, extent) -> axis | None`` and
-``place(x, dims) -> x``.  In the port every tensor is already its rank's
-local part, so ``MeshRules.place`` returns ``x`` unchanged; ``constrain``
-still computes the resolution and the divisibility fallback.  The layouts
-are realised where data enters a rank: the batch rows by ``batch_specs``
+``place(x, dims) -> x``.  ``MeshRules.place`` cuts a whole tensor to this
+rank's block where the mesh is one of ranks (on a shape-only mesh it
+returns ``x``); the models' tensors are already their ranks' parts and
+read the layout at the reference's ``constrain`` sites through
+``sharding.compute_layout`` instead.  The layouts are realised where data
+enters a rank: the batch rows by ``batch_specs``
 (``launch.train`` slices each step's global batch by the rank's
 coordinate along the batch axes), the decode cache stripes by the
 ``"kv_seq"`` rule (``models.attention.kv_stripe`` allocates the rank's

@@ -30,10 +30,17 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, Mapping
 
-from .ranks import axis_sizes
+import torch
 
-__all__ = ["ShardingConfig", "MeshRules", "param_specs", "opt_specs",
-           "batch_specs", "cache_specs"]
+from .api import current_rules
+from .collectives import (all_gather, all_reduce, all_reduce_, gather_raw,
+                          reduce_scatter, scatter_raw)
+from .ranks import RankMesh, axis_sizes
+
+__all__ = ["ComputeLayout", "LeafLayout", "MeshRules", "ParamLayout",
+           "ShardingConfig", "Split", "batch_specs", "block_slices",
+           "cache_specs", "compute_layout", "gather_leaf", "opt_specs",
+           "param_specs", "shard_leaf", "unshard_leaf"]
 
 Axes = tuple[str, ...]
 
@@ -64,11 +71,14 @@ class MeshRules:
         return _dim_entry(self.mesh, self.axes(name), extent)
 
     def place(self, x, dims):
-        """In the port every tensor is already its rank's local part (the
-        layouts are realised where data enters a rank), so placing is the
-        identity; ``constrain`` still resolves ``dims``."""
-        del dims
-        return x
+        """This rank's block of the whole tensor ``x`` under ``dims`` (one
+        spec entry a dimension) where the mesh is one of ranks and an
+        entry spans more than one of them; otherwise ``x`` (a shape-only
+        mesh's layouts are derived, never run)."""
+        if not isinstance(self.mesh, RankMesh) or all(
+                self.axes_size(_entry_axes(e)) <= 1 for e in dims):
+            return x
+        return shard_leaf(x, dims, self.mesh)
 
 
 def _names(mesh) -> tuple[str, ...]:
@@ -264,3 +274,355 @@ def cache_specs(shapes: Any, mesh, scfg: ShardingConfig) -> Any:
         return ()
 
     return _map(leaf, shapes)
+
+
+# -- blocks: storage ----------------------------------------------------------
+
+def _entry_axes(entry) -> Axes:
+    """A spec entry's axes: ``()``, ``(axis,)`` or the tuple itself."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_slices(shape, spec, mesh) -> tuple[slice, ...]:
+    """The slices of this rank's block of a leaf of ``shape`` under
+    ``spec`` (one entry a dimension), on a mesh of ranks."""
+    out = []
+    for extent, entry in zip(shape, spec):
+        axes = _entry_axes(entry)
+        n = _axes_size(mesh, axes)
+        per = extent // n
+        i = mesh.index(axes) if n > 1 else 0
+        out.append(slice(i * per, (i + 1) * per))
+    return tuple(out)
+
+
+def shard_leaf(full, spec, mesh):
+    """This rank's block of the whole leaf ``full`` (a tensor of its own,
+    so the whole leaf can be freed)."""
+    return full[block_slices(full.shape, spec, mesh)].clone()
+
+
+def unshard_leaf(block, spec, mesh):
+    """The whole leaf from the blocks of every rank (``shard_leaf``'s
+    inverse): an all-gather along each sharded dimension."""
+    x = block
+    for dim, entry in enumerate(spec):
+        if _axes_size(mesh, _entry_axes(entry)) > 1:
+            x = gather_raw(x, mesh, _entry_axes(entry), dim)
+    return x
+
+
+# -- blocks: compute ----------------------------------------------------------
+
+@dataclass(frozen=True)
+class Split:
+    """One logical axis over mesh ``axes``: ``n`` ranks, this one at
+    ``index``."""
+
+    axes: Axes = ()
+    n: int = 1
+    index: int = 0
+
+    def range(self, extent: int) -> slice | None:
+        """This rank's part of ``extent``, or ``None`` where the split
+        does not divide it (the reference's replication fallback)."""
+        if self.n <= 1 or extent < self.n or extent % self.n:
+            return None
+        per = extent // self.n
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+def _split(mesh, axes: Axes) -> Split:
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    n = _axes_size(mesh, axes)
+    return Split(axes, n, mesh.index(axes) if n > 1 else 0)
+
+
+class ComputeLayout:
+    """What this rank computes under a rules table over a mesh of ranks:
+    its q heads, the kv heads they read, its ``ff`` columns, its vocab
+    slice and its experts, and whether the residual stream holds its rows
+    of the sequence (``seq_parallel``).  Model code reads it at the
+    reference's ``constrain`` sites through ``compute_layout()``."""
+
+    def __init__(self, rules: MeshRules):
+        mesh = rules.mesh
+        self.mesh = mesh
+        self.model = _split(mesh, rules.axes("heads"))
+        self.ff_split = _split(mesh, rules.axes("ff"))
+        self.vocab_split = _split(mesh, rules.axes("vocab"))
+        self.expert = _split(mesh, rules.axes("expert"))
+        self.seq = _split(mesh, rules.axes("seq"))
+        self.kv_sharded = bool(rules.axes("kv_heads"))
+        self.batch_axes = tuple(a for a in rules.axes("batch")
+                                if mesh.shape[a] > 1)
+
+    @property
+    def trivial(self) -> bool:
+        """Nothing split but (maybe) the batch."""
+        return max(self.model.n, self.ff_split.n, self.vocab_split.n,
+                   self.expert.n, self.seq.n) <= 1
+
+    # -- the parts this rank computes -----------------------------------------
+    def heads(self, n_heads: int) -> slice | None:
+        return self.model.range(n_heads)
+
+    def kv_heads(self, n_heads: int, n_kv: int) -> slice | None:
+        """The kv heads this rank's q heads read (``None``: all)."""
+        q = self.heads(n_heads)
+        if q is None:
+            return None
+        rep = n_heads // n_kv
+        return slice(q.start // rep, (q.stop - 1) // rep + 1)
+
+    def kv_computed(self, n_heads: int, n_kv: int) -> slice | None:
+        """The kv heads this rank projects and caches: those its q heads
+        read under ``kv_shard="heads"``, all of them otherwise (the
+        reference's replicated ``kv_heads``)."""
+        return self.kv_heads(n_heads, n_kv) if self.kv_sharded else None
+
+    def ff(self, d_ff: int) -> slice | None:
+        return self.ff_split.range(d_ff)
+
+    def vocab(self, vocab: int) -> slice | None:
+        return self.vocab_split.range(vocab)
+
+    def experts(self, n_experts: int) -> slice | None:
+        return self.expert.range(n_experts)
+
+    def seq_rows(self, t: int) -> slice | None:
+        return self.seq.range(t)
+
+    # -- the collectives at the constrain sites -------------------------------
+    def reduce(self, y, partial: Axes = (), seq_dim: int | None = None):
+        """Finish a sublayer's output: sum the ranks' contributions over
+        ``partial`` axes; with ``seq_dim`` keep this rank's rows of it
+        (``seq_parallel``: a reduce-scatter where the contributions are
+        summed over the sequence's own axes, else a slice)."""
+        partial = tuple(a for a in partial if self.mesh.shape[a] > 1)
+        rows = None if seq_dim is None else self.seq_rows(y.shape[seq_dim])
+        if rows is None:
+            return all_reduce(y, self.mesh, partial) if partial else y
+        if set(partial) == set(self.seq.axes):
+            return reduce_scatter(y, self.mesh, self.seq.axes, seq_dim)
+        if partial:
+            y = all_reduce(y, self.mesh, partial)
+        return y.narrow(seq_dim, rows.start, rows.stop - rows.start)
+
+    def gather_seq(self, x, seq_dim: int, t: int):
+        """The whole sequence (``t`` rows) from each rank's rows."""
+        if self.seq_rows(t) is None:
+            return x
+        return all_gather(x, self.mesh, self.seq.axes, seq_dim)
+
+
+def compute_layout() -> ComputeLayout | None:
+    """The active rules' ``ComputeLayout``, or ``None`` where nothing is
+    split: no rules, a mesh with no ranks behind it, or every logical axis
+    over one rank (the paths of one process run unchanged).  Data-parallel
+    training installs no rules (``launch.steps``); a model sharded over
+    ranks does (``LM.shard``), and with it the batch counts as split (the
+    MoE aux loss reads it)."""
+    rules = current_rules()
+    if not isinstance(rules, MeshRules) or not isinstance(rules.mesh,
+                                                           RankMesh):
+        return None
+    cached = rules.__dict__.get("_compute")
+    if cached is None:
+        cached = ComputeLayout(rules)
+        object.__setattr__(rules, "_compute", cached)
+    return None if cached.trivial and not cached.batch_axes else cached
+
+
+# -- a parameter leaf between its storage block and its compute block ---------
+
+@dataclass(frozen=True)
+class LeafLayout:
+    """One parameter leaf: ``spec`` (storage, ``param_specs``), the rank's
+    storage ``block`` and compute ``region`` (slices of the whole leaf),
+    the ``steps`` that take the block to the region — ``("gather", dim,
+    axes)`` (an all-gather along ``dim``) and ``("cut", dim, slice)`` —
+    and the axes over which its gradient is also summed (``also_sum``).
+    A dimension whose compute split is its storage split (the same axes)
+    is never gathered: the rank's block along it is its compute range.  A
+    dimension is cut to the rank's range before a gather wherever every
+    rank of that gather (and of ``also_sum``) computes on the same range
+    of it, so less crosses the ranks (Qwen2-MoE's experts: gathered whole
+    over the model axis, which splits them, then cut to the rank's
+    experts, then gathered over FSDP's data axis)."""
+
+    shape: tuple
+    spec: tuple
+    block: tuple
+    region: tuple
+    steps: tuple
+    also_sum: Axes
+
+    @property
+    def storage_axes(self) -> Axes:
+        return tuple(a for e in self.spec for a in _entry_axes(e))
+
+
+def leaf_layout(shape, spec, region, mesh, batch_axes: Axes) -> LeafLayout:
+    """``region`` holds, for each dimension, ``None`` (the whole extent)
+    or ``(slice, axes, even)``: the compute range, the mesh axes whose
+    coordinates it depends on, and whether it is this rank's part of an
+    even split of the extent over them (the kv heads a rank's q heads read
+    depend on the model axes without being such a part)."""
+    block = block_slices(shape, spec, mesh)
+    reg, deps, aligned, gathers = [], [], [], []
+    aligned_dims = set()
+    for dim, (extent, entry, r) in enumerate(zip(shape, spec, region)):
+        axes = tuple(a for a in _entry_axes(entry) if mesh.shape[a] > 1)
+        rng, raxes, even = (slice(0, extent), (), True) if r is None else r
+        raxes = tuple(a for a in raxes if mesh.shape[a] > 1)
+        reg.append(rng)
+        deps.append(set(raxes))
+        if axes and even and raxes == axes:
+            aligned.extend(axes)
+            aligned_dims.add(dim)
+        elif axes:
+            gathers.append((dim, axes))
+    gathered = {a for _, axes in gathers for a in axes}
+    also_sum = tuple(a for a in mesh.axis_names
+                     if mesh.shape[a] > 1 and a not in batch_axes
+                     and a not in aligned and a not in gathered)
+    # gathers over axes some range depends on first: after them the
+    # ranks of the others share those ranges
+    dep_axes = set().union(*deps)
+    gathers.sort(key=lambda g: not set(g[1]) & dep_axes)
+    cuts = [d for d, r in enumerate(region)
+            if r is not None and d not in aligned_dims]
+    steps: list = []
+    done: set = set()
+    for j, (dim, axes) in enumerate(gathers):
+        later = {a for _, ax in gathers[j:] for a in ax} | set(also_sum)
+        pending = {g[0] for g in gathers[j:]}
+        for d in cuts:
+            if d not in done and d not in pending and not deps[d] & later:
+                steps.append(("cut", d, reg[d]))
+                done.add(d)
+        steps.append(("gather", dim, axes))
+    steps += [("cut", d, reg[d]) for d in cuts if d not in done]
+    return LeafLayout(tuple(shape), tuple(spec), block, tuple(reg),
+                      tuple(steps), also_sum)
+
+
+class _GatherLeaf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, lay: LeafLayout, mesh):
+        ctx.lay, ctx.mesh, ctx.shapes = lay, mesh, []
+        x = block
+        for kind, dim, arg in lay.steps:
+            ctx.shapes.append(x.shape)
+            if kind == "gather":
+                x = gather_raw(x, mesh, arg, dim)
+            else:
+                x = x.narrow(dim, arg.start, arg.stop - arg.start)
+        # a cut is a view: of the block, or of a gathered buffer to free
+        return x if lay.steps and lay.steps[-1][0] == "gather" else x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        lay, mesh = ctx.lay, ctx.mesh
+        extra = lay.also_sum
+        if not lay.steps:
+            g = g.clone()                     # summed in place below
+        for (kind, dim, arg), shape in zip(reversed(lay.steps),
+                                           reversed(ctx.shapes)):
+            if kind == "gather":
+                g = scatter_raw(g, mesh, arg, dim, also_sum=extra)
+                extra = ()
+            else:
+                whole = torch.zeros(shape, dtype=g.dtype, device=g.device)
+                whole.narrow(dim, arg.start, arg.stop - arg.start).copy_(g)
+                g = whole
+        return all_reduce_(g, mesh, extra), None, None
+
+
+def gather_leaf(block, lay: LeafLayout, mesh):
+    """A parameter leaf's compute block from this rank's storage block:
+    all-gathered along the dims where the two differ and cut to the
+    compute region (``LeafLayout.steps``).  Backward: the region's
+    gradient summed over every rank that computes with this leaf (except
+    the batch axes the leaf is not stored over: the step's data-parallel
+    reduction sums those) and scattered back into the storage block."""
+    if not lay.steps and not lay.also_sum:
+        return block
+    return _GatherLeaf.apply(block, lay, mesh)
+
+
+class ParamLayout:
+    """Every parameter leaf of a model on a mesh of ranks: its
+    ``LeafLayout`` by name, ``resident`` ``"storage"`` (training: the
+    rank holds its ``param_specs`` block of each leaf, gathered on use)
+    or ``"compute"`` (serving: it holds its compute block, gathered once
+    where the session starts), and the rules its compute follows."""
+
+    def __init__(self, leaves: dict, rules: MeshRules, resident: str):
+        if resident not in ("storage", "compute"):
+            raise ValueError(f"resident={resident!r}")
+        self.leaves = leaves
+        self.rules = rules
+        self.mesh = rules.mesh
+        self.resident = resident
+        self.batch_axes = tuple(a for a in rules.axes("batch")
+                                if self.mesh.shape[a] > 1)
+
+    def owner(self, name: str) -> bool:
+        """Whether this rank counts leaf ``name``'s block once among the
+        ranks that hold the same block (coordinate 0 along every axis the
+        leaf is not stored over)."""
+        held = self.leaves[name].storage_axes
+        return all(self.mesh.coords[a] == 0 for a in self.mesh.axis_names
+                   if a not in held)
+
+    def dp_axes(self, name: str) -> Axes:
+        """The batch axes a gradient of leaf ``name`` is still summed over
+        after the backward: those it is not stored over."""
+        held = self.leaves[name].storage_axes
+        return tuple(a for a in self.batch_axes if a not in held)
+
+    def block(self, name: str, full):
+        """This rank's resident block of the whole leaf ``full``."""
+        lay = self.leaves[name]
+        return full[lay.block if self.resident == "storage"
+                    else lay.region].clone()
+
+    def use(self, name: str, p):
+        """The compute block of resident parameter ``p``."""
+        if self.resident == "compute":
+            return p
+        return gather_leaf(p, self.leaves[name], self.mesh)
+
+    def unshard(self, name: str, block):
+        """The whole leaf from its storage blocks (for checkpoints)."""
+        return unshard_leaf(block, self.leaves[name].spec, self.mesh)
+
+    def shard_moment(self, name: str, m):
+        """This rank's block of a whole moment leaf (a tensor, or an int8
+        moment's ``{"q", "scale"[, "minv"]}``, each blocked as the
+        parameter is: ``adamw`` quantizes along the last axis, and the
+        port shards a moment only where its blocks are the whole leaf's)."""
+        spec = self.leaves[name].spec
+        if isinstance(m, Mapping):
+            return {k: self.shard_moment(name, v) for k, v in m.items()}
+        return m[block_slices(m.shape, spec, self.mesh)].clone()
+
+    def unshard_moment(self, name: str, m):
+        if isinstance(m, Mapping):
+            return {k: self.unshard_moment(name, v) for k, v in m.items()}
+        return unshard_leaf(m, self.leaves[name].spec, self.mesh)
+
+    def global_norm(self, grads: Mapping) -> torch.Tensor:
+        """The global norm of the whole gradient from each rank's blocks:
+        each distinct block's squares counted once (``owner``), summed
+        over every rank."""
+        some = next(iter(grads.values()))
+        sq = torch.zeros((), dtype=torch.float32, device=some.device)
+        for name, g in grads.items():
+            if self.owner(name):
+                sq = sq + g.float().square().sum()
+        return all_reduce_(sq, self.mesh, self.mesh.axis_names).sqrt()

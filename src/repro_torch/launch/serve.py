@@ -84,10 +84,11 @@ from .. import configs, resolve_device
 from ..core.hetero import DeviceGroup
 from ..core.space import ConfigSpace, Param
 from ..dist.api import use_rules
-from ..dist.sharding import ShardingConfig
+from ..dist.sharding import MeshRules, ShardingConfig
 from ..models import LM, EncDec, build_model
 from ..obs import get_logger
-from .mesh import check_executable, make_host_mesh
+from .mesh import (add_mesh_args, axes_arg, check_executable,
+                   make_host_mesh, mesh_from_args)
 
 __all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
            "serve_session", "serve_stream", "split_space",
@@ -101,17 +102,31 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _checksum_agrees(model, group) -> bool:
-    """Whether every rank of ``group`` holds the same parameters: the
-    largest of a float64 checksum and of its negation over the ranks
-    (their max and min) must agree (a broadcast of GBs of weights would
-    cost seconds)."""
-    c = torch.zeros(2, dtype=torch.float64, device=model.device)
-    for i, p in enumerate(model.parameters()):
+def _checksum_agrees(model, mesh) -> bool:
+    """Whether every rank holds the same parameter blocks as the other
+    ranks that hold the same blocks: per set of such ranks, the largest
+    of a float64 checksum and of its negation over them (their max and
+    min) must agree (a broadcast of GBs of weights would cost seconds).
+    A leaf split over ranks (``model.layout``) is compared along the axes
+    its compute does not split, every other leaf over all ranks."""
+    layout = getattr(model, "layout", None)
+    split = () if layout is None else tuple(
+        a for a in mesh.axis_names
+        if a in layout.rules.axes("heads") + layout.rules.axes("expert"))
+    sums: dict[tuple, torch.Tensor] = {}
+    for i, (name, p) in enumerate(model.named_parameters()):
+        whole = layout is None or tuple(p.shape) == layout.leaves[name].shape
+        axes = tuple(a for a in mesh.axis_names if whole or a not in split)
+        c = sums.setdefault(axes, torch.zeros(2, dtype=torch.float64,
+                                              device=model.device))
         c[0] += p.detach().sum(dtype=torch.float64) * (1 + i % 7)
-    c[1] = -c[0]
-    dist.all_reduce(c, op=dist.ReduceOp.MAX, group=group)
-    return bool(c[0] == -c[1])
+    agree = True
+    for axes, c in sums.items():
+        if mesh.axes_size(axes) > 1:
+            c[1] = -c[0]
+            dist.all_reduce(c, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+            agree &= bool(c[0] == -c[1])
+    return agree
 
 
 @torch.inference_mode()
@@ -136,31 +151,46 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     here needs a graph.
 
     With a ``mesh`` of ranks (``launch.mesh.make_host_mesh``) every rank
-    builds the model from ``seed`` (a parameter checksum must agree across
-    ranks) and draws the same prompt.  Under rules whose ``kv_shard`` is
+    builds the model from ``seed`` and draws the same prompt.  Where the
+    rules split the heads, ``ff`` columns, vocabulary or experts over
+    ranks, each rank keeps its compute blocks of them (``LM.shard(...,
+    "compute")``): its q heads and the kv heads they read, which its
+    cache holds under ``kv_shard="heads"`` (all kv heads under
+    ``"none"``), and the logits are gathered whole before the token is
+    picked.  Each rank's blocks must agree (a checksum) with those of the
+    ranks that hold the same ones.  Under rules whose ``kv_shard`` is
     ``"seq"`` or ``"batch_seq"`` each attention layer's cache is the
     rank's stripe and decode runs ``dist.seq_decode`` (the prefill runs
     the whole prompt on every rank); ``"batch_seq"`` also splits the rows
     over the batch axes, which must divide ``batch``.  Every rank of a
     stripe group must pick the same token at each step (its first rank's
-    token is broadcast and compared), and ``generated`` holds the whole
-    batch on every rank.  ``return_logits`` adds ``"logits"``: the
-    prefill's last-position logits and each decode step's, float32, this
-    rank's rows.
+    token is broadcast and compared; so must every rank of a model-axes
+    group), and ``generated`` holds the whole batch on every rank.
+    ``return_logits`` adds ``"logits"``: the prefill's last-position
+    logits and each decode step's, float32, this rank's rows.
     """
     rules = None
     if mesh is not None:
         scfg = scfg or ShardingConfig(
             data_axes=mesh.axis_names[:1], model_axes=(), fsdp_axes=(),
             kv_shard="none", remat=False)
-        check_executable(scfg, mesh, serving=True)
         rules = scfg.rules(mesh)
+        if scfg.kv_shard == "batch_seq":
+            # the model axes stripe the caches: the weights stay whole
+            rules = MeshRules(mesh=mesh, rules={
+                **rules.rules, "heads": (), "kv_heads": (), "ff": (),
+                "vocab": ()})
     if model is None:
         model = build_model(cfg, seed=seed,
                             device=resolve_device(device)).cast_for_serving()
     elif device is not None \
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
+    if mesh is not None:
+        check_executable(scfg, mesh, serving=True, model=model)
+        if isinstance(model, LM) and model.layout is None \
+                and dist.get_world_size() > 1:
+            model.shard(rules, "compute")
     dev = model.device
     max_len = prompt_len + gen
     rng = np.random.default_rng(seed)
@@ -170,7 +200,7 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     rows = slice(0, batch)
     seq_group = batch_group = None
     if mesh is not None and dist.get_world_size() > 1:
-        if not _checksum_agrees(model, None):
+        if not _checksum_agrees(model, mesh):
             raise RuntimeError("serve_session: the ranks' parameters differ "
                                "(each rank builds the model from the seed)")
         bax = rules.axes("batch")
@@ -182,8 +212,11 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
             per = batch // nb
             rows = slice(mesh.index(bax) * per, (mesh.index(bax) + 1) * per)
             batch_group = mesh.group(bax)
-        if mesh.axes_size(rules.axes("kv_seq")) > 1:
-            seq_group = mesh.group(rules.axes("kv_seq"))
+        # the ranks that serve the same rows must pick the same tokens
+        same = tuple(a for a in mesh.axis_names
+                     if a in rules.axes("kv_seq") + rules.axes("heads"))
+        if mesh.axes_size(same) > 1:
+            seq_group = mesh.group(same)
     tokens = tokens[rows]
     lead = (None if seq_group is None
             else dist.get_global_rank(seq_group, 0))
@@ -654,10 +687,12 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-shard", default="none",
-                    choices=["none", "seq", "batch_seq"],
+                    choices=["none", "heads", "seq", "batch_seq"],
                     help="under torchrun: the decode caches' layout over the "
                     "ranks (seq: each rank a stripe of the sequence, the "
-                    "batch on every rank)")
+                    "batch on every rank; heads: each rank the kv heads "
+                    "of its q heads, with --mesh splitting the model axis)")
+    add_mesh_args(ap)
     ap.add_argument("--tuned-kernels", default=None, metavar="STORE",
                     help="kernel tuning store (JSON from "
                     "repro_torch.tune.kernels.tune_kernel): the kernels "
@@ -773,14 +808,17 @@ def main(argv=None) -> None:
         ktune.configure(args.tuned_kernels, device=dev)
     # under torchrun: the ranks of the group, the caches laid out by
     # --kv-shard ("seq" and "batch_seq" run the sequence-sharded decode)
+    # (--mesh over (data, model) with the model axes splitting the heads)
     mesh = scfg = None
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         world = int(os.environ["WORLD_SIZE"])
         shape = (2, world // 2) if args.kv_shard == "batch_seq" else None
-        mesh = make_host_mesh(axes=("data", "model") if shape else
-                              ("data",), shape=shape, device=dev)
-        scfg = ShardingConfig(data_axes=("data",), model_axes=("model",),
-                              kv_shard=args.kv_shard)
+        mesh = (mesh_from_args(args, dev) if args.mesh else make_host_mesh(
+            axes=("data", "model") if shape else ("data",), shape=shape,
+            device=dev))
+        scfg = ShardingConfig(data_axes=("data",),
+                              model_axes=axes_arg(args.model_axes)
+                              or ("model",), kv_shard=args.kv_shard)
     out = serve_session(cfg, batch=args.batch, prompt_len=args.prompt_len,
                         gen=args.gen, seed=args.seed, device=dev, mesh=mesh,
                         scfg=scfg)

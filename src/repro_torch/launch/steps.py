@@ -20,22 +20,36 @@ loss-mask count: the global mean of a batch whose masks differ by row
 (a VLM's patches, an encoder-decoder's) is the reference's.  (An MoE
 model's router aux loss is the count-weighted mean of the ranks' aux
 losses, not one over the global batch.)
+
+Tensor, expert and FSDP parameter sharding (a model ``LM.shard``-ed over
+the ranks, ``model.layout``): the loss of each rank is weighted by its
+share of the batch's count over the number of ranks that hold the same
+rows, so the loss is the sum over every rank's (``dist.collectives``).
+The backward then gathers and reduces each leaf through its layout: a
+gradient leaves it summed over every rank that computed with the leaf and
+scattered into the rank's storage block (``dist.sharding.gather_leaf``;
+for a leaf stored over the batch axes this is DP's reduction too).  The
+leaves replicated over batch axes are then summed over those in one flat
+all-reduce a set of such axes; the count (before the backward) and the
+loss (after it) are each reduced once.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..dist.collectives import all_reduce_
 from ..dist.compression import (CompressionConfig, compress_stacked,
                                 stack_groups)
 from ..models import LM, EncDec
 from ..optim.adamw import AdamWConfig, apply_updates
 
-__all__ = ["train_step"]
+__all__ = ["loss_and_grads", "train_step"]
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -107,12 +121,50 @@ def train_step(model: LM | EncDec, opt_state: dict, batch: dict,
     gradients AdamW takes), and ``"allreduce_s"``, the host-clock seconds
     of the gradient all-reduce between two synchronizes, where there is
     one.  The gradient all-reduce runs inside a profiler range named
-    ``grad_allreduce``, the AdamW update inside one named ``adamw``.
+    ``grad_allreduce``, the AdamW update inside one named ``adamw``.  A
+    model sharded over the ranks (``model.layout``) reduces each gradient
+    by its leaf's layout (see the module docstring); its ``params``,
+    gradients and moments are each rank's blocks.
     """
     ccfg = CompressionConfig(scheme=grad_compression)
     if ccfg.scheme != "none" and err is None:
         raise ValueError(f"grad_compression={grad_compression!r} needs the "
                          "error-feedback state err= (init_error_state)")
+    params = dict(model.named_parameters())
+    loss, grads, reduce_s = loss_and_grads(
+        model, batch, microbatches=microbatches, remat=remat, mesh=mesh,
+        batch_axes=batch_axes)
+    if ccfg.scheme != "none":
+        # per tensor as the reference's tensors are: its stacked layers
+        grads, new_err = compress_stacked(
+            grads, err, ccfg,
+            stack_groups(grads, len(model.cfg.group_pattern)))
+        for n, e in new_err.items():
+            err[n].copy_(e)
+    layout = getattr(model, "layout", None)
+    with record_function("adamw"):
+        gnorm = apply_updates(params, grads, opt_state, opt_cfg,
+                              decay_mask=model.decay_mask(),
+                              norm=None if layout is None
+                              else layout.global_norm)
+    del grads
+    model.zero_grad(set_to_none=True)
+    out = {"loss": loss, "gnorm": gnorm, "step": opt_state["count"]}
+    if reduce_s is not None:
+        out["allreduce_s"] = reduce_s
+    return out
+
+
+def loss_and_grads(model: LM | EncDec, batch: dict, *,
+                   microbatches: int = 1, remat: bool | str = False,
+                   mesh=None, batch_axes: tuple = ()
+                   ) -> tuple[torch.Tensor, dict, float | None]:
+    """``train_step``'s loss and gradients before compression and the
+    update: (the global batch's loss, {name: gradient} (each rank's
+    blocks, for a model sharded over the ranks), host-clock seconds of the
+    data-parallel reduction or ``None``)."""
+    if getattr(model, "layout", None) is not None:
+        return _sharded_loss_and_grads(model, batch, microbatches, remat)
     params = dict(model.named_parameters())
     model.zero_grad(set_to_none=True)
     if microbatches > 1:
@@ -144,19 +196,53 @@ def train_step(model: LM | EncDec, opt_state: dict, batch: dict,
         model.zero_grad(set_to_none=True)      # the buffer holds them now
         _sync(loss.device)
         reduce_s = time.perf_counter() - t0
-    if ccfg.scheme != "none":
-        # per tensor as the reference's tensors are: its stacked layers
-        grads, new_err = compress_stacked(
-            grads, err, ccfg,
-            stack_groups(grads, len(model.cfg.group_pattern)))
-        for n, e in new_err.items():
-            err[n].copy_(e)
-    with record_function("adamw"):
-        gnorm = apply_updates(params, grads, opt_state, opt_cfg,
-                              decay_mask=model.decay_mask())
-    del grads
+    return loss, grads, reduce_s
+
+
+def _sharded_loss_and_grads(model: LM, batch: dict, microbatches: int,
+                            remat) -> tuple[torch.Tensor, dict, float]:
+    layout = model.layout
+    mesh, bax = layout.mesh, layout.batch_axes
+    dev = model.device
+    params = dict(model.named_parameters())
     model.zero_grad(set_to_none=True)
-    out = {"loss": loss, "gnorm": gnorm, "step": opt_state["count"]}
-    if reduce_s is not None:
-        out["allreduce_s"] = reduce_s
-    return out
+    count = _loss_count(batch).to(dev, torch.float32)
+    total = all_reduce_(count.clone(), mesh, bax).clamp_min(1.0)
+    replicas = math.prod(mesh.shape.values()) // mesh.axes_size(bax)
+    share = count / total
+    scale = share / replicas
+    gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            for n, p in params.items()}
+    lsum = torch.zeros((), dtype=torch.float32, device=dev)
+    for mb in _split(batch, microbatches):
+        loss, _ = model.loss(mb, remat=remat)
+        (loss * scale).backward()
+        for n, p in params.items():
+            if p.grad is not None:
+                gsum[n] += p.grad.float()
+                p.grad = None
+        lsum += loss.detach()
+    grads = {n: g.div_(microbatches) if microbatches > 1 else g
+             for n, g in gsum.items()}
+    # the leaves not stored over (some) batch axes: one flat sum a set
+    _sync(dev)
+    t0 = time.perf_counter()
+    with record_function("grad_allreduce"):
+        by_axes: dict[tuple, list[str]] = {}
+        for n in grads:
+            by_axes.setdefault(layout.dp_axes(n), []).append(n)
+        for axes, names in by_axes.items():
+            if not axes:
+                continue
+            flat = torch.cat([grads[n].reshape(-1) for n in names])
+            all_reduce_(flat, mesh, axes)
+            at = 0
+            for n in names:
+                k = grads[n].numel()
+                grads[n] = flat[at:at + k].view(grads[n].shape)
+                at += k
+        loss = all_reduce_(lsum / microbatches * share, mesh, bax)
+    _sync(dev)
+    reduce_s = time.perf_counter() - t0
+    return loss, {n: g.to(params[n].dtype) for n, g in grads.items()}, \
+        reduce_s

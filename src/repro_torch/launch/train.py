@@ -24,15 +24,24 @@ takes the rows of its coordinate along the batch axes (``batch_specs``),
 and ``train_step`` reduces the loss and gradients to the global mean
 (optionally compressed with error feedback, the residual checkpointed
 with the state).  Only rank 0 writes checkpoints; the others wait at a
-barrier until each is complete.  The DP state is replicated, so a run
-resumes from a checkpoint written by a different number of ranks.  Mesh
-axes that the rules map to tensor, expert or FSDP parameter sharding
-(other than FSDP over the batch axes, which runs replicated and gives
-DP's numbers) are refused (ROADMAP A6b).  Under ``torchrun`` the CLI
-joins the group the environment names:
+barrier until each is complete.
+
+Tensor, expert and FSDP parameter sharding (the rules map model, expert
+or FSDP axes of more than one rank; ``launch.mesh.check_executable``
+refuses what does not run, naming ROADMAP A6c): after the broadcast every
+rank keeps its ``param_specs`` block of each parameter and frees the rest
+(``LM.shard``), and its AdamW moments are blocks of the same layout.
+Checkpoints stay layout-free: every rank joins the gathers of each leaf
+and rank 0 writes the whole leaves, and a resume slices the whole leaves
+into the new mesh's blocks, so a run resumes from a checkpoint written by
+a different number of ranks.  Under ``torchrun`` the CLI joins the group
+the environment names:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen2.5-3b --smoke --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen2-moe-a2.7b --smoke --device cpu --mesh 2,2 \
+        --model-axes model --fsdp-axes data --expert-axes model
 """
 
 from __future__ import annotations
@@ -41,8 +50,6 @@ import argparse
 import logging
 import time
 from pathlib import Path
-
-import os
 
 import torch
 import torch.distributed as dist
@@ -55,7 +62,8 @@ from ..dist.sharding import ShardingConfig, batch_specs
 from ..models import LM, EncDec, build_model
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..optim.schedule import warmup_cosine
-from .mesh import check_executable, make_host_mesh
+from .mesh import (add_mesh_args, axes_arg, check_executable,
+                   mesh_from_args)
 from .steps import train_step
 
 __all__ = ["main", "make_data_cfg", "train_loop"]
@@ -102,10 +110,14 @@ def _restore(mgr: CheckpointManager, model: LM | EncDec,
     return step, opt, state.get("err")
 
 
-def _rows(host_batch: dict, mesh, scfg: ShardingConfig) -> dict:
+def _rows(host_batch: dict, mesh, scfg: ShardingConfig,
+          microbatches: int = 1) -> dict:
     """This rank's rows of a global batch: the rank's coordinate along the
     axes ``batch_specs`` gives the leading dimension (all rows where they
-    do not divide it)."""
+    do not divide it).  With ``microbatches`` the rank takes its share of
+    each of the global batch's microbatches (contiguous row blocks, as the
+    reference splits them), in microbatch order, so its own contiguous
+    split is its share of each."""
     spec = batch_specs(host_batch, mesh, scfg)
     out = {}
     for key, arr in host_batch.items():
@@ -114,8 +126,13 @@ def _rows(host_batch: dict, mesh, scfg: ShardingConfig) -> dict:
             out[key] = arr
             continue
         axes = (axes,) if isinstance(axes, str) else axes
-        per = arr.shape[0] // mesh.axes_size(axes)
+        n = mesh.axes_size(axes)
         i = mesh.index(axes)
+        if microbatches > 1 and arr.shape[0] % (n * microbatches) == 0:
+            blocks = arr.reshape(microbatches, n, -1, *arr.shape[1:])
+            out[key] = blocks[:, i].reshape(-1, *arr.shape[1:])
+            continue
+        per = arr.shape[0] // n
         out[key] = arr[i * per:(i + 1) * per]
     return out
 
@@ -136,7 +153,8 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
     built from ``seed`` on ``device`` (``None`` = the card).  ``state`` is
     ``{"params": {name: tensor}, "opt": ..., "step": int32}`` (and
     ``"err"``, the error-feedback residual, under ``grad_compression``),
-    the parameters being the model's own.  ``step_seconds`` is each step's
+    the parameters being the model's own (each rank's blocks, where the
+    layout shards them).  ``step_seconds`` is each step's
     host-clock time, which ends with reading its loss (a synchronize);
     ``allreduce_seconds`` the host-clock time of each step's gradient
     all-reduce (a synchronize before and after it) on a mesh of several
@@ -151,20 +169,21 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
             remat=False)
     remat = scfg.remat if remat is None else remat
     microbatches = microbatches or scfg.microbatches
-    batch_axes: tuple = ()
-    rank = 0
-    if mesh is not None:
-        check_executable(scfg, mesh)
-        batch_axes = scfg.batch_axes(mesh)
-        rank = dist.get_rank()
+    opt_cfg = opt_cfg or AdamWConfig(
+        learning_rate=warmup_cosine(3e-4, 20, steps_total))
     if model is None:
         model = build_model(cfg, seed=seed, device=resolve_device(device))
     elif device is not None \
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
+    batch_axes: tuple = ()
+    rank = 0
+    if mesh is not None:
+        check_executable(scfg, mesh, model=model,
+                         moments_dtype=opt_cfg.moments_dtype)
+        batch_axes = scfg.batch_axes(mesh)
+        rank = dist.get_rank()
     dev = model.device
-    opt_cfg = opt_cfg or AdamWConfig(
-        learning_rate=warmup_cosine(3e-4, 20, steps_total))
     # every rank regenerates the global batch of a step (a pure function
     # of seed and step) and keeps its rows, so 1 rank and n ranks see the
     # same data and a resume on another rank count continues it
@@ -181,11 +200,21 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
             log.warning(f"WARNING: checkpoint in {ckpt_dir} is incompatible "
                         f"with this model ({type(e).__name__}: {e}); "
                         "starting fresh")
-    if mesh is not None and dist.get_world_size() > 1:
+    layout = getattr(model, "layout", None)
+    if mesh is not None and dist.get_world_size() > 1 and layout is None:
         # one broadcast from rank 0, so no rank's parameters can drift
         with torch.no_grad():
             for p in params.values():
                 dist.broadcast(p.data, src=0)
+        if isinstance(model, LM):
+            # then each rank keeps its blocks (and its moments' blocks)
+            layout = model.shard(scfg.rules(mesh), "storage", scfg)
+            if layout is not None and opt is not None:
+                opt = {"m": {n: layout.shard_moment(n, m)
+                             for n, m in opt["m"].items()},
+                       "v": {n: layout.shard_moment(n, v)
+                             for n, v in opt["v"].items()},
+                       "count": opt["count"]}
     if opt is None:
         opt = init_opt_state(params, opt_cfg)
     compress = scfg.grad_compression
@@ -202,9 +231,24 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
             out["err"] = err
         return out
 
+    def whole(step: int) -> dict:
+        """The state with whole leaves: every rank joins the gathers."""
+        if layout is None:
+            return state(step)
+        return {"params": {n: layout.unshard(n, p.detach())
+                           for n, p in params.items()},
+                "opt": {"m": {n: layout.unshard_moment(n, m)
+                              for n, m in opt["m"].items()},
+                        "v": {n: layout.unshard_moment(n, v)
+                              for n, v in opt["v"].items()},
+                        "count": opt["count"]},
+                "step": torch.tensor(step, dtype=torch.int32)}
+
     def save(step: int, extra: dict) -> None:
+        full = whole(step)
         if writer:
-            writer.save(step, state(step), extra=extra)
+            writer.save(step, full, extra=extra)
+        del full
         if mesh is not None and dist.get_world_size() > 1:
             if writer:
                 writer.wait()            # complete before anyone reads it
@@ -222,7 +266,7 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                 raise RuntimeError(f"injected failure at step {step}")
             t_step = time.perf_counter()
             if mesh is not None:
-                host_batch = _rows(host_batch, mesh, scfg)
+                host_batch = _rows(host_batch, mesh, scfg, microbatches)
             dev_batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in host_batch.items()}
             metrics = train_step(model, opt, dev_batch, opt_cfg,
@@ -275,16 +319,25 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8", "topk"],
                     help="error-feedback gradient compression")
+    add_mesh_args(ap)
+    ap.add_argument("--fsdp-axes", default="",
+                    help="mesh axes sharding the parameters (FSDP), e.g. "
+                    "'data'")
+    ap.add_argument("--expert-axes", default="",
+                    help="mesh axes sharding the experts, e.g. 'model'")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     dev = resolve_device(args.device)
-    # under torchrun: data parallelism over every rank of the group
-    mesh = (make_host_mesh(device=dev)
-            if int(os.environ.get("WORLD_SIZE", "1")) > 1 else None)
-    scfg = ShardingConfig(data_axes=("data",), model_axes=(),
+    # under torchrun: a mesh of every rank of the group, (n,) over "data"
+    # (data parallelism) unless --mesh gives its shape over (data, model)
+    mesh = mesh_from_args(args, dev)
+    scfg = ShardingConfig(data_axes=("data",),
+                          model_axes=axes_arg(args.model_axes),
+                          fsdp_axes=axes_arg(args.fsdp_axes),
+                          expert_axes=axes_arg(args.expert_axes),
                           grad_compression=args.grad_compression)
     out = train_loop(cfg, steps_total=args.steps, batch=args.batch,
                      seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,

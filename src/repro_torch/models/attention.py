@@ -23,8 +23,18 @@ a self-attention decode of a marked cache goes through
 ranks), cross-attention never.  The decision is taken where the cache is
 allocated, from the global length: at the decode site the cache is
 already local.  Otherwise the dense path runs, as the reference falls
-back.  The reference's ``constrain`` sharding hints place nothing in the
-port (each rank holds its own part) and are dropped.
+back.
+
+Tensor parallelism (``dist.sharding.compute_layout``): where the rules
+split the heads over ranks, each rank projects its q heads and the kv
+heads they read (all kv heads where ``kv_shard`` is not ``"heads"``: the
+reference's replicated ``kv_heads``), runs B3/B4/B5 on them, so each kv
+head keeps its ``rep`` q heads (fewer where a rank holds fewer), and the
+output projections of the ranks are summed (the reference's
+``constrain(res, "batch", "seq", None)``; with ``seq_dim`` each rank keeps
+its rows of the sum).  A decode cache holds the kv heads the rank
+projects; where it holds all of them the rank's q heads are placed among
+zeros for the other heads, so B4 reads the cache whole.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from torch import nn
 
 from ..dist.api import current_rules
 from ..dist.ranks import RankMesh
+from ..dist.sharding import compute_layout
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ArchConfig
@@ -115,6 +126,26 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
         b, t, n_heads, hd)
 
 
+def _read_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The kv heads this rank's q heads read, of ``k`` (B, T, KV', hd):
+    ``k`` itself where it holds just those."""
+    cl = compute_layout()
+    read = None if cl is None else cl.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+    if read is None or k.shape[2] == read.stop - read.start:
+        return k
+    return k[:, :, read]
+
+
+def _reduce_heads(res: torch.Tensor, cfg: ArchConfig,
+                  seq_dim: int | None = None) -> torch.Tensor:
+    """The output projection summed over the ranks' heads."""
+    cl = compute_layout()
+    if cl is None:
+        return res
+    split = cl.heads(cfg.n_heads) is not None
+    return cl.reduce(res, cl.model.axes if split else (), seq_dim)
+
+
 def _out_proj(p, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """"btnh,nhd->btd" as one matrix product."""
     dt = torch_dtype(cfg.compute_dtype)
@@ -127,7 +158,7 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
                    positions: torch.Tensor, causal: bool = True,
                    kv_states: torch.Tensor | None = None,
                    kv_positions: torch.Tensor | None = None,
-                   return_kv: bool = False):
+                   return_kv: bool = False, seq_dim: int | None = None):
     """Training / prefill attention over full sequences through the
     flash-attention kernel.
 
@@ -135,7 +166,8 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     from that stream (B, Tk, D), and neither side gets RoPE.
     ``kv_positions`` are the keys' RoPE positions in self-attention
     (default ``positions``).  ``return_kv`` also returns the (pre-repeat)
-    keys/values for cache fills."""
+    keys/values for cache fills.  Under a mesh of ranks ``p`` holds this
+    rank's heads (``seq_dim``: see the module docstring)."""
     _check_impl(cfg)
     cross = kv_states is not None
     q = _project_q(p, x, cfg, None if cross else positions)
@@ -146,10 +178,12 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     # tuned=None: resolves the cached best launch params when kernel
     # tuning is enabled (repro_torch.tune.kernels.configure; serve.py's
     # --tuned-kernels), hardcoded defaults otherwise
-    out = fa_ops.flash_attention(q, _repeat_kv(k, cfg.n_heads),
-                                 _repeat_kv(v, cfg.n_heads), causal=causal,
+    kr, vr = _read_kv(k, cfg), _read_kv(v, cfg)
+    n_heads = q.shape[2]
+    out = fa_ops.flash_attention(q, _repeat_kv(kr, n_heads),
+                                 _repeat_kv(vr, n_heads), causal=causal,
                                  tuned=None)
-    res = _out_proj(p, out, cfg)
+    res = _reduce_heads(_out_proj(p, out, cfg), cfg, seq_dim)
     if return_kv:
         return res, {"k": k, "v": v}
     return res
@@ -192,10 +226,14 @@ def kv_stripe(max_len: int) -> Stripe | None:
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, device,
                   dtype=None, stripe: Stripe | None = None) -> dict:
     """A zero cache (batch, max_len, KV, hd); with ``stripe`` only its
-    ``stripe.length`` positions, the cache marked ``"stripe"``."""
+    ``stripe.length`` positions, the cache marked ``"stripe"``.  Under a
+    mesh of ranks ``KV`` is the kv heads the rank projects."""
     dt = dtype or torch_dtype(cfg.compute_dtype)
     length = max_len if stripe is None else stripe.length
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    cl = compute_layout()
+    kv = None if cl is None else cl.kv_computed(cfg.n_heads, cfg.n_kv_heads)
+    n_kv = cfg.n_kv_heads if kv is None else kv.stop - kv.start
+    shape = (batch, length, n_kv, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
              "v": torch.zeros(shape, dtype=dt, device=device)}
     if stripe is not None:
@@ -222,22 +260,41 @@ def decode_attention(p, x: torch.Tensor, cache: dict, cfg: ArchConfig, *,
     q = _project_q(p, x, cfg, positions)
     dt = torch_dtype(cfg.compute_dtype)
     stripe = None if cross else cache.get("stripe")
+    q, heads = _q_over_cache(q[:, 0], cache["k"].shape[2], cfg)
     if stripe is not None:
         from ..dist.seq_decode import seq_decode_attention
         k_new, v_new = _project_kv(p, x, cfg, positions)
         out, _, _ = seq_decode_attention(
-            q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], pos,
+            q, k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], pos,
             mesh=stripe.mesh, seq_axes=stripe.seq_axes,
             batch_axes=stripe.batch_axes)
-        return _out_proj(p, out.to(dt)[:, None], cfg), cache
-    if not cross:
-        k_new, v_new = _project_kv(p, x, cfg, positions)
-        cache["k"][:, pos] = k_new[:, 0]
-        cache["v"][:, pos] = v_new[:, 0]
-    out = da_ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                  length=None if cross else pos + 1,
-                                  tuned=None)
-    return _out_proj(p, out.to(dt)[:, None], cfg), cache
+    else:
+        if not cross:
+            k_new, v_new = _project_kv(p, x, cfg, positions)
+            cache["k"][:, pos] = k_new[:, 0]
+            cache["v"][:, pos] = v_new[:, 0]
+        out = da_ops.decode_attention(q, cache["k"], cache["v"],
+                                      length=None if cross else pos + 1,
+                                      tuned=None)
+    if heads is not None:
+        out = out[:, heads]
+    res = _out_proj(p, out.to(dt)[:, None], cfg)
+    return _reduce_heads(res, cfg), cache
+
+
+def _q_over_cache(q: torch.Tensor, cache_kv: int, cfg: ArchConfig):
+    """(q, heads): where this rank's q heads (B, H', hd) read only some of
+    the ``cache_kv`` kv heads the cache holds, q placed at its heads among
+    zeros for the other q heads of those kv heads, and the slice of its
+    heads in the result (else ``q`` and ``None``)."""
+    cl = compute_layout()
+    mine = None if cl is None else cl.heads(cfg.n_heads)
+    read = None if cl is None else cl.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+    if mine is None or cache_kv == read.stop - read.start:
+        return q, None
+    full = q.new_zeros((q.shape[0], cfg.n_heads, q.shape[2]))
+    full[:, mine] = q
+    return full, mine
 
 
 def precompute_cross_kv(p, enc: torch.Tensor, cfg: ArchConfig) -> dict:

@@ -10,6 +10,11 @@ taking ``cfg.layer_kinds[i]`` and ``cfg.moe_layer_mask()[i]``.
 Training (``apply_layer``) runs every mixer kind: the scans' gradients
 come from their backward kernels through the ``torch.autograd.Function``s
 of ``kernels/mamba_scan/ops.py`` and ``kernels/rwkv6_wkv/ops.py``.
+
+Under ``seq_parallel`` rules over ranks (``apply_layer(seq=True)``) the
+residual stream and the norms hold this rank's rows of the sequence: the
+normed rows are all-gathered before the mixer and the channel, and each
+keeps its rows of their (summed) outputs (``ComputeLayout.reduce``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from torch import nn
 
 from .attention import (decode_attention, full_attention, init_attention,
                         init_kv_cache, kv_stripe)
+from ..dist.sharding import compute_layout
 from .config import ArchConfig
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 from .mamba import apply_mamba, decode_mamba, init_mamba, init_mamba_state
@@ -50,33 +56,49 @@ def init_layer(gen, cfg: ArchConfig, kind: str, is_moe: bool,
 
 
 def _channel(p, h: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
-             state: dict | None = None, return_state: bool = False):
+             state: dict | None = None, return_state: bool = False,
+             seq_dim: int | None = None):
     """The channel path: (out, aux loss, rwkv channel-mix state or None)."""
     if kind == "rwkv":
         out, cstate = apply_rwkv_cmix(p["channel"], h, cfg, state=state,
                                       return_state=return_state)
-        return out, 0.0, cstate
+        return _rows(out, seq_dim), 0.0, cstate
     if is_moe:
-        out, aux = apply_moe(p["channel"], h, cfg)
+        out, aux = apply_moe(p["channel"], h, cfg, seq_dim=seq_dim)
         return out, aux, None
-    return apply_mlp(p["channel"], h, cfg), 0.0, None
+    return apply_mlp(p["channel"], h, cfg, seq_dim=seq_dim), 0.0, None
+
+
+def _rows(y: torch.Tensor, seq_dim: int | None) -> torch.Tensor:
+    """This rank's rows of a replicated sublayer output (``seq_dim``)."""
+    cl = compute_layout()
+    return y if cl is None or seq_dim is None else cl.reduce(y, (), seq_dim)
 
 
 def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
-                positions: torch.Tensor) -> tuple[torch.Tensor, float]:
+                positions: torch.Tensor, seq: bool = False
+                ) -> tuple[torch.Tensor, float]:
     """Training path. Returns (x, aux loss); only an MoE layer's aux is
-    not 0."""
-    h = apply_norm(p["norm1"], x, cfg)
+    not 0.  With ``seq`` ``x`` holds this rank's rows of the sequence
+    (``positions`` all of them; see the module docstring)."""
+    cl = compute_layout() if seq else None
+    seq_dim = None if cl is None else 1
+    t = positions.shape[1]
+
+    def whole(h):
+        return h if cl is None else cl.gather_seq(h, 1, t)
+
+    h = whole(apply_norm(p["norm1"], x, cfg))
     if kind == "attn":
         mixed = full_attention(p["mixer"], h, cfg, positions=positions,
-                               causal=True)
+                               causal=True, seq_dim=seq_dim)
     elif kind == "mamba":
-        mixed = apply_mamba(p["mixer"], h, cfg)
+        mixed = _rows(apply_mamba(p["mixer"], h, cfg), seq_dim)
     else:
-        mixed, _ = apply_rwkv_tmix(p["mixer"], h, cfg)
+        mixed = _rows(apply_rwkv_tmix(p["mixer"], h, cfg)[0], seq_dim)
     x = x + mixed
-    h = apply_norm(p["norm2"], x, cfg)
-    ch, aux, _ = _channel(p, h, cfg, kind, is_moe)
+    h = whole(apply_norm(p["norm2"], x, cfg))
+    ch, aux, _ = _channel(p, h, cfg, kind, is_moe, seq_dim=seq_dim)
     return x + ch, aux
 
 

@@ -22,12 +22,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import compute_layout
 from .config import ArchConfig
 
 __all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
            "embed_init", "embed_tokens", "group_norm", "init_embed",
-           "init_mlp", "init_norm", "param", "rand_init", "rope_frequencies",
-           "sinusoidal_positions", "torch_dtype"]
+           "init_mlp", "init_norm", "mlp_partial", "param", "rand_init",
+           "rope_frequencies", "sinusoidal_positions", "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -167,7 +168,11 @@ def init_mlp(gen, cfg: ArchConfig, device,
     return p
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_partial(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None
+                ) -> tuple[torch.Tensor, tuple]:
+    """The MLP on this rank's ``ff`` columns of a ``d_ff``-wide MLP
+    (default ``cfg.d_ff``): (output, the mesh axes its ranks' outputs are
+    still to be summed over; ``()`` where the columns are not split)."""
     dt = torch_dtype(cfg.compute_dtype)
     x = x.to(dt)
     h = x @ p["w_in"].to(dt)
@@ -179,7 +184,21 @@ def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ p["w_out"].to(dt)
+    out = h @ p["w_out"].to(dt)
+    cl = compute_layout()
+    split = cl is not None and cl.ff(d_ff or cfg.d_ff) is not None
+    return out, cl.ff_split.axes if split else ()
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig, *,
+              d_ff: int | None = None,
+              seq_dim: int | None = None) -> torch.Tensor:
+    """The MLP; under a mesh of ranks each computes its ``ff`` columns and
+    the outputs are summed over the model axes (with ``seq_dim``, each
+    rank keeps its rows of the sum: ``seq_parallel``)."""
+    out, partial = mlp_partial(p, x, cfg, d_ff)
+    cl = compute_layout()
+    return out if cl is None else cl.reduce(out, partial, seq_dim)
 
 
 # -- embeddings & heads ---------------------------------------------------------
@@ -194,6 +213,19 @@ def init_embed(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    # gather, then cast: the reference's cast-then-take, without casting
-    # the rows no token uses
-    return p["tokens"][tokens].to(torch_dtype(cfg.compute_dtype))
+    """Token embeddings.  Under a mesh of ranks that splits the vocabulary
+    ``p["tokens"]`` is this rank's slice of it: each rank looks up the
+    tokens it holds (zeros for the others) and the ranks' rows are
+    summed."""
+    dt = torch_dtype(cfg.compute_dtype)
+    cl = compute_layout()
+    vocab = None if cl is None else cl.vocab(cfg.vocab_size)
+    if vocab is None:
+        # gather, then cast: the reference's cast-then-take, without
+        # casting the rows no token uses
+        return p["tokens"][tokens].to(dt)
+    local = tokens - vocab.start
+    held = (local >= 0) & (local < vocab.stop - vocab.start)
+    out = p["tokens"][torch.where(held, local, 0)].to(dt)
+    out = out * held[..., None].to(dt)
+    return cl.reduce(out, cl.vocab_split.axes)

@@ -18,15 +18,31 @@ Serving and training run every mixer kind and the MoE channel.  The VLM
 frontend (``frontend="stub_patches"``) prepends precomputed patch
 embeddings to the token embeddings and masks them out of the loss; the
 encoder-decoder family is ``models/encdec.py``.
+
+Over a mesh of ranks (``LM.shard``) each parameter holds this rank's
+block of its leaf: its ``param_specs`` block while training, gathered
+into the block its compute needs where a layer uses it
+(``dist.sharding.gather_leaf``; the gradient is scattered back), or that
+compute block itself while serving.  The model's methods run under the
+layout's rules, so the layers compute on the rank's heads, ``ff``
+columns, vocab slice and experts (``dist.sharding.compute_layout``).
+The cross-entropy is then vocab-parallel (a max and two sums over the
+ranks a chunk), and the serving logits are gathered whole.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..dist.api import use_rules
+from ..dist.collectives import all_gather, all_max, all_reduce
+from ..dist.sharding import (ComputeLayout, ParamLayout, compute_layout,
+                             leaf_layout, param_specs)
 from .blocks import (MIXERS, apply_layer, decode_layer, init_layer,
                      init_layer_state, prefill_layer)
 from .config import ArchConfig
@@ -51,7 +67,10 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor,
 
     h: (B, T, D); head_w: (D, V); targets/mask: (B, T).  The chunk is the
     largest divisor of T up to ``cfg.logit_chunk``; each chunk's logits are
-    a ``compute_dtype`` product taken to float32 for the logsumexp.
+    a ``compute_dtype`` product taken to float32 for the logsumexp.  Where
+    the active rules split the vocabulary over ranks ``head_w`` holds this
+    rank's columns, and the chunk's logsumexp and target logit are summed
+    over the ranks.
     """
     t = h.shape[1]
     c = min(cfg.logit_chunk, t)
@@ -61,11 +80,26 @@ def chunked_xent(h: torch.Tensor, head_w: torch.Tensor,
     w = head_w.to(dtc)                  # cast once, not once per chunk
     targets = targets.long()
     mask = mask.float()
+    cl = compute_layout()
+    vocab = None if cl is None else cl.vocab(cfg.vocab_size)
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, t, c):
         logits = (h[:, i:i + c].to(dtc) @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, targets[:, i:i + c, None])[..., 0]
+        tgt = targets[:, i:i + c, None]
+        if vocab is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, tgt)[..., 0]
+        else:
+            # this rank's vocab slice: the max, the sum of exponentials
+            # and the target's logit over the ranks
+            mesh, axes = cl.mesh, cl.vocab_split.axes
+            top = all_max(logits.amax(dim=-1), mesh, axes)
+            lse = top + torch.log(all_reduce(
+                torch.exp(logits - top[..., None]).sum(-1), mesh, axes))
+            local = tgt - vocab.start
+            held = (local >= 0) & (local < logits.shape[-1])
+            ll = all_reduce((torch.gather(logits, -1, torch.where(
+                held, local, 0)) * held)[..., 0], mesh, axes)
         loss_sum = loss_sum + ((lse - ll) * mask[:, i:i + c]).sum()
     return loss_sum / mask.sum().clamp_min(1.0)
 
@@ -110,6 +144,9 @@ def serving_dtype(name: str, cfg: ArchConfig) -> torch.dtype:
 class LM(nn.Module):
     """Decoder-only LM with random weights drawn from ``seed`` on
     ``device`` (``None`` = the card; ``"meta"`` makes the shapes only)."""
+
+    # the ParamLayout of a model sharded over ranks (``shard``)
+    layout: ParamLayout | None = None
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
@@ -157,13 +194,113 @@ class LM(nn.Module):
         return {name: p.dim() + name.startswith("layers.") >= 2
                 for name, p in self.named_parameters()}
 
+    # -- ranks ---------------------------------------------------------------
+    def compute_region(self, name: str, shape, cl: ComputeLayout) -> tuple:
+        """The part of leaf ``name`` (of ``shape``) this rank computes
+        with, for ``dist.sharding.leaf_layout``: per dimension ``None``
+        (all of it) or ``(slice, axes, even)``.  The reference's
+        ``constrain`` sites: q heads, the kv heads they read, the output
+        projection's heads, ``ff`` columns (the MLPs, the shared expert),
+        the vocabulary, experts; every other leaf whole."""
+        cfg = self.cfg
+        region: list = [None] * len(shape)
+
+        def on(dim, rng, split, even=True):
+            if rng is not None:
+                region[dim] = (rng, split.axes, even)
+            return tuple(region)
+
+        parts = name.split(".")
+        leaf = parts[-1]
+        if name == "embed.tokens":
+            return on(0, cl.vocab(shape[0]), cl.vocab_split)
+        if name == "embed.lm_head":
+            return on(1, cl.vocab(shape[1]), cl.vocab_split)
+        if parts[0] != "layers":
+            return tuple(region)
+        i, sub = int(parts[1]), parts[2]
+        if sub == "mixer" and self.kinds[i] == "attn":
+            if leaf in ("wq", "bq", "wo"):
+                return on(1 if leaf == "wq" else 0, cl.heads(cfg.n_heads),
+                          cl.model)
+            if leaf in ("wk", "wv", "bk", "bv"):
+                kv = cl.kv_computed(cfg.n_heads, cfg.n_kv_heads)
+                return on(1 if leaf[0] == "w" else 0, kv, cl.model,
+                          cl.model.range(cfg.n_kv_heads) == kv)
+        if sub != "channel" or self.kinds[i] == "rwkv":
+            return tuple(region)
+        if self.moe_mask[i] and len(parts) == 4:
+            if leaf in ("w_in", "w_gate", "w_out"):
+                return on(0, cl.experts(shape[0]), cl.expert)
+            return tuple(region)                    # router, shared_gate
+        if leaf in ("w_in", "w_gate"):
+            return on(1, cl.ff(shape[1]), cl.ff_split)
+        if leaf == "w_out":
+            return on(0, cl.ff(shape[0]), cl.ff_split)
+        return tuple(region)
+
+    def shard(self, rules, resident: str = "storage",
+              scfg=None) -> ParamLayout | None:
+        """Keep this rank's block of every parameter under ``rules`` (a
+        ``MeshRules`` over a ``RankMesh``): its ``param_specs`` block of
+        ``scfg`` (``resident="storage"``, training) or its compute block
+        (``"compute"``, serving).  Returns the layout, or ``None`` (the
+        model untouched) where nothing is split.  Every rank must hold the
+        same whole parameters when it is called."""
+        mesh = rules.mesh
+        cl = ComputeLayout(rules)
+        params = dict(self.named_parameters())
+        specs = (param_specs(params, mesh, scfg) if resident == "storage"
+                 else {n: (None,) * p.dim() for n, p in params.items()})
+        leaves = {n: leaf_layout(tuple(p.shape), specs[n],
+                                 self.compute_region(n, p.shape, cl), mesh,
+                                 cl.batch_axes)
+                  for n, p in params.items()}
+        if cl.trivial and not any(lay.storage_axes and mesh.axes_size(
+                lay.storage_axes) > 1 for lay in leaves.values()):
+            return None
+        layout = ParamLayout(leaves, rules, resident)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.data = layout.block(name, p.data)
+        self.layout = layout
+        return layout
+
+    def _rules(self):
+        return (contextlib.nullcontext() if self.layout is None
+                else use_rules(self.layout.rules))
+
+    def _leaf(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        return p if self.layout is None else self.layout.use(name, p)
+
+    def _tree(self, module: nn.Module, prefix: str):
+        """``module``'s parameters as its compute blocks (a nested dict
+        under the same keys) where the rank stores other blocks."""
+        if self.layout is None or self.layout.resident == "compute":
+            return module
+        out: dict = {}
+        for sub, p in module.named_parameters():
+            *path, key = sub.split(".")
+            node = out
+            for k in path:
+                node = node.setdefault(k, {})
+            node[key] = self.layout.use(prefix + sub, p)
+        return out
+
     def _head_w(self) -> torch.Tensor:
-        return (self.embed["tokens"].T if self.cfg.tie_embeddings
-                else self.embed["lm_head"])
+        if self.cfg.tie_embeddings:
+            return self._leaf("embed.tokens", self.embed["tokens"]).T
+        return self._leaf("embed.lm_head", self.embed["lm_head"])
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Float32 logits over the whole vocabulary (each rank's slice
+        gathered where the rules split it)."""
         dtc = torch_dtype(self.cfg.compute_dtype)
-        return (h.to(dtc) @ self._head_w().to(dtc)).float()
+        logits = (h.to(dtc) @ self._head_w().to(dtc)).float()
+        cl = compute_layout()
+        if cl is None or cl.vocab(self.cfg.vocab_size) is None:
+            return logits
+        return all_gather(logits, cl.mesh, cl.vocab_split.axes, -1)
 
     # -- training --------------------------------------------------------------
     def backbone(self, x: torch.Tensor, positions: torch.Tensor,
@@ -173,20 +310,41 @@ class LM(nn.Module):
 
         ``remat`` True or ``"full"`` recomputes each layer in the backward
         pass from its input (``torch.utils.checkpoint``, nothing saved
-        inside the layer: the reference's default policy).
+        inside the layer: the reference's default policy).  Over ranks a
+        layer's parameters are gathered into its compute blocks once, and
+        the blocks are kept for its backward (under remat too: the
+        recompute reads them).  Under
+        ``seq_parallel`` rules the layers and the final norm hold this
+        rank's rows, and ``h`` is gathered whole.
         """
         check_remat(remat)
         cfg = self.cfg
+        cl = compute_layout()
+        t = positions.shape[1]
+        seq = cl is not None and cl.seq_rows(t) is not None
+        if seq:
+            x = cl.reduce(x, (), 1)             # this rank's rows
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer, kind, is_moe in zip(self.layers, self.kinds,
-                                       self.moe_mask):
+        for i in range(len(self.layers)):
+            # a layer's parameters as its compute blocks, gathered once:
+            # under remat the recompute reads them again, not the ranks
+            p = self._tree(self.layers[i], f"layers.{i}.")
             if remat:
-                x, a = checkpoint(apply_layer, layer, x, cfg, kind, is_moe,
-                                  positions, use_reentrant=False)
+                x, a = checkpoint(self._layer, p, i, x, positions, seq,
+                                  use_reentrant=False)
             else:
-                x, a = apply_layer(layer, x, cfg, kind, is_moe, positions)
+                x, a = self._layer(p, i, x, positions, seq)
             aux = aux + a
-        return apply_norm(self.final_norm, x, cfg), aux
+        h = apply_norm(self._tree(self.final_norm, "final_norm."), x, cfg)
+        return (cl.gather_seq(h, 1, t) if seq else h), aux
+
+    def _layer(self, p, i: int, x: torch.Tensor, positions: torch.Tensor,
+               seq: bool):
+        # the rules again: under remat the layer is recomputed in the
+        # backward pass, outside the forward's
+        with self._rules():
+            return apply_layer(p, x, self.cfg, self.kinds[i],
+                               self.moe_mask[i], positions, seq)
 
     def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor, torch.Tensor]:
@@ -195,7 +353,9 @@ class LM(nn.Module):
         prepended to the token embeddings, with target 0 and loss mask 0
         over the patches; without them the VLM runs on its text alone."""
         tokens = batch["tokens"]
-        x = embed_tokens(self.embed, tokens, self.cfg)
+        x = embed_tokens({"tokens": self._leaf("embed.tokens",
+                                               self.embed["tokens"])},
+                         tokens, self.cfg)
         targets = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
@@ -220,9 +380,10 @@ class LM(nn.Module):
         ``labels``, optional ``loss_mask``, all (B, T)) plus the weighted
         aux loss; returns (loss, {"xent", "aux"})."""
         cfg = self.cfg
-        x, positions, targets, mask = self.embed_inputs(batch)
-        h, aux = self.backbone(x, positions, remat=remat)
-        xent = chunked_xent(h, self._head_w(), targets, mask, cfg)
+        with self._rules():
+            x, positions, targets, mask = self.embed_inputs(batch)
+            h, aux = self.backbone(x, positions, remat=remat)
+            xent = chunked_xent(h, self._head_w(), targets, mask, cfg)
         aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
         total = xent + aux_w * aux / max(cfg.n_layers, 1)
         return total, {"xent": xent, "aux": aux}
@@ -239,6 +400,10 @@ class LM(nn.Module):
         layers' states are their prefill's.  Where the active rules shard
         the cache sequence, every rank runs the whole prompt and keeps the
         keys and values of its stripe ``[s0, s0 + S_local)``."""
+        with self._rules():
+            return self._prefill(tokens, max_len, patch_embeds)
+
+    def _prefill(self, tokens, max_len, patch_embeds):
         cfg = self.cfg
         batch = {"tokens": tokens, "labels": torch.zeros_like(tokens)}
         if patch_embeds is not None:
@@ -247,9 +412,10 @@ class LM(nn.Module):
         b, s = x.shape[:2]
         max_len = max(max_len, s)
         states = []
-        for layer, kind, is_moe in zip(self.layers, self.kinds,
-                                       self.moe_mask):
-            x, state = prefill_layer(layer, x, cfg, kind, is_moe, positions)
+        for i, (kind, is_moe) in enumerate(zip(self.kinds, self.moe_mask)):
+            x, state = prefill_layer(self._tree(self.layers[i],
+                                                f"layers.{i}."),
+                                     x, cfg, kind, is_moe, positions)
             if kind == "attn":
                 cache = init_layer_state(cfg, kind, b, max_len, x.device)
                 stripe = cache.get("stripe")
@@ -260,13 +426,14 @@ class LM(nn.Module):
                 cache["v"][:, :n] = state["v"][:, s0:s0 + n]
                 state = cache
             states.append(state)
-        x = apply_norm(self.final_norm, x, cfg)
+        x = apply_norm(self._tree(self.final_norm, "final_norm."), x, cfg)
         return self._logits(x[:, -1:]), states
 
     # -- decode ----------------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int) -> list[dict]:
-        return [init_layer_state(self.cfg, kind, batch, max_len, self.device)
-                for kind in self.kinds]
+        with self._rules():
+            return [init_layer_state(self.cfg, kind, batch, max_len,
+                                     self.device) for kind in self.kinds]
 
     @torch.inference_mode()
     def decode_step(self, state: list[dict], tokens: torch.Tensor,
@@ -275,9 +442,14 @@ class LM(nn.Module):
         state); each attention layer's cache is written at ``pos`` in
         place, each recurrent layer's state replaced by its next."""
         cfg = self.cfg
-        x = embed_tokens(self.embed, tokens, cfg)
-        for i, layer in enumerate(self.layers):
-            x, state[i] = decode_layer(layer, x, state[i], cfg, self.kinds[i],
-                                       self.moe_mask[i], int(pos))
-        x = apply_norm(self.final_norm, x, cfg)
-        return self._logits(x), state
+        with self._rules():
+            x = embed_tokens({"tokens": self._leaf("embed.tokens",
+                                                   self.embed["tokens"])},
+                             tokens, cfg)
+            for i in range(len(self.layers)):
+                x, state[i] = decode_layer(
+                    self._tree(self.layers[i], f"layers.{i}."), x, state[i],
+                    cfg, self.kinds[i], self.moe_mask[i], int(pos))
+            x = apply_norm(self._tree(self.final_norm, "final_norm."), x,
+                           cfg)
+            return self._logits(x), state

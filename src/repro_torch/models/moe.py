@@ -14,8 +14,19 @@ probabilities among the experts happen; ``jax.lax.top_k`` returns the
 lower expert index first, and so does the stable descending sort here
 (``torch.topk`` promises no order among ties).
 
-The reference's ``constrain`` sharding hints have no effect on one card
-and are dropped; expert parallelism is not ported.
+Expert parallelism (``dist.sharding.compute_layout``): where the rules
+split the experts over ranks, ``p["w_in"]``/``p["w_gate"]``/``p["w_out"]``
+hold this rank's ``E / n`` experts.  Every rank routes every token (the
+router, the top-k, the capacity slots and the aux loss are the reference's),
+gathers into its own experts' slots only, runs their products, combines
+from those slots only, and the ranks' partial outputs are summed over the
+expert axes: the reference's all-to-all dispatch (``constrain(xe, "batch",
+"expert", None, None)``) realised as an all-reduce of the combine.  Where
+the expert axes include batch axes, the rows of those ranks are gathered
+first and the sum is scattered back to each rank's rows.  Over ranks
+that split the batch the training aux loss is the whole batch's, as the
+reference's: the ranks' routing statistics are summed.  The shared expert
+is tensor-parallel over the ``ff`` rule like any MLP.
 """
 
 from __future__ import annotations
@@ -27,8 +38,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import (all_gather, all_reduce, all_reduce_,
+                                reduce_scatter)
+from ..dist.sharding import compute_layout
 from .config import ArchConfig
-from .layers import apply_mlp, dense_init, init_mlp, param, torch_dtype
+from .layers import dense_init, init_mlp, mlp_partial, param, torch_dtype
 
 __all__ = ["ParamTree", "apply_moe", "capacity", "init_moe", "top_k"]
 
@@ -102,45 +116,123 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
+def apply_moe(p, x: torch.Tensor, cfg: ArchConfig, *,
+              seq_dim: int | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, D) -> (out (B, T, D), aux loss scalar)."""
+    """x: (B, T, D) -> (out (B, T, D), aux loss scalar).  Under a mesh of
+    ranks see the module docstring (``seq_dim``: each rank keeps its rows
+    of the summed output, ``seq_parallel``)."""
     m = cfg.moe
     b, t, d = x.shape
     e = m.n_experts
     cap = capacity(t, cfg)                                      # per group
     dt = torch_dtype(cfg.compute_dtype)
     xf = x.to(dt)
+    cl = compute_layout()
+    mine = None if cl is None else cl.experts(e)
+    eb = rest = ()
+    if mine is None:
+        mine = slice(0, e)
+    else:
+        eb = tuple(a for a in cl.expert.axes if a in cl.batch_axes)
+        rest = tuple(a for a in cl.expert.axes if a not in eb)
+    own = xf
+    if eb:
+        xf = all_gather(xf, cl.mesh, eb, 0)
+        b = xf.shape[0]
+    probs, top_p, flat_e, keep, slot = _route(p, xf, cfg, cap)
 
-    logits = (xf @ p["router"].to(dt)).float()                  # (B, T, E)
+    # dispatch into this rank's experts' slots: a per-group scatter of
+    # token ids (the slot n * cap takes the dropped choices and the other
+    # ranks' slots, and is cut off), then a gather of rows
+    lo, hi = mine.start * cap, mine.stop * cap
+    n_mine = mine.stop - mine.start
+    local = torch.where((slot >= lo) & (slot < hi), slot - lo,
+                        torch.full_like(slot, n_mine * cap))     # (B, Tk)
+    token_id = torch.arange(t, device=x.device).repeat_interleave(
+        m.top_k).expand(b, -1)
+    token_of_slot = torch.zeros((b, n_mine * cap + 1), dtype=torch.long,
+                                device=x.device).scatter(1, local, token_id)
+    occupied = torch.zeros((b, n_mine * cap + 1), dtype=torch.bool,
+                           device=x.device).scatter(
+        1, local, torch.ones_like(local, dtype=torch.bool))
+    token_of_slot, occupied = token_of_slot[:, :-1], occupied[:, :-1]
+    xe = torch.gather(xf, 1, token_of_slot[..., None].expand(
+        b, n_mine * cap, d))
+    xe = torch.where(occupied[..., None], xe, torch.zeros_like(xe))
+    ye = _expert_ffn(p, xe.reshape(b, n_mine, cap, d), cfg)
+
+    # combine: per-group gather of expert outputs back to (token, choice),
+    # from this rank's slots (the others' are the zero row)
+    ye_pad = torch.cat([ye.reshape(b, n_mine * cap, d),
+                        torch.zeros((b, 1, d), dtype=ye.dtype,
+                                    device=ye.device)], dim=1)
+    back = torch.gather(ye_pad, 1, local[..., None].expand(b, t * m.top_k, d))
+    back = back.reshape(b, t, m.top_k, d)
+    weights = top_p * keep.reshape(b, t, m.top_k)
+    out = torch.einsum("gtkd,gtk->gtd", back.float(), weights).to(dt)
+
+    if eb:
+        # the ranks' sum, each keeping its own rows; the aux loss over them
+        out = reduce_scatter(out, cl.mesh, eb, 0)
+        n = own.shape[0]
+        rows = slice(cl.mesh.index(eb) * n, (cl.mesh.index(eb) + 1) * n)
+        probs, flat_e, keep = probs[rows], flat_e[rows], keep[rows]
+
+    # load-balance aux (Switch eq. 4-6), over the whole batch
+    frac = torch.zeros((flat_e.shape[0], e), dtype=torch.float32,
+                       device=x.device)
+    frac = frac.scatter_add(1, flat_e, keep.float()).sum(0)
+    if cl is not None and cl.batch_axes and torch.is_grad_enabled():
+        # the batch's statistics are the sums of the ranks' rows (only
+        # training reads the aux loss)
+        frac = all_reduce_(torch.cat([frac, keep.sum().float()[None]]),
+                           cl.mesh, cl.batch_axes)
+        frac = frac[:e] / frac[e].clamp_min(1.0)
+        mean = all_reduce(torch.cat([probs.sum(dim=(0, 1)), probs.new_full(
+            (1,), probs.shape[0] * probs.shape[1])]), cl.mesh,
+            cl.batch_axes)
+        aux = e * (frac * (mean[:e] / mean[e])).sum()
+    else:
+        frac = frac / keep.sum().float().clamp_min(1.0)
+        aux = e * (frac * probs.mean(dim=(0, 1))).sum()
+
+    if m.n_shared:
+        gate = torch.sigmoid((own @ p["shared_gate"].to(dt)).float()).to(dt)
+        shared, partial = mlp_partial(p["shared"], own, cfg, m.d_shared)
+        shared = gate * shared
+        if cl is None:
+            return out + shared, aux
+        if set(partial) != set(rest):
+            return (cl.reduce(out, rest, seq_dim)
+                    + cl.reduce(shared, partial, seq_dim)), aux
+        out = out + shared
+    return (out if cl is None else cl.reduce(out, rest, seq_dim)), aux
+
+
+def _route(p, xf: torch.Tensor, cfg: ArchConfig, cap: int):
+    """The reference's routing of every row of ``xf``: (probs, top_p,
+    flat_e, keep, slot)."""
+    m = cfg.moe
+    b, t, _ = xf.shape
+    e = m.n_experts
+    dt = xf.dtype
+    logits = (xf @ p["router"].to(dt)).float()
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = top_k(probs, m.top_k)                        # (B, T, k)
+    top_p, top_e = top_k(probs, m.top_k)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # slotting within each group, token-major over (T, k)
-    flat_e = top_e.reshape(b, t * m.top_k)                      # (B, Tk)
+    flat_e = top_e.reshape(b, t * m.top_k)
     onehot = F.one_hot(flat_e, e)
-    ranks = torch.cumsum(onehot, dim=1) - onehot                # exclusive
+    ranks = torch.cumsum(onehot, dim=1) - onehot
     pos = torch.gather(ranks, 2, flat_e[..., None])[..., 0]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos,
-                       torch.full_like(pos, e * cap))           # (B, Tk)
+                       torch.full_like(pos, e * cap))
+    return probs, top_p, flat_e, keep, slot
 
-    # dispatch: per-group scatter of token ids (the slot e * cap takes the
-    # dropped choices and is cut off), then gather rows
-    token_id = torch.arange(t, device=x.device).repeat_interleave(
-        m.top_k).expand(b, -1)
-    token_of_slot = torch.zeros((b, e * cap + 1), dtype=torch.long,
-                                device=x.device).scatter(1, slot, token_id)
-    occupied = torch.zeros((b, e * cap + 1), dtype=torch.bool,
-                           device=x.device).scatter(
-        1, slot, torch.ones_like(slot, dtype=torch.bool))
-    token_of_slot, occupied = token_of_slot[:, :-1], occupied[:, :-1]
-    xe = torch.gather(xf, 1, token_of_slot[..., None].expand(b, e * cap, d))
-    xe = torch.where(occupied[..., None], xe, torch.zeros_like(xe))
-    xe = xe.reshape(b, e, cap, d)
 
-    # expert FFNs
+def _expert_ffn(p, xe: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = xe.dtype
     h = torch.einsum("gecd,edf->gecf", xe, p["w_in"].to(dt))
     if cfg.mlp_type == "swiglu":
         g = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(dt))
@@ -149,24 +241,4 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
         h = F.relu(h).square()
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))
-
-    # combine: per-group gather of expert outputs back to (token, choice)
-    ye_pad = torch.cat([ye.reshape(b, e * cap, d),
-                        torch.zeros((b, 1, d), dtype=ye.dtype,
-                                    device=ye.device)], dim=1)
-    back = torch.gather(ye_pad, 1, slot[..., None].expand(b, t * m.top_k, d))
-    back = back.reshape(b, t, m.top_k, d)
-    weights = top_p * keep.reshape(b, t, m.top_k)
-    out = torch.einsum("gtkd,gtk->gtd", back.float(), weights).to(dt)
-
-    if m.n_shared:
-        gate = torch.sigmoid((xf @ p["shared_gate"].to(dt)).float()).to(dt)
-        out = out + gate * apply_mlp(p["shared"], xf, cfg)
-
-    # load-balance aux (Switch eq. 4-6), over the whole batch
-    frac = torch.zeros((b, e), dtype=torch.float32, device=x.device)
-    frac = frac.scatter_add(1, flat_e, keep.float()).sum(0)
-    frac = frac / keep.sum().float().clamp_min(1.0)
-    aux = e * (frac * probs.mean(dim=(0, 1))).sum()
-    return out, aux
+    return torch.einsum("gecf,efd->gecd", h, p["w_out"].to(dt))

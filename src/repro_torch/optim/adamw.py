@@ -126,7 +126,8 @@ def _f32(x) -> float:
 def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: dict,
                   cfg: AdamWConfig, *,
-                  decay_mask: Mapping[str, bool] | None = None
+                  decay_mask: Mapping[str, bool] | None = None,
+                  norm: Callable[[Mapping], torch.Tensor] | None = None
                   ) -> torch.Tensor:
     """One AdamW step, in place: ``params`` and ``state`` (moments and
     ``count``) are updated; returns the pre-clip global gradient norm.
@@ -134,10 +135,13 @@ def apply_updates(params: Mapping[str, torch.Tensor],
     ``decay_mask[name]`` says which parameters take weight decay (default:
     those of two or more dimensions, the reference's rule on its own tree;
     ``LM.decay_mask`` gives the leaves that rule picks in the reference's
-    stacked tree).
+    stacked tree).  ``norm`` computes the global gradient norm (default
+    ``global_norm``); over ranks that hold blocks of the parameters it is
+    ``ParamLayout.global_norm``, and ``params``, ``grads`` and the moments
+    are each rank's blocks, updated in place: AdamW is elementwise.
     """
     count = int(state["count"]) + 1
-    gnorm = global_norm(grads)
+    gnorm = (norm or global_norm)(grads)
     if cfg.grad_clip > 0:
         clip = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-12), max=1.0)
     else:

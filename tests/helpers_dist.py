@@ -111,6 +111,52 @@ def seq_decode_rank(rank, world, mesh, kv_shard, inputs_path, out_dir,
     torch.save(out, Path(out_dir) / f"rank{rank}.pt")
 
 
+COLLECTIVE_AXES = (("data",), ("model",), ("data", "model"))
+COLLECTIVE_ROUTES = ("allreduce", "native")
+LEAF_SPECS = ((("data", "model"), None), (None, "model"), ("data", "model"),
+              ("model", "data"))
+
+
+def collectives_rank(rank, world, mesh, inputs_path, out_dir):
+    """Each differentiable collective on this rank's row of the saved
+    inputs along every axes of ``COLLECTIVE_AXES``, with the all-reduce
+    construction and the native ops (``ROUTE``): its result, the
+    gradient of ``<w, out>`` (w this rank's saved cotangent) and the
+    counters of the call; then ``shard_leaf``/``unshard_leaf`` of a saved
+    leaf under each of ``LEAF_SPECS``."""
+    from repro_torch.dist import collectives as c
+    from repro_torch.dist.sharding import shard_leaf, unshard_leaf
+
+    x_all = torch.load(inputs_path)
+    out = {}
+    for route in COLLECTIVE_ROUTES:
+        c.ROUTE[0] = route
+        for axes in COLLECTIVE_AXES:
+            for op in ("all_reduce", "all_gather", "reduce_scatter",
+                       "all_max"):
+                x = x_all["x"][rank].clone().requires_grad_(op != "all_max")
+                c.COUNTERS.reset()
+                if op in ("all_gather", "reduce_scatter"):
+                    y = getattr(c, op)(x, mesh, axes, 1)
+                else:
+                    y = getattr(c, op)(x, mesh, axes)
+                counts = c.COUNTERS.snapshot()
+                grad = None
+                if op != "all_max":
+                    # the saved cotangent cut to the output's width
+                    w = x_all["w_" + op][rank][:, :y.shape[1]]
+                    (y * w).sum().backward()
+                    grad = x.grad
+                out[(route, axes, op)] = {"y": y.detach(), "grad": grad,
+                                          "counts": counts}
+        c.ROUTE[0] = None
+    for spec in LEAF_SPECS:
+        block = shard_leaf(x_all["leaf"], spec, mesh)
+        out[("leaf", spec)] = {"block": block,
+                               "whole": unshard_leaf(block, spec, mesh)}
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+
+
 def serve_rank(rank, world, mesh, cfg, kw, out_dir):
     """``serve_session`` of ``cfg`` on the CPU under ``kv_shard="seq"``,
     counting the decode steps' calls of ``seq_decode_attention``."""
@@ -158,12 +204,39 @@ def stripe_rank(rank, world, mesh, cfg, out_dir):
                Path(out_dir) / f"rank{rank}.pt")
 
 
-def train_rank(rank, world, mesh, cfg, kw, scfg_kw, out_dir):
-    """``train_loop`` of ``cfg`` on the CPU over the mesh's ranks."""
+def tp_serve_rank(rank, world, mesh, jobs, out_dir):
+    """For each job ``(tag, cfg, kw, scfg_kw, weights_path)``,
+    ``serve_session`` of the saved weights under
+    ``ShardingConfig(**scfg_kw)``: saves (as ``<tag>_rank<r>.pt``) its
+    tokens and logits, each rank's resident blocks' shapes and the
+    session's collectives' counters."""
+    from repro_torch.dist.collectives import COUNTERS
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.serve import serve_session
+
+    for tag, cfg, kw, scfg_kw, weights_path in jobs:
+        model = _model_from(cfg, weights_path).cast_for_serving()
+        COUNTERS.reset()
+        out = serve_session(cfg, scfg=ShardingConfig(**scfg_kw), mesh=mesh,
+                            model=model, device="cpu", return_logits=True,
+                            **kw)
+        torch.save({"generated": out["generated"], "logits": out["logits"],
+                    "counts": COUNTERS.snapshot(),
+                    "shapes": {n: tuple(p.shape)
+                               for n, p in model.named_parameters()}},
+                   Path(out_dir) / f"{tag}_rank{rank}.pt")
+
+
+def train_rank(rank, world, mesh, cfg, kw, scfg_kw, out_dir,
+               weights_path=None):
+    """``train_loop`` of ``cfg`` on the CPU over the mesh's ranks (from
+    the saved weights where given, else from the seed)."""
     from repro_torch.dist.sharding import ShardingConfig
     from repro_torch.launch.train import train_loop
 
     scfg = ShardingConfig(**scfg_kw)
+    if weights_path is not None:
+        kw = dict(kw, model=_model_from(cfg, weights_path))
     out = train_loop(cfg, scfg=scfg, mesh=mesh, device="cpu", log_every=0,
                      **kw)
     params = {k: v.detach().clone() for k, v in
@@ -172,14 +245,55 @@ def train_rank(rank, world, mesh, cfg, kw, scfg_kw, out_dir):
                 "params": params}, Path(out_dir) / f"rank{rank}.pt")
 
 
-def load_ranks(out_dir: Path, world: int) -> list:
-    return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
-            for r in range(world)]
+def _model_from(cfg, weights_path):
+    """``cfg``'s model on the CPU holding the saved ``state_dict``."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, seed=0, device="cpu")
+    model.load_state_dict(torch.load(weights_path))
+    return model
+
+
+def grads_rank(rank, world, mesh, jobs, out_dir):
+    """For each job ``(tag, cfg, scfg_kw, weights_path, batch_path)``, one
+    ``loss_and_grads`` of the saved weights on this rank's rows of the
+    saved batch under ``ShardingConfig(**scfg_kw)``: saves (as
+    ``<tag>_rank<r>.pt``) each stored block, the loss, the collectives'
+    counters of the step and each gradient gathered whole."""
+    from repro_torch.dist.collectives import COUNTERS
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import _rows
+
+    for tag, cfg, scfg_kw, weights_path, batch_path in jobs:
+        scfg = ShardingConfig(**scfg_kw)
+        model = _model_from(cfg, weights_path)
+        layout = model.shard(scfg.rules(mesh), "storage", scfg)
+        blocks = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = _rows(torch.load(batch_path), mesh, scfg, scfg.microbatches)
+        COUNTERS.reset()
+        loss, grads, _ = loss_and_grads(model, batch,
+                                        microbatches=scfg.microbatches,
+                                        remat=scfg.remat, mesh=mesh,
+                                        batch_axes=scfg.batch_axes(mesh))
+        counts = COUNTERS.snapshot()
+        whole = {n: layout.unshard(n, g) for n, g in grads.items()}
+        torch.save({"loss": float(loss), "blocks": blocks, "counts": counts,
+                    "grads": whole if rank == 0 else None},
+                   Path(out_dir) / f"{tag}_rank{rank}.pt")
+
+
+def load_ranks(out_dir: Path, world: int, tag: str = "") -> list:
+    prefix = f"{tag}_" if tag else ""
+    return [torch.load(Path(out_dir) / f"{prefix}rank{r}.pt",
+                       weights_only=False) for r in range(world)]
 
 
 def float32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32")
 
 
-__all__ = ["allreduce_rank", "float32", "load_ranks", "run_ranks",
-           "seq_decode_rank", "serve_rank", "stripe_rank", "train_rank"]
+__all__ = ["COLLECTIVE_AXES", "COLLECTIVE_ROUTES", "LEAF_SPECS",
+           "allreduce_rank", "collectives_rank", "float32", "grads_rank",
+           "load_ranks", "run_ranks", "seq_decode_rank", "serve_rank",
+           "stripe_rank", "tp_serve_rank", "train_rank"]

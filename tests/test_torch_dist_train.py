@@ -82,7 +82,8 @@ def test_two_ranks_match_one_rank(two_ranks_12, one_rank_12):
 
 
 def test_four_ranks_fsdp_over_data_match_one_rank(tmp_path, one_rank_12):
-    """FSDP over the data axis runs replicated: DP's numbers."""
+    """FSDP over the data axis: each rank stores its ``param_specs`` block
+    of every leaf (``LM.shard``), and the losses are DP's."""
     out = ranks_train(tmp_path, 4, 6, scfg_kw=dict(DP, fsdp_axes=("data",)))
     for rank in out:
         np.testing.assert_allclose(rank["losses"], one_rank_12["losses"][:6],
