@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's eighteen paths once each, at full width, through the
+drives the port's nineteen paths once each, at full width, through the
 entry points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -145,8 +145,27 @@ entry points a user would call:
   ``seq_parallel``, 2 microbatches, remat; 4 x 512, 2 steps) against the
   same run in one process (losses within 2e-4, B3/B5 launches equal on
   every rank), each rank's resident parameter and moment bytes and the
-  collectives of a step by op and axes.  Ranks time-slice one card: their
-  times say nothing about two or four cards.
+  collectives of a step by op and axes.  The layouts of A6c:
+  ``tp_recurrent``: two ranks of a (1, 2) mesh, spawned once, serve
+  RWKV-6 1.6B at full width cut to 2 of its 24 layers on 16 of its 32
+  heads a rank (bf16, batch 2, a 256-token prompt through B8's chunked
+  route, 16 tokens through its serial route) and train it two float32
+  steps (TF32 off, 2 x 512; B9 on the same heads), then Jamba's first
+  layer (Mamba and the dense SwiGLU) the same way under ``mamba_tp`` (B6
+  and B7 on 4096 of its 8192 channels a rank; ``in_proj`` on two strided
+  ranges of its columns), then serve Whisper-base at full size on 4 of
+  its 8 heads a rank in float32 and in bf16 (1500 frames, 16 tokens) and
+  train it two float32 steps on them (2 x 1500 frames; B5): the same
+  tokens on both ranks, B3/B4/B5/B6/B7/B8/B9 launches exact a rank, rank
+  0's B8 and B6 calls of a prefill and a decode step and its B8/B9 and
+  B6/B7 calls of the first training step within ``scan_parity``'s gates
+  of their plain versions, the bf16 logits teacher-forced in one process
+  within 5 %, each step's loss within 2e-4 of one process's and the
+  parameters' update against one process's (at most 1 % of a leaf's
+  entries off by a quarter of its largest update), Whisper's float32
+  tokens those of one process; tokens/s, peak GiB, resident bytes and a
+  step's collectives by op and axes recorded.  Ranks time-slice one
+  card: their times say nothing about two or four cards.
 
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes (the DNA kernels
@@ -4521,6 +4540,16 @@ def phase_dp_train(seed: int) -> dict:
 
 # -- A6b: tensor, expert and FSDP parameter sharding, ranks sharing the card
 
+def nbytes(tree) -> int:
+    """The bytes of a tensor, or of every tensor of a dict or an iterable
+    of them (nested)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return sum(nbytes(t) for t in tree)
+
+
 def collective_totals(counts: dict) -> dict:
     """The collectives' counters (``dist.collectives.COUNTERS``) summed."""
     return {f"collective_{k}": sum(v[k] for v in counts.values())
@@ -4692,12 +4721,6 @@ def sharded_run(seed: int, mesh=None) -> dict:
     finally:
         COUNTERS.synchronize = False
     counts = COUNTERS.snapshot()
-
-    def nbytes(tree) -> int:
-        if isinstance(tree, dict):
-            return sum(nbytes(v) for v in tree.values())
-        return tree.numel() * tree.element_size()
-
     state = out["state"]
     result = {"losses": out["losses"], "step_seconds": out["step_seconds"],
               "launches": attention_launches(),
@@ -4750,6 +4773,456 @@ def phase_sharded_train(seed: int) -> dict:
           f"sharded_train: one-process launches {one['launches']}")
     return {name: sum(r["launches"][name] for r in ranks)
             for name in one["launches"]}
+
+
+# -- A6c: RWKV-6's heads, Mamba's channels and the encoder-decoder over ranks
+
+# RWKV-6 1.6B at full width cut to TPR_RWKV_LAYERS of 24, and Jamba's
+# first layer (Mamba, the dense SwiGLU) under mamba_tp, each on a (1, 2)
+# mesh: bf16 serving of batch TPR_BATCH (a prompt long enough for B8's
+# chunked route, TPR_GEN tokens), then TPR_TRAIN_STEPS float32 training
+# steps of TPR_TRAIN_BATCH x TPR_TRAIN_SEQ; Whisper-base at full size
+# served on its heads in float32 and in bf16 (batch TPR_BATCH, 1500
+# frames, TPR_GEN tokens), then trained on them as the recurrent models
+# are (1500 frames, its 448 tokens)
+TPR_RWKV_LAYERS, TPR_BATCH, TPR_PROMPT, TPR_GEN = 2, 2, 256, 16
+TPR_TRAIN_BATCH, TPR_TRAIN_SEQ, TPR_TRAIN_STEPS = 2, 512, 2
+# a leaf's update on the ranks against one process's: the share of its
+# entries that differ by more than a quarter of its largest update (an
+# Adam step moves an entry by about the learning rate, whatever its
+# gradient's size, so a gradient near 0 may take the other sign)
+TPR_UPDATE_GATE = 0.01
+
+
+def scan_fns() -> dict:
+    """B6's, B7's, B8's and B9's kernel wrappers, whose ``launches``
+    count."""
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+
+    return {"wkv6_fwd": wkk.wkv6_fwd, "wkv6_bwd": wkk.wkv6_bwd,
+            "selective_scan_fwd": msk.selective_scan_fwd,
+            "selective_scan_bwd": msk.selective_scan_bwd}
+
+
+def zero_tp_counters() -> None:
+    zero_attention_counters()
+    for fn in scan_fns().values():
+        fn.launches = 0
+    scan_fns()["wkv6_fwd"].program_launches = {"states": 0, "chunks": 0,
+                                               "serial": 0}
+
+
+def tp_launches() -> dict:
+    out = {k: v for k, v in attention_launches().items()
+           if not k.startswith("flash_attention_bwd_")}
+    out.update({name: fn.launches for name, fn in scan_fns().items()})
+    out.update({f"wkv6_fwd_{p_}": n for p_, n in
+                scan_fns()["wkv6_fwd"].program_launches.items()})
+    return out
+
+
+def scan_shapes(seen: dict, checked: int):
+    """Patches recording every B6-B9 call's operand shape where the ops
+    call the kernels (B8, B9: (B, T, H, hd); B6, B7: (B, T, dI)); the
+    first ``checked`` calls of each are also held against its plain
+    version on the same inputs (``scan_gate``; B7's plain version at the
+    kernel's span)."""
+    from unittest import mock
+
+    from repro_torch.kernels.mamba_scan import kernel as msk
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkk
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+
+    def wrap(name, fn, plain):
+        def call(*args, **launch):
+            got = fn(*args, **launch)
+            rec = {"shape": list(args[0].shape)}
+            if len(seen.get(name, ())) < checked:
+                ok, err = scan_gate(got, plain(args, launch))
+                rec.update(ok=ok, max_abs_err=err)
+            seen.setdefault(name, []).append(rec)
+            return got
+        return call
+
+    return [mock.patch.object(wkv_ops, "wkv6_fwd", wrap(
+                "wkv6_fwd", wkk.wkv6_fwd,
+                lambda a, _: wkk.wkv6_fwd_plain(*a[:6]))),
+            mock.patch.object(wkv_ops, "wkv6_bwd", wrap(
+                "wkv6_bwd", wkk.wkv6_bwd,
+                lambda a, _: wkk.wkv6_bwd_plain(*a[:8]))),
+            mock.patch.object(ms_ops, "selective_scan_fwd", wrap(
+                "selective_scan_fwd", msk.selective_scan_fwd,
+                lambda a, _: msk.selective_scan_fwd_plain(*a[:7]))),
+            mock.patch.object(ms_ops, "selective_scan_bwd", wrap(
+                "selective_scan_bwd", msk.selective_scan_bwd,
+                lambda a, kw: msk.selective_scan_bwd_plain(
+                    *a[:9], chunk=kw["chunk"])))]
+
+
+def call_summary(seen: dict) -> dict:
+    """Each kernel's recorded calls: how many, their shapes, how many
+    were checked, whether all of those passed and the worst gap."""
+    return {name: {"calls": len(c),
+                   "shapes": sorted({tuple(x["shape"]) for x in c}),
+                   "checked": sum("ok" in x for x in c),
+                   "ok": all(x.get("ok", True) for x in c),
+                   "max_abs_err": max((x.get("max_abs_err", 0.0)
+                                       for x in c), default=0.0)}
+            for name, c in seen.items()}
+
+
+def update_gap(got: dict, want: dict, init: dict) -> dict:
+    """The ranks' updates (``got`` less ``init``, whole leaves) against
+    one process's (``want`` less ``init``): per leaf the share of entries
+    that differ by more than a quarter of the leaf's largest update, the
+    worst leaf, and the whole model's relative L2 gap."""
+    shares, num, den = {}, 0.0, 0.0
+    for name, p0 in init.items():
+        d_got, d_want = got[name] - p0, want[name] - p0
+        gap = (d_got - d_want).abs()
+        top = float(d_want.abs().max())
+        shares[name] = float((gap > 0.25 * top).float().mean()) if top \
+            else float((gap > 0).float().mean())
+        num += float(gap.square().sum())
+        den += float(d_want.square().sum())
+    worst = max(shares, key=shares.get)
+    return {"max_share": shares[worst], "worst_leaf": worst,
+            "rel_l2": math.sqrt(num / den) if den else 0.0,
+            "gate": TPR_UPDATE_GATE}
+
+
+def tp_train(rank: int, mesh, seed: int, cfg, scfg, seq: int,
+             checked: int) -> dict:
+    """``train_loop`` of ``cfg`` in float32 (TF32 off) for
+    ``TPR_TRAIN_STEPS`` steps on the mesh (counters zeroed just before,
+    read just after; rank 0's first ``checked`` calls of each of B6-B9
+    held against their plain versions: one step's), its parameters then
+    gathered whole; rank 0 runs the same steps in one process from the
+    same weights and holds the losses and the update against them."""
+    import dataclasses
+    import gc
+
+    from repro_torch.dist.collectives import COUNTERS
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen: dict = {}
+    model = build_model(tcfg, seed=seed)
+    zero_tp_counters()
+    COUNTERS.reset()
+    COUNTERS.synchronize = True
+    try:
+        with contextlib.ExitStack() as stack:
+            for patch in scan_shapes(seen, checked if rank == 0 else 0):
+                stack.enter_context(patch)
+            run = train_loop(tcfg, steps_total=TPR_TRAIN_STEPS,
+                             batch=TPR_TRAIN_BATCH, seq_len=seq, seed=seed,
+                             log_every=0, scfg=scfg, mesh=mesh, model=model)
+    finally:
+        COUNTERS.synchronize = False
+    counts = COUNTERS.snapshot()
+    state = run["state"]
+    out = {"train_launches": tp_launches(), "losses": run["losses"],
+           "step_seconds": run["step_seconds"],
+           "train_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "train_param_bytes": nbytes(state["params"]),
+           "train_moment_bytes": nbytes(state["opt"]["m"])
+           + nbytes(state["opt"]["v"]),
+           "train_calls": call_summary(seen),
+           "train_collectives": {k: {f: v[f] / TPR_TRAIN_STEPS for f in v}
+                                 for k, v in counts.items()},
+           **{f"train_{k}": v / TPR_TRAIN_STEPS
+              for k, v in collective_totals(counts).items()}}
+    with torch.no_grad():
+        whole = {n: model.layout.unshard(n, p.detach())
+                 for n, p in state["params"].items()}
+    del run, state, model
+    if rank == 0:
+        one = build_model(tcfg, seed=seed)
+        init = {n: p.detach().clone() for n, p in one.named_parameters()}
+        ref = train_loop(tcfg, steps_total=TPR_TRAIN_STEPS,
+                         batch=TPR_TRAIN_BATCH, seq_len=seq, seed=seed,
+                         log_every=0, model=one)
+        out["one_process_losses"] = ref["losses"]
+        with torch.no_grad():
+            out["update"] = update_gap(whole, ref["state"]["params"], init)
+        del one, init, ref
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_recurrent_part(rank: int, mesh, seed: int, cfg, scfg) -> dict:
+    """One recurrent model over the mesh's model axis: ``serve_session``
+    (bf16; counters zeroed just before, read just after), a prefill and a
+    decode step with rank 0's B8/B6 calls held against their plain
+    versions, one more decode step's collectives; rank 0 teacher-forces
+    the tokens through the whole model in one process.  Then ``tp_train``
+    (rank 0's first step's B8/B9 or B6/B7 calls held against their plain
+    versions)."""
+    from repro_torch.launch.serve import serve_session
+
+    model, build_s, _, _ = build_timed(cfg, seed)
+    whole_bytes = nbytes(model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    zero_tp_counters()
+    with counted_measurements() as measured:
+        out, session = counted_step(lambda: serve_session(
+            cfg, batch=TPR_BATCH, prompt_len=TPR_PROMPT, gen=TPR_GEN,
+            seed=seed, model=model, scfg=scfg, mesh=mesh,
+            return_logits=True))
+    serve_launches = tp_launches()
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    resident = nbytes(model.parameters())
+    prompt = seed_prompt(cfg, seed, TPR_BATCH, TPR_PROMPT)
+    tok = torch.as_tensor(out["generated"][:, :2], device="cuda")
+    seen: dict = {}
+    with torch.inference_mode():
+        with contextlib.ExitStack() as stack:
+            for patch in scan_shapes(seen, 1 << 30 if rank == 0 else 0):
+                stack.enter_context(patch)
+            _, state = model.prefill(prompt, max_len=TPR_PROMPT + TPR_GEN)
+            model.decode_step(state, tok[:, :1], TPR_PROMPT)
+        _, step = counted_step(lambda: model.decode_step(
+            state, tok[:, 1:], TPR_PROMPT + 1))
+        del state
+    result = {"build_s": build_s, "whole_param_bytes": whole_bytes,
+              "resident_param_bytes": resident,
+              "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+              "tokens_per_s": out["tokens_per_s"],
+              "serve_launches": serve_launches, "measured": measured["n"],
+              "serve_peak_gib": serve_peak,
+              "session": {k: v for k, v in session.items()
+                          if k != "collectives"},
+              "decode_step": step, "calls": call_summary(seen),
+              "generated": out["generated"].tolist()}
+    del model
+    if rank == 0:
+        whole, _, _, _ = build_timed(cfg, seed)
+        feed = torch.as_tensor(out["generated"], device="cuda")
+        steps, _, _ = teacher_forced(whole, prompt, feed)
+        result["parity"] = logit_parity(out["logits"], steps)
+        del whole, steps
+    del out
+    layers = sum(k in ("rwkv", "mamba") for k in cfg.layer_kinds)
+    result.update(tp_train(rank, mesh, seed, cfg, scfg, TPR_TRAIN_SEQ,
+                           layers))
+    return result
+
+
+def logit_parity(got: list, want: list) -> dict:
+    """``seq_serve``'s reading of served logits against one process's."""
+    rel = logit_gap([g.cuda() for g in got], want)
+    return {"steps": len(rel), "steps_want": len(want),
+            "rel_err_max": max(rel), "prefill_rel_err": rel[0],
+            "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+
+
+def whisper_tp_serve(rank: int, mesh, seed: int, cfg, scfg) -> dict:
+    """Whisper-base served on the mesh (counters zeroed just before
+    ``serve_session``, read just after); rank 0 serves the same weights
+    in one process and teacher-forces the ranks' tokens through them."""
+    from repro_torch.launch.serve import serve_session
+
+    model, build_s, _, _ = build_timed(cfg, seed)
+    whole_bytes = nbytes(model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    zero_tp_counters()
+    with counted_measurements() as measured:
+        served, session = counted_step(lambda: serve_session(
+            cfg, batch=TPR_BATCH, prompt_len=WHISPER_FRAMES, gen=TPR_GEN,
+            seed=seed, model=model, scfg=scfg, mesh=mesh,
+            return_logits=True))
+    out = {"build_s": build_s, "whole_param_bytes": whole_bytes,
+           "resident_param_bytes": nbytes(model.parameters()),
+           "prefill_s": served["prefill_s"],
+           "decode_s": served["decode_s"],
+           "tokens_per_s": served["tokens_per_s"],
+           "serve_launches": tp_launches(), "measured": measured["n"],
+           "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "session": session,
+           "generated": served["generated"].tolist()}
+    del model
+    if rank == 0:
+        whole, _, _, _ = build_timed(cfg, seed)
+        one = serve_session(cfg, batch=TPR_BATCH,
+                             prompt_len=WHISPER_FRAMES, gen=TPR_GEN,
+                             seed=seed, model=whole)
+        out["one_process_generated"] = one["generated"].tolist()
+        with torch.inference_mode():
+            steps = whisper_teacher_forced(
+                whole, whisper_frames(cfg, seed, TPR_BATCH, WHISPER_FRAMES),
+                torch.as_tensor(served["generated"], device="cuda"))
+        out["parity"] = logit_parity(served["logits"], steps)
+        del whole, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_tp_recurrent(rank: int, mesh, seed: int) -> dict:
+    """RWKV-6 on the model axis, Jamba's first layer under ``mamba_tp``
+    (``tp_recurrent_part`` each), then Whisper-base served on its heads in
+    float32 and in bf16 (``whisper_tp_serve``) and trained on them
+    (``tp_train``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import ShardingConfig
+
+    tp = dict(data_axes=("data",), model_axes=("model",), kv_shard="heads")
+    out = {"rwkv": tp_recurrent_part(
+               rank, mesh, seed, decoder_cfg(RWKV_ARCH, TPR_RWKV_LAYERS),
+               ShardingConfig(**tp)),
+           "jamba": tp_recurrent_part(
+               rank, mesh, seed, decoder_cfg(JAMBA_ARCH, 1),
+               ShardingConfig(**tp, mamba_tp=True))}
+    cfg = configs.get(WHISPER_ARCH)
+    # float32: its tokens against one process are a gate, where bf16 sums
+    # of two halves may flip a near-tied argmax; bf16: its logits
+    out["whisper"] = whisper_tp_serve(
+        rank, mesh, seed, dataclasses.replace(cfg, compute_dtype="float32"),
+        ShardingConfig(**tp))
+    out["whisper_bf16"] = whisper_tp_serve(rank, mesh, seed, cfg,
+                                           ShardingConfig(**tp))
+    out["whisper"].update(tp_train(rank, mesh, seed, cfg,
+                                   ShardingConfig(**tp), WHISPER_FRAMES, 0))
+    return out
+
+
+def phase_tp_recurrent(seed: int) -> dict:
+    """Two ranks of a (1, 2) mesh: RWKV-6's heads (B8, B9 on 16 of 32 a
+    rank), Jamba's Mamba channels (B6, B7 on 4096 of 8192 a rank) and
+    Whisper-base's heads (B3, B4, B5 on 4 of 8).  Tokens equal on both
+    ranks; served logits within ``seq_serve``'s 5 % of one process (the
+    recurrent models and Whisper in bf16); rank 0's B8 and B6 calls of a
+    prefill and a decode step, and its B8/B9 and B6/B7 calls of the first
+    training step, within ``scan_parity``'s gates of their plain
+    versions; each training step's loss within ``dp_train``'s 2e-4 of one
+    process and the update within ``TPR_UPDATE_GATE`` of its; every
+    launch count exact on each rank; Whisper's float32 tokens those of
+    one process."""
+    from repro_torch import configs
+
+    ranks = spawn_ranks(rank_tp_recurrent, 2, (1, 2), ("data", "model"),
+                        (seed,))
+    rwkv = decoder_cfg(RWKV_ARCH, TPR_RWKV_LAYERS)
+    whisper = configs.get(WHISPER_ARCH)
+    heads = rwkv.d_model // rwkv.rwkv.head_dim // 2
+    jamba = configs.get(JAMBA_ARCH)
+    channels = jamba.mamba.expand * jamba.d_model // 2
+    zero = {"flash_attention_fwd": 0, "decode_attention": 0,
+            "flash_attention_bwd": 0, "wkv6_fwd": 0, "wkv6_bwd": 0,
+            "selective_scan_fwd": 0, "selective_scan_bwd": 0,
+            "wkv6_fwd_states": 0, "wkv6_fwd_chunks": 0,
+            "wkv6_fwd_serial": 0}
+    n, s = TPR_RWKV_LAYERS, TPR_TRAIN_STEPS
+    n_attn = whisper.n_encoder_layers + 2 * whisper.n_layers
+    whisper_serve = {**zero, "flash_attention_fwd": whisper.n_encoder_layers,
+                     "decode_attention": 2 * whisper.n_layers * (TPR_GEN - 1)}
+    want = {
+        "rwkv": ({**zero, "wkv6_fwd": n * TPR_GEN, "wkv6_fwd_states": n,
+                  "wkv6_fwd_chunks": n, "wkv6_fwd_serial": n * (TPR_GEN - 1)},
+                 {**zero, "wkv6_fwd": n * s, "wkv6_bwd": n * s,
+                  "wkv6_fwd_states": n * s, "wkv6_fwd_chunks": n * s}),
+        "jamba": ({**zero, "selective_scan_fwd": 1},
+                  {**zero, "selective_scan_fwd": s,
+                   "selective_scan_bwd": s}),
+        "whisper": (whisper_serve,
+                    {**zero, "flash_attention_fwd": n_attn * s,
+                     "flash_attention_bwd": n_attn * s}),
+        "whisper_bf16": (whisper_serve, None)}
+    shapes = {"rwkv": {"wkv6_fwd": heads, "wkv6_bwd": heads},
+              "jamba": {"selective_scan_fwd": channels,
+                        "selective_scan_bwd": channels},
+              "whisper": {}, "whisper_bf16": {}}
+    parts = tuple(want)
+    layers = {"rwkv": n, "jamba": 1, "whisper": 0}
+    for r in ranks:
+        for part in parts:
+            x = r[part]
+            emit(phase="tp_recurrent", part=part, rank=r["rank"], mesh=[1, 2],
+                 backend=r["backend"], peak_gib=r["peak_gib"],
+                 batch=TPR_BATCH, gen=TPR_GEN,
+                 prompt_len=(WHISPER_FRAMES if part.startswith("whisper")
+                             else TPR_PROMPT),
+                 **({} if part == "whisper_bf16" else
+                    {"train_batch": TPR_TRAIN_BATCH,
+                     "train_steps": TPR_TRAIN_STEPS,
+                     "train_seq": (WHISPER_FRAMES if part == "whisper"
+                                   else TPR_TRAIN_SEQ)}),
+                 **{k: v for k, v in x.items() if not k.endswith("generated")},
+                 first_tokens=x["generated"][0][:8])
+            serve_want, train_want = want[part]
+            check(x["serve_launches"] == serve_want,
+                  f"tp_recurrent {part}: rank {r['rank']} serving launches "
+                  f"{x['serve_launches']}, want {serve_want}")
+            check(x["measured"] == 0, f"tp_recurrent {part}: measured "
+                                      f"{x['measured']} configurations")
+            if train_want is not None:
+                check(x["train_launches"] == train_want,
+                      f"tp_recurrent {part}: rank {r['rank']} training "
+                      f"launches {x['train_launches']}, want {train_want}")
+            for key in ("calls", "train_calls"):
+                for name, width in shapes[part].items():
+                    if key == "calls" and name.endswith("bwd"):
+                        continue                  # serving runs no backward
+                    dims = x[key].get(name, {}).get("shapes")
+                    check(dims and all(d[2] == width for d in dims),
+                          f"tp_recurrent {part}: {name} shapes {dims}, want "
+                          f"{width} a rank")
+    r0, r1 = ranks
+    for part in parts:
+        check(r0[part]["generated"] == r1[part]["generated"],
+              f"tp_recurrent {part}: the ranks' tokens differ")
+    check(r0["whisper"]["generated"]
+          == r0["whisper"]["one_process_generated"],
+          "tp_recurrent whisper: tokens differ from one process")
+    for part in parts:
+        parity = r0[part]["parity"]
+        check(parity["finite"] and parity["steps"] == parity["steps_want"]
+              and parity["rel_err_max"] <= 0.05,
+              f"tp_recurrent {part}: logits vs one process {parity}")
+        emit(phase="tp_recurrent", part=part, parity_vs_one_process=parity)
+    for part in ("rwkv", "jamba", "whisper"):
+        x = r0[part]
+        for key in ("calls", "train_calls"):
+            calls = x.get(key, {})
+            check(all(c["ok"] for c in calls.values()),
+                  f"tp_recurrent {part}: rank 0's kernel calls vs their "
+                  f"plain versions {calls}")
+        for name in shapes[part]:
+            got = x["train_calls"][name]["checked"]
+            check(got == layers[part],
+                  f"tp_recurrent {part}: {got} training calls of {name} "
+                  f"checked, want one step's {layers[part]}")
+        one = x["one_process_losses"]
+        for r in ranks:
+            losses = r[part]["losses"]
+            check(len(losses) == s == len(one) and all(
+                abs(a - b) <= 2e-4 * abs(b) for a, b in zip(losses, one)),
+                f"tp_recurrent {part}: rank {r['rank']} losses {losses} vs "
+                f"one process {one}")
+        update = x["update"]
+        check(update["max_share"] <= TPR_UPDATE_GATE,
+              f"tp_recurrent {part}: the update vs one process {update}")
+        emit(phase="tp_recurrent", part=part, one_process_losses=one,
+             update_vs_one_process=update)
+    names = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
+             "wkv6_fwd", "wkv6_bwd", "selective_scan_fwd",
+             "selective_scan_bwd")
+    return {name: sum(r[part][k][name] for r in ranks for part in parts
+                      for k in ("serve_launches", "train_launches")
+                      if k in r[part])
+            for name in names}
 
 
 def main() -> int:
@@ -4861,6 +5334,8 @@ def main() -> int:
     # A6b: the heads, experts and parameters split over ranks
     tp_launches = phase_tp_serve(args.seed)
     sharded_launches = phase_sharded_train(args.seed)
+    # A6c: the recurrent mixers and the encoder-decoder over ranks
+    recurrent = phase_tp_recurrent(args.seed)
 
     records += attention + [backward] + scans + bwd_scans
     by_path = {
@@ -4881,13 +5356,15 @@ def main() -> int:
             "seq_serve": seq_launches["flash_attention_fwd"],
             "dp_train": dp_launches["flash_attention_fwd"],
             "tp_serve": tp_launches["flash_attention_fwd"],
-            "sharded_train": sharded_launches["flash_attention_fwd"]},
+            "sharded_train": sharded_launches["flash_attention_fwd"],
+            "tp_recurrent": recurrent["flash_attention_fwd"]},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
             "jamba_train": jamba_train["flash_attention_bwd"],
             "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"],
             "dp_train": dp_launches["flash_attention_bwd"],
-            "sharded_train": sharded_launches["flash_attention_bwd"]},
+            "sharded_train": sharded_launches["flash_attention_bwd"],
+            "tp_recurrent": recurrent["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "lm_requests": request_launches["decode_attention"],
@@ -4895,14 +5372,20 @@ def main() -> int:
             **{path: n["decode_attention"] for path, n in new_paths.items()
                if n["decode_attention"]},
             "seq_serve": seq_launches["decode_attention"],
-            "tp_serve": tp_launches["decode_attention"]},
+            "tp_serve": tp_launches["decode_attention"],
+            "tp_recurrent": recurrent["decode_attention"]},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
-                     "rwkv_train": rwkv_train["wkv6_fwd"]},
-        "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"]},
+                     "rwkv_train": rwkv_train["wkv6_fwd"],
+                     "tp_recurrent": recurrent["wkv6_fwd"]},
+        "wkv6_bwd": {"rwkv_train": rwkv_train["wkv6_bwd"],
+                     "tp_recurrent": recurrent["wkv6_bwd"]},
         "selective_scan_fwd": {
             "jamba_serve": jamba_launches["selective_scan_fwd"],
-            "jamba_train": jamba_train["selective_scan_fwd"]},
-        "selective_scan_bwd": {"jamba_train": jamba_train["selective_scan_bwd"]}}
+            "jamba_train": jamba_train["selective_scan_fwd"],
+            "tp_recurrent": recurrent["selective_scan_fwd"]},
+        "selective_scan_bwd": {
+            "jamba_train": jamba_train["selective_scan_bwd"],
+            "tp_recurrent": recurrent["selective_scan_bwd"]}}
     launches.update({name: sum(paths.values())
                      for name, paths in by_path.items()})
     for r in records:

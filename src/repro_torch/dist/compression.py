@@ -30,6 +30,15 @@ every layer of the slot.  ``stack_groups`` lists the port's per-layer
 names of each such tensor in stack order, and ``compress_stacked`` runs
 ``compress_with_feedback`` on those stacks, so the port's train step
 compresses what the reference's does.
+
+Over ranks that each hold a block of a leaf (``dist.sharding.
+ParamLayout``), the statistic of a stack is still the whole stacked
+leaf's: the int8 absmax is maxed over the ranks of the leaf's storage
+axes, and top-k keeps the whole leaf's k largest.  Each rank's own top-k
+candidates (ties to the lower index) hold every entry of the whole
+leaf's top-k that lies in its block, so the ranks exchange only those,
+with their global indices, and each keeps its entries among the first k
+in the order of ``lax.top_k`` (magnitude, then the lower global index).
 """
 
 from __future__ import annotations
@@ -40,11 +49,14 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from .collectives import gather_raw
+from .sharding import Spread
+
 __all__ = [
     "CompressionConfig", "compress_with_feedback", "init_error_state",
     "quantize_int8", "dequantize_int8", "topk_compress", "topk_decompress",
-    "compressed_allreduce_mean", "compress_stacked", "stack_groups",
-    "wire_bytes",
+    "topk_spread", "compressed_allreduce_mean", "compress_stacked",
+    "stack_groups", "wire_bytes",
 ]
 
 
@@ -80,11 +92,16 @@ def _leaves(tree) -> list:
 
 # -- int8 ----------------------------------------------------------------------
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, spread: Spread | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor absmax quantization -> (int8 codes, f32 scale).  Codes
-    round half to even, as ``jnp.round`` does."""
+    round half to even, as ``jnp.round`` does.  With ``spread``, ``x`` is
+    a block (``dist.sharding.Spread``) and the absmax the whole leaf's."""
     x32 = x.float()
-    scale = x32.abs().max() / 127.0
+    top = x32.abs().max()
+    if spread is not None:
+        top = spread.max_(top)
+    scale = top / 127.0
     q = torch.round(x32 / scale.clamp_min(1e-30))
     return q.clamp(-127, 127).to(torch.int8), scale
 
@@ -111,7 +128,11 @@ def topk_compress(x: torch.Tensor, frac: float
     fill the rest, and a stable sort orders the kept ones.
     """
     flat = x.reshape(-1).float()
-    k = _topk_k(flat.numel(), frac)
+    return _topk_exact(flat, _topk_k(flat.numel(), frac))
+
+
+def _topk_exact(flat: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     mag = flat.abs()
     kth = torch.topk(mag, k, sorted=True).values[-1]
     above = torch.nonzero(mag > kth).flatten()
@@ -121,6 +142,45 @@ def topk_compress(x: torch.Tensor, frac: float
     # keeps equal magnitudes in index order
     idx = idx[torch.sort(mag[idx], descending=True, stable=True).indices]
     return flat[idx], idx.to(torch.int32)
+
+
+def _global_index(idx: torch.Tensor, local: tuple, spread: Spread
+                  ) -> torch.Tensor:
+    """Flat indices of a block of shape ``local`` as the whole leaf's."""
+    coords = []
+    rest = idx.long()
+    for n in reversed(local):
+        coords.append(rest % n)
+        rest = rest // n
+    out = torch.zeros_like(rest)
+    for c, s0, n in zip(reversed(coords), spread.start, spread.shape):
+        out = out * n + (c + s0)
+    return out
+
+
+def topk_spread(x: torch.Tensor, frac: float, spread: Spread
+                ) -> torch.Tensor:
+    """The entries of block ``x`` among the whole leaf's ``frac`` largest
+    magnitudes (``topk_compress``'s choice, ties to the lower global
+    index), the others zeroed: float32, ``x``'s shape."""
+    n = 1
+    for d in spread.shape:
+        n *= d
+    k = _topk_k(n, frac)
+    flat = x.reshape(-1).float()
+    vals, idx = _topk_exact(flat, min(k, flat.numel()))
+    gidx = _global_index(idx, tuple(x.shape), spread)
+    mags = vals.abs()
+    all_m = gather_raw(mags, spread.mesh, spread.axes, 0)
+    all_i = gather_raw(gidx, spread.mesh, spread.axes, 0)
+    order = torch.sort(all_i).indices
+    order = order[torch.sort(all_m[order], descending=True,
+                             stable=True).indices]
+    kth_m, kth_i = all_m[order[k - 1]], all_i[order[k - 1]]
+    keep = (mags > kth_m) | ((mags == kth_m) & (gidx <= kth_i))
+    out = torch.zeros_like(flat)
+    out[idx.long()[keep]] = vals[keep]
+    return out.reshape(x.shape)
 
 
 def topk_decompress(values: torch.Tensor, idx: torch.Tensor,
@@ -141,12 +201,16 @@ def init_error_state(params: Any) -> Any:
                                            device=p.device), params)
 
 
-def _compress_leaf(g: torch.Tensor, cfg: CompressionConfig) -> torch.Tensor:
+def _compress_leaf(g: torch.Tensor, cfg: CompressionConfig,
+                   spread: Spread | None = None) -> torch.Tensor:
     """Compress-then-decompress one leaf (the EF update needs the
-    decompressed representative anyway)."""
+    decompressed representative anyway); with ``spread``, one block of a
+    leaf held by ranks, compressed as part of the whole."""
     if cfg.scheme == "int8":
-        q, s = quantize_int8(g)
+        q, s = quantize_int8(g, spread)
         return dequantize_int8(q, s, g.shape)
+    if spread is not None:
+        return topk_spread(g, cfg.topk_frac, spread)
     v, i = topk_compress(g, cfg.topk_frac)
     return topk_decompress(v, i, g.shape)
 
@@ -161,20 +225,21 @@ def compress_with_feedback(grads: Any, err: Any, cfg: CompressionConfig
     if cfg.scheme == "none":
         return grads, err
 
-    def leaf(g, e):
-        total = g.float() + e
-        c = _compress_leaf(total, cfg)
-        return c.to(g.dtype), total - c
-
     pairs: list = []
 
     def slot(g, e):
-        pairs.append(leaf(g, e))
+        pairs.append(_feedback(g, e, cfg))
         return len(pairs) - 1
 
     slots = _tree_map(slot, grads, err)
     return (_tree_map(lambda i: pairs[i][0], slots),
             _tree_map(lambda i: pairs[i][1], slots))
+
+
+def _feedback(g, e, cfg: CompressionConfig, spread: Spread | None = None):
+    total = g.float() + e
+    c = _compress_leaf(total, cfg, spread)
+    return c.to(g.dtype), total - c
 
 
 def stack_groups(names, group_pattern_len: int) -> dict[str, list[str]]:
@@ -198,21 +263,25 @@ def stack_groups(names, group_pattern_len: int) -> dict[str, list[str]]:
 
 
 def compress_stacked(grads: dict, err: dict, cfg: CompressionConfig,
-                     groups: dict[str, list[str]]) -> tuple[dict, dict]:
+                     groups: dict[str, list[str]],
+                     layout=None) -> tuple[dict, dict]:
     """``compress_with_feedback`` over the stacks ``groups`` names
     (``stack_groups``), each stack one tensor as in the reference;
-    returns per-name ``(compressed_grads, new_err)``."""
+    returns per-name ``(compressed_grads, new_err)``.  With ``layout``
+    (a ``dist.sharding.ParamLayout`` of storage blocks) ``grads`` and
+    ``err`` are each rank's blocks, and each stack is compressed as the
+    whole stacked leaf."""
     if cfg.scheme == "none":
         return grads, err
-    g = {k: torch.stack([grads[n].float() for n in ns])
-         for k, ns in groups.items()}
-    e = {k: torch.stack([err[n] for n in ns]) for k, ns in groups.items()}
-    c, e = compress_with_feedback(g, e, cfg)
     out_g, out_e = {}, {}
-    for k, ns in groups.items():
+    for ns in groups.values():
+        spread = None if layout is None else layout.spread(ns[0])
+        c, e = _feedback(torch.stack([grads[n].float() for n in ns]),
+                         torch.stack([err[n] for n in ns]), cfg,
+                         None if spread is None else spread.stacked(len(ns)))
         for i, n in enumerate(ns):
-            out_g[n] = c[k][i].to(grads[n].dtype)
-            out_e[n] = e[k][i]
+            out_g[n] = c[i].to(grads[n].dtype)
+            out_e[n] = e[i]
     return out_g, out_e
 
 

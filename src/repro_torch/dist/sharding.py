@@ -38,9 +38,9 @@ from .collectives import (all_gather, all_reduce, all_reduce_, gather_raw,
 from .ranks import RankMesh, axis_sizes
 
 __all__ = ["ComputeLayout", "LeafLayout", "MeshRules", "ParamLayout",
-           "ShardingConfig", "Split", "batch_specs", "block_slices",
+           "ShardingConfig", "Split", "Spread", "batch_specs", "block_slices",
            "cache_specs", "compute_layout", "gather_leaf", "opt_specs",
-           "param_specs", "shard_leaf", "unshard_leaf"]
+           "param_specs", "region", "shard_leaf", "unshard_leaf"]
 
 Axes = tuple[str, ...]
 
@@ -343,9 +343,10 @@ def _split(mesh, axes: Axes) -> Split:
 class ComputeLayout:
     """What this rank computes under a rules table over a mesh of ranks:
     its q heads, the kv heads they read, its ``ff`` columns, its vocab
-    slice and its experts, and whether the residual stream holds its rows
-    of the sequence (``seq_parallel``).  Model code reads it at the
-    reference's ``constrain`` sites through ``compute_layout()``."""
+    slice, its experts and its Mamba channels (``mamba_tp``), and whether
+    the residual stream holds its rows of the sequence
+    (``seq_parallel``).  Model code reads it at the reference's
+    ``constrain`` sites through ``compute_layout()``."""
 
     def __init__(self, rules: MeshRules):
         mesh = rules.mesh
@@ -354,6 +355,7 @@ class ComputeLayout:
         self.ff_split = _split(mesh, rules.axes("ff"))
         self.vocab_split = _split(mesh, rules.axes("vocab"))
         self.expert = _split(mesh, rules.axes("expert"))
+        self.mamba = _split(mesh, rules.axes("mamba_ff"))
         self.seq = _split(mesh, rules.axes("seq"))
         self.kv_sharded = bool(rules.axes("kv_heads"))
         self.batch_axes = tuple(a for a in rules.axes("batch")
@@ -363,11 +365,22 @@ class ComputeLayout:
     def trivial(self) -> bool:
         """Nothing split but (maybe) the batch."""
         return max(self.model.n, self.ff_split.n, self.vocab_split.n,
-                   self.expert.n, self.seq.n) <= 1
+                   self.expert.n, self.mamba.n, self.seq.n) <= 1
 
     # -- the parts this rank computes -----------------------------------------
     def heads(self, n_heads: int) -> slice | None:
         return self.model.range(n_heads)
+
+    def head_channels(self, n_heads: int, head_dim: int) -> slice | None:
+        """The channels of this rank's heads, ``head_dim`` a head (RWKV-6's
+        r/k/v/g columns, its decay and group norm)."""
+        h = self.heads(n_heads)
+        return None if h is None else slice(h.start * head_dim,
+                                            h.stop * head_dim)
+
+    def mamba_channels(self, d_inner: int) -> slice | None:
+        """This rank's Mamba channels under ``mamba_tp``."""
+        return self.mamba.range(d_inner)
 
     def kv_heads(self, n_heads: int, n_kv: int) -> slice | None:
         """The kv heads this rank's q heads read (``None``: all)."""
@@ -416,6 +429,18 @@ class ComputeLayout:
         if self.seq_rows(t) is None:
             return x
         return all_gather(x, self.mesh, self.seq.axes, seq_dim)
+
+
+def region(shape, dim: int | None = None, rng=None, split: Split = Split(),
+           even: bool = True) -> tuple:
+    """A leaf's compute region for ``leaf_layout``: the whole of every
+    dimension of ``shape``, but ``rng`` (a slice, a tuple of slices, or
+    ``None``: the whole) along ``dim``, this rank's part of ``split``
+    (``even``: an even part of the extent, see ``leaf_layout``)."""
+    out: list = [None] * len(shape)
+    if rng is not None:
+        out[dim] = (rng, split.axes, even)
+    return tuple(out)
 
 
 def compute_layout() -> ComputeLayout | None:
@@ -467,10 +492,14 @@ class LeafLayout:
 
 def leaf_layout(shape, spec, region, mesh, batch_axes: Axes) -> LeafLayout:
     """``region`` holds, for each dimension, ``None`` (the whole extent)
-    or ``(slice, axes, even)``: the compute range, the mesh axes whose
+    or ``(range, axes, even)``: the compute range, the mesh axes whose
     coordinates it depends on, and whether it is this rank's part of an
     even split of the extent over them (the kv heads a rank's q heads read
-    depend on the model axes without being such a part)."""
+    depend on the model axes without being such a part).  A range is a
+    slice, or a tuple of slices taken in turn (Mamba's ``in_proj`` under
+    ``mamba_tp``: the rank's channels of its ``xs`` half, then the same
+    channels of its ``z`` half; never ``even``: a storage split is
+    contiguous)."""
     block = block_slices(shape, spec, mesh)
     reg, deps, aligned, gathers = [], [], [], []
     aligned_dims = set()
@@ -510,6 +539,36 @@ def leaf_layout(shape, spec, region, mesh, batch_axes: Axes) -> LeafLayout:
                       tuple(steps), also_sum)
 
 
+def _narrow(x, dim: int, rng):
+    """``x``'s range ``rng`` along ``dim`` (a slice: a view; a tuple of
+    slices: their parts concatenated)."""
+    if isinstance(rng, slice):
+        return x.narrow(dim, rng.start, rng.stop - rng.start)
+    return torch.cat([_narrow(x, dim, r) for r in rng], dim=dim)
+
+
+def _write(whole, dim: int, rng, part) -> None:
+    """``_narrow``'s transpose: ``part`` written into ``whole``'s range
+    ``rng`` along ``dim``."""
+    if isinstance(rng, slice):
+        whole.narrow(dim, rng.start, rng.stop - rng.start).copy_(part)
+        return
+    at = 0
+    for r in rng:
+        n = r.stop - r.start
+        whole.narrow(dim, r.start, n).copy_(part.narrow(dim, at, n))
+        at += n
+
+
+def _take(x, ranges):
+    """The part of the whole leaf ``x`` that ``ranges`` (a range a
+    dimension: ``LeafLayout.region``) names."""
+    for dim, rng in enumerate(ranges):
+        if rng != slice(0, x.shape[dim]):
+            x = _narrow(x, dim, rng)
+    return x
+
+
 class _GatherLeaf(torch.autograd.Function):
     @staticmethod
     def forward(ctx, block, lay: LeafLayout, mesh):
@@ -520,7 +579,7 @@ class _GatherLeaf(torch.autograd.Function):
             if kind == "gather":
                 x = gather_raw(x, mesh, arg, dim)
             else:
-                x = x.narrow(dim, arg.start, arg.stop - arg.start)
+                x = _narrow(x, dim, arg)
         # a cut is a view: of the block, or of a gathered buffer to free
         return x if lay.steps and lay.steps[-1][0] == "gather" else x.clone()
 
@@ -537,7 +596,7 @@ class _GatherLeaf(torch.autograd.Function):
                 extra = ()
             else:
                 whole = torch.zeros(shape, dtype=g.dtype, device=g.device)
-                whole.narrow(dim, arg.start, arg.stop - arg.start).copy_(g)
+                _write(whole, dim, arg, g)
                 g = whole
         return all_reduce_(g, mesh, extra), None, None
 
@@ -552,6 +611,30 @@ def gather_leaf(block, lay: LeafLayout, mesh):
     if not lay.steps and not lay.also_sum:
         return block
     return _GatherLeaf.apply(block, lay, mesh)
+
+
+@dataclass(frozen=True)
+class Spread:
+    """A leaf held in blocks by ranks: this rank's block starts at
+    ``start`` (one index a dimension) of the whole leaf of ``shape``, and
+    the blocks differ along mesh ``axes`` of ``mesh``: the ranks over
+    which a statistic of the whole leaf is taken (``max_``, or an
+    all-gather of each block's candidates)."""
+
+    mesh: Any
+    axes: Axes
+    shape: tuple
+    start: tuple
+
+    def max_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` maxed in place over the ranks of ``axes``."""
+        return all_reduce_(t, self.mesh, self.axes, op="max")
+
+    def stacked(self, n: int) -> "Spread":
+        """The same blocks of ``n`` such leaves stacked on a new leading
+        axis (held whole)."""
+        return Spread(self.mesh, self.axes, (n,) + self.shape,
+                      (0,) + self.start)
 
 
 class ParamLayout:
@@ -588,8 +671,9 @@ class ParamLayout:
     def block(self, name: str, full):
         """This rank's resident block of the whole leaf ``full``."""
         lay = self.leaves[name]
-        return full[lay.block if self.resident == "storage"
-                    else lay.region].clone()
+        if self.resident == "storage":
+            return full[lay.block].clone()
+        return _take(full, lay.region).clone()
 
     def use(self, name: str, p):
         """The compute block of resident parameter ``p``."""
@@ -601,20 +685,80 @@ class ParamLayout:
         """The whole leaf from its storage blocks (for checkpoints)."""
         return unshard_leaf(block, self.leaves[name].spec, self.mesh)
 
+    def spread(self, name: str) -> Spread | None:
+        """How leaf ``name``'s storage blocks lie over the ranks, or
+        ``None`` where every rank holds it whole."""
+        lay = self.leaves[name]
+        axes = tuple(a for a in lay.storage_axes if self.mesh.shape[a] > 1)
+        if not axes:
+            return None
+        return Spread(self.mesh, axes, lay.shape,
+                      tuple(b.start for b in lay.block))
+
+    def moment_grids(self) -> dict:
+        """The ``Spread`` along its last axis of every leaf whose storage
+        blocks straddle blocks of ``adamw.BLOCK`` columns of the whole
+        leaf's quantization grid: its int8 moments are quantized on that
+        grid, each straddling block's statistic maxed over the ranks that
+        share the last axis.  A leaf cut at multiples of ``BLOCK`` (or not
+        cut along it) is quantized block by block, with no collective."""
+        from ..optim.adamw import BLOCK
+
+        cached = self.__dict__.get("_grids")
+        if cached is None:
+            cached = {}
+            for name, lay in self.leaves.items():
+                axes = _entry_axes(lay.spec[-1]) if lay.spec else ()
+                n = self.mesh.axes_size(axes)
+                if n <= 1 or (lay.shape[-1] // n) % BLOCK == 0:
+                    continue
+                cached[name] = Spread(self.mesh, axes, lay.shape,
+                                      tuple(b.start for b in lay.block))
+            self._grids = cached
+        return cached
+
     def shard_moment(self, name: str, m):
         """This rank's block of a whole moment leaf (a tensor, or an int8
-        moment's ``{"q", "scale"[, "minv"]}``, each blocked as the
-        parameter is: ``adamw`` quantizes along the last axis, and the
-        port shards a moment only where its blocks are the whole leaf's)."""
+        moment's ``{"q", "scale"[, "minv"]}``).  ``adamw`` quantizes along
+        the last axis: a leaf cut along it keeps ``q`` for the rank's
+        columns and the scales of the whole grid along its rows
+        (``moment_grids``); any other leaf's parts are blocked as it is."""
         spec = self.leaves[name].spec
         if isinstance(m, Mapping):
-            return {k: self.shard_moment(name, v) for k, v in m.items()}
+            if name not in self.moment_grids():
+                return {k: self.shard_moment(name, v) for k, v in m.items()}
+            # q as the leaf (its padding dropped), the scales whole along
+            # the grid
+            shape = self.leaves[name].shape
+            s_spec = spec[:-1] + (None,)
+            return {k: (v[..., :shape[-1]][block_slices(shape, spec,
+                                                         self.mesh)]
+                        if k == "q" else
+                        v[block_slices(v.shape, s_spec, self.mesh)]).clone()
+                    for k, v in m.items()}
         return m[block_slices(m.shape, spec, self.mesh)].clone()
 
     def unshard_moment(self, name: str, m):
+        """``shard_moment``'s inverse.  A grid's ``q`` is padded as
+        ``adamw.quantize_moment`` pads the whole leaf: codes 0 (linear)
+        and -127 (logarithmic: the padding is its block's minimum)."""
+        spec = self.leaves[name].spec
         if isinstance(m, Mapping):
-            return {k: self.unshard_moment(name, v) for k, v in m.items()}
-        return unshard_leaf(m, self.leaves[name].spec, self.mesh)
+            if name not in self.moment_grids():
+                return {k: self.unshard_moment(name, v)
+                        for k, v in m.items()}
+            from ..optim.adamw import BLOCK
+
+            q = unshard_leaf(m["q"], spec, self.mesh)
+            pad = (-q.shape[-1]) % BLOCK
+            out = {"q": torch.nn.functional.pad(
+                q, (0, pad), value=-127 if "minv" in m else 0)}
+            for k in m:
+                if k != "q":
+                    out[k] = unshard_leaf(m[k], spec[:-1] + (None,),
+                                          self.mesh)
+            return out
+        return unshard_leaf(m, spec, self.mesh)
 
     def global_norm(self, grads: Mapping) -> torch.Tensor:
         """The global norm of the whole gradient from each rank's blocks:

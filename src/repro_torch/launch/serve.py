@@ -87,8 +87,7 @@ from ..dist.api import use_rules
 from ..dist.sharding import MeshRules, ShardingConfig
 from ..models import LM, EncDec, build_model
 from ..obs import get_logger
-from .mesh import (add_mesh_args, axes_arg, check_executable,
-                   make_host_mesh, mesh_from_args)
+from .mesh import add_mesh_args, axes_arg, make_host_mesh, mesh_from_args
 
 __all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
            "serve_session", "serve_stream", "split_space",
@@ -186,11 +185,9 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     elif device is not None \
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
-    if mesh is not None:
-        check_executable(scfg, mesh, serving=True, model=model)
-        if isinstance(model, LM) and model.layout is None \
-                and dist.get_world_size() > 1:
-            model.shard(rules, "compute")
+    if mesh is not None and model.layout is None \
+            and dist.get_world_size() > 1:
+        model.shard(rules, "compute")
     dev = model.device
     max_len = prompt_len + gen
     rng = np.random.default_rng(seed)

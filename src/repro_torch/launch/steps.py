@@ -134,19 +134,20 @@ def train_step(model: LM | EncDec, opt_state: dict, batch: dict,
     loss, grads, reduce_s = loss_and_grads(
         model, batch, microbatches=microbatches, remat=remat, mesh=mesh,
         batch_axes=batch_axes)
+    layout = getattr(model, "layout", None)
     if ccfg.scheme != "none":
         # per tensor as the reference's tensors are: its stacked layers
+        # (over ranks: each stacked leaf's statistic over its blocks)
         grads, new_err = compress_stacked(
             grads, err, ccfg,
-            stack_groups(grads, len(model.cfg.group_pattern)))
+            stack_groups(grads, len(model.cfg.group_pattern)), layout)
         for n, e in new_err.items():
             err[n].copy_(e)
-    layout = getattr(model, "layout", None)
     with record_function("adamw"):
-        gnorm = apply_updates(params, grads, opt_state, opt_cfg,
-                              decay_mask=model.decay_mask(),
-                              norm=None if layout is None
-                              else layout.global_norm)
+        gnorm = apply_updates(
+            params, grads, opt_state, opt_cfg, decay_mask=model.decay_mask(),
+            norm=None if layout is None else layout.global_norm,
+            grids=None if layout is None else layout.moment_grids())
     del grads
     model.zero_grad(set_to_none=True)
     out = {"loss": loss, "gnorm": gnorm, "step": opt_state["count"]}
@@ -199,7 +200,7 @@ def loss_and_grads(model: LM | EncDec, batch: dict, *,
     return loss, grads, reduce_s
 
 
-def _sharded_loss_and_grads(model: LM, batch: dict, microbatches: int,
+def _sharded_loss_and_grads(model: LM | EncDec, batch: dict, microbatches: int,
                             remat) -> tuple[torch.Tensor, dict, float]:
     layout = model.layout
     mesh, bax = layout.mesh, layout.batch_axes

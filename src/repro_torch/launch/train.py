@@ -27,10 +27,12 @@ with the state).  Only rank 0 writes checkpoints; the others wait at a
 barrier until each is complete.
 
 Tensor, expert and FSDP parameter sharding (the rules map model, expert
-or FSDP axes of more than one rank; ``launch.mesh.check_executable``
-refuses what does not run, naming ROADMAP A6c): after the broadcast every
-rank keeps its ``param_specs`` block of each parameter and frees the rest
-(``LM.shard``), and its AdamW moments are blocks of the same layout.
+or FSDP axes of more than one rank), for every family and every layout
+``ShardingConfig`` derives: after the broadcast every rank keeps its
+``param_specs`` block of each parameter and frees the rest
+(``LM.shard``/``EncDec.shard``), and its AdamW moments and its
+error-feedback residual are blocks of the same layout (an int8 moment of
+a leaf cut along its last axis on the whole leaf's quantization grid).
 Checkpoints stay layout-free: every rank joins the gathers of each leaf
 and rank 0 writes the whole leaves, and a resume slices the whole leaves
 into the new mesh's blocks, so a run resumes from a checkpoint written by
@@ -62,8 +64,7 @@ from ..dist.sharding import ShardingConfig, batch_specs
 from ..models import LM, EncDec, build_model
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..optim.schedule import warmup_cosine
-from .mesh import (add_mesh_args, axes_arg, check_executable,
-                   mesh_from_args)
+from .mesh import add_mesh_args, axes_arg, mesh_from_args
 from .steps import train_step
 
 __all__ = ["main", "make_data_cfg", "train_loop"]
@@ -179,8 +180,6 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
     batch_axes: tuple = ()
     rank = 0
     if mesh is not None:
-        check_executable(scfg, mesh, model=model,
-                         moments_dtype=opt_cfg.moments_dtype)
         batch_axes = scfg.batch_axes(mesh)
         rank = dist.get_rank()
     dev = model.device
@@ -206,17 +205,20 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
         with torch.no_grad():
             for p in params.values():
                 dist.broadcast(p.data, src=0)
-        if isinstance(model, LM):
-            # then each rank keeps its blocks (and its moments' blocks)
-            layout = model.shard(scfg.rules(mesh), "storage", scfg)
-            if layout is not None and opt is not None:
-                opt = {"m": {n: layout.shard_moment(n, m)
-                             for n, m in opt["m"].items()},
-                       "v": {n: layout.shard_moment(n, v)
-                             for n, v in opt["v"].items()},
-                       "count": opt["count"]}
+        # then each rank keeps its blocks (and its moments' and residual's)
+        layout = model.shard(scfg.rules(mesh), "storage", scfg)
+        if layout is not None and opt is not None:
+            opt = {"m": {n: layout.shard_moment(n, m)
+                         for n, m in opt["m"].items()},
+                   "v": {n: layout.shard_moment(n, v)
+                         for n, v in opt["v"].items()},
+                   "count": opt["count"]}
+        if layout is not None and err is not None and set(err) == set(
+                params):
+            err = {n: layout.block(n, e) for n, e in err.items()}
     if opt is None:
-        opt = init_opt_state(params, opt_cfg)
+        opt = init_opt_state(params, opt_cfg, None if layout is None
+                             else layout.moment_grids())
     compress = scfg.grad_compression
     if compress == "none":
         err = None
@@ -235,14 +237,17 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
         """The state with whole leaves: every rank joins the gathers."""
         if layout is None:
             return state(step)
-        return {"params": {n: layout.unshard(n, p.detach())
-                           for n, p in params.items()},
-                "opt": {"m": {n: layout.unshard_moment(n, m)
-                              for n, m in opt["m"].items()},
-                        "v": {n: layout.unshard_moment(n, v)
-                              for n, v in opt["v"].items()},
-                        "count": opt["count"]},
-                "step": torch.tensor(step, dtype=torch.int32)}
+        out = {"params": {n: layout.unshard(n, p.detach())
+                          for n, p in params.items()},
+               "opt": {"m": {n: layout.unshard_moment(n, m)
+                             for n, m in opt["m"].items()},
+                       "v": {n: layout.unshard_moment(n, v)
+                             for n, v in opt["v"].items()},
+                       "count": opt["count"]},
+               "step": torch.tensor(step, dtype=torch.int32)}
+        if err is not None:
+            out["err"] = {n: layout.unshard(n, e) for n, e in err.items()}
+        return out
 
     def save(step: int, extra: dict) -> None:
         full = whole(step)

@@ -46,14 +46,14 @@ from torch import nn
 
 from ..dist.api import current_rules
 from ..dist.ranks import RankMesh
-from ..dist.sharding import compute_layout
+from ..dist.sharding import ComputeLayout, compute_layout, region
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, param, torch_dtype
 
-__all__ = ["NEG_INF", "Stripe", "decode_attention", "full_attention",
-           "init_attention", "init_kv_cache", "kv_stripe",
+__all__ = ["NEG_INF", "Stripe", "attention_region", "decode_attention",
+           "full_attention", "init_attention", "init_kv_cache", "kv_stripe",
            "precompute_cross_kv"]
 
 NEG_INF = -1e30
@@ -86,6 +86,21 @@ def init_attention(gen, cfg: ArchConfig, device,
                         ("bv", cfg.n_kv_heads)):
             p[name] = param(torch.zeros((n, hd), dtype=pdt, device=device))
     return p
+
+
+def attention_region(leaf: str, shape, cfg: ArchConfig,
+                     cl: ComputeLayout) -> tuple:
+    """The compute region of an attention block's leaf (self- or
+    cross-attention): the q heads and the output projection's rows of
+    this rank's heads, the kv projections of the kv heads it computes."""
+    if leaf in ("wq", "bq", "wo"):
+        return region(shape, 1 if leaf == "wq" else 0,
+                      cl.heads(cfg.n_heads), cl.model)
+    if leaf in ("wk", "wv", "bk", "bv"):
+        kv = cl.kv_computed(cfg.n_heads, cfg.n_kv_heads)
+        return region(shape, 1 if leaf[0] == "w" else 0, kv, cl.model,
+                      cl.model.range(cfg.n_kv_heads) == kv)
+    return region(shape)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:

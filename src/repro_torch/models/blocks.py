@@ -14,7 +14,8 @@ of ``kernels/mamba_scan/ops.py`` and ``kernels/rwkv6_wkv/ops.py``.
 Under ``seq_parallel`` rules over ranks (``apply_layer(seq=True)``) the
 residual stream and the norms hold this rank's rows of the sequence: the
 normed rows are all-gathered before the mixer and the channel, and each
-keeps its rows of their (summed) outputs (``ComputeLayout.reduce``).
+keeps its rows of their (summed) outputs (``ComputeLayout.reduce``, inside
+every mixer and channel).
 """
 
 from __future__ import annotations
@@ -61,18 +62,13 @@ def _channel(p, h: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
     """The channel path: (out, aux loss, rwkv channel-mix state or None)."""
     if kind == "rwkv":
         out, cstate = apply_rwkv_cmix(p["channel"], h, cfg, state=state,
-                                      return_state=return_state)
-        return _rows(out, seq_dim), 0.0, cstate
+                                      return_state=return_state,
+                                      seq_dim=seq_dim)
+        return out, 0.0, cstate
     if is_moe:
         out, aux = apply_moe(p["channel"], h, cfg, seq_dim=seq_dim)
         return out, aux, None
     return apply_mlp(p["channel"], h, cfg, seq_dim=seq_dim), 0.0, None
-
-
-def _rows(y: torch.Tensor, seq_dim: int | None) -> torch.Tensor:
-    """This rank's rows of a replicated sublayer output (``seq_dim``)."""
-    cl = compute_layout()
-    return y if cl is None or seq_dim is None else cl.reduce(y, (), seq_dim)
 
 
 def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
@@ -93,9 +89,9 @@ def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
         mixed = full_attention(p["mixer"], h, cfg, positions=positions,
                                causal=True, seq_dim=seq_dim)
     elif kind == "mamba":
-        mixed = _rows(apply_mamba(p["mixer"], h, cfg), seq_dim)
+        mixed = apply_mamba(p["mixer"], h, cfg, seq_dim=seq_dim)
     else:
-        mixed = _rows(apply_rwkv_tmix(p["mixer"], h, cfg)[0], seq_dim)
+        mixed = apply_rwkv_tmix(p["mixer"], h, cfg, seq_dim=seq_dim)[0]
     x = x + mixed
     h = whole(apply_norm(p["norm2"], x, cfg))
     ch, aux, _ = _channel(p, h, cfg, kind, is_moe, seq_dim=seq_dim)

@@ -19,6 +19,15 @@ whole encoder cache when decoding.
 Decode: the self-attention cache holds ``max_len`` positions; the
 cross-attention cache is the encoder's keys and values, filled once by
 ``prefill_cross``.
+
+Over a mesh of ranks (``EncDec.shard``, the machinery ``LM`` has:
+``lm.Sharded``) each rank computes its heads of every self- and
+cross-attention (and the kv heads they read, which its cross caches hold
+under ``kv_shard="heads"``), its ``ff`` columns of the MLPs and its slice
+of the vocabulary, where the rank count divides it (whisper-base's 51865
+stays whole: the reference's fallback).  The residual streams stay whole
+on every rank (no ``seq_parallel`` rows), and the model has no experts: an
+expert axis splits nothing.
 """
 
 from __future__ import annotations
@@ -28,12 +37,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .attention import (decode_attention, full_attention, init_attention,
-                        init_kv_cache, precompute_cross_kv)
+from ..dist.sharding import ComputeLayout, region
+from .attention import (attention_region, decode_attention, full_attention,
+                        init_attention, init_kv_cache, precompute_cross_kv)
 from .config import ArchConfig
-from .layers import (apply_mlp, apply_norm, embed_tokens, init_embed,
-                     init_mlp, init_norm, sinusoidal_positions, torch_dtype)
-from .lm import check_remat, chunked_xent, missing_layer, serving_dtype
+from .layers import (apply_mlp, apply_norm, init_embed, init_mlp, init_norm,
+                     mlp_region, sinusoidal_positions, torch_dtype)
+from .lm import (Sharded, check_remat, chunked_xent, missing_layer,
+                 serving_dtype)
 
 __all__ = ["EncDec"]
 
@@ -71,7 +82,7 @@ def _dec_layer(p, h: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig,
     return h + apply_mlp(p["channel"], apply_norm(p["norm2"], h, cfg), cfg)
 
 
-class EncDec(nn.Module):
+class EncDec(Sharded):
     """Encoder-decoder with random weights drawn from ``seed`` on
     ``device`` (``None`` = the card; ``"meta"`` makes the shapes only)."""
 
@@ -117,9 +128,32 @@ class EncDec(nn.Module):
         return {name: p.dim() + name.startswith(("encoder.", "decoder."))
                 >= 2 for name, p in self.named_parameters()}
 
-    def _head_w(self) -> torch.Tensor:
-        return (self.embed["tokens"].T if self.cfg.tie_embeddings
-                else self.embed["lm_head"])
+    # -- ranks ---------------------------------------------------------------
+    def _layer_region(self, parts: list[str], shape,
+                      cl: ComputeLayout) -> tuple:
+        """Every attention's heads (self and cross), the MLPs' ``ff``
+        columns."""
+        if parts[0] not in ("encoder", "decoder") or len(parts) != 4:
+            return region(shape)
+        sub, leaf = parts[2], parts[3]
+        if sub in ("mixer", "self", "cross"):
+            return attention_region(leaf, shape, self.cfg, cl)
+        if sub == "channel":
+            return mlp_region(leaf, shape, cl)
+        return region(shape)
+
+    def _stack(self, layers: nn.ModuleList, prefix: str, fn, x, *args,
+               remat: bool | str = False):
+        """``x`` through ``fn(p, x, *args)`` for each layer's compute
+        blocks ``p`` (gathered once, kept for the backward)."""
+        for i, layer in enumerate(layers):
+            p = self._tree(layer, f"{prefix}.{i}.")
+            if remat:
+                x = checkpoint(self._in_rules, fn, p, x, *args,
+                               use_reentrant=False)
+            else:
+                x = fn(p, x, *args)
+        return x
 
     # -- encoder -----------------------------------------------------------------
     def encode(self, frames: torch.Tensor,
@@ -128,19 +162,19 @@ class EncDec(nn.Module):
         sinusoidal positions added; ``remat`` recomputes each layer in the
         backward pass."""
         check_remat(remat)
+        with self._rules():
+            return self._encode(frames, remat)
+
+    def _encode(self, frames: torch.Tensor, remat) -> torch.Tensor:
         cfg = self.cfg
         dtc = torch_dtype(cfg.compute_dtype)
         b, s = frames.shape[:2]
         pos = sinusoidal_positions(s, cfg.d_model, frames.device).to(dtc)
         x = frames.to(dtc) + pos
         positions = torch.arange(s, device=x.device).expand(b, s)
-        for layer in self.encoder:
-            if remat:
-                x = checkpoint(_enc_layer, layer, x, cfg, positions,
-                               use_reentrant=False)
-            else:
-                x = _enc_layer(layer, x, cfg, positions)
-        return apply_norm(self.enc_norm, x, cfg)
+        x = self._stack(self.encoder, "encoder", _enc_layer, x, cfg,
+                        positions, remat=remat)
+        return apply_norm(self._tree(self.enc_norm, "enc_norm."), x, cfg)
 
     # -- decoder (teacher-forced training) ------------------------------------------
     def decode_train(self, tokens: torch.Tensor, enc: torch.Tensor,
@@ -148,17 +182,15 @@ class EncDec(nn.Module):
         check_remat(remat)
         cfg = self.cfg
         dtc = torch_dtype(cfg.compute_dtype)
-        x = embed_tokens(self.embed, tokens, cfg)
-        b, t = x.shape[:2]
-        x = x + sinusoidal_positions(t, cfg.d_model, x.device).to(dtc)
-        positions = torch.arange(t, device=x.device).expand(b, t)
-        for layer in self.decoder:
-            if remat:
-                x = checkpoint(_dec_layer, layer, x, enc, cfg, positions,
-                               use_reentrant=False)
-            else:
-                x = _dec_layer(layer, x, enc, cfg, positions)
-        return apply_norm(self.final_norm, x, cfg)
+        with self._rules():
+            x = self._embed(tokens)
+            b, t = x.shape[:2]
+            x = x + sinusoidal_positions(t, cfg.d_model, x.device).to(dtc)
+            positions = torch.arange(t, device=x.device).expand(b, t)
+            x = self._stack(self.decoder, "decoder", _dec_layer, x, enc, cfg,
+                            positions, remat=remat)
+            return apply_norm(self._tree(self.final_norm, "final_norm."), x,
+                              cfg)
 
     def loss(self, batch: dict, *, remat: bool | str = False
              ) -> tuple[torch.Tensor, dict]:
@@ -172,7 +204,8 @@ class EncDec(nn.Module):
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
-        xent = chunked_xent(h, self._head_w(), labels, mask, self.cfg)
+        with self._rules():
+            xent = chunked_xent(h, self._head_w(), labels, mask, self.cfg)
         return xent, {"xent": xent,
                       "aux": torch.zeros((), dtype=torch.float32,
                                          device=xent.device)}
@@ -180,10 +213,12 @@ class EncDec(nn.Module):
     # -- serving -----------------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int,
                           cross_len: int = 1024) -> list[dict]:
-        return [{"self": init_kv_cache(self.cfg, batch, max_len, self.device),
-                 "cross": init_kv_cache(self.cfg, batch, cross_len,
-                                        self.device)}
-                for _ in range(self.cfg.n_layers)]
+        with self._rules():
+            return [{"self": init_kv_cache(self.cfg, batch, max_len,
+                                           self.device),
+                     "cross": init_kv_cache(self.cfg, batch, cross_len,
+                                            self.device)}
+                    for _ in range(self.cfg.n_layers)]
 
     @torch.inference_mode()
     def prefill_cross(self, state: list[dict],
@@ -192,8 +227,10 @@ class EncDec(nn.Module):
         becomes the encoder's keys and values, whatever its length)."""
         enc = self.encode(frames)
         return [{"self": s["self"],
-                 "cross": precompute_cross_kv(layer["cross"], enc, self.cfg)}
-                for layer, s in zip(self.decoder, state)]
+                 "cross": precompute_cross_kv(
+                     self._tree(layer["cross"], f"decoder.{i}.cross."), enc,
+                     self.cfg)}
+                for i, (layer, s) in enumerate(zip(self.decoder, state))]
 
     @torch.inference_mode()
     def decode_step(self, state: list[dict], tokens: torch.Tensor,
@@ -202,14 +239,18 @@ class EncDec(nn.Module):
         state); each self-attention cache is written at ``pos`` in place.
         The position embedding is row ``min(pos, decoder_len)`` of the
         sinusoidal table, as in the reference."""
+        with self._rules():
+            return self._decode_step(state, tokens, int(pos))
+
+    def _decode_step(self, state, tokens, pos: int):
         cfg = self.cfg
         dtc = torch_dtype(cfg.compute_dtype)
-        x = embed_tokens(self.embed, tokens, cfg)
-        pos = int(pos)
+        x = self._embed(tokens)
         table = sinusoidal_positions(cfg.decoder_len + 1, cfg.d_model,
                                      x.device)
         x = x + table[min(pos, cfg.decoder_len)].to(dtc)
-        for layer, s in zip(self.decoder, state):
+        for i, s in enumerate(state):
+            layer = self._tree(self.decoder[i], f"decoder.{i}.")
             a, s["self"] = decode_attention(
                 layer["self"], apply_norm(layer["norm1"], x, cfg), s["self"],
                 cfg, pos=pos)
@@ -220,5 +261,5 @@ class EncDec(nn.Module):
             x = x + c
             x = x + apply_mlp(layer["channel"],
                               apply_norm(layer["norm2"], x, cfg), cfg)
-        x = apply_norm(self.final_norm, x, cfg)
-        return (x.to(dtc) @ self._head_w().to(dtc)).float(), state
+        x = apply_norm(self._tree(self.final_norm, "final_norm."), x, cfg)
+        return self._logits(x), state

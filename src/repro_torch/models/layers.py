@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..dist.sharding import compute_layout
+from ..dist.sharding import ComputeLayout, compute_layout, region
 from .config import ArchConfig
 
 __all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
@@ -168,6 +168,15 @@ def init_mlp(gen, cfg: ArchConfig, device,
     return p
 
 
+def mlp_region(leaf: str, shape, cl: ComputeLayout) -> tuple:
+    """The compute region of an MLP's leaf: this rank's ``ff`` columns."""
+    if leaf in ("w_in", "w_gate"):
+        return region(shape, 1, cl.ff(shape[1]), cl.ff_split)
+    if leaf == "w_out":
+        return region(shape, 0, cl.ff(shape[0]), cl.ff_split)
+    return region(shape)
+
+
 def mlp_partial(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None
                 ) -> tuple[torch.Tensor, tuple]:
     """The MLP on this rank's ``ff`` columns of a ``d_ff``-wide MLP
@@ -190,15 +199,22 @@ def mlp_partial(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None
     return out, cl.ff_split.axes if split else ()
 
 
+def finish(y: torch.Tensor, partial: tuple,
+           seq_dim: int | None = None) -> torch.Tensor:
+    """A sublayer's output summed over the ranks of the mesh axes
+    ``partial`` (with ``seq_dim``, this rank's rows of the sum:
+    ``seq_parallel``); ``y`` itself where no rules split anything."""
+    cl = compute_layout()
+    return y if cl is None else cl.reduce(y, partial, seq_dim)
+
+
 def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig, *,
               d_ff: int | None = None,
               seq_dim: int | None = None) -> torch.Tensor:
     """The MLP; under a mesh of ranks each computes its ``ff`` columns and
     the outputs are summed over the model axes (with ``seq_dim``, each
     rank keeps its rows of the sum: ``seq_parallel``)."""
-    out, partial = mlp_partial(p, x, cfg, d_ff)
-    cl = compute_layout()
-    return out if cl is None else cl.reduce(out, partial, seq_dim)
+    return finish(*mlp_partial(p, x, cfg, d_ff), seq_dim)
 
 
 # -- embeddings & heads ---------------------------------------------------------

@@ -19,13 +19,15 @@ frontend (``frontend="stub_patches"``) prepends precomputed patch
 embeddings to the token embeddings and masks them out of the loss; the
 encoder-decoder family is ``models/encdec.py``.
 
-Over a mesh of ranks (``LM.shard``) each parameter holds this rank's
-block of its leaf: its ``param_specs`` block while training, gathered
-into the block its compute needs where a layer uses it
-(``dist.sharding.gather_leaf``; the gradient is scattered back), or that
-compute block itself while serving.  The model's methods run under the
-layout's rules, so the layers compute on the rank's heads, ``ff``
-columns, vocab slice and experts (``dist.sharding.compute_layout``).
+Over a mesh of ranks (``LM.shard``; the machinery is ``Sharded``, which
+``EncDec`` shares) each parameter holds this rank's block of its leaf:
+its ``param_specs`` block while training, gathered into the block its
+compute needs where a layer uses it (``dist.sharding.gather_leaf``; the
+gradient is scattered back), or that compute block itself while serving.
+The model's methods run under the layout's rules, so the layers compute
+on the rank's heads (attention's and RWKV-6's), ``ff`` columns, vocab
+slice, experts and, under ``mamba_tp``, Mamba channels
+(``dist.sharding.compute_layout``).
 The cross-entropy is then vocab-parallel (a max and two sums over the
 ranks a chunk), and the serving logits are gathered whole.
 """
@@ -42,15 +44,18 @@ from .. import resolve_device
 from ..dist.api import use_rules
 from ..dist.collectives import all_gather, all_max, all_reduce
 from ..dist.sharding import (ComputeLayout, ParamLayout, compute_layout,
-                             leaf_layout, param_specs)
+                             leaf_layout, param_specs, region)
+from .attention import attention_region
 from .blocks import (MIXERS, apply_layer, decode_layer, init_layer,
                      init_layer_state, prefill_layer)
 from .config import ArchConfig
 from .layers import (apply_norm, embed_tokens, init_embed, init_norm,
-                     torch_dtype)
+                     mlp_region, torch_dtype)
+from .mamba import mamba_region
+from .rwkv6 import cmix_region, tmix_region
 
-__all__ = ["FLOAT32_LEAVES", "FRONTENDS", "LM", "POSITIONS", "check_remat",
-           "chunked_xent", "missing_layer", "serving_dtype"]
+__all__ = ["FLOAT32_LEAVES", "FRONTENDS", "LM", "POSITIONS", "Sharded",
+           "check_remat", "chunked_xent", "missing_layer", "serving_dtype"]
 
 # leaves the reference reads in float32 whatever the compute dtype: the
 # mamba scan's A_log, D, dt_bias and dt_proj (models/mamba.py _ssm_inputs)
@@ -141,12 +146,110 @@ def serving_dtype(name: str, cfg: ArchConfig) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
 
 
-class LM(nn.Module):
-    """Decoder-only LM with random weights drawn from ``seed`` on
-    ``device`` (``None`` = the card; ``"meta"`` makes the shapes only)."""
+class Sharded(nn.Module):
+    """A model whose parameters can be held in blocks over a mesh of ranks
+    (``LM`` and ``EncDec``): ``shard`` keeps this rank's block of every
+    leaf; ``_leaf``/``_tree`` give the compute blocks where a layer uses
+    them, and ``_rules`` the rules its compute follows.  A subclass names
+    its leaves' compute regions (``_layer_region``)."""
 
     # the ParamLayout of a model sharded over ranks (``shard``)
     layout: ParamLayout | None = None
+
+    def compute_region(self, name: str, shape, cl: ComputeLayout) -> tuple:
+        """The part of leaf ``name`` (of ``shape``) this rank computes
+        with, for ``dist.sharding.leaf_layout``: per dimension ``None``
+        (all of it) or ``(range, axes, even)``.  The reference's
+        ``constrain`` sites: the vocabulary here, the layers' in
+        ``_layer_region``; every other leaf whole."""
+        if name == "embed.tokens":
+            return region(shape, 0, cl.vocab(shape[0]), cl.vocab_split)
+        if name == "embed.lm_head":
+            return region(shape, 1, cl.vocab(shape[1]), cl.vocab_split)
+        return self._layer_region(name.split("."), shape, cl)
+
+    def _layer_region(self, parts: list[str], shape,
+                      cl: ComputeLayout) -> tuple:
+        raise NotImplementedError
+
+    def shard(self, rules, resident: str = "storage",
+              scfg=None) -> ParamLayout | None:
+        """Keep this rank's block of every parameter under ``rules`` (a
+        ``MeshRules`` over a ``RankMesh``): its ``param_specs`` block of
+        ``scfg`` (``resident="storage"``, training) or its compute block
+        (``"compute"``, serving).  Returns the layout, or ``None`` (the
+        model untouched) where nothing is split.  Every rank must hold the
+        same whole parameters when it is called."""
+        mesh = rules.mesh
+        cl = ComputeLayout(rules)
+        params = dict(self.named_parameters())
+        specs = (param_specs(params, mesh, scfg) if resident == "storage"
+                 else {n: (None,) * p.dim() for n, p in params.items()})
+        leaves = {n: leaf_layout(tuple(p.shape), specs[n],
+                                 self.compute_region(n, p.shape, cl), mesh,
+                                 cl.batch_axes)
+                  for n, p in params.items()}
+        if cl.trivial and not any(lay.storage_axes and mesh.axes_size(
+                lay.storage_axes) > 1 for lay in leaves.values()):
+            return None
+        layout = ParamLayout(leaves, rules, resident)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.data = layout.block(name, p.data)
+        self.layout = layout
+        return layout
+
+    def _rules(self):
+        return (contextlib.nullcontext() if self.layout is None
+                else use_rules(self.layout.rules))
+
+    def _in_rules(self, fn, *args):
+        """``fn(*args)`` under the layout's rules (a layer recomputed by
+        remat runs in the backward pass, outside the forward's)."""
+        with self._rules():
+            return fn(*args)
+
+    def _leaf(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        return p if self.layout is None else self.layout.use(name, p)
+
+    def _tree(self, module: nn.Module, prefix: str):
+        """``module``'s parameters as its compute blocks (a nested dict
+        under the same keys) where the rank stores other blocks."""
+        if self.layout is None or self.layout.resident == "compute":
+            return module
+        out: dict = {}
+        for sub, p in module.named_parameters():
+            *path, key = sub.split(".")
+            node = out
+            for k in path:
+                node = node.setdefault(k, {})
+            node[key] = self.layout.use(prefix + sub, p)
+        return out
+
+    def _head_w(self) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return self._leaf("embed.tokens", self.embed["tokens"]).T
+        return self._leaf("embed.lm_head", self.embed["lm_head"])
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens({"tokens": self._leaf("embed.tokens",
+                                                  self.embed["tokens"])},
+                            tokens, self.cfg)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Float32 logits over the whole vocabulary (each rank's slice
+        gathered where the rules split it)."""
+        dtc = torch_dtype(self.cfg.compute_dtype)
+        logits = (h.to(dtc) @ self._head_w().to(dtc)).float()
+        cl = compute_layout()
+        if cl is None or cl.vocab(self.cfg.vocab_size) is None:
+            return logits
+        return all_gather(logits, cl.mesh, cl.vocab_split.axes, -1)
+
+
+class LM(Sharded):
+    """Decoder-only LM with random weights drawn from ``seed`` on
+    ``device`` (``None`` = the card; ``"meta"`` makes the shapes only)."""
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device=None):
         super().__init__()
@@ -195,112 +298,31 @@ class LM(nn.Module):
                 for name, p in self.named_parameters()}
 
     # -- ranks ---------------------------------------------------------------
-    def compute_region(self, name: str, shape, cl: ComputeLayout) -> tuple:
-        """The part of leaf ``name`` (of ``shape``) this rank computes
-        with, for ``dist.sharding.leaf_layout``: per dimension ``None``
-        (all of it) or ``(slice, axes, even)``.  The reference's
-        ``constrain`` sites: q heads, the kv heads they read, the output
-        projection's heads, ``ff`` columns (the MLPs, the shared expert),
-        the vocabulary, experts; every other leaf whole."""
-        cfg = self.cfg
-        region: list = [None] * len(shape)
-
-        def on(dim, rng, split, even=True):
-            if rng is not None:
-                region[dim] = (rng, split.axes, even)
-            return tuple(region)
-
-        parts = name.split(".")
-        leaf = parts[-1]
-        if name == "embed.tokens":
-            return on(0, cl.vocab(shape[0]), cl.vocab_split)
-        if name == "embed.lm_head":
-            return on(1, cl.vocab(shape[1]), cl.vocab_split)
+    def _layer_region(self, parts: list[str], shape,
+                      cl: ComputeLayout) -> tuple:
+        """Attention's heads, RWKV-6's heads and ``ff`` columns, Mamba's
+        channels under ``mamba_tp``, the MLPs' ``ff`` columns (the shared
+        expert's too) and the experts."""
         if parts[0] != "layers":
-            return tuple(region)
-        i, sub = int(parts[1]), parts[2]
-        if sub == "mixer" and self.kinds[i] == "attn":
-            if leaf in ("wq", "bq", "wo"):
-                return on(1 if leaf == "wq" else 0, cl.heads(cfg.n_heads),
-                          cl.model)
-            if leaf in ("wk", "wv", "bk", "bv"):
-                kv = cl.kv_computed(cfg.n_heads, cfg.n_kv_heads)
-                return on(1 if leaf[0] == "w" else 0, kv, cl.model,
-                          cl.model.range(cfg.n_kv_heads) == kv)
-        if sub != "channel" or self.kinds[i] == "rwkv":
-            return tuple(region)
+            return region(shape)
+        cfg = self.cfg
+        i, sub, leaf = int(parts[1]), parts[2], parts[-1]
+        kind = self.kinds[i]
+        if sub == "mixer":
+            if kind == "attn":
+                return attention_region(leaf, shape, cfg, cl)
+            if kind == "rwkv":
+                return tmix_region(leaf, shape, cfg, cl)
+            return mamba_region(leaf, shape, cfg, cl)
+        if sub != "channel":
+            return region(shape)
+        if kind == "rwkv":
+            return cmix_region(leaf, shape, cfg, cl)
         if self.moe_mask[i] and len(parts) == 4:
             if leaf in ("w_in", "w_gate", "w_out"):
-                return on(0, cl.experts(shape[0]), cl.expert)
-            return tuple(region)                    # router, shared_gate
-        if leaf in ("w_in", "w_gate"):
-            return on(1, cl.ff(shape[1]), cl.ff_split)
-        if leaf == "w_out":
-            return on(0, cl.ff(shape[0]), cl.ff_split)
-        return tuple(region)
-
-    def shard(self, rules, resident: str = "storage",
-              scfg=None) -> ParamLayout | None:
-        """Keep this rank's block of every parameter under ``rules`` (a
-        ``MeshRules`` over a ``RankMesh``): its ``param_specs`` block of
-        ``scfg`` (``resident="storage"``, training) or its compute block
-        (``"compute"``, serving).  Returns the layout, or ``None`` (the
-        model untouched) where nothing is split.  Every rank must hold the
-        same whole parameters when it is called."""
-        mesh = rules.mesh
-        cl = ComputeLayout(rules)
-        params = dict(self.named_parameters())
-        specs = (param_specs(params, mesh, scfg) if resident == "storage"
-                 else {n: (None,) * p.dim() for n, p in params.items()})
-        leaves = {n: leaf_layout(tuple(p.shape), specs[n],
-                                 self.compute_region(n, p.shape, cl), mesh,
-                                 cl.batch_axes)
-                  for n, p in params.items()}
-        if cl.trivial and not any(lay.storage_axes and mesh.axes_size(
-                lay.storage_axes) > 1 for lay in leaves.values()):
-            return None
-        layout = ParamLayout(leaves, rules, resident)
-        with torch.no_grad():
-            for name, p in params.items():
-                p.data = layout.block(name, p.data)
-        self.layout = layout
-        return layout
-
-    def _rules(self):
-        return (contextlib.nullcontext() if self.layout is None
-                else use_rules(self.layout.rules))
-
-    def _leaf(self, name: str, p: torch.Tensor) -> torch.Tensor:
-        return p if self.layout is None else self.layout.use(name, p)
-
-    def _tree(self, module: nn.Module, prefix: str):
-        """``module``'s parameters as its compute blocks (a nested dict
-        under the same keys) where the rank stores other blocks."""
-        if self.layout is None or self.layout.resident == "compute":
-            return module
-        out: dict = {}
-        for sub, p in module.named_parameters():
-            *path, key = sub.split(".")
-            node = out
-            for k in path:
-                node = node.setdefault(k, {})
-            node[key] = self.layout.use(prefix + sub, p)
-        return out
-
-    def _head_w(self) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            return self._leaf("embed.tokens", self.embed["tokens"]).T
-        return self._leaf("embed.lm_head", self.embed["lm_head"])
-
-    def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Float32 logits over the whole vocabulary (each rank's slice
-        gathered where the rules split it)."""
-        dtc = torch_dtype(self.cfg.compute_dtype)
-        logits = (h.to(dtc) @ self._head_w().to(dtc)).float()
-        cl = compute_layout()
-        if cl is None or cl.vocab(self.cfg.vocab_size) is None:
-            return logits
-        return all_gather(logits, cl.mesh, cl.vocab_split.axes, -1)
+                return region(shape, 0, cl.experts(shape[0]), cl.expert)
+            return region(shape)                    # router, shared_gate
+        return mlp_region(leaf, shape, cl)
 
     # -- training --------------------------------------------------------------
     def backbone(self, x: torch.Tensor, positions: torch.Tensor,
@@ -340,11 +362,8 @@ class LM(nn.Module):
 
     def _layer(self, p, i: int, x: torch.Tensor, positions: torch.Tensor,
                seq: bool):
-        # the rules again: under remat the layer is recomputed in the
-        # backward pass, outside the forward's
-        with self._rules():
-            return apply_layer(p, x, self.cfg, self.kinds[i],
-                               self.moe_mask[i], positions, seq)
+        return self._in_rules(apply_layer, p, x, self.cfg, self.kinds[i],
+                              self.moe_mask[i], positions, seq)
 
     def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor,
                                                  torch.Tensor, torch.Tensor]:
@@ -352,10 +371,7 @@ class LM(nn.Module):
         ``patch_embeds`` (B, P, D), where the batch has them, are
         prepended to the token embeddings, with target 0 and loss mask 0
         over the patches; without them the VLM runs on its text alone."""
-        tokens = batch["tokens"]
-        x = embed_tokens({"tokens": self._leaf("embed.tokens",
-                                               self.embed["tokens"])},
-                         tokens, self.cfg)
+        x = self._embed(batch["tokens"])
         targets = batch["labels"]
         mask = batch.get("loss_mask")
         if mask is None:
@@ -443,9 +459,7 @@ class LM(nn.Module):
         place, each recurrent layer's state replaced by its next."""
         cfg = self.cfg
         with self._rules():
-            x = embed_tokens({"tokens": self._leaf("embed.tokens",
-                                                   self.embed["tokens"])},
-                             tokens, cfg)
+            x = self._embed(tokens)
             for i in range(len(self.layers)):
                 x, state[i] = decode_layer(
                     self._tree(self.layers[i], f"layers.{i}."), x, state[i],

@@ -14,6 +14,16 @@ port ``attn_impl`` ``"auto"`` and ``"pallas"`` both mean the kernel, whose
 plain PyTorch version runs for tensors on the CPU.  Training runs the same
 ``apply_rwkv_tmix`` and ``apply_rwkv_cmix`` with autograd recording: the
 recurrence's gradient comes from the wkv backward kernel (``Wkv6``).
+
+Over ranks whose rules split the heads (``dist.sharding.compute_layout``,
+the reference's ``constrain`` of r/k/v on ``"heads"`` and of the channel
+mix's hidden on ``"ff"``): ddlerp runs whole on every rank; each rank
+projects r/k/v/g and the decay on the channels of its heads, runs the wkv
+kernels and the per-head group norm on them, and the ranks' output
+projections are summed (with ``seq_dim``, each keeps its rows of the sum:
+``seq_parallel``).  The channel mix computes its ``ff`` columns, sums
+``vv`` over the ranks and gates it with the whole ``r``.  The decode
+state's ``wkv`` holds the rank's heads.
 """
 
 from __future__ import annotations
@@ -22,12 +32,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import ComputeLayout, compute_layout, region
 from ..kernels.rwkv6_wkv import ops as wkv_ops
 from .config import ArchConfig, RwkvConfig
-from .layers import dense_init, group_norm, param, rand_init, torch_dtype
+from .layers import (dense_init, finish, group_norm, param, rand_init,
+                     torch_dtype)
 
-__all__ = ["apply_rwkv_cmix", "apply_rwkv_tmix", "init_rwkv_cmix",
-           "init_rwkv_state", "init_rwkv_tmix", "n_rwkv_heads"]
+__all__ = ["apply_rwkv_cmix", "apply_rwkv_tmix", "cmix_region",
+           "init_rwkv_cmix", "init_rwkv_state", "init_rwkv_tmix",
+           "n_rwkv_heads", "tmix_region"]
 
 
 def _rcfg(cfg: ArchConfig) -> RwkvConfig:
@@ -36,6 +49,48 @@ def _rcfg(cfg: ArchConfig) -> RwkvConfig:
 
 def n_rwkv_heads(cfg: ArchConfig) -> int:
     return cfg.d_model // _rcfg(cfg).head_dim
+
+
+def _rank_heads(cfg: ArchConfig) -> tuple[int, tuple]:
+    """(the wkv heads this rank computes, the mesh axes over which the
+    ranks' time-mix outputs are summed: ``()`` where it computes them
+    all)."""
+    h = n_rwkv_heads(cfg)
+    cl = compute_layout()
+    mine = None if cl is None else cl.heads(h)
+    if mine is None:
+        return h, ()
+    return mine.stop - mine.start, cl.model.axes
+
+
+def tmix_region(leaf: str, shape, cfg: ArchConfig,
+                cl: ComputeLayout) -> tuple:
+    """The compute region of a time-mix leaf: the channels of this rank's
+    heads in r/k/v/g's and the decay LoRA's columns, in the decay base,
+    the group norm's affine and the output projection's rows, its heads'
+    rows of ``u``; ddlerp's leaves whole."""
+    h = n_rwkv_heads(cfg)
+    ch = cl.head_channels(h, _rcfg(cfg).head_dim)
+    if leaf in ("wr", "wk", "wv", "wg", "decay_lora_b"):
+        return region(shape, 1, ch, cl.model)
+    if leaf in ("decay_base", "ln_scale", "ln_bias", "wo"):
+        return region(shape, 0, ch, cl.model)
+    if leaf == "u":
+        return region(shape, 0, cl.heads(h), cl.model)
+    return region(shape)
+
+
+def cmix_region(leaf: str, shape, cfg: ArchConfig,
+                cl: ComputeLayout) -> tuple:
+    """The compute region of a channel-mix leaf: this rank's ``ff``
+    columns of ``wk_ff`` and rows of ``wv_ff``; ``wr_ff`` whole."""
+    if leaf == "wk_ff":
+        return region(shape, 1, cl.ff(cfg.d_ff), cl.ff_split)
+    if leaf == "wv_ff":
+        return region(shape, 0, cl.ff(cfg.d_ff), cl.ff_split)
+    return region(shape)
+
+
 
 
 def init_rwkv_tmix(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
@@ -87,13 +142,16 @@ def _ddlerp(p, x: torch.Tensor, shifted: torch.Tensor,
 
 
 def apply_rwkv_tmix(p, x: torch.Tensor, cfg: ArchConfig,
-                    state: dict | None = None, return_state: bool = False
+                    state: dict | None = None, return_state: bool = False,
+                    seq_dim: int | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
     """Time mix over a segment. x: (B, T, D); ``state`` carries the
-    previous segment's last token and wkv state (decode)."""
-    b, t, d = x.shape
+    previous segment's last token and wkv state (decode).  Over ranks
+    ``p`` holds the rank's heads (see the module docstring)."""
+    b, t, _ = x.shape
     hd = _rcfg(cfg).head_dim
-    h = n_rwkv_heads(cfg)
+    h, partial = _rank_heads(cfg)
+    d = h * hd
     dtc = torch_dtype(cfg.compute_dtype)
     prev = state["tmix_prev"][:, None] if state is not None else None
     xr, xk, xv, xg, xw = _ddlerp(p, x, _token_shift(x, prev), cfg)
@@ -115,7 +173,7 @@ def apply_rwkv_tmix(p, x: torch.Tensor, cfg: ArchConfig,
 
     y = group_norm(y.reshape(b, t, d), h)
     y = y * p["ln_scale"].to(y.dtype) + p["ln_bias"].to(y.dtype)
-    out = (y.to(dtc) * F.silu(g)) @ p["wo"].to(dtc)
+    out = finish((y.to(dtc) * F.silu(g)) @ p["wo"].to(dtc), partial, seq_dim)
     new_state = None
     if state is not None or return_state:
         new_state = {"tmix_prev": x[:, -1], "wkv": s_t}
@@ -140,7 +198,8 @@ def init_rwkv_cmix(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
 
 
 def apply_rwkv_cmix(p, x: torch.Tensor, cfg: ArchConfig,
-                    state: dict | None = None, return_state: bool = False
+                    state: dict | None = None, return_state: bool = False,
+                    seq_dim: int | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
     dtc = torch_dtype(cfg.compute_dtype)
     prev = state["cmix_prev"][:, None] if state is not None else None
@@ -149,16 +208,20 @@ def apply_rwkv_cmix(p, x: torch.Tensor, cfg: ArchConfig,
     xk = xc + dx * p["mu_k"].to(dtc)
     xr = xc + dx * p["mu_r"].to(dtc)
     k = F.relu(xk @ p["wk_ff"].to(dtc)).square()
-    vv = k @ p["wv_ff"].to(dtc)
-    r = torch.sigmoid(xr @ p["wr_ff"].to(dtc))
+    cl = compute_layout()
+    split = cl is not None and cl.ff(cfg.d_ff) is not None
+    vv = finish(k @ p["wv_ff"].to(dtc), cl.ff_split.axes if split else (),
+                seq_dim)
+    r = finish(torch.sigmoid(xr @ p["wr_ff"].to(dtc)), (), seq_dim)
     new_state = ({"cmix_prev": x[:, -1]}
                  if (state is not None or return_state) else None)
     return r * vv, new_state
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, device) -> dict:
+    """Zero decode state; ``wkv`` holds the heads this rank computes."""
     hd = _rcfg(cfg).head_dim
-    h = n_rwkv_heads(cfg)
+    h, _ = _rank_heads(cfg)
     dtc = torch_dtype(cfg.compute_dtype)
     return {
         "tmix_prev": torch.zeros((batch, cfg.d_model), dtype=dtc,

@@ -283,6 +283,85 @@ def grads_rank(rank, world, mesh, jobs, out_dir):
                    Path(out_dir) / f"{tag}_rank{rank}.pt")
 
 
+def many_rank(rank, world, mesh, parts, out_dir):
+    """Each ``(fn, jobs)`` of ``parts`` in turn, ``fn(rank, world, mesh,
+    jobs, out_dir)``: every case of a mesh shape in one spawn."""
+    for fn, jobs in parts:
+        fn(rank, world, mesh, jobs, out_dir)
+
+
+def compress_step_rank(rank, world, mesh, jobs, out_dir):
+    """For each job ``(tag, cfg, scfg_kw, weights_path, batch_path,
+    opt_kw)``, one ``train_step`` of the saved weights, sharded under
+    ``ShardingConfig(**scfg_kw)`` (its ``grad_compression``), on this
+    rank's rows of the saved batch with ``AdamWConfig(**opt_kw)``: saves
+    the parameters and the error-feedback residual after it, gathered
+    whole (rank 0)."""
+    from repro_torch.dist.compression import init_error_state
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import _rows
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    for tag, cfg, scfg_kw, weights_path, batch_path, opt_kw in jobs:
+        scfg = ShardingConfig(**scfg_kw)
+        model = _model_from(cfg, weights_path)
+        layout = model.shard(scfg.rules(mesh), "storage", scfg)
+        params = dict(model.named_parameters())
+        err = init_error_state(params)
+        opt_cfg = AdamWConfig(**opt_kw)
+        opt = init_opt_state(params, opt_cfg, layout.moment_grids())
+        batch = _rows(torch.load(batch_path), mesh, scfg)
+        out = train_step(model, opt, batch, opt_cfg,
+                         grad_compression=scfg.grad_compression, err=err)
+        whole = {"params": {n: layout.unshard(n, p.detach())
+                            for n, p in params.items()},
+                 "err": {n: layout.unshard(n, e) for n, e in err.items()}}
+        torch.save({"loss": float(out["loss"]),
+                    **(whole if rank == 0 else {})},
+                   Path(out_dir) / f"{tag}_rank{rank}.pt")
+
+
+def moments_rank(rank, world, mesh, jobs, out_dir):
+    """For each job ``(tag, cfg, scfg_kw, weights_path, grads_path,
+    opt_kw)``, the saved weights sharded under
+    ``ShardingConfig(**scfg_kw)`` take one AdamW step with int8 moments
+    (``AdamWConfig(**opt_kw)``) for each saved whole gradient, each rank
+    on its blocks: saves (rank 0) the parameters and the moments gathered
+    whole, and whether every moment's ``shard_moment(unshard_moment(m))``
+    is ``m``."""
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_opt_state)
+
+    for tag, cfg, scfg_kw, weights_path, grads_path, opt_kw in jobs:
+        scfg = ShardingConfig(**scfg_kw)
+        model = _model_from(cfg, weights_path)
+        layout = model.shard(scfg.rules(mesh), "storage", scfg)
+        params = dict(model.named_parameters())
+        opt_cfg = AdamWConfig(**opt_kw)
+        opt = init_opt_state(params, opt_cfg, layout.moment_grids())
+        for grads in torch.load(grads_path):
+            apply_updates(params, {n: layout.block(n, g)
+                                   for n, g in grads.items()}, opt, opt_cfg,
+                          decay_mask=model.decay_mask(),
+                          norm=layout.global_norm,
+                          grids=layout.moment_grids())
+        whole = {part: {n: layout.unshard_moment(n, m)
+                        for n, m in opt[part].items()} for part in "mv"}
+        round_trip = all(
+            all(torch.equal(layout.shard_moment(n, whole[part][n])[k], v)
+                for k, v in m.items())
+            for part in "mv" for n, m in opt[part].items())
+        params = {n: layout.unshard(n, p.detach())
+                  for n, p in params.items()}
+        torch.save({"round_trip": round_trip,
+                    "grids": sorted(layout.moment_grids()),
+                    **({"params": params, "opt": whole} if rank == 0
+                       else {})},
+                   Path(out_dir) / f"{tag}_rank{rank}.pt")
+
+
 def load_ranks(out_dir: Path, world: int, tag: str = "") -> list:
     prefix = f"{tag}_" if tag else ""
     return [torch.load(Path(out_dir) / f"{prefix}rank{r}.pt",
@@ -294,6 +373,7 @@ def float32(cfg):
 
 
 __all__ = ["COLLECTIVE_AXES", "COLLECTIVE_ROUTES", "LEAF_SPECS",
-           "allreduce_rank", "collectives_rank", "float32", "grads_rank",
-           "load_ranks", "run_ranks", "seq_decode_rank", "serve_rank",
+           "allreduce_rank", "collectives_rank", "compress_step_rank",
+           "float32", "grads_rank", "load_ranks", "many_rank",
+           "moments_rank", "run_ranks", "seq_decode_rank", "serve_rank",
            "stripe_rank", "tp_serve_rank", "train_rank"]

@@ -10,9 +10,8 @@ over CPU ranks (the port's A6b).
   against the reference's leaf sliced by its own ``param_specs``
   (``test_torch_dist_tp``'s checks);
 * the twin of the reference's ``test_elastic_remesh_restore_continues_
-  identically`` scaled to 4 -> 2 ranks with FSDP over data;
-* int8 moments whose quantization blocks would straddle ranks are
-  refused.
+  identically`` scaled to 4 -> 2 ranks with FSDP over data (int8 moments
+  whose quantization blocks straddle ranks: ``test_torch_dist_a6c``).
 """
 
 from __future__ import annotations
@@ -23,10 +22,6 @@ import numpy as np
 import pytest
 
 from repro_torch import configs
-from repro_torch.dist.ranks import ShapeMesh
-from repro_torch.dist.sharding import ShardingConfig
-from repro_torch.launch.mesh import check_executable
-from repro_torch.models import build_model
 from helpers_dist import load_ranks, run_ranks, train_rank
 from test_torch_dist_tp import (  # noqa: F401 (one_thread: autouse)
     LAYOUTS, check_blocks, check_gradients, one_thread)
@@ -82,16 +77,3 @@ def test_elastic_remesh_restore_continues_identically(tmp_path):
         assert r["resumed_from"] == 4
         np.testing.assert_allclose(r["losses"], straight[0]["losses"][4:],
                                    rtol=2e-4, atol=2e-4)
-
-
-def test_int8_moments_straddling_ranks_are_refused():
-    """Qwen2.5-3B smoke with FSDP over two ranks cuts its (128, 256) MLP
-    leaves along the last axis into 128-wide blocks: int8 moments quantize
-    in blocks of 256 along it, so that combination is refused; float32
-    moments run."""
-    mesh = ShapeMesh(("data", "model"), (2, 1))
-    scfg = ShardingConfig(**FSDP)
-    model = build_model(CFG, device="meta")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        check_executable(scfg, mesh, model=model, moments_dtype="int8")
-    check_executable(scfg, mesh, model=model, moments_dtype="float32")

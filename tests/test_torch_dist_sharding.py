@@ -13,9 +13,12 @@ must equal the reference's with its leading group entry dropped.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
@@ -24,7 +27,7 @@ from repro.dist import sharding as ref_sharding
 from repro_torch import configs
 from repro_torch.dist import api, sharding
 from repro_torch.dist.ranks import ShapeMesh
-from repro_torch.launch.mesh import check_executable, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
@@ -213,51 +216,79 @@ def test_constrain_resolves_through_mesh_rules():
     assert api.constrain(x, "batch", None, None) is x     # no rules: identity
 
 
-@pytest.mark.parametrize("arch, scfg_kw, serving, refused", [
-    # tensor, expert and FSDP parameter sharding run on a decoder LM
-    ("qwen2.5-3b", dict(model_axes=("model",)), False, False),
-    ("qwen2-moe-a2.7b", dict(model_axes=(), expert_axes=("model",)), False,
-     False),
-    ("qwen2.5-3b", dict(model_axes=(), fsdp_axes=("model",)), False, False),
-    ("qwen2.5-3b", dict(model_axes=(), fsdp_axes=("data",)), False, False),
-    ("qwen2.5-3b", dict(model_axes=("model",), kv_shard="batch_seq"), True,
-     False),
-    ("qwen2.5-3b", dict(model_axes=("model",), kv_shard="seq"), True, False),
-    ("jamba-v0.1-52b", dict(model_axes=("model",)), False, False),
-    # what A6c still has to run
-    ("rwkv6-1.6b", dict(model_axes=("model",)), False, True),
-    ("rwkv6-1.6b", dict(model_axes=("model",)), True, True),
-    ("jamba-v0.1-52b", dict(model_axes=("model",), mamba_tp=True), False,
-     True),
-    ("whisper-base", dict(model_axes=("model",)), False, True),
-    ("whisper-base", dict(model_axes=(), fsdp_axes=("model",)), False, True),
-    ("whisper-base", dict(model_axes=(), fsdp_axes=("data",)), False, False),
+class CoordMesh:
+    """A shape-only mesh seen from one coordinate: what a rank's
+    ``ComputeLayout`` and ``leaf_layout`` read of a ``RankMesh``."""
+
+    def __init__(self, axis_names, sizes, coords):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(axis_names, sizes))
+        self.coords = dict(zip(axis_names, coords))
+
+    def axes_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes) -> int:
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+def _indices(rng) -> np.ndarray:
+    """The indices of a region's range (a slice or a tuple of them)."""
+    parts = (rng,) if isinstance(rng, slice) else rng
+    return np.concatenate([np.arange(r.start, r.stop) for r in parts])
+
+
+@pytest.mark.parametrize("arch, scfg_kw, serving", [
+    ("qwen2.5-3b", dict(model_axes=("model",)), False),
+    ("qwen2-moe-a2.7b", dict(model_axes=(), expert_axes=("model",)), False),
+    ("qwen2.5-3b", dict(model_axes=(), fsdp_axes=("model",)), False),
+    ("qwen2.5-3b", dict(model_axes=(), fsdp_axes=("data",)), False),
+    ("qwen2.5-3b", dict(model_axes=("model",), kv_shard="batch_seq"), True),
+    ("qwen2.5-3b", dict(model_axes=("model",), kv_shard="seq"), True),
+    ("jamba-v0.1-52b", dict(model_axes=("model",)), False),
+    ("rwkv6-1.6b", dict(model_axes=("model",)), False),
+    ("rwkv6-1.6b", dict(model_axes=("model",)), True),
+    ("jamba-v0.1-52b", dict(model_axes=("model",), mamba_tp=True), False),
+    ("whisper-base", dict(model_axes=("model",)), False),
+    ("whisper-base", dict(model_axes=(), fsdp_axes=("model",)), False),
+    ("whisper-base", dict(model_axes=(), fsdp_axes=("data",)), False),
     ("qwen2.5-3b", dict(model_axes=("model",), grad_compression="int8"),
-     False, True),
+     False),
 ])
-def test_unexecuted_layouts_are_refused(arch, scfg_kw, serving, refused):
-    mesh = ShapeMesh(("data", "model"), (2, 2))
+def test_every_layout_tiles_its_leaves(arch, scfg_kw, serving):
+    """Every layout ``ShardingConfig`` derives runs in the port (RWKV-6's
+    heads, Jamba's channels under ``mamba_tp``, an encoder-decoder under
+    model or FSDP axes among them).  On a (2, 2) mesh, over the four
+    ranks of the meta model: the storage blocks (``param_specs``; whole
+    while serving) and the compute regions (``compute_region``) of each
+    leaf cover every element equally often, and where a rank stores what
+    it computes with nothing is gathered."""
+    names, sizes = ("data", "model"), (2, 2)
     scfg = sharding.ShardingConfig(**scfg_kw)
     model = build_model(configs.get(arch).smoke(), device="meta")
-    if refused:
-        with pytest.raises(NotImplementedError, match="A6c"):
-            check_executable(scfg, mesh, serving=serving, model=model)
-    else:
-        check_executable(scfg, mesh, serving=serving, model=model)
-
-
-def test_train_loop_and_serve_session_refuse_tensor_parallelism():
-    """Tensor parallelism over RWKV-6's time mix is refused before any
-    rank is asked for anything (the mesh here has no ranks)."""
-    from repro_torch.launch.serve import serve_session
-    from repro_torch.launch.train import train_loop
-
-    cfg = configs.get("rwkv6-1.6b").smoke()
-    mesh = ShapeMesh(("data", "model"), (1, 2))
-    scfg = sharding.ShardingConfig(model_axes=("model",))
-    with pytest.raises(NotImplementedError, match="A6c"):
-        train_loop(cfg, steps_total=1, batch=2, seq_len=8, mesh=mesh,
-                   scfg=scfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        serve_session(cfg, batch=1, prompt_len=4, gen=2, mesh=mesh,
-                      scfg=scfg, device="cpu")
+    params = dict(model.named_parameters())
+    store = {n: np.zeros(p.shape, int) for n, p in params.items()}
+    comp = {n: np.zeros(p.shape, int) for n, p in params.items()}
+    split = 0
+    for coords in itertools.product(*(range(n) for n in sizes)):
+        mesh = CoordMesh(names, sizes, coords)
+        cl = sharding.ComputeLayout(scfg.rules(mesh))
+        specs = ({n: (None,) * p.dim() for n, p in params.items()}
+                 if serving else sharding.param_specs(params, mesh, scfg))
+        for n, p in params.items():
+            shape = tuple(p.shape)
+            lay = sharding.leaf_layout(
+                shape, specs[n], model.compute_region(n, shape, cl), mesh,
+                cl.batch_axes)
+            store[n][lay.block] += 1
+            comp[n][np.ix_(*(_indices(r) for r in lay.region))] += 1
+            split += any(r != slice(0, e) for r, e in zip(lay.region, shape))
+            if lay.block == lay.region:
+                assert not any(k == "gather" for k, *_ in lay.steps), n
+    for n in params:
+        for cover in (store[n], comp[n]):
+            assert cover.min() >= 1 and cover.min() == cover.max(), n
+    assert split or not (scfg.model_axes or scfg.expert_axes), arch

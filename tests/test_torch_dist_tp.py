@@ -37,8 +37,10 @@ from repro.dist.sharding import ShardingConfig as RefShardingConfig
 from repro.launch.mesh import make_host_mesh as ref_host_mesh
 from repro.launch.train import train_loop as ref_train_loop
 from repro.models import LM as RefLM
+from repro.models import EncDec as RefEncDec
 from repro_torch import configs
-from repro_torch.convert import _reference_leaf, lm_from_jax_params
+from repro_torch.convert import (_reference_leaf, encdec_from_jax_params,
+                                 lm_from_jax_params)
 from repro_torch.models import build_model
 from helpers_dist import grads_rank, load_ranks, run_ranks, train_rank
 
@@ -52,6 +54,7 @@ LAYOUTS = {
         model_axes=("model",), fsdp_axes=("data",), expert_axes=("model",))),
 }
 B, T = 4, 16
+S_ENC = 12                  # an encoder-decoder's frames a row
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,18 +107,25 @@ def reference_tree(model, rcfg) -> dict:
     return tree
 
 
+def ref_model(rcfg):
+    return (RefEncDec if rcfg.encdec else RefLM)(rcfg)
+
+
 def reference(arch: str, tmp_path_factory, init: bool = False):
     """(reference params, port model, path of its saved state_dict): the
     port's weights from seed 0 carried into the reference's tree, or with
-    ``init`` the reference's own (its jitted ``init``, as its
-    ``train_loop`` draws them) carried into the port."""
+    ``init`` (always for an encoder-decoder) the reference's own (its
+    jitted ``init``, as its ``train_loop`` draws them) carried into the
+    port."""
+    cfg, rcfg = cfgs(arch)
+    init = init or cfg.encdec
     key = (arch, init)
     if key not in _WEIGHTS:
-        cfg, rcfg = cfgs(arch)
         if init:
-            params = jax.jit(RefLM(rcfg).init)(jax.random.PRNGKey(0))
-            model = lm_from_jax_params(jax.tree.map(np.asarray, params),
-                                       cfg, "cpu")
+            params = jax.jit(ref_model(rcfg).init)(jax.random.PRNGKey(0))
+            convert = (encdec_from_jax_params if cfg.encdec
+                       else lm_from_jax_params)
+            model = convert(jax.tree.map(np.asarray, params), cfg, "cpu")
         else:
             model = build_model(cfg, seed=0, device="cpu")
             params = reference_tree(model, rcfg)
@@ -126,38 +136,60 @@ def reference(arch: str, tmp_path_factory, init: bool = False):
 
 
 def np_batch(cfg, seed: int = 1) -> dict:
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                (B, T + 1))
-    return {"tokens": toks[:, :-1].astype(np.int32),
-            "labels": toks[:, 1:].astype(np.int32)}
+    """Tokens and labels (B, T); an encoder-decoder's frames too."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, T + 1))
+    out = {"tokens": toks[:, :-1].astype(np.int32),
+           "labels": toks[:, 1:].astype(np.int32)}
+    if cfg.encdec:
+        out["frame_embeds"] = (rng.standard_normal((B, S_ENC, cfg.d_model))
+                               * 0.02).astype(np.float32)
+    return out
+
+
+def torch_batch(batch: dict) -> dict:
+    return {k: torch.as_tensor(v).long() if v.dtype.kind == "i"
+            else torch.as_tensor(v) for k, v in batch.items()}
 
 
 _RUNS: dict = {}
 
 
-def sharded_run(arch, layout, tmp_path_factory, cases):
+def grad_jobs(todo, tmp, tmp_path_factory) -> list:
+    """``grads_rank``'s jobs for the ``(arch, layout)`` cases ``todo``."""
+    jobs = []
+    for a, lay in todo:
+        cfg, _ = cfgs(a)
+        _, _, weights = reference(a, tmp_path_factory)
+        batch = tmp / f"{a}_{lay}_batch.pt"
+        torch.save(torch_batch(np_batch(cfg)), batch)
+        jobs.append((f"{a}_{lay}", cfg,
+                     dict(data_axes=("data",), **LAYOUTS[lay][1]),
+                     str(weights), str(batch)))
+    return jobs
+
+
+def sharded_run(arch, layout, tmp_path_factory, cases, spawn=None):
     """The ranks' saved loss, gradients and blocks of one case.  The first
     request runs every case of ``cases`` on the same mesh shape in one
-    spawn of ranks (a spawn's start costs more than a smoke step)."""
+    spawn of ranks (a spawn's start costs more than a smoke step);
+    ``spawn(shape, jobs, tmp)`` runs the spawn where the caller adds work
+    of its own to it."""
     if (arch, layout) not in _RUNS:
         shape = LAYOUTS[layout][0]
+        world = int(np.prod(shape))
         todo = [c for c in cases if LAYOUTS[c[1]][0] == shape
                 and c not in _RUNS]
         tmp = tmp_path_factory.mktemp("grads")
-        jobs = []
-        for a, lay in todo:
-            cfg, _ = cfgs(a)
-            _, _, weights = reference(a, tmp_path_factory)
-            batch = tmp / f"{a}_{lay}_batch.pt"
-            torch.save({k: torch.as_tensor(v).long()
-                        for k, v in np_batch(cfg).items()}, batch)
-            jobs.append((f"{a}_{lay}", cfg,
-                         dict(data_axes=("data",), **LAYOUTS[lay][1]),
-                         str(weights), str(batch)))
-        run_ranks(grads_rank, 4, tmp, shape=shape, axes=("data", "model"),
-                  args=(jobs, str(tmp)), timeout=120)
+        jobs = grad_jobs(todo, tmp, tmp_path_factory)
+        if spawn is None:
+            run_ranks(grads_rank, world, tmp, shape=shape,
+                      axes=("data", "model"), args=(jobs, str(tmp)),
+                      timeout=120)
+        else:
+            spawn(shape, jobs, tmp)
         for (a, lay), job in zip(todo, jobs):
-            _RUNS[(a, lay)] = (job[2], load_ranks(tmp, 4, job[0]))
+            _RUNS[(a, lay)] = (job[2], load_ranks(tmp, world, job[0]))
     return _RUNS[(arch, layout)]
 
 
@@ -173,14 +205,14 @@ def reference_grads(arch, tmp_path_factory):
     if arch not in _REF_GRADS:
         cfg, rcfg = cfgs(arch)
         params, model, _ = reference(arch, tmp_path_factory)
-        batch = {k: jnp.asarray(v) for k, v in np_batch(cfg).items()}
+        batch = np_batch(cfg)
         (loss, _), grads = jax.jit(jax.value_and_grad(
-            lambda p, b: RefLM(rcfg).loss(p, b), has_aux=True))(params, batch)
+            lambda p, b: ref_model(rcfg).loss(p, b), has_aux=True))(
+                params, {k: jnp.asarray(v) for k, v in batch.items()})
         # the one-process port's own distance from them, leaf by leaf
         one = model
         one.zero_grad(set_to_none=True)
-        got, _ = one.loss({k: torch.as_tensor(np.asarray(v)).long()
-                           for k, v in batch.items()})
+        got, _ = one.loss(torch_batch(batch))
         got.backward()
         grads = jax.tree.map(np.asarray, grads)
         gap: dict = {}
@@ -195,7 +227,7 @@ def reference_grads(arch, tmp_path_factory):
     return _REF_GRADS[arch]
 
 
-def check_gradients(arch, layout, tmp_path_factory, cases):
+def check_gradients(arch, layout, tmp_path_factory, cases, spawn=None):
     """Each leaf's gradient, gathered whole, within 2e-6 of the leaf's
     largest reference entry, or within twice the one-process port's own
     largest distance over the leaves of that name where that is larger
@@ -204,7 +236,7 @@ def check_gradients(arch, layout, tmp_path_factory, cases):
     within 1e-6 of it, relative."""
     cfg, _ = cfgs(arch)
     want_loss, want, gap = reference_grads(arch, tmp_path_factory)
-    _, ranks = sharded_run(arch, layout, tmp_path_factory, cases)
+    _, ranks = sharded_run(arch, layout, tmp_path_factory, cases, spawn)
     for r in ranks:
         assert abs(r["loss"] - want_loss) <= 1e-6 * abs(want_loss)
     for name, g in ranks[0]["grads"].items():
@@ -214,13 +246,14 @@ def check_gradients(arch, layout, tmp_path_factory, cases):
         assert np.abs(g.numpy() - ref).max() <= tol, name
 
 
-def check_blocks(arch, layout, tmp_path_factory, cases):
+def check_blocks(arch, layout, tmp_path_factory, cases, spawn=None):
     """Each rank stores the reference's leaf sliced by the reference's own
     ``param_specs`` for it (the per-layer leaf's shape on the same axis
     names and sizes); together the distinct blocks make every leaf."""
     cfg, _ = cfgs(arch)
     params, _, _ = reference(arch, tmp_path_factory)
-    scfg_kw, ranks = sharded_run(arch, layout, tmp_path_factory, cases)
+    scfg_kw, ranks = sharded_run(arch, layout, tmp_path_factory, cases,
+                                 spawn)
     shape, _ = LAYOUTS[layout]
     names = ("data", "model")
     ref_mesh = AbstractMesh(shape, names)
