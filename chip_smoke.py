@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's nineteen paths once each, at full width, through the
+drives the port's twenty paths once each, at full width, through the
 entry points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
@@ -37,8 +37,9 @@ entry points a user would call:
   relative over all 57,267 configurations of ``paper_space()``; then
   ``TuningSession(...).run("saml", engine="vectorized")`` runs 32 chains
   for 2000 iterations on the card for seeds 0, 1 and 2 (and on the CPU
-  beside them), and each winner's measured time must lie within 5 % of
-  EM's (the batched platform model over the whole space, on the host);
+  for seed 0 beside them), and each winner's measured time must lie
+  within 5 % of EM's (the batched platform model over the whole space, on
+  the host);
 * LM serving: ``tune_kernel`` the flash-attention and decode-attention
   kernels at Qwen2.5-3B's serving shapes into one store, ``configure`` it,
   then ``serve_session`` a batch of 8 random 2048-token prompts and decode
@@ -65,6 +66,18 @@ entry points a user would call:
   recomputed in the backward pass), every attention layer's forward
   through the flash-attention kernel and its gradient through the
   flash-attention backward kernels;
+* ``save_dots_train``: the same model from the seed, one ``train_step``
+  (AdamW) under ``remat=True`` and one under ``remat="save_dots"`` (each
+  layer cut into checkpointed segments at the reference's named tensors:
+  the projections, the mixer's and the MLP's outputs and ``x @ w_in``),
+  each from the weights as built; the losses within 1e-3 relative, each
+  parameter's gradient within 1e-2 relative L2 of full remat's, every
+  B3/B5 call of the ``save_dots`` gradient pass within
+  ``attention_parity``'s gates of its plain version, B3 2 x 36 and B5 36
+  a program each step, peak bytes (``max_memory_allocated``) and step
+  seconds of both; then the dry run of both steps (``StepBundle.dry_run``:
+  the same steps on meta tensors, no card) must reckon each peak within
+  10 % of the card's and count exactly the kernel launches the card made;
 * four more decoders served (batch 8, a 2048-token prompt, 32 greedy
   tokens, random weights from ``--seed``, bf16, the kernels at their
   defaults): Phi-3-mini at full size (32 layers, 32 heads of 96, so the
@@ -110,7 +123,9 @@ entry points a user would call:
   backward kernel, the attention layer through the flash-attention kernels;
 * distribution over ranks (``repro_torch.dist``): processes spawned from
   this script after the build share the card (gloo through a file
-  rendezvous; each loads the built libraries and builds nothing).  Phase
+  rendezvous; each loads the built libraries and builds nothing), in two
+  spawns: two ranks run every two-rank path below one after another, and
+  four ranks the (2, 2) paths.  Phase
   ``seq_decode_parity``: B4 over each rank's stripe of a 32768-position
   cache at Qwen2.5-3B's decode heads (B 8), two ranks with
   ``kv_shard="seq"`` and a (2, 2) mesh of four with ``"batch_seq"``, at
@@ -122,9 +137,9 @@ entry points a user would call:
   within max|x| / 100 of the mean and top-k equal to the mean of the
   decompressed contributions, with the wire bytes of ``dp_train``'s
   gradients; ``seq_serve``: two ranks serve Qwen2.5-3B at full size with
-  each attention cache in two stripes of 8208 (batch 1, a 16384-token
-  prompt prefilled whole on both, 32 greedy tokens), the same tokens on
-  both, B3 36 and B4 36 x 31 a rank, no configuration measured, a decode
+  each attention cache in two stripes of 8200 (batch 1, a 16384-token
+  prompt prefilled whole on both, 16 greedy tokens), the same tokens on
+  both, B3 36 and B4 36 x 15 a rank, no configuration measured, a decode
   step profiled for the combine's share, and on rank 0 the logits within
   5 % of a one-process run with the whole cache; ``dp_train``: Qwen2.5-3B
   cut to 4 of its 36 layers at full width trained data-parallel (4 x 2048
@@ -146,7 +161,7 @@ entry points a user would call:
   same run in one process (losses within 2e-4, B3/B5 launches equal on
   every rank), each rank's resident parameter and moment bytes and the
   collectives of a step by op and axes.  The layouts of A6c:
-  ``tp_recurrent``: two ranks of a (1, 2) mesh, spawned once, serve
+  ``tp_recurrent``: two ranks of a (1, 2) mesh serve
   RWKV-6 1.6B at full width cut to 2 of its 24 layers on 16 of its 32
   heads a rank (bf16, batch 2, a 256-token prompt through B8's chunked
   route, 16 tokens through its serial route) and train it two float32
@@ -186,9 +201,9 @@ redesigned kernels' programs timed apart; every
 tune must store a point no slower than the default it
 measured); after each
 serving path it runs the same weights with the kernels and with the plain
-versions, teacher-forced on the generated tokens, and compares logits (the
-recurrent paths on their first 64 tokens, also in float32, where the gate
-sits, with the MoE
+versions, teacher-forced on the generated tokens, and compares logits
+(Qwen2.5-3B on its first 64 tokens, the recurrent paths on their first
+32, also in float32, where the gate sits, with the MoE
 choices pinned to the kernel run's; Whisper's run holds every kernel call
 against its plain version as well); the new serving paths also check that
 serving measured no launch configuration;
@@ -241,6 +256,7 @@ exp per cell on the SFUs and eight float32 instructions per cell.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import math
@@ -271,14 +287,18 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 LIBRARIES = ("dna_automaton", "flash_attention", "flash_attention_bwd",
              "decode_attention", "mamba_scan", "mamba_scan_bwd", "rwkv6_wkv",
              "rwkv6_wkv_bwd")
-# the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens
+# the LM path: Qwen2.5-3B, batch 8, a 2048-token prompt, 128 new tokens;
+# lm_parity teacher-forces the first LM_PARITY_STEPS of them
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2.5-3b", 8, 2048, 128
+LM_PARITY_STEPS = 64
 # the request path: the same model under 96 requests at 16 a second, each
 # of 1, 2 or 4 rows of a 32-token prompt and 16 new tokens (the reference
 # CLI's prompt and gen, the source's default mix)
 REQ_N, REQ_RATE, REQ_PROMPT, REQ_GEN = 96, 16.0, 32, 16
-# the paper's search: vectorized SAML chains, iterations, seeds; the gates
+# the paper's search: vectorized SAML chains, iterations, seeds on the card
+# and on the CPU beside them (the host's run is timed, not gated); the gates
 SEARCH_CHAINS, SEARCH_ITERATIONS, SEARCH_SEEDS = 32, 2000, (0, 1, 2)
+SEARCH_CPU_SEEDS = (0,)
 SEARCH_PREDICT_RTOL, SEARCH_EM_GAP = 1e-5, 0.05
 # the training path: the same model, batch 2 x 2048 tokens, 4 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
@@ -288,17 +308,17 @@ RWKV_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "rwkv6-1.6b", "jamba-v0.1-52b", 8
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
 # the recurrent parity phases teacher-force the first SSM_PARITY_STEPS of
 # the SSM_GEN served tokens (room in the time limit for the sharded phases)
-SSM_PARITY_STEPS = 64
+SSM_PARITY_STEPS = 32
 # the recurrent training paths: RWKV-6 1.6B at batch 8 x 2048 (B.H = 256
 # recurrences, the serving shape) and Jamba's first period without experts
 # at batch 2 x 2048, 4 steps each.  Their kernels-vs-plain gradient passes
-# run at batch 2: Jamba at 1024 tokens, RWKV-6 at 512 (the plain versions
+# run at batch 2: Jamba at 512 tokens, RWKV-6 at 256 (the plain versions
 # are Python loops over the tokens, the parity phase runs them three times,
 # and RWKV-6 has 24 recurrent layers to Jamba's 7; scan_bwd_parity holds
 # B7 and B9 at the training shapes)
 RWKV_TRAIN_BATCH, JAMBA_TRAIN_BATCH = 8, 2
 SSM_PARITY_BATCH = 2
-SSM_PARITY_SEQ = {"rwkv6-1.6b": 512, "jamba-v0.1-52b": 1024}
+SSM_PARITY_SEQ = {"rwkv6-1.6b": 256, "jamba-v0.1-52b": 512}
 # the other decoders served at full width (A4) and the VLM (A5): batch 8, a
 # 2048-token prompt (the VLM's: 1024 patch embeddings, then 1024 tokens),
 # 32 new tokens; nemotron-4 cut to 2 of its 96 layers and built in bf16,
@@ -469,10 +489,18 @@ def phase_kernels(text) -> list[dict]:
     def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
         return roofline_ms(n_bytes, n_ops, INSTR_PER_S)
 
-    def plain_timed(fn):
-        holder = {}
-        plain_ms = device_ms(lambda: holder.update(out=fn()), 1)
-        return holder["out"], plain_ms
+    def plain_run(fn, timed: bool):
+        """``fn``'s output, and where ``timed`` its time (ms): a second,
+        warm call between two CUDA events.  A plain version is a Python
+        loop of 65,536 steps that takes seconds; ``device_ms``'s probe
+        and spin would take two calls' time more."""
+        from repro_torch.tune.kernels.evaluate import probe_seconds
+
+        out = fn()
+        if not timed:
+            return out, None
+        _, seconds = probe_seconds(fn, torch.device("cuda"))
+        return out, seconds * 1e3
 
     cases, records = [], []
     for s, txt, grams, timed in ((7, text, kernel.GRAMS, True),
@@ -485,16 +513,17 @@ def phase_kernels(text) -> list[dict]:
         t = txt.shape[0]
         route = kernel.route_of(s)
         full_defaults = t == t_full and s == 7
-        want_maps, map_plain_ms = plain_timed(
-            lambda: kernel.state_map_plain(txt, table, chunk=mc))
+        want_maps, map_plain_ms = plain_run(
+            lambda: kernel.state_map_plain(txt, table, chunk=mc),
+            full_defaults)
         prefix = ops.compose_maps(want_maps)
         rep = cc // mc
         starts = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
                             prefix[rep - 1::rep, 0][:t // cc - 1]])
         del prefix
-        want_counts, count_plain_ms = plain_timed(
+        want_counts, count_plain_ms = plain_run(
             lambda: kernel.count_hits_plain(txt, table, accept, starts,
-                                            chunk=cc))
+                                            chunk=cc), full_defaults)
         for gram in grams:
             launch = {"block_threads": bt, "gram": gram}
             maps = kernel.state_map(txt, table, chunk=mc, **launch)
@@ -991,8 +1020,8 @@ def phase_paper_search(seed: int) -> None:
     em = session("cpu").run("em")
     em_s = time.perf_counter() - t0
     runs = {}
-    for device in ("cuda", "cpu"):
-        for s in SEARCH_SEEDS:
+    for device, seeds in (("cuda", SEARCH_SEEDS), ("cpu", SEARCH_CPU_SEEDS)):
+        for s in seeds:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = session(device).run(
@@ -1420,7 +1449,8 @@ def phase_lm_serve(seed: int, store_path: Path, tunes: dict):
 
 def phase_lm_parity(model, generated, seed: int) -> None:
     """The same weights with the kernels and with the plain versions, on
-    the card, teacher-forced on the generated tokens.
+    the card, teacher-forced on the first ``LM_PARITY_STEPS`` generated
+    tokens.
 
     Tolerance: the largest logit difference of any step at most 5 % of
     that step's largest logit magnitude.  Both runs compute in bfloat16
@@ -1433,7 +1463,7 @@ def phase_lm_parity(model, generated, seed: int) -> None:
 
     prompt = torch.as_tensor(np.random.default_rng(seed).integers(
         0, model.cfg.vocab_size, (LM_BATCH, LM_PROMPT)), device="cuda")
-    feed = torch.as_tensor(generated, device="cuda")
+    feed = torch.as_tensor(generated, device="cuda")[:, :LM_PARITY_STEPS]
     with_kernels, _, _ = teacher_forced(model, prompt, feed)
     with_plain, _, _ = teacher_forced(model, prompt, feed, plain_patches())
     rel = logit_gap(with_kernels, with_plain)
@@ -2037,7 +2067,18 @@ def device_split(fn, trace: Path | None = None, ranges: tuple = ()) -> dict:
     has one, the number of device activities (kernels and copies) and the
     longest kernels.  The device time under each host range of ``ranges``
     (``record_function`` names) is reported apart, in ``ranges_ms``: its
-    kernels stay in their kinds.  ``trace`` receives the Chrome trace."""
+    kernels stay in their kinds.  ``trace`` receives the Chrome trace.
+
+    The trace is read from its raw events, as the profiler's own parse
+    links them: a device activity belongs to the host events whose
+    correlation id is its linked one (the op, or the runtime call, that
+    launched it), and to a host range once where one of them starts
+    inside the range on the same thread.  ``key_averages()`` builds every
+    host op's event tree first (~10 s for a step of 20,000 launches) and
+    counts an activity once for each host event of its id: host events
+    share ids (an op and a runtime call beside it), so a range read that
+    way can hold more than the card did (``scripts/torch_split_check.py``)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2049,28 +2090,49 @@ def device_split(fn, trace: Path | None = None, ranges: tuple = ()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace is not None:
         prof.export_chrome_trace(str(trace))
+    spans: dict = {name: [] for name in (*ranges, "adamw")}
+    launched_by: dict = {}          # host correlation id -> [(thread, ns)]
+    activities = []
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CPU:
+            if evt.name() in spans:
+                spans[evt.name()].append((evt.start_thread_id(),
+                                          evt.start_ns(), evt.end_ns()))
+            elif evt.linked_correlation_id() == 0:
+                launched_by.setdefault(evt.correlation_id(), []).append(
+                    (evt.start_thread_id(), evt.start_ns()))
+        elif evt.name() not in spans and evt.duration_ns() > 0:
+            # the ranges' own device-side copies are not activities
+            activities.append(evt)
+    for found in spans.values():
+        found.sort()
+
+    def inside(found: list, host: tuple) -> bool:
+        i = bisect.bisect_right(found, (host[0], host[1], math.inf)) - 1
+        return i >= 0 and found[i][0] == host[0] and found[i][2] >= host[1]
+
+    by_name: dict = {}
+    in_range = {name: 0.0 for name in spans}
+    for evt in activities:
+        us = evt.duration_ns() / 1e3
+        row = by_name.setdefault(evt.name(), [0.0, 0])
+        row[0] += us
+        row[1] += 1
+        hosts = launched_by.get(evt.linked_correlation_id(), ())
+        for name, found in spans.items():
+            if any(inside(found, host) for host in hosts):
+                in_range[name] += us
     split: dict = {}
     top = []
-    adamw_ms = None
-    ranges_ms = {name: "not measured" for name in ranges}
     launches = 0
-    for evt in prof.key_averages():
-        on_card = "cuda" in str(evt.device_type).lower()
-        if evt.key in ranges_ms:
-            if not on_card:
-                ranges_ms[evt.key] = device_time_us(evt, total=True) / 1e3
-            continue
-        if evt.key == "adamw":
-            if not on_card:
-                adamw_ms = device_time_us(evt, total=True) / 1e3
-            continue
-        us = device_time_us(evt)
-        if not on_card or us <= 0:
-            continue
-        kind = kernel_kind(evt.key)
+    for name, (us, count) in by_name.items():
+        kind = kernel_kind(name)
         split[kind] = split.get(kind, 0.0) + us / 1e3
-        launches += evt.count
-        top.append((us / 1e3, evt.count, evt.key[:90]))
+        launches += count
+        top.append((us / 1e3, count, name[:90]))
+    ranges_ms = {name: in_range[name] / 1e3 if spans[name]
+                 else "not measured" for name in ranges}
+    adamw_ms = in_range["adamw"] / 1e3 if spans["adamw"] else None
     busy = sum(split.values())
     if adamw_ms is not None:
         if 0 < adamw_ms <= split.get("other", 0.0):
@@ -2135,6 +2197,140 @@ def phase_lm_train(model, seed: int) -> dict:
     check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
           f"lm_train: first loss {losses[0]}, ln V {math.log(cfg.vocab_size)}")
     return launches
+
+
+# the save_dots path's gates: the two steps' losses, each gradient against
+# full remat's (relative L2), the dry run's peak against the card's
+SAVE_DOTS_LOSS_RTOL, SAVE_DOTS_GRAD_GATE, DRYRUN_PEAK_RTOL = 1e-3, 1e-2, 0.10
+
+
+def phase_save_dots_train(seed: int) -> dict:
+    """``remat="save_dots"`` at full width (A7), against full remat and
+    against its dry run.
+
+    Qwen2.5-3B built from ``seed`` (float32 parameters, bf16 compute) at
+    ``lm_train``'s shape.  First one gradient pass under each policy on
+    the same weights (``loss_and_grads``; the ``save_dots`` pass with
+    every B3/B5 call held against its plain version); then, for each
+    policy, the model built again from the seed takes one ``train_step``
+    with zero AdamW moments, its launch counters at 0 just before and
+    read just after, its peak from ``reset_peak_memory_stats``, then a
+    warm step on the host clock and one under the profiler.  Then the
+    same step on meta tensors (``make_train_step(...).dry_run()``, no
+    card): its peak reckoned within ``DRYRUN_PEAK_RTOL`` of the card's and
+    its kernel census equal to the card's launches by program.  Returns
+    the ``save_dots`` step's launches."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.kernels.flash_attention import kernel as fak
+    from repro_torch.launch.steps import (loss_and_grads, make_train_step,
+                                          train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import init_opt_state
+
+    cfg = configs.get(LM_ARCH)
+    opt_cfg = AdamWConfig()
+    batch = train_batch(cfg, seed)
+    n = cfg.n_layers
+    want = {"flash_attention_fwd": {"fwd": 2 * n},
+            "flash_attention_bwd": {"dq": n, "dkv": n}}
+    policies = (True, "save_dots")
+
+    # the gradient passes, on the same weights
+    model = build_model(cfg, seed=seed)
+    seen: dict = {}
+    loss_full, grads_full, _ = loss_and_grads(model, batch, remat=True)
+    with contextlib.ExitStack() as stack:
+        for patch in checked_attention(seen):
+            stack.enter_context(patch)
+        loss_dots, grads_dots, _ = loss_and_grads(model, batch,
+                                                  remat="save_dots")
+    calls = summarize_calls(seen, "save_dots_train")
+    rel = {name: float((grads_dots[name].float() - g.float()).norm()
+                       / g.float().norm().clamp_min(1e-30))
+           for name, g in grads_full.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_dots.values())
+    del grads_full, grads_dots, model
+    torch.cuda.empty_cache()
+
+    steps, counted = {}, {}
+    meta_batch = {k: v.to("meta") for k, v in batch.items()}
+    for remat in policies:
+        key = "save_dots" if remat == "save_dots" else "full"
+        model = build_model(cfg, seed=seed)
+        opt = init_opt_state(dict(model.named_parameters()), opt_cfg)
+        bwd = fak.flash_attention_bwd
+        fak.flash_attention_fwd.launches = 0
+        bwd.launches = 0
+        bwd.program_launches = {"dq": 0, "dkv": 0}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = train_step(model, opt, batch, opt_cfg, remat=remat)
+        loss = float(out["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {"flash_attention_fwd": {
+            "fwd": fak.flash_attention_fwd.launches},
+            "flash_attention_bwd": dict(bwd.program_launches)}
+        counted[key] = {
+            "flash_attention_fwd": fak.flash_attention_fwd.launches,
+            "flash_attention_bwd": bwd.launches}
+        # a warm step on the host clock, then one under the profiler
+        t0 = time.perf_counter()
+        float(train_step(model, opt, batch, opt_cfg, remat=remat)["loss"])
+        warm_s = time.perf_counter() - t0
+        split = device_split(lambda: train_step(model, opt, batch, opt_cfg,
+                                                remat=remat))
+        del model, opt, out
+        torch.cuda.empty_cache()
+        # the same step on meta tensors
+        scfg = ShardingConfig(remat=True, remat_policy=key)
+        dry = make_train_step(cfg, scfg, None, opt_cfg,
+                              meta_batch).dry_run()
+        census = {name: k["programs"] for name, k in dry["kernels"].items()}
+        steps[key] = {
+            "loss": loss, "step_s": step_s, "warm_step_s": warm_s,
+            "profiled_step": split, "peak_gib": peak / 2 ** 30,
+            "resident_gib": resident / 2 ** 30, "launches": launches,
+            "dryrun": {"peak_gib": dry["peak_bytes"] / 2 ** 30,
+                       "resident_gib": dry["resident_bytes"] / 2 ** 30,
+                       "peak_rel_err": (dry["peak_bytes"] - peak) / peak,
+                       "census": census, "seconds": dry["seconds"],
+                       "torch_flops": dry["torch_flops"],
+                       "kernel_flops": dry["kernel_flops"]}}
+        check(launches == want, f"save_dots_train: {key} step launches "
+                                f"{launches}, want {want}")
+        check(census == want, f"save_dots_train: {key} dry-run census "
+                              f"{census}, the card launched {launches}")
+        check(abs(dry["peak_bytes"] - peak) <= DRYRUN_PEAK_RTOL * peak,
+              f"save_dots_train: {key} dry-run peak "
+              f"{dry['peak_bytes'] / 2 ** 30:.3f} GiB, the card's "
+              f"{peak / 2 ** 30:.3f} GiB")
+    loss_rel = abs(steps["save_dots"]["loss"] - steps["full"]["loss"]) \
+        / abs(steps["full"]["loss"])
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    emit(phase="save_dots_train", ok=True, arch=LM_ARCH, batch=TRAIN_BATCH,
+         seq_len=TRAIN_SEQ, param_dtype=cfg.param_dtype,
+         compute_dtype=cfg.compute_dtype, steps=steps,
+         grad_pass_losses={"full": float(loss_full),
+                           "save_dots": float(loss_dots)},
+         loss_rel_err=loss_rel, grad_rel_l2_max=worst[0][1],
+         grad_rel_l2_worst=worst, grad_gate=SAVE_DOTS_GRAD_GATE,
+         checked_calls=calls, dryrun_peak_rtol=DRYRUN_PEAK_RTOL)
+    check(finite, "save_dots_train: non-finite gradient")
+    check(loss_rel <= SAVE_DOTS_LOSS_RTOL and abs(
+        float(loss_dots) - float(loss_full)) <= SAVE_DOTS_LOSS_RTOL
+        * abs(float(loss_full)), f"save_dots_train: losses {steps}")
+    check(worst[0][1] <= SAVE_DOTS_GRAD_GATE,
+          f"save_dots_train: gradients {worst}")
+    check(steps["save_dots"]["dryrun"]["torch_flops"]
+          < steps["full"]["dryrun"]["torch_flops"],
+          "save_dots_train: save_dots recomputes no fewer products")
+    return counted["save_dots"]
 
 
 def phase_train_restart(seed: int) -> None:
@@ -4123,7 +4319,7 @@ RANK_TIMEOUT_S = 300.0
 # B4 alone over stripes: Qwen2.5-3B's decode heads, a 32768 cache, B 8
 SEQ_B, SEQ_CACHE, SEQ_POSITIONS = 8, 32768, (37, 16383, 16384, 32767)
 # Qwen2.5-3B served with the cache in two stripes: batch 1, 16384 prompt
-SEQ_SERVE_PROMPT, SEQ_SERVE_GEN = 16384, 32
+SEQ_SERVE_PROMPT, SEQ_SERVE_GEN = 16384, 16
 # Qwen2.5-3B cut to 4 of 36 layers trained data-parallel: 4 x 2048, 2 steps
 DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 4, 4, 2048, 2
 ALLREDUCE_N = 2 ** 20
@@ -4137,10 +4333,13 @@ SHARDED_ARCH, SHARDED_LAYERS = "qwen2-moe-a2.7b", 1
 SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 512, 2
 
 
-def rank_main(rank: int, world: int, init_file: str, shape, axes, fn,
-              args, out_dir: str) -> None:
-    """One rank: join the group, make the mesh, run ``fn(rank, mesh,
-    *args)`` and write what it returns (a dict) as JSON."""
+def rank_main(rank: int, world: int, init_file: str, jobs,
+              out_dir: str) -> None:
+    """One rank: join the group, then for each job ``(fn, shape, axes,
+    args)`` make the mesh, run ``fn(rank, mesh, *args)`` and write what it
+    returns (a dict, with the job's peak GiB) as JSON."""
+    import gc
+
     import torch.distributed as dist
 
     from repro_torch.dist.ranks import init_ranks
@@ -4149,47 +4348,57 @@ def rank_main(rank: int, world: int, init_file: str, shape, axes, fn,
     backend = init_ranks(rank, world, init_method=f"file://{init_file}",
                          device_type="cuda", timeout_s=RANK_TIMEOUT_S)
     try:
-        mesh = make_host_mesh(axes=tuple(axes), shape=tuple(shape))
-        torch.cuda.reset_peak_memory_stats()
-        out = fn(rank, mesh, *args)
-        out.update(rank=rank, backend=backend,
-                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   imports_jax="jax" in sys.modules,
-                   imports_repro="repro" in sys.modules)
-        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+        for j, (fn, shape, axes, args) in enumerate(jobs):
+            mesh = make_host_mesh(axes=tuple(axes), shape=tuple(shape))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(rank, mesh, *args)
+            out.update(rank=rank, backend=backend,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       imports_jax="jax" in sys.modules,
+                       imports_repro="repro" in sys.modules)
+            (Path(out_dir) / f"job{j}_rank{rank}.json").write_text(
+                json.dumps(out))
+            del out
     finally:
         dist.destroy_process_group()
 
 
-def spawn_ranks(fn, world: int, shape, axes, args=(),
-                timeout: float = RANK_TIMEOUT_S) -> list[dict]:
-    """``world`` ranks of ``fn`` on the card; their JSON in rank order.  A
-    rank that raises, or a run past ``timeout``, fails the phase."""
+def spawn_jobs(world: int, jobs: list) -> list[list[dict]]:
+    """``world`` ranks on the card that run ``jobs`` (``(fn, shape, axes,
+    args)`` each) one after another, on one process group: a spawned rank
+    takes ~9 s to import and reach the card, so the paths of one rank
+    count share it.  Each job's JSON in rank order, by job.  A rank that
+    raises, or a run past ``RANK_TIMEOUT_S`` a job, fails the phase."""
     import gc
 
     import torch.multiprocessing as mp
 
     gc.collect()
     torch.cuda.empty_cache()
+    names = [fn.__name__ for fn, *_ in jobs]
+    timeout = RANK_TIMEOUT_S * len(jobs)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
         ctx = mp.start_processes(
-            rank_main, args=(world, str(Path(tmp) / "rendezvous"), shape,
-                             axes, fn, args, tmp),
+            rank_main, args=(world, str(Path(tmp) / "rendezvous"), jobs,
+                             tmp),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:
             while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
                 check(time.monotonic() < deadline,
-                      f"{fn.__name__}: {world} ranks past {timeout} s")
+                      f"{names}: {world} ranks past {timeout} s")
         finally:
             for proc in ctx.processes:
                 if proc.is_alive():
                     proc.kill()
-        out = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-               for r in range(world)]
-    for r in out:
-        check(not (r["imports_jax"] or r["imports_repro"]),
-              f"{fn.__name__}: rank {r['rank']} imported jax or repro")
+        out = [[json.loads((Path(tmp) / f"job{j}_rank{r}.json").read_text())
+                for r in range(world)] for j in range(len(jobs))]
+    for name, ranks in zip(names, out):
+        for r in ranks:
+            check(not (r["imports_jax"] or r["imports_repro"]),
+                  f"{name}: rank {r['rank']} imported jax or repro")
     return out
 
 
@@ -4314,21 +4523,16 @@ def rank_allreduce(rank: int, mesh, seed: int) -> dict:
     return out
 
 
-def phase_seq_decode_parity(seed: int) -> list[dict]:
+def phase_seq_decode_parity(two: list[dict], four: list[dict]) -> None:
     """B4 over stripes on two ranks (``kv_shard="seq"``, the batch on
     both; with them the compressed all-reduce) and on a (2, 2) mesh of
-    four (``"batch_seq"``)."""
-    two = spawn_ranks(rank_seq_decode, 2, (2,), ("data",),
-                      ("seq", seed, True))
-    four = spawn_ranks(rank_seq_decode, 4, (2, 2), ("data", "model"),
-                       ("batch_seq", seed, False))
+    four (``"batch_seq"``): ``rank_seq_decode``'s results."""
     for r in two + four:
         emit(phase="seq_decode_parity", **{k: v for k, v in r.items()
                                            if k != "allreduce"})
         check(all(c["ok"] for c in r["cases"]),
               f"seq_decode_parity: rank {r['rank']} of {r['mesh']}: "
               f"{[c for c in r['cases'] if not c['ok']]}")
-    return two
 
 
 def phase_compressed_allreduce(two: list[dict], cfg) -> None:
@@ -4428,12 +4632,12 @@ def rank_seq_serve(rank: int, mesh, seed: int) -> dict:
     return result
 
 
-def phase_seq_serve(seed: int) -> dict:
-    """Two ranks serve Qwen2.5-3B with the sequence-sharded decode."""
+def phase_seq_serve(ranks: list[dict]) -> dict:
+    """Two ranks serve Qwen2.5-3B with the sequence-sharded decode
+    (``rank_seq_serve``'s results)."""
     from repro_torch import configs
 
     cfg = configs.get(LM_ARCH)
-    ranks = spawn_ranks(rank_seq_serve, 2, (2,), ("data",), (seed,))
     want = {"flash_attention_fwd": cfg.n_layers,
             "decode_attention": cfg.n_layers * (SEQ_SERVE_GEN - 1),
             "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
@@ -4505,12 +4709,17 @@ def rank_dp_train(rank: int, mesh, seed: int) -> dict:
                      dp_run(dp_cfg(), seed, mesh, "int8")]}
 
 
-def phase_dp_train(seed: int) -> dict:
-    """One rank (this process) and two ranks of the same global batch."""
+def dp_one_process(seed: int) -> dict:
+    """``dp_train``'s float32 run in one process (this one), which its
+    ranks are held to."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    one = dp_run(dp_cfg("float32"), seed)
-    ranks = spawn_ranks(rank_dp_train, 2, (2,), ("data",), (seed,))
+    return dp_run(dp_cfg("float32"), seed)
+
+
+def phase_dp_train(one: dict, ranks: list[dict]) -> dict:
+    """One rank (this process, ``dp_one_process``) and two ranks
+    (``rank_dp_train``) of the same global batch."""
     n = DP_LAYERS * DP_STEPS
     want = {"flash_attention_fwd": 2 * n, "decode_attention": 0,
             "flash_attention_bwd": n, "flash_attention_bwd_dq": n,
@@ -4636,19 +4845,16 @@ def rank_tp_serve(rank: int, mesh, seed: int, out_dir: str) -> dict:
     return result
 
 
-def phase_tp_serve(seed: int) -> dict:
-    """Two ranks serve Qwen2.5-3B, each on its 8 q heads and 1 kv head;
-    then the same weights in this process, teacher-forced on the ranks'
-    tokens, against the ranks' logits (``seq_serve``'s gate)."""
+def phase_tp_serve(ranks: list[dict], kept: list, seed: int) -> dict:
+    """Two ranks served Qwen2.5-3B, each on its 8 q heads and 1 kv head
+    (``rank_tp_serve``'s results, rank 0's logits ``kept``); now the same
+    weights in this process, teacher-forced on the ranks' tokens, against
+    the ranks' logits (``seq_serve``'s gate)."""
     import numpy as np
 
     from repro_torch import configs
 
     cfg = configs.get(LM_ARCH)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
-        ranks = spawn_ranks(rank_tp_serve, 2, (1, 2), ("data", "model"),
-                            (seed, tmp))
-        kept = torch.load(Path(tmp) / "tp_serve_logits.pt")
     want = {"flash_attention_fwd": cfg.n_layers,
             "decode_attention": cfg.n_layers * (TP_GEN - 1),
             "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
@@ -4743,16 +4949,21 @@ def rank_sharded_train(rank: int, mesh, seed: int) -> dict:
     return sharded_run(seed, mesh)
 
 
-def phase_sharded_train(seed: int) -> dict:
-    """The one-process run here first (then freed), then four ranks on a
-    (2, 2) mesh: losses within ``dp_train``'s 2e-4 of it, B3/B5 launches
-    exact a rank (each runs every layer on its heads)."""
+def sharded_one_process(seed: int) -> dict:
+    """``sharded_train``'s run in one process (this one, then freed),
+    which its ranks are held to."""
     one = sharded_run(seed)
     emit(phase="sharded_train", ranks=1, arch=SHARDED_ARCH,
          n_layers=SHARDED_LAYERS, batch=SHARDED_BATCH, seq_len=SHARDED_SEQ,
          **one)
-    ranks = spawn_ranks(rank_sharded_train, 4, (2, 2), ("data", "model"),
-                        (seed,))
+    return one
+
+
+def phase_sharded_train(one: dict, ranks: list[dict]) -> dict:
+    """Four ranks on a (2, 2) mesh (``rank_sharded_train``'s results)
+    against one process (``sharded_one_process``): losses within
+    ``dp_train``'s 2e-4 of it, B3/B5 launches exact a rank (each runs
+    every layer on its heads)."""
     for r in ranks:
         emit(phase="sharded_train", ranks=4, mesh=[2, 2], arch=SHARDED_ARCH,
              n_layers=SHARDED_LAYERS, batch=SHARDED_BATCH,
@@ -5098,7 +5309,7 @@ def rank_tp_recurrent(rank: int, mesh, seed: int) -> dict:
     return out
 
 
-def phase_tp_recurrent(seed: int) -> dict:
+def phase_tp_recurrent(ranks: list[dict]) -> dict:
     """Two ranks of a (1, 2) mesh: RWKV-6's heads (B8, B9 on 16 of 32 a
     rank), Jamba's Mamba channels (B6, B7 on 4096 of 8192 a rank) and
     Whisper-base's heads (B3, B4, B5 on 4 of 8).  Tokens equal on both
@@ -5112,8 +5323,6 @@ def phase_tp_recurrent(seed: int) -> dict:
     one process."""
     from repro_torch import configs
 
-    ranks = spawn_ranks(rank_tp_recurrent, 2, (1, 2), ("data", "model"),
-                        (seed,))
     rwkv = decoder_cfg(RWKV_ARCH, TPR_RWKV_LAYERS)
     whisper = configs.get(WHISPER_ARCH)
     heads = rwkv.d_model // rwkv.rwkv.head_dim // 2
@@ -5287,6 +5496,8 @@ def main() -> int:
     train_launches = phase_lm_train(model, args.seed)
     del model
     torch.cuda.empty_cache()
+    # A7: remat="save_dots" at full width, and the dry run against the card
+    save_dots = phase_save_dots_train(args.seed)
     phase_train_restart(args.seed)
 
     # the other decoders (A4), the VLM and the encoder-decoder (A5): B3, B4
@@ -5326,16 +5537,37 @@ def main() -> int:
             torch.cuda.empty_cache()
     rwkv_train, jamba_train = train_runs[RWKV_ARCH], train_runs[JAMBA_ARCH]
 
-    # dist/ (A6): ranks sharing the card, spawned after the build
-    two = phase_seq_decode_parity(args.seed)
-    phase_compressed_allreduce(two, dp_cfg())
-    seq_launches = phase_seq_serve(args.seed)
-    dp_launches = phase_dp_train(args.seed)
-    # A6b: the heads, experts and parameters split over ranks
-    tp_launches = phase_tp_serve(args.seed)
-    sharded_launches = phase_sharded_train(args.seed)
-    # A6c: the recurrent mixers and the encoder-decoder over ranks
-    recurrent = phase_tp_recurrent(args.seed)
+    # dist/ (A6): ranks sharing the card, spawned after the build.  The
+    # one-process runs the ranks are held to come first; then every
+    # two-rank path runs in one spawn and the four-rank paths in another,
+    # each path's counters zeroed just before it in its ranks and read just
+    # after; then each phase's checks on its ranks' results
+    seed = args.seed
+    dp_one = dp_one_process(seed)
+    sharded_one = sharded_one_process(seed)
+    data, tp = ((2,), ("data",)), ((1, 2), ("data", "model"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        two = spawn_jobs(2, [
+            (rank_seq_decode, *data, ("seq", seed, True)),
+            (rank_seq_serve, *data, (seed,)),
+            (rank_dp_train, *data, (seed,)),
+            # A6b: the heads split over ranks
+            (rank_tp_serve, *tp, (seed, tmp)),
+            # A6c: the recurrent mixers and the encoder-decoder over ranks
+            (rank_tp_recurrent, *tp, (seed,))])
+        tp_logits = torch.load(Path(tmp) / "tp_serve_logits.pt")
+    four = spawn_jobs(4, [
+        (rank_seq_decode, (2, 2), ("data", "model"), ("batch_seq", seed,
+                                                      False)),
+        # A6b: the heads, experts and parameters split over ranks
+        (rank_sharded_train, (2, 2), ("data", "model"), (seed,))])
+    phase_seq_decode_parity(two[0], four[0])
+    phase_compressed_allreduce(two[0], dp_cfg())
+    seq_launches = phase_seq_serve(two[1])
+    dp_launches = phase_dp_train(dp_one, two[2])
+    tp_launches = phase_tp_serve(two[3], tp_logits, seed)
+    sharded_launches = phase_sharded_train(sharded_one, four[1])
+    recurrent = phase_tp_recurrent(two[4])
 
     records += attention + [backward] + scans + bwd_scans
     by_path = {
@@ -5349,6 +5581,7 @@ def main() -> int:
             "lm_serve": launches["flash_attention_fwd"],
             "lm_requests": request_launches["flash_attention_fwd"],
             "lm_train": train_launches["flash_attention_fwd"],
+            "save_dots_train": save_dots["flash_attention_fwd"],
             "jamba_serve": jamba_launches["flash_attention_fwd"],
             "jamba_train": jamba_train["flash_attention_fwd"],
             **{path: n["flash_attention_fwd"]
@@ -5360,6 +5593,7 @@ def main() -> int:
             "tp_recurrent": recurrent["flash_attention_fwd"]},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
+            "save_dots_train": save_dots["flash_attention_bwd"],
             "jamba_train": jamba_train["flash_attention_bwd"],
             "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"],
             "dp_train": dp_launches["flash_attention_bwd"],

@@ -32,6 +32,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..kernels.decode_attention import ops as da_ops
+from .collectives import all_reduce_
 __all__ = ["NEG_INF", "seq_decode_attention"]
 
 NEG_INF = -1e30
@@ -78,12 +79,11 @@ def seq_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     if dist.get_world_size(group) == 1:
         return out, cache_k, cache_v
     with record_function("seq_decode_combine"):
-        m = lse.clone()
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        m = all_reduce_(lse.clone(), mesh, seq_axes, op="max")
         w = torch.exp(lse - m)                             # (B, KV, rep)
         buf = torch.cat([(out.view(b, kv, rep, hd) * w[..., None])
                          .reshape(-1), w.reshape(-1)])
-        dist.all_reduce(buf, group=group)
+        all_reduce_(buf, mesh, seq_axes)
         acc = buf[:b * h * hd].view(b, kv, rep, hd)
         wsum = buf[b * h * hd:].view(b, kv, rep)
         out = acc / wsum.clamp_min(1e-30)[..., None]

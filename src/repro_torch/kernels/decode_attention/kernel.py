@@ -26,7 +26,9 @@ The wrapper, ``decode_attention``, launches the kernel for a CUDA tensor,
 or raises; it takes the plain PyTorch version (``decode_attention_plain``:
 ``decode_partials_plain``, which materialises the float32 scores, then
 ``combine_splits``) only for tensors on the CPU.  Launches are counted in
-``decode_attention.launches``.
+``decode_attention.launches``.  For a meta tensor (a dry run) it allocates
+its outputs as the CUDA path does and records the call in
+``kernels.census.CENSUS`` instead of launching.
 
 ``return_lse=True`` also returns the logsumexp of the scaled scores over
 the positions below ``length`` (``m_tot + ln l_tot``; the bfloat16 build
@@ -44,6 +46,7 @@ import torch
 
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+from ..census import CENSUS
 
 __all__ = ["BLOCK_S", "DTYPES", "HEAD_DIMS", "MAX_REP", "MAX_SPLITS",
            "NEG_INF", "STAGES", "combine_splits", "decode_attention",
@@ -212,6 +215,14 @@ def decode_attention(q, k, v, length: int, *, splits: int = 4,
     out = torch.empty((b, kv, rep, hd), dtype=torch.float32, device=q.device)
     lse = (torch.empty((b, kv, rep), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.device.type == "meta":
+        n = min(int(length), s_len)
+        CENSUS.add("decode_attention", ("decode",),
+                   4 * b * kv * rep * hd * n,
+                   2 * b * n * kv * hd * k.element_size()
+                   + q.numel() * q.element_size() + 4 * out.numel()
+                   + (0 if lse is None else 4 * lse.numel()))
+        return (out, lse) if return_lse else out
     lib = _library()
     fn = getattr(lib, f"decode_attention_{DTYPES[q.dtype]}")
     with torch.cuda.device(q.device):

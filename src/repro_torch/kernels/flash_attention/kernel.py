@@ -46,7 +46,9 @@ before any launch, on the CPU too.
 A wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version (``flash_attention_fwd_plain``,
 ``flash_attention_bwd_plain``, which materialise the scores in float32)
-only for tensors on the CPU.  Launches are counted in
+only for tensors on the CPU.  For meta tensors (a dry run) it allocates
+its outputs and scratch as the CUDA path does and records the call in
+``kernels.census.CENSUS`` instead of launching.  Launches are counted in
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.launches`` (the
 latter per program too: ``program_launches["dq"]``, ``["dkv"]``).
 """
@@ -59,6 +61,7 @@ import torch
 
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+from ..census import CENSUS, causal_pairs
 
 __all__ = ["BF16_HEAD_DIMS", "BWD_BF16_HEAD_DIMS", "BWD_LAUNCH", "DTYPES",
            "FWD_LAUNCH", "MAX_BWD_THREADS", "MAX_HD_TWO_TILES",
@@ -338,6 +341,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0,
     b, tq, h, hd = q.shape
     o = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        CENSUS.add("flash_attention_fwd", ("fwd",),
+                   4 * b * h * hd * causal_pairs(tq, k.shape[1], causal,
+                                                 q_offset),
+                   q.element_size() * (2 * q.numel() + k.numel()
+                                       + v.numel()) + 4 * b * h * tq)
+        return o, lse
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_aligned(q, k, v, o)
@@ -459,6 +469,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, tk, h, hd), dtype=v.dtype, device=q.device)
+    if q.device.type == "meta":
+        CENSUS.add("flash_attention_bwd", ("dq", "dkv"),
+                   10 * b * h * hd * causal_pairs(tq, tk, causal, q_offset),
+                   q.element_size() * 4 * (q.numel() + k.numel())
+                   + 4 * b * h * tq)
+        return dq, dk, dv
     strides = (ctypes.c_int64 * 21)(*(x.stride(i)
                                       for x in (q, k, v, do, dq, dk, dv)
                                       for i in range(3)))

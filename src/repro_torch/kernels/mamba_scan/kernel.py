@@ -25,7 +25,8 @@ with the state as a Python loop's carry, never a (B, T, dI, S) tensor)
 only for tensors on the CPU.  With ``split`` given, the plain version
 takes y_t's sum as the kernel takes it (the tests hold that form against
 the reference beside the wrapper; the CPU branch stays the oracle, whose
-order the reference's training tests were set against).  Launches are counted in ``selective_scan_fwd.launches``.
+order the reference's training tests were set against).  Launches are
+counted in ``selective_scan_fwd.launches``.
 
 ``selective_scan_bwd`` replaces the Pallas backward ``selective_scan_bwd``
 (the spans pre-pass and the reverse sweep).  Its kernel is CUDA C++ in
@@ -46,6 +47,10 @@ reverse recurrence over spans; ``selective_scan_bwd_chunked_plain``
 computes the kernel's chunk-parallel form in PyTorch.  Launches are
 counted in ``selective_scan_bwd.launches`` (calls) and
 ``selective_scan_bwd.program_launches`` (each program).
+
+For meta tensors (a dry run) the wrappers allocate their outputs and
+scratch as the CUDA path does and record the call in
+``kernels.census.CENSUS`` instead of launching.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ import torch
 
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+from ..census import CENSUS
 
 __all__ = ["BWD_CHUNKS", "BWD_MAX_KEPT", "BWD_MAX_THREADS", "BWD_SPANS",
            "MAX_THREADS", "STAGES", "STATE_SIZES", "bwd_launch_error",
@@ -236,9 +242,15 @@ def selective_scan_fwd(x, delta, a, b, c, d, h0, *, block_d: int = 128,
     bt, t, di = x.shape
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
+    if x.device.type == "meta":
+        s = a.shape[1]
+        CENSUS.add("selective_scan_fwd", ("scan",), 4 * bt * t * di * s,
+                   4 * (3 * bt * t * di + 2 * bt * t * s + di * s + di
+                        + 2 * bt * di * s))
+        return y, h_out
+    lib = _library()
     vec = di % 4 == 0 and all(m.data_ptr() % 16 == 0
                               for m in (x, delta, b, c, y))
-    lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mamba_scan_fwd(
@@ -486,6 +498,12 @@ def selective_scan_bwd(x, delta, a, b, c, d, h0, dy, dh_t, *,
     dc = torch.empty((n_db, bt, t, s), **f32)
     dd = torch.empty((bt, ns, di), **f32)
     dh0 = torch.empty_like(h0)
+    if x.device.type == "meta":
+        CENSUS.add("selective_scan_bwd", ("summaries", "carry", "chunks"),
+                   8 * bt * t * di * s,
+                   4 * (5 * bt * t * di + 4 * bt * t * s + 2 * di * s
+                        + 2 * di + 3 * bt * di * s))
+        return _bwd_result(dx, ddt, da, db, dc, dd, dh0)
     lib = _library_bwd()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -517,10 +535,15 @@ def selective_scan_bwd(x, delta, a, b, c, d, h0, dy, dh_t, *,
                     f"{lib.mamba_scan_bwd_error_string(rc).decode()})")
             selective_scan_bwd.program_launches[prog] += 1
     selective_scan_bwd.launches += 1
-    return (dx, ddt, da.sum((0, 1)), db.sum(0), dc.sum(0), dd.sum((0, 1)),
-            dh0)
+    return _bwd_result(dx, ddt, da, db, dc, dd, dh0)
 
 
 selective_scan_bwd.launches = 0
 selective_scan_bwd.program_launches = {"summaries": 0, "carry": 0,
                                        "chunks": 0}
+
+
+def _bwd_result(dx, ddt, da, db, dc, dd, dh0):
+    """The gradients from the programs' partials."""
+    return (dx, ddt, da.sum((0, 1)), db.sum(0), dc.sum(0), dd.sum((0, 1)),
+            dh0)

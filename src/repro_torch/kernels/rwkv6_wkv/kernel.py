@@ -49,6 +49,10 @@ serial reverse recurrence; ``wkv6_bwd_chunked_plain`` computes the
 kernel's chunked form in PyTorch.  Launches are counted in
 ``wkv6_bwd.launches`` (calls) and ``wkv6_bwd.program_launches`` (each
 program).
+
+For meta tensors (a dry run) the wrappers allocate their outputs and
+scratch as the CUDA path does and record the call in
+``kernels.census.CENSUS`` instead of launching.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ import torch
 
 from ... import _build
 from .. import SMEM_LIMIT_BYTES, KernelLaunchError
+from ..census import CENSUS
 
 __all__ = ["BLOCK_H", "BWD_CHUNKS", "BWD_COLS", "BWD_HEAD_DIMS",
            "BWD_MAX_THREADS", "BWD_PARTS", "CHUNKED_HEAD_DIMS", "CHUNKS",
@@ -320,6 +325,16 @@ def wkv6_fwd(r, k, v, w, u, s0, *, chunk: int = 64, split: int = 4,
         return wkv6_fwd_plain(r, k, v, w, u, s0)
     y = torch.empty_like(r)
     s_out = torch.empty_like(s0)
+    if r.device.type == "meta":
+        if route_of(t, hd, chunk) == "serial":
+            programs = ("serial",)
+        else:
+            programs = ("states", "chunks")
+            torch.empty((b, h, -(-t // chunk), hd, hd), dtype=torch.float32,
+                        device=r.device)
+        CENSUS.add("wkv6_fwd", programs, 3 * b * t * h * hd * hd,
+                   4 * (5 * b * t * h * hd + h * hd + 2 * b * h * hd * hd))
+        return y, s_out
     lib = _library()
     ptrs = [x.data_ptr() for x in (r, k, v, w, u)]
     with torch.cuda.device(r.device):
@@ -536,6 +551,11 @@ def wkv6_bwd(r, k, v, w, u, s0, dy, ds_t, *, chunk: int = 16,
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((b, h, n, hd), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(s0)
+    if r.device.type == "meta":
+        CENSUS.add("wkv6_bwd", ("scans", "chunks"),
+                   b * t * h * (5 * hd * hd + 6 * chunk * hd),
+                   4 * (9 * b * t * h * hd + 2 * h * hd + 3 * b * h * hd * hd))
+        return dr, dk, dv, dw, du.sum((0, 2)), ds0
     lib = _library_bwd()
     tail = (b, t, h, hd, chunk, block_threads, cols, parts)
     with torch.cuda.device(r.device):

@@ -84,10 +84,11 @@ from .. import configs, resolve_device
 from ..core.hetero import DeviceGroup
 from ..core.space import ConfigSpace, Param
 from ..dist.api import use_rules
-from ..dist.sharding import MeshRules, ShardingConfig
+from ..dist.sharding import ShardingConfig
 from ..models import LM, EncDec, build_model
 from ..obs import get_logger
 from .mesh import add_mesh_args, axes_arg, make_host_mesh, mesh_from_args
+from .steps import serving_rules, shard_for_serving
 
 __all__ = ["HOST_FRACTIONS", "dna_stream_batches", "main", "serve_requests",
            "serve_session", "serve_stream", "split_space",
@@ -107,15 +108,22 @@ def _checksum_agrees(model, mesh) -> bool:
     of a float64 checksum and of its negation over them (their max and
     min) must agree (a broadcast of GBs of weights would cost seconds).
     A leaf split over ranks (``model.layout``) is compared along the axes
-    its compute does not split, every other leaf over all ranks."""
+    its compute does not split (its storage, where the rank stores
+    blocks), every other leaf over all ranks."""
     layout = getattr(model, "layout", None)
     split = () if layout is None else tuple(
         a for a in mesh.axis_names
         if a in layout.rules.axes("heads") + layout.rules.axes("expert"))
     sums: dict[tuple, torch.Tensor] = {}
     for i, (name, p) in enumerate(model.named_parameters()):
-        whole = layout is None or tuple(p.shape) == layout.leaves[name].shape
-        axes = tuple(a for a in mesh.axis_names if whole or a not in split)
+        if layout is not None and layout.resident == "storage":
+            held = layout.leaves[name].storage_axes
+            axes = tuple(a for a in mesh.axis_names if a not in held)
+        else:
+            whole = layout is None \
+                or tuple(p.shape) == layout.leaves[name].shape
+            axes = tuple(a for a in mesh.axis_names
+                         if whole or a not in split)
         c = sums.setdefault(axes, torch.zeros(2, dtype=torch.float64,
                                               device=model.device))
         c[0] += p.detach().sum(dtype=torch.float64) * (1 + i % 7)
@@ -156,8 +164,12 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     "compute")``): its q heads and the kv heads they read, which its
     cache holds under ``kv_shard="heads"`` (all kv heads under
     ``"none"``), and the logits are gathered whole before the token is
-    picked.  Each rank's blocks must agree (a checksum) with those of the
-    ranks that hold the same ones.  Under rules whose ``kv_shard`` is
+    picked.  Where ``scfg.fsdp_axes`` lie on the mesh each rank stores
+    its ``param_specs`` block of every leaf instead and gathers each
+    layer's compute blocks where the layer runs (``LM.shard(...,
+    "storage")``; ``launch.steps.shard_for_serving``), forward only.
+    Each rank's blocks must agree (a checksum) with those of the ranks
+    that hold the same ones.  Under rules whose ``kv_shard`` is
     ``"seq"`` or ``"batch_seq"`` each attention layer's cache is the
     rank's stripe and decode runs ``dist.seq_decode`` (the prefill runs
     the whole prompt on every rank); ``"batch_seq"`` also splits the rows
@@ -173,21 +185,15 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
         scfg = scfg or ShardingConfig(
             data_axes=mesh.axis_names[:1], model_axes=(), fsdp_axes=(),
             kv_shard="none", remat=False)
-        rules = scfg.rules(mesh)
-        if scfg.kv_shard == "batch_seq":
-            # the model axes stripe the caches: the weights stay whole
-            rules = MeshRules(mesh=mesh, rules={
-                **rules.rules, "heads": (), "kv_heads": (), "ff": (),
-                "vocab": ()})
+        rules = serving_rules(scfg, mesh)
     if model is None:
         model = build_model(cfg, seed=seed,
                             device=resolve_device(device)).cast_for_serving()
     elif device is not None \
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
-    if mesh is not None and model.layout is None \
-            and dist.get_world_size() > 1:
-        model.shard(rules, "compute")
+    if mesh is not None:
+        shard_for_serving(model, scfg, mesh)
     dev = model.device
     max_len = prompt_len + gen
     rng = np.random.default_rng(seed)
@@ -690,6 +696,10 @@ def main(argv=None) -> None:
                     "batch on every rank; heads: each rank the kv heads "
                     "of its q heads, with --mesh splitting the model axis)")
     add_mesh_args(ap)
+    ap.add_argument("--fsdp-axes", default="",
+                    help="under torchrun: mesh axes over which each rank "
+                    "stores its block of the parameters, gathering a "
+                    "layer's where it runs, e.g. 'data'")
     ap.add_argument("--tuned-kernels", default=None, metavar="STORE",
                     help="kernel tuning store (JSON from "
                     "repro_torch.tune.kernels.tune_kernel): the kernels "
@@ -815,7 +825,9 @@ def main(argv=None) -> None:
             device=dev))
         scfg = ShardingConfig(data_axes=("data",),
                               model_axes=axes_arg(args.model_axes)
-                              or ("model",), kv_shard=args.kv_shard)
+                              or ("model",),
+                              fsdp_axes=axes_arg(args.fsdp_axes),
+                              kv_shard=args.kv_shard)
     out = serve_session(cfg, batch=args.batch, prompt_len=args.prompt_len,
                         gen=args.gen, seed=args.seed, device=dev, mesh=mesh,
                         scfg=scfg)

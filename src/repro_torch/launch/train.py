@@ -60,12 +60,12 @@ from .. import configs, resolve_device
 from ..ckpt.manager import CheckpointManager
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from ..dist.compression import init_error_state
-from ..dist.sharding import ShardingConfig, batch_specs
+from ..dist.sharding import ShardingConfig
 from ..models import LM, EncDec, build_model
 from ..optim.adamw import AdamWConfig, init_opt_state
 from ..optim.schedule import warmup_cosine
 from .mesh import add_mesh_args, axes_arg, mesh_from_args
-from .steps import train_step
+from .steps import rank_rows, train_step
 
 __all__ = ["main", "make_data_cfg", "train_loop"]
 
@@ -109,33 +109,6 @@ def _restore(mgr: CheckpointManager, model: LM | EncDec,
     opt = state["opt"]
     opt["count"] = opt["count"].cpu()
     return step, opt, state.get("err")
-
-
-def _rows(host_batch: dict, mesh, scfg: ShardingConfig,
-          microbatches: int = 1) -> dict:
-    """This rank's rows of a global batch: the rank's coordinate along the
-    axes ``batch_specs`` gives the leading dimension (all rows where they
-    do not divide it).  With ``microbatches`` the rank takes its share of
-    each of the global batch's microbatches (contiguous row blocks, as the
-    reference splits them), in microbatch order, so its own contiguous
-    split is its share of each."""
-    spec = batch_specs(host_batch, mesh, scfg)
-    out = {}
-    for key, arr in host_batch.items():
-        axes = spec[key][0] if spec[key] else None
-        if axes is None:
-            out[key] = arr
-            continue
-        axes = (axes,) if isinstance(axes, str) else axes
-        n = mesh.axes_size(axes)
-        i = mesh.index(axes)
-        if microbatches > 1 and arr.shape[0] % (n * microbatches) == 0:
-            blocks = arr.reshape(microbatches, n, -1, *arr.shape[1:])
-            out[key] = blocks[:, i].reshape(-1, *arr.shape[1:])
-            continue
-        per = arr.shape[0] // n
-        out[key] = arr[i * per:(i + 1) * per]
-    return out
 
 
 def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
@@ -271,7 +244,8 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                 raise RuntimeError(f"injected failure at step {step}")
             t_step = time.perf_counter()
             if mesh is not None:
-                host_batch = _rows(host_batch, mesh, scfg, microbatches)
+                host_batch = rank_rows(host_batch, mesh, scfg,
+                                       microbatches)
             dev_batch = {k: torch.as_tensor(v, device=dev)
                          for k, v in host_batch.items()}
             metrics = train_step(model, opt, dev_batch, opt_cfg,

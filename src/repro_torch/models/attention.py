@@ -52,8 +52,9 @@ from ..kernels.flash_attention import ops as fa_ops
 from .config import ArchConfig
 from .layers import apply_rope, dense_init, param, torch_dtype
 
-__all__ = ["NEG_INF", "Stripe", "attention_region", "decode_attention",
-           "full_attention", "init_attention", "init_kv_cache", "kv_stripe",
+__all__ = ["NEG_INF", "Stripe", "attention_out", "attention_qkv",
+           "attention_region", "decode_attention", "full_attention",
+           "init_attention", "init_kv_cache", "kv_stripe",
            "precompute_cross_kv"]
 
 NEG_INF = -1e30
@@ -169,20 +170,12 @@ def _out_proj(p, out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return out.to(dt).reshape(b, t, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
-                   positions: torch.Tensor, causal: bool = True,
-                   kv_states: torch.Tensor | None = None,
-                   kv_positions: torch.Tensor | None = None,
-                   return_kv: bool = False, seq_dim: int | None = None):
-    """Training / prefill attention over full sequences through the
-    flash-attention kernel.
-
-    ``kv_states`` switches to cross-attention: the keys and values come
-    from that stream (B, Tk, D), and neither side gets RoPE.
-    ``kv_positions`` are the keys' RoPE positions in self-attention
-    (default ``positions``).  ``return_kv`` also returns the (pre-repeat)
-    keys/values for cache fills.  Under a mesh of ranks ``p`` holds this
-    rank's heads (``seq_dim``: see the module docstring)."""
+def attention_qkv(p, x: torch.Tensor, cfg: ArchConfig, *,
+                  positions: torch.Tensor,
+                  kv_states: torch.Tensor | None = None,
+                  kv_positions: torch.Tensor | None = None):
+    """The projections ``(q, k, v)``, RoPE applied: the reference's
+    ``qkv_out`` (``kv_states``, ``kv_positions``: ``full_attention``'s)."""
     _check_impl(cfg)
     cross = kv_states is not None
     q = _project_q(p, x, cfg, None if cross else positions)
@@ -190,6 +183,14 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
         kv_positions = positions
     k, v = _project_kv(p, kv_states if cross else x, cfg,
                        None if cross else kv_positions)
+    return q, k, v
+
+
+def attention_out(p, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ArchConfig, *, causal: bool = True,
+                  seq_dim: int | None = None) -> torch.Tensor:
+    """The flash-attention kernel over ``attention_qkv``'s projections,
+    then the output projection (summed over the ranks' heads)."""
     # tuned=None: resolves the cached best launch params when kernel
     # tuning is enabled (repro_torch.tune.kernels.configure; serve.py's
     # --tuned-kernels), hardcoded defaults otherwise
@@ -198,7 +199,26 @@ def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     out = fa_ops.flash_attention(q, _repeat_kv(kr, n_heads),
                                  _repeat_kv(vr, n_heads), causal=causal,
                                  tuned=None)
-    res = _reduce_heads(_out_proj(p, out, cfg), cfg, seq_dim)
+    return _reduce_heads(_out_proj(p, out, cfg), cfg, seq_dim)
+
+
+def full_attention(p, x: torch.Tensor, cfg: ArchConfig, *,
+                   positions: torch.Tensor, causal: bool = True,
+                   kv_states: torch.Tensor | None = None,
+                   kv_positions: torch.Tensor | None = None,
+                   return_kv: bool = False, seq_dim: int | None = None):
+    """Training / prefill attention over full sequences through the
+    flash-attention kernel: ``attention_qkv``, then ``attention_out``.
+
+    ``kv_states`` switches to cross-attention: the keys and values come
+    from that stream (B, Tk, D), and neither side gets RoPE.
+    ``kv_positions`` are the keys' RoPE positions in self-attention
+    (default ``positions``).  ``return_kv`` also returns the (pre-repeat)
+    keys/values for cache fills.  Under a mesh of ranks ``p`` holds this
+    rank's heads (``seq_dim``: see the module docstring)."""
+    q, k, v = attention_qkv(p, x, cfg, positions=positions,
+                            kv_states=kv_states, kv_positions=kv_positions)
+    res = attention_out(p, q, k, v, cfg, causal=causal, seq_dim=seq_dim)
     if return_kv:
         return res, {"k": k, "v": v}
     return res

@@ -11,6 +11,18 @@ Training (``apply_layer``) runs every mixer kind: the scans' gradients
 come from their backward kernels through the ``torch.autograd.Function``s
 of ``kernels/mamba_scan/ops.py`` and ``kernels/rwkv6_wkv/ops.py``.
 
+Under ``remat="save_dots"`` (``apply_layer_saving``) a layer is cut into
+segments under ``torch.utils.checkpoint`` whose boundaries are the
+tensors the reference's policy saves by name (``save_only_these_names``):
+``qkv_out`` (the attention's projections), ``mixer_out``, ``mlp_hidden``
+(``x @ w_in``) and ``channel_out``.  A checkpointed segment keeps its
+inputs and recomputes the rest in the backward pass, so a layer keeps its
+input and those tensors only; the attention core (the flash-attention
+kernel) is recomputed, as the reference recomputes it.  The recurrent
+mixers, the RWKV channel mix and the MoE layer name only their outputs
+(``mixer_out``, ``channel_out``), so each is one segment.  A SwiGLU
+MLP also keeps its gate's product (``mlp_saving``).
+
 Under ``seq_parallel`` rules over ranks (``apply_layer(seq=True)``) the
 residual stream and the norms hold this rank's rows of the sequence: the
 normed rows are all-gathered before the mixer and the channel, and each
@@ -22,19 +34,24 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .attention import (decode_attention, full_attention, init_attention,
-                        init_kv_cache, kv_stripe)
+from .attention import (attention_out, attention_qkv, decode_attention,
+                        full_attention, init_attention, init_kv_cache,
+                        kv_stripe)
+from ..dist.api import current_rules, use_rules
 from ..dist.sharding import compute_layout
 from .config import ArchConfig
-from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .layers import (apply_mlp, apply_norm, finish, init_mlp, init_norm,
+                     mlp_hidden, mlp_partial)
 from .mamba import apply_mamba, decode_mamba, init_mamba, init_mamba_state
 from .moe import apply_moe, init_moe
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, init_rwkv_cmix,
                     init_rwkv_state, init_rwkv_tmix)
 
-__all__ = ["MIXERS", "apply_layer", "decode_layer", "init_layer",
-           "init_layer_state", "prefill_layer"]
+__all__ = ["MIXERS", "apply_layer", "apply_layer_saving", "attention_saving",
+           "decode_layer", "init_layer", "init_layer_state", "mlp_saving",
+           "normed_sum", "prefill_layer", "segment"]
 
 MIXERS = ("attn", "mamba", "rwkv")
 
@@ -96,6 +113,103 @@ def apply_layer(p, x: torch.Tensor, cfg: ArchConfig, kind: str, is_moe: bool,
     h = whole(apply_norm(p["norm2"], x, cfg))
     ch, aux, _ = _channel(p, h, cfg, kind, is_moe, seq_dim=seq_dim)
     return x + ch, aux
+
+
+def segment(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: ``args`` are kept
+    and the rest is recomputed in the backward pass, under the rules
+    active now (the backward runs outside the forward's)."""
+    rules = current_rules()
+
+    def run(*a):
+        with use_rules(rules):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def normed_sum(p, norm: str, parts: tuple, cfg: ArchConfig) -> torch.Tensor:
+    """``apply_norm(p[norm], parts[0] + parts[1] + ..., cfg)``: a
+    sublayer's normed input from the residual stream's parts, summed in
+    the order the layer adds them."""
+    x = parts[0]
+    for y in parts[1:]:
+        x = x + y
+    return apply_norm(p[norm], x, cfg)
+
+
+def attention_saving(p, normed, parts: tuple, cfg: ArchConfig, *,
+                     positions: torch.Tensor, causal: bool,
+                     kv_states: torch.Tensor | None = None,
+                     seq_dim: int | None = None) -> torch.Tensor:
+    """An attention sublayer under ``save_dots``: ``normed(*parts)``'s
+    projections (the reference's ``qkv_out``; a cross-attention's keys
+    and values from ``kv_states``) in one segment, the flash-attention
+    kernel and the output projection in another."""
+    if kv_states is None:
+        q, k, v = segment(lambda *a: attention_qkv(
+            p, normed(*a), cfg, positions=positions), *parts)
+    else:
+        q, k, v = segment(lambda enc, *a: attention_qkv(
+            p, normed(*a), cfg, positions=positions, kv_states=enc),
+            kv_states, *parts)
+    return segment(lambda q, k, v: attention_out(
+        p, q, k, v, cfg, causal=causal, seq_dim=seq_dim), q, k, v)
+
+
+def mlp_saving(p, normed, parts: tuple, cfg: ArchConfig,
+               seq_dim: int | None = None) -> torch.Tensor:
+    """The MLP under ``save_dots``: ``normed(*parts)`` and the products
+    that read it in one segment, which keeps ``mlp_hidden`` (and a
+    SwiGLU's gate product), the rest in another.  The gate's product is
+    kept beside ``mlp_hidden`` (the reference recomputes it): in a segment
+    of its own it would recompute the norm, whose backward would then run
+    twice, each time rounding to the compute dtype, and the gradients
+    would drift from full remat's (~1 % at full width in bf16)."""
+    swiglu = cfg.mlp_type == "swiglu"
+
+    def products(*a):
+        h = normed(*a)
+        hid = mlp_hidden(p, h, cfg)
+        return (hid, h @ p["w_gate"].to(hid.dtype)) if swiglu else (hid,)
+
+    kept = segment(products, *parts)
+    return segment(lambda *k: finish(*mlp_partial(
+        p, None, cfg, hidden=k[0], gate=k[1] if swiglu else None), seq_dim),
+        *kept)
+
+
+def apply_layer_saving(p, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                       is_moe: bool, positions: torch.Tensor,
+                       seq: bool = False) -> tuple[torch.Tensor, float]:
+    """``apply_layer`` under ``remat="save_dots"`` (the module docstring):
+    the same operations in the same order, in segments."""
+    cl = compute_layout() if seq else None
+    seq_dim = None if cl is None else 1
+    t = positions.shape[1]
+
+    def normed(norm: str, *parts):
+        h = normed_sum(p, norm, parts, cfg)
+        return h if cl is None else cl.gather_seq(h, 1, t)
+
+    if kind == "attn":
+        mixed = attention_saving(p["mixer"], lambda x: normed("norm1", x),
+                                 (x,), cfg, positions=positions, causal=True,
+                                 seq_dim=seq_dim)
+    elif kind == "mamba":
+        mixed = segment(lambda x: apply_mamba(
+            p["mixer"], normed("norm1", x), cfg, seq_dim=seq_dim), x)
+    else:
+        mixed = segment(lambda x: apply_rwkv_tmix(
+            p["mixer"], normed("norm1", x), cfg, seq_dim=seq_dim)[0], x)
+    if kind == "rwkv" or is_moe:
+        ch, aux = segment(lambda x, m: _channel(
+            p, normed("norm2", x, m), cfg, kind, is_moe,
+            seq_dim=seq_dim)[:2], x, mixed)
+    else:
+        ch, aux = mlp_saving(p["channel"], lambda *a: normed("norm2", *a),
+                             (x, mixed), cfg, seq_dim), 0.0
+    return x + mixed + ch, aux
 
 
 def init_layer_state(cfg: ArchConfig, kind: str, batch: int, max_len: int,

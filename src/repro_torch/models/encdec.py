@@ -16,6 +16,10 @@ flash-attention kernel, cross-attention through it unmasked over
 ``Tq != Tk`` in training, and through the split-KV decode kernel over the
 whole encoder cache when decoding.
 
+Training under ``remat="save_dots"`` cuts each layer into checkpointed
+segments at the tensors the reference's policy names (``qkv_out`` of the
+self- and cross-attention, ``mlp_hidden``; ``blocks.apply_layer_saving``).
+
 Decode: the self-attention cache holds ``max_len`` positions; the
 cross-attention cache is the encoder's keys and values, filled once by
 ``prefill_cross``.
@@ -40,6 +44,7 @@ from .. import resolve_device
 from ..dist.sharding import ComputeLayout, region
 from .attention import (attention_region, decode_attention, full_attention,
                         init_attention, init_kv_cache, precompute_cross_kv)
+from .blocks import attention_saving, mlp_saving, normed_sum
 from .config import ArchConfig
 from .layers import (apply_mlp, apply_norm, init_embed, init_mlp, init_norm,
                      mlp_region, sinusoidal_positions, torch_dtype)
@@ -80,6 +85,34 @@ def _dec_layer(p, h: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig,
     h = h + full_attention(p["cross"], apply_norm(p["norm_x"], h, cfg), cfg,
                            positions=positions, causal=False, kv_states=enc)
     return h + apply_mlp(p["channel"], apply_norm(p["norm2"], h, cfg), cfg)
+
+
+def _enc_layer_saving(p, h: torch.Tensor, cfg: ArchConfig,
+                      positions: torch.Tensor) -> torch.Tensor:
+    a = attention_saving(p["mixer"],
+                         lambda *x: normed_sum(p, "norm1", x, cfg), (h,),
+                         cfg, positions=positions, causal=False)
+    return h + a + mlp_saving(p["channel"],
+                              lambda *x: normed_sum(p, "norm2", x, cfg),
+                              (h, a), cfg)
+
+
+def _dec_layer_saving(p, h: torch.Tensor, enc: torch.Tensor,
+                      cfg: ArchConfig, positions: torch.Tensor
+                      ) -> torch.Tensor:
+    a = attention_saving(p["self"],
+                         lambda *x: normed_sum(p, "norm1", x, cfg), (h,),
+                         cfg, positions=positions, causal=True)
+    c = attention_saving(p["cross"],
+                         lambda *x: normed_sum(p, "norm_x", x, cfg), (h, a),
+                         cfg, positions=positions, causal=False,
+                         kv_states=enc)
+    return h + a + c + mlp_saving(
+        p["channel"], lambda *x: normed_sum(p, "norm2", x, cfg), (h, a, c),
+        cfg)
+
+
+_SAVING = {_enc_layer: _enc_layer_saving, _dec_layer: _dec_layer_saving}
 
 
 class EncDec(Sharded):
@@ -145,10 +178,13 @@ class EncDec(Sharded):
     def _stack(self, layers: nn.ModuleList, prefix: str, fn, x, *args,
                remat: bool | str = False):
         """``x`` through ``fn(p, x, *args)`` for each layer's compute
-        blocks ``p`` (gathered once, kept for the backward)."""
+        blocks ``p`` (gathered once, kept for the backward); under
+        ``remat="save_dots"`` through its segments (``_SAVING``)."""
         for i, layer in enumerate(layers):
             p = self._tree(layer, f"{prefix}.{i}.")
-            if remat:
+            if remat == "save_dots":
+                x = _SAVING[fn](p, x, *args)
+            elif remat:
                 x = checkpoint(self._in_rules, fn, p, x, *args,
                                use_reentrant=False)
             else:

@@ -27,8 +27,9 @@ from .config import ArchConfig
 
 __all__ = ["apply_mlp", "apply_norm", "apply_rope", "dense_init",
            "embed_init", "embed_tokens", "group_norm", "init_embed",
-           "init_mlp", "init_norm", "mlp_partial", "param", "rand_init",
-           "rope_frequencies", "sinusoidal_positions", "torch_dtype"]
+           "init_mlp", "init_norm", "mlp_hidden", "mlp_partial", "param",
+           "rand_init", "rope_frequencies", "sinusoidal_positions",
+           "torch_dtype"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -177,16 +178,29 @@ def mlp_region(leaf: str, shape, cl: ComputeLayout) -> tuple:
     return region(shape)
 
 
-def mlp_partial(p, x: torch.Tensor, cfg: ArchConfig, d_ff: int | None = None
+def mlp_hidden(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x @ w_in`` in the compute dtype: the reference's ``mlp_hidden``
+    (this rank's ``ff`` columns of it)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    return x.to(dt) @ p["w_in"].to(dt)
+
+
+def mlp_partial(p, x: torch.Tensor | None, cfg: ArchConfig,
+                d_ff: int | None = None, hidden: torch.Tensor | None = None,
+                gate: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, tuple]:
     """The MLP on this rank's ``ff`` columns of a ``d_ff``-wide MLP
     (default ``cfg.d_ff``): (output, the mesh axes its ranks' outputs are
-    still to be summed over; ``()`` where the columns are not split)."""
+    still to be summed over; ``()`` where the columns are not split).
+    ``hidden`` (``mlp_hidden(p, x, cfg)``) and a SwiGLU's ``gate``
+    (``x @ w_gate``) may come computed, and ``x`` is then ``None``."""
     dt = torch_dtype(cfg.compute_dtype)
-    x = x.to(dt)
-    h = x @ p["w_in"].to(dt)
+    if x is not None:
+        x = x.to(dt)
+    h = mlp_hidden(p, x, cfg) if hidden is None else hidden
     if cfg.mlp_type == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * h
+        # the gate's product lives only inside this expression
+        h = F.silu(x @ p["w_gate"].to(dt) if gate is None else gate) * h
     elif cfg.mlp_type == "squared_relu":
         h = F.relu(h).square()
     elif cfg.mlp_type == "gelu":

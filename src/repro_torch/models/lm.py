@@ -9,10 +9,11 @@ conv window and ssm state (mamba), or the shifted tokens and wkv state
 
 Training: ``loss`` runs ``backbone`` (optionally with each layer under
 ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` remat with
-nothing saved) and ``chunked_xent``, which never holds the full
-(B, T, V) logits in one piece.  Serving (``prefill``, ``decode_step``)
-runs under ``torch.inference_mode()``: the parameters require grad, and
-the KV caches are written in place.
+nothing saved, or cut into checkpointed segments that keep the tensors
+its ``"save_dots"`` policy names) and ``chunked_xent``, which never
+holds the full (B, T, V) logits in one piece.  Serving (``prefill``,
+``decode_step``) runs under ``torch.inference_mode()``: the parameters
+require grad, and the KV caches are written in place.
 
 Serving and training run every mixer kind and the MoE channel.  The VLM
 frontend (``frontend="stub_patches"``) prepends precomputed patch
@@ -46,8 +47,8 @@ from ..dist.collectives import all_gather, all_max, all_reduce
 from ..dist.sharding import (ComputeLayout, ParamLayout, compute_layout,
                              leaf_layout, param_specs, region)
 from .attention import attention_region
-from .blocks import (MIXERS, apply_layer, decode_layer, init_layer,
-                     init_layer_state, prefill_layer)
+from .blocks import (MIXERS, apply_layer, apply_layer_saving, decode_layer,
+                     init_layer, init_layer_state, prefill_layer)
 from .config import ArchConfig
 from .layers import (apply_norm, embed_tokens, init_embed, init_norm,
                      mlp_region, torch_dtype)
@@ -129,12 +130,9 @@ def missing_layer(cfg: ArchConfig) -> str | None:
 
 def check_remat(remat: bool | str) -> None:
     """``remat`` True or ``"full"`` recomputes each layer from its input;
-    the reference's ``"save_dots"`` policy is not ported."""
-    if remat == "save_dots":
-        raise NotImplementedError(
-            "remat='save_dots' (the reference's save_only_these_names "
-            "policy) is not ported; use remat=True")
-    if remat not in (False, True, "full"):
+    ``"save_dots"`` keeps the tensors the reference's policy saves by name
+    (``blocks.apply_layer_saving``)."""
+    if remat not in (False, True, "full", "save_dots"):
         raise ValueError(f"remat={remat!r}")
 
 
@@ -332,12 +330,13 @@ class LM(Sharded):
 
         ``remat`` True or ``"full"`` recomputes each layer in the backward
         pass from its input (``torch.utils.checkpoint``, nothing saved
-        inside the layer: the reference's default policy).  Over ranks a
-        layer's parameters are gathered into its compute blocks once, and
-        the blocks are kept for its backward (under remat too: the
-        recompute reads them).  Under
-        ``seq_parallel`` rules the layers and the final norm hold this
-        rank's rows, and ``h`` is gathered whole.
+        inside the layer: the reference's default policy); ``"save_dots"``
+        keeps the reference's named tensors (``apply_layer_saving``).
+        Over ranks a layer's parameters are gathered into its compute
+        blocks once, and the blocks are kept for its backward (under remat
+        too: the recompute reads them).  Under ``seq_parallel`` rules the
+        layers and the final norm hold this rank's rows, and ``h`` is
+        gathered whole.
         """
         check_remat(remat)
         cfg = self.cfg
@@ -351,7 +350,10 @@ class LM(Sharded):
             # a layer's parameters as its compute blocks, gathered once:
             # under remat the recompute reads them again, not the ranks
             p = self._tree(self.layers[i], f"layers.{i}.")
-            if remat:
+            if remat == "save_dots":
+                x, a = apply_layer_saving(p, x, cfg, self.kinds[i],
+                                          self.moe_mask[i], positions, seq)
+            elif remat:
                 x, a = checkpoint(self._layer, p, i, x, positions, seq,
                                   use_reentrant=False)
             else:

@@ -262,15 +262,15 @@ def grads_rank(rank, world, mesh, jobs, out_dir):
     counters of the step and each gradient gathered whole."""
     from repro_torch.dist.collectives import COUNTERS
     from repro_torch.dist.sharding import ShardingConfig
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.launch.train import _rows
+    from repro_torch.launch.steps import loss_and_grads, rank_rows
 
     for tag, cfg, scfg_kw, weights_path, batch_path in jobs:
         scfg = ShardingConfig(**scfg_kw)
         model = _model_from(cfg, weights_path)
         layout = model.shard(scfg.rules(mesh), "storage", scfg)
         blocks = {n: p.detach().clone() for n, p in model.named_parameters()}
-        batch = _rows(torch.load(batch_path), mesh, scfg, scfg.microbatches)
+        batch = rank_rows(torch.load(batch_path), mesh, scfg,
+                          scfg.microbatches)
         COUNTERS.reset()
         loss, grads, _ = loss_and_grads(model, batch,
                                         microbatches=scfg.microbatches,
@@ -299,8 +299,7 @@ def compress_step_rank(rank, world, mesh, jobs, out_dir):
     whole (rank 0)."""
     from repro_torch.dist.compression import init_error_state
     from repro_torch.dist.sharding import ShardingConfig
-    from repro_torch.launch.steps import train_step
-    from repro_torch.launch.train import _rows
+    from repro_torch.launch.steps import rank_rows, train_step
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
     for tag, cfg, scfg_kw, weights_path, batch_path, opt_kw in jobs:
@@ -311,7 +310,7 @@ def compress_step_rank(rank, world, mesh, jobs, out_dir):
         err = init_error_state(params)
         opt_cfg = AdamWConfig(**opt_kw)
         opt = init_opt_state(params, opt_cfg, layout.moment_grids())
-        batch = _rows(torch.load(batch_path), mesh, scfg)
+        batch = rank_rows(torch.load(batch_path), mesh, scfg)
         out = train_step(model, opt, batch, opt_cfg,
                          grad_compression=scfg.grad_compression, err=err)
         whole = {"params": {n: layout.unshard(n, p.detach())
@@ -362,6 +361,61 @@ def moments_rank(rank, world, mesh, jobs, out_dir):
                    Path(out_dir) / f"{tag}_rank{rank}.pt")
 
 
+def step_counts_rank(rank, world, mesh, jobs, out_dir):
+    """For each job ``(tag, kind, cfg, scfg_kw, kw)`` one step from the
+    builder of ``launch.steps`` (``kind`` ``"train"``: ``make_train_step``
+    on ``kw["batch"]`` seeded rows of ``kw["seq_len"]`` tokens;
+    ``"serve"``: ``make_serve_step`` of ``kw["batch"]`` rows against caches
+    of ``kw["max_len"]``, at its last position), run on real CPU tensors
+    (the model from seed 0) with the native collective route: saves (as
+    ``<tag>_rank<r>.pt``) the step's collective counters."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist.api import use_rules
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    collectives.ROUTE[0] = "native"
+    for tag, kind, cfg, scfg_kw, kw in jobs:
+        scfg = ShardingConfig(**scfg_kw)
+        model = build_model(cfg, seed=0, device="cpu")
+        if kind == "train":
+            batch = step_batch(cfg, kw["batch"], kw["seq_len"])
+            bundle = steps.make_train_step(
+                cfg, scfg, mesh, AdamWConfig(),
+                {k: v.to("meta") for k, v in batch.items()})
+            layout = model.shard(scfg.rules(mesh), "storage", scfg)
+            params = dict(model.named_parameters())
+            opt = init_opt_state(params, AdamWConfig(),
+                                 layout and layout.moment_grids())
+            args = (model, opt, steps.rank_rows(batch, mesh, scfg,
+                                                scfg.microbatches), None)
+        else:
+            bundle = steps.make_serve_step(cfg, scfg, mesh, kw["batch"],
+                                           kw["max_len"])
+            model.cast_for_serving()
+            rules = steps.shard_for_serving(model, scfg, mesh)
+            rows = bundle.in_specs[2].shape[0]
+            with use_rules(rules):
+                state = model.init_decode_state(rows, kw["max_len"])
+            tokens = torch.ones((rows, 1), dtype=torch.int32)
+            args = (model, state, tokens, kw["max_len"] - 1)
+        collectives.COUNTERS.reset()
+        bundle.run(*args)
+        torch.save({"counts": collectives.COUNTERS.snapshot()},
+                   Path(out_dir) / f"{tag}_rank{rank}.pt")
+
+
+def step_batch(cfg, batch: int, seq_len: int) -> dict:
+    """A seeded global batch of ``batch`` rows of ``seq_len`` tokens
+    (int32, as ``launch.shapes.batch_specs_for`` gives them)."""
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (batch, seq_len + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+
+
 def load_ranks(out_dir: Path, world: int, tag: str = "") -> list:
     prefix = f"{tag}_" if tag else ""
     return [torch.load(Path(out_dir) / f"{prefix}rank{r}.pt",
@@ -376,4 +430,5 @@ __all__ = ["COLLECTIVE_AXES", "COLLECTIVE_ROUTES", "LEAF_SPECS",
            "allreduce_rank", "collectives_rank", "compress_step_rank",
            "float32", "grads_rank", "load_ranks", "many_rank",
            "moments_rank", "run_ranks", "seq_decode_rank", "serve_rank",
-           "stripe_rank", "tp_serve_rank", "train_rank"]
+           "step_batch", "step_counts_rank", "stripe_rank", "tp_serve_rank",
+           "train_rank"]

@@ -20,6 +20,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
 from repro_torch.tune.kernels import specs
+from helpers_torch import fake_delta, on_fake_card
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -264,34 +265,39 @@ def test_an_unbuilt_head_dim_is_refused_before_launch(which, hd,
             fa_kernel.flash_attention_bwd.launches) == before
 
 
-@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("device", ["cpu", "meta", "cuda"])
 def test_the_hd_192_bf16_backward_passes_the_wrappers_checks(device,
                                                             monkeypatch):
     """A bfloat16 backward at head_dim 192 (nemotron4's) is built: at its
     launch point (64 x 64, cut to the card's shared memory) it passes
-    every check; on the CPU it returns the plain version's gradients,
-    off the CPU it goes on to the library, and no launch is counted
-    before the kernel runs."""
+    every check; on the CPU it returns the plain version's gradients, on
+    meta (a dry run) gradients of their shapes without the library, on
+    the card (a stand-in, ``helpers_torch.on_fake_card``) it goes on to
+    the library, and no launch is counted before the kernel runs."""
     def reached(*a, **k):
         raise LookupError("the library was asked for")
 
     monkeypatch.setattr(fa_kernel, "_library_bwd", reached)
+    if device == "cuda":
+        monkeypatch.setattr(fa_kernel, "_delta", fake_delta)
     launch = fa_kernel.fit_bwd_launch(torch.bfloat16, 192)
     assert launch == {"block_q": 64, "block_k": 64, "block_threads": 128}
     assert fa_kernel.smem_bytes_bwd(64, 64, 192, torch.bfloat16) \
         <= fa_kernel.SMEM_LIMIT_BYTES
     before = fa_kernel.flash_attention_bwd.launches
-    q = torch.zeros((1, 40, 2, 192), dtype=torch.bfloat16, device=device)
-    lse = torch.zeros((1, 2, 40), device=device)
+    made = "cpu" if device == "cuda" else device
+    q = torch.zeros((1, 40, 2, 192), dtype=torch.bfloat16, device=made)
+    lse = torch.zeros((1, 2, 40), device=made)
     for kw in ({}, launch):
-        if device == "cpu":
+        if device == "cuda":
+            with pytest.raises(LookupError, match="library"):
+                on_fake_card(fa_kernel.flash_attention_bwd, q, q, q, q, lse,
+                             q, q_offset=8, **kw)
+        else:
             grads = fa_kernel.flash_attention_bwd(q, q, q, q, lse, q,
                                                   q_offset=8, **kw)
-            assert [g.shape for g in grads] == [q.shape] * 3
-        else:
-            with pytest.raises(LookupError, match="library"):
-                fa_kernel.flash_attention_bwd(q, q, q, q, lse, q,
-                                              q_offset=8, **kw)
+            assert [(g.shape, g.device.type) for g in grads] == [
+                (q.shape, device)] * 3
     assert fa_kernel.flash_attention_bwd.launches == before
 
 

@@ -132,6 +132,39 @@ def test_loss_and_every_gradient_match_reference(ref_params, remat):
         close(p.grad, _reference_leaf(grads, name, cfg), TOL, name)
 
 
+def test_save_dots_gives_full_remats_numbers(ref_params):
+    """``remat="save_dots"`` (every layer in segments at the reference's
+    named tensors: self- and cross-attention projections, the MLP's
+    hidden product) gives full remat's loss and gradients."""
+    model = port_model(ref_params)
+    batch = to_torch(np_batch(2))
+    out = []
+    for remat in (True, "save_dots"):
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch, remat=remat)
+        loss.backward()
+        out.append((loss.detach(), [p.grad.clone()
+                                    for p in model.parameters()]))
+    assert torch.equal(out[1][0], out[0][0])
+    for g, w in zip(out[1][1], out[0][1]):
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+def test_save_dots_gradients_match_the_references(ref_params):
+    cfg, rcfg = cfgs()
+    batch = np_batch(4)
+    (want, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: RefEncDec(rcfg).loss(p, b, remat="save_dots"),
+        has_aux=True))(ref_params, to_jax(batch))
+    model = port_model(ref_params)
+    loss, _ = model.loss(to_torch(batch), remat="save_dots")
+    loss.backward()
+    close(loss, want, TOL, "loss")
+    grads = jax.tree.map(np.asarray, grads)
+    for name, p in model.named_parameters():
+        close(p.grad, _reference_leaf(grads, name, cfg), TOL, name)
+
+
 def test_prefill_cross_then_decode_logits_match_reference(ref_params):
     """The encoder's keys and values in every cross cache, then decode
     steps at positions 0..3 and past ``decoder_len`` (where both packages

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.attention import _repeat_kv
+from helpers_torch import fake_delta, on_fake_card
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -209,7 +210,8 @@ def test_bwd_smem_accounting_and_defaults(dtype):
 
 
 def test_a_tensor_off_the_cpu_takes_the_kernel_or_raises(monkeypatch):
-    """A tensor that is not on the CPU goes to the CUDA kernel; where the
+    """A CUDA tensor (a stand-in with no card behind it,
+    ``helpers_torch.on_fake_card``) goes to the CUDA kernel; where the
     kernel cannot be built the wrapper raises, it does not fall back."""
     def no_nvcc():
         raise _build.KernelBuildError("nvcc not found")
@@ -217,11 +219,11 @@ def test_a_tensor_off_the_cpu_takes_the_kernel_or_raises(monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(fa_kernel, "_lib_bwd", None)
+    monkeypatch.setattr(fa_kernel, "_delta", fake_delta)
     monkeypatch.setattr(_build, "build_dir", lambda: _build.Path("/nonexistent"))
     before = (fa_kernel.flash_attention_bwd.launches,
               dict(fa_kernel.flash_attention_bwd.program_launches))
-    q, k, v, o, lse, do = (x.to("meta") for x in bwd_inputs(hd=32))
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
-        fa_kernel.flash_attention_bwd(q, k, v, o, lse, do)
+        on_fake_card(fa_kernel.flash_attention_bwd, *bwd_inputs(hd=32))
     assert (fa_kernel.flash_attention_bwd.launches,
             fa_kernel.flash_attention_bwd.program_launches) == before

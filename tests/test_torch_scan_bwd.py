@@ -22,6 +22,7 @@ from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
+from helpers_torch import on_fake_card
 
 # the reference's backward tests' gates (tests/test_kernels.py): float32
 # atol 1e-5 / rtol 1e-4 (the same reverse recurrence, summed in another
@@ -288,9 +289,10 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("which", ["scan", "wkv"])
 def test_a_tensor_off_the_cpu_goes_to_the_backward_kernel_or_raises(
         which, monkeypatch):
-    """The plain backward is the CPU branch only: a tensor on another
-    device (here ``meta``) reaches the CUDA library, whose build is made
-    to fail, and the wrapper raises instead of computing anything."""
+    """The plain backward is the CPU branch only: a CUDA tensor (a
+    stand-in with no card behind it, ``helpers_torch.on_fake_card``)
+    reaches the CUDA library, whose build is made to fail, and the wrapper
+    raises instead of computing anything."""
     def no_library(name):
         raise _build.KernelBuildError(f"no {name} here")
 
@@ -299,13 +301,13 @@ def test_a_tensor_off_the_cpu_goes_to_the_backward_kernel_or_raises(
         monkeypatch.setattr(ms_kernel, "_lib_bwd", None)
         args = tensors(scan_arrays(1, 4, 64, 8))
         with pytest.raises(_build.KernelBuildError, match="mamba_scan_bwd"):
-            ms_kernel.selective_scan_bwd(*(x.to("meta") for x in args))
+            on_fake_card(ms_kernel.selective_scan_bwd, *args)
         assert ms_kernel.selective_scan_bwd.launches == 0
     else:
         monkeypatch.setattr(wkv_kernel, "_lib_bwd", None)
         args = tensors(wkv_arrays(1, 4, 2, 16))
         with pytest.raises(_build.KernelBuildError, match="rwkv6_wkv_bwd"):
-            wkv_kernel.wkv6_bwd(*(x.to("meta") for x in args))
+            on_fake_card(wkv_kernel.wkv6_bwd, *args)
         assert wkv_kernel.wkv6_bwd.launches == 0
 
 

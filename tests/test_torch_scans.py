@@ -20,6 +20,7 @@ from repro_torch.kernels.rwkv6_wkv import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.runtime.store import TuningStore
 from repro_torch.tune import kernels as ktune
+from helpers_torch import on_fake_card
 
 # the reference's kernel tests' float32 gate (tests/test_kernels.py): the
 # same recurrence, summed in another order
@@ -290,9 +291,10 @@ def test_scan_wrapper_refuses_bad_tensors():
 @pytest.mark.parametrize("which", ["wkv", "scan"])
 def test_a_tensor_off_the_cpu_goes_to_the_kernel_or_raises(which,
                                                            monkeypatch):
-    """The plain version is the CPU branch only: a tensor on another device
-    (here ``meta``) reaches the CUDA library, whose build is made to fail,
-    and the wrapper raises instead of computing anything."""
+    """The plain version is the CPU branch only: a CUDA tensor (a stand-in
+    with no card behind it, ``helpers_torch.on_fake_card``) reaches the
+    CUDA library, whose build is made to fail, and the wrapper raises
+    instead of computing anything."""
     def no_library(name):
         raise _build.KernelBuildError(f"no {name} here")
 
@@ -301,13 +303,13 @@ def test_a_tensor_off_the_cpu_goes_to_the_kernel_or_raises(which,
         monkeypatch.setattr(wkv_kernel, "_lib", None)
         _, args = wkv_inputs(1, 4, 2, 16)
         with pytest.raises(_build.KernelBuildError, match="rwkv6_wkv"):
-            wkv_kernel.wkv6_fwd(*(x.to("meta") for x in args))
+            on_fake_card(wkv_kernel.wkv6_fwd, *args)
         assert wkv_kernel.wkv6_fwd.launches == 0
     else:
         monkeypatch.setattr(ms_kernel, "_lib", None)
         _, args = scan_inputs(1, 4, 64, 8)
         with pytest.raises(_build.KernelBuildError, match="mamba_scan"):
-            ms_kernel.selective_scan_fwd(*(x.to("meta") for x in args))
+            on_fake_card(ms_kernel.selective_scan_fwd, *args)
         assert ms_kernel.selective_scan_fwd.launches == 0
 
 

@@ -106,11 +106,14 @@ def test_loss_and_every_gradient_match_reference(ref_params, compute_dtype):
 
 
 def test_remat_gives_the_same_numbers():
+    """Full remat and ``save_dots`` (the layer cut into checkpointed
+    segments at the reference's named tensors) give the loss and the
+    gradients of no remat."""
     cfg, _ = cfgs("float32")
     model = build_model(cfg, seed=3, device="cpu")
     batch = to_torch(np_batch(2))
     out = []
-    for remat in (False, True, "full"):
+    for remat in (False, True, "full", "save_dots"):
         model.zero_grad(set_to_none=True)
         loss, _ = model.loss(batch, remat=remat)
         loss.backward()
@@ -120,8 +123,52 @@ def test_remat_gives_the_same_numbers():
         assert torch.equal(loss, out[0][0])
         for g, w in zip(grads, out[0][1]):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="save_dots"):
-        model.loss(batch, remat="save_dots")
+    with pytest.raises(ValueError, match="remat"):
+        model.loss(batch, remat="save_everything")
+
+
+def test_save_dots_gradients_match_the_references(ref_params):
+    """``remat="save_dots"`` against the reference's own ``save_dots``
+    policy (``jax.checkpoint`` with ``save_only_these_names``), at the
+    tolerance of the no-remat comparison."""
+    cfg, rcfg = cfgs("float32")
+    batch = np_batch(5)
+    (want, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: RefLM(rcfg).loss(p, b, remat="save_dots"),
+        has_aux=True))(ref_params, to_jax(batch))
+    model = lm_from_jax_params(jax.tree.map(np.asarray, ref_params), cfg,
+                               "cpu")
+    loss, _ = model.loss(to_torch(batch), remat="save_dots")
+    loss.backward()
+    close(loss, want, TOL["float32"], "loss")
+    grads = jax.tree.map(np.asarray, grads)
+    for name, p in model.named_parameters():
+        close(p.grad, _reference_leaf(grads, name, cfg), TOL["float32"],
+              name)
+
+
+def saved_bytes(model, batch, remat) -> int:
+    """The bytes autograd keeps for the backward of one loss."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = model.loss(batch, remat=remat)
+    loss.backward()
+    model.zero_grad(set_to_none=True)
+    return total[0]
+
+
+def test_save_dots_keeps_more_than_full_remat_and_less_than_none():
+    cfg, _ = cfgs("float32")
+    model = build_model(cfg, seed=3, device="cpu")
+    batch = to_torch(np_batch(2))
+    full, dots, none = (saved_bytes(model, batch, r)
+                        for r in (True, "save_dots", False))
+    assert full < dots < none, (full, dots, none)
 
 
 def test_embedding_gathers_then_casts_with_the_references_gradient():
