@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc/``
 into ``build/`` (one ``nvcc`` per source, all started together), then
-drives the port's twenty paths once each, at full width, through the
-entry points a user would call:
+drives the port's paths once each, at full width, through the entry
+points a user would call:
 
 * DNA motif matching: build a motif DFA, ``tune_kernel`` the DNA
   automaton's launch parameters (map chunk, count chunk, threads, symbols
@@ -142,7 +142,7 @@ entry points a user would call:
   both, B3 36 and B4 36 x 15 a rank, no configuration measured, a decode
   step profiled for the combine's share, and on rank 0 the logits within
   5 % of a one-process run with the whole cache; ``dp_train``: Qwen2.5-3B
-  cut to 4 of its 36 layers at full width trained data-parallel (4 x 2048
+  cut to 2 of its 36 layers at full width trained data-parallel (4 x 2048
   a step, 2 steps, remat) on two ranks against one rank of the same
   global batch in float32 with TF32 off (losses within 2e-4), then in bf16
   with and without int8 gradient compression (final losses within 0.1),
@@ -180,7 +180,32 @@ entry points a user would call:
   entries off by a quarter of its largest update), Whisper's float32
   tokens those of one process; tokens/s, peak GiB, resident bytes and a
   step's collectives by op and axes recorded.  Ranks time-slice one
-  card: their times say nothing about two or four cards.
+  card: their times say nothing about two or four cards.  Each serving
+  path over ranks (``seq_serve``, ``tp_serve``, ``tp_recurrent``) also
+  serves once more with no synchronize around its collectives and no
+  logits kept (``uncounted``: the tokens/s a user sees); every multi-rank
+  path records its collectives' calls and bytes a step (or a generated
+  token) beside its seconds;
+* the examples' twins (``examples/torch_*.py``, each through its
+  ``main``): ``example_dna_real`` (``torch_dna_autotune.real()``: EM over
+  8 chunks and SAM of ``fa_match`` on 4,000,000 symbols, every count
+  against the plain version's on the card, B1/B2 launches two a
+  measurement), ``example_serve_lm`` (``torch_serve_lm``: the smoke
+  config, batch 4, prompt 32, 24 tokens; exact B3/B4),
+  ``example_train_100m`` (``torch_train_lm --preset 100m``: the
+  reference's ~100M Qwen-family model, 300 steps of 8 x 256 (its
+  checkpoints every 250 steps here, the reference's 50 by default) under
+  deterministic algorithms, every loss finite,
+  the first within 0.5 of ln V, the last 20's mean below the first 20's,
+  B3 and both B5 programs 10 a step; the same command on a directory
+  holding only the step-250 checkpoint must end with the step-300
+  parameters bit for bit; each checkpoint's save timed and one more
+  step profiled) and ``example_elastic`` (``torch_elastic_restart`` in
+  the two-rank spawn: a failure at step 7 resumed from 4, FSDP over
+  data, then phase 2 on ``make_host_mesh(1)``, rank 0 resuming at 12 and
+  rank 1 taking no part; held to an uninterrupted two-rank run).  After
+  each phase's release the card's ``memory_allocated`` is emitted
+  (``release`` lines).
 
 Before each path it holds each of the path's kernels against its plain
 PyTorch version on the same inputs at the path's shapes (the DNA kernels
@@ -203,7 +228,8 @@ measured); after each
 serving path it runs the same weights with the kernels and with the plain
 versions, teacher-forced on the generated tokens, and compares logits
 (Qwen2.5-3B on its first 64 tokens, the recurrent paths on their first
-32, also in float32, where the gate sits, with the MoE
+32 after the first 512 prompt tokens, also in float32, where the gate
+sits, with the MoE
 choices pinned to the kernel run's; Whisper's run holds every kernel call
 against its plain version as well); the new serving paths also check that
 serving measured no launch configuration;
@@ -307,18 +333,20 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
 RWKV_ARCH, JAMBA_ARCH, JAMBA_LAYERS = "rwkv6-1.6b", "jamba-v0.1-52b", 8
 SSM_BATCH, SSM_PROMPT, SSM_GEN = 8, 2048, 128
 # the recurrent parity phases teacher-force the first SSM_PARITY_STEPS of
-# the SSM_GEN served tokens (room in the time limit for the sharded phases)
-SSM_PARITY_STEPS = 32
+# the SSM_GEN served tokens after the first SSM_PARITY_PROMPT tokens of the
+# prompt (room in the time limit: five passes, three of them through the
+# plain versions' loops over every prompt token)
+SSM_PARITY_STEPS, SSM_PARITY_PROMPT = 32, 512
 # the recurrent training paths: RWKV-6 1.6B at batch 8 x 2048 (B.H = 256
 # recurrences, the serving shape) and Jamba's first period without experts
 # at batch 2 x 2048, 4 steps each.  Their kernels-vs-plain gradient passes
-# run at batch 2: Jamba at 512 tokens, RWKV-6 at 256 (the plain versions
+# run at batch 2: Jamba at 256 tokens, RWKV-6 at 128 (the plain versions
 # are Python loops over the tokens, the parity phase runs them three times,
 # and RWKV-6 has 24 recurrent layers to Jamba's 7; scan_bwd_parity holds
 # B7 and B9 at the training shapes)
 RWKV_TRAIN_BATCH, JAMBA_TRAIN_BATCH = 8, 2
 SSM_PARITY_BATCH = 2
-SSM_PARITY_SEQ = {"rwkv6-1.6b": 256, "jamba-v0.1-52b": 512}
+SSM_PARITY_SEQ = {"rwkv6-1.6b": 128, "jamba-v0.1-52b": 256}
 # the other decoders served at full width (A4) and the VLM (A5): batch 8, a
 # 2048-token prompt (the VLM's: 1024 patch embeddings, then 1024 tokens),
 # 32 new tokens; nemotron-4 cut to 2 of its 96 layers and built in bf16,
@@ -3007,7 +3035,9 @@ BF16_FLOOR_MARGIN = 1.5
 def phase_ssm_parity(model, generated, seed: int) -> None:
     """The same weights with the kernels and with the plain versions, on
     the card, teacher-forced on the first ``SSM_PARITY_STEPS`` generated
-    tokens, first as served (bf16) and then in float32.
+    tokens after the first ``SSM_PARITY_PROMPT`` tokens of the prompt (the
+    chunked wkv route and the selective scan in the prefill, as served),
+    first as served (bf16) and then in float32.
 
     Every run after the first is pinned to the first's expert choices
     (``teacher_forced``), and reports how many choices its own router
@@ -3032,7 +3062,8 @@ def phase_ssm_parity(model, generated, seed: int) -> None:
 
     cfg = model.cfg
     prompt = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)), device="cuda")[
+            :, :SSM_PARITY_PROMPT]
     feed = torch.as_tensor(generated, device="cuda")[:, :SSM_PARITY_STEPS]
     phase = "rwkv_parity" if "rwkv" in cfg.layer_kinds else "jamba_parity"
 
@@ -3075,7 +3106,8 @@ def phase_ssm_parity(model, generated, seed: int) -> None:
     finite = finite and bool(torch.isfinite(torch.stack(kern)).all())
     del kern, plain, model32
     torch.cuda.empty_cache()
-    emit(phase=phase, arch=cfg.name, steps=len(rel), bf16=bf16, float32=f32)
+    emit(phase=phase, arch=cfg.name, steps=len(rel),
+         prompt_len=prompt.shape[1], bf16=bf16, float32=f32)
     check(finite, f"{phase}: non-finite logits")
     check(shape == (SSM_BATCH, 1, cfg.vocab_size),
           f"{phase}: prefill logits {shape}")
@@ -4320,8 +4352,10 @@ RANK_TIMEOUT_S = 300.0
 SEQ_B, SEQ_CACHE, SEQ_POSITIONS = 8, 32768, (37, 16383, 16384, 32767)
 # Qwen2.5-3B served with the cache in two stripes: batch 1, 16384 prompt
 SEQ_SERVE_PROMPT, SEQ_SERVE_GEN = 16384, 16
-# Qwen2.5-3B cut to 4 of 36 layers trained data-parallel: 4 x 2048, 2 steps
-DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 4, 4, 2048, 2
+# Qwen2.5-3B cut to 2 of 36 layers trained data-parallel: 4 x 2048, 2 steps
+# (the embedding is half of 4 layers' gradient, and each step's float32
+# all-reduce goes through gloo on the host)
+DP_LAYERS, DP_BATCH, DP_SEQ, DP_STEPS = 2, 4, 2048, 2
 ALLREDUCE_N = 2 ** 20
 # A6b: Qwen2.5-3B served with its heads over two ranks (a (1, 2) mesh, each
 # rank 8 q heads over 1 kv head); Qwen2-MoE at full width, cut to
@@ -4411,6 +4445,7 @@ def rank_seq_decode(rank: int, mesh, kv_shard: str, seed: int,
     plain lse, the stripe against the whole cache's, and the B4 launches
     of the call (0 on an empty stripe).  With ``allreduce`` also the
     compressed all-reduce on this mesh."""
+    from repro_torch.dist.collectives import COUNTERS
     from repro_torch.dist.seq_decode import seq_decode_attention
     from repro_torch.dist.sharding import ShardingConfig
     from repro_torch.kernels.decode_attention import kernel as dak
@@ -4442,12 +4477,14 @@ def rank_seq_decode(rank: int, mesh, kv_shard: str, seed: int,
             lv = cv[rows, s0:s0 + sl].clone()
             torch.cuda.synchronize()
             dak.decode_attention.launches = 0
+            COUNTERS.reset()
             t0 = time.perf_counter()
             out, lk, lv = seq_decode_attention(
                 q[rows], kn[rows], vn[rows], lk, lv, pos, mesh=mesh,
                 seq_axes=seq, batch_axes=bax)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
+            totals = collective_totals(COUNTERS.snapshot())
             launches = dak.decode_attention.launches
             fk, fv = ck.clone(), cv.clone()
             fk[:, pos], fv[:, pos] = kn, vn
@@ -4472,7 +4509,9 @@ def rank_seq_decode(rank: int, mesh, kv_shard: str, seed: int,
                     "lse_err": lse_err,
                     "stripe_equal": torch.equal(lk, fk[rows, s0:s0 + sl])
                     and torch.equal(lv, fv[rows, s0:s0 + sl]),
-                    "step_ms": step_ms}
+                    "step_ms": step_ms,
+                    "collective_calls": totals["collective_calls"],
+                    "collective_bytes": totals["collective_bytes"]}
             case["ok"] = (case["launches"] == case["want_launches"]
                           and case["err_vs_b4"] <= 2e-4
                           and case["err_vs_plain"] <= 2e-4
@@ -4512,7 +4551,11 @@ def rank_allreduce(rank: int, mesh, seed: int) -> dict:
         cfg = CompressionConfig(scheme=scheme)
         want = torch.stack([_compress_leaf(x_all[r:r + 1], cfg)
                             for r in range(world)]).mean(0)
-        out[scheme] = {"ms": ms, "err_vs_compressed_mean":
+        # one all-reduce of the decompressed float32 contribution a call
+        # (compression.compressed_allreduce_mean calls dist.all_reduce)
+        out[scheme] = {"ms": ms, "collective_calls": 1,
+                       "collective_bytes": x.numel() * 4,
+                       "err_vs_compressed_mean":
                        float_err(got, want),
                        "err_vs_mean": float_err(got, x_all.mean(0,
                                                                 keepdim=True)),
@@ -4574,14 +4617,21 @@ def rank_seq_serve(rank: int, mesh, seed: int) -> dict:
     cfg = configs.get(LM_ARCH)
     scfg = ShardingConfig(data_axes=("data",), model_axes=(),
                           kv_shard="seq")
+    from repro_torch.dist.collectives import COUNTERS
+
     model, build_s, build_peak, _ = build_timed(cfg, seed)
     zero_attention_counters()
+    COUNTERS.reset()
     with counted_measurements() as measured:
         out = serve_session(cfg, batch=1, prompt_len=SEQ_SERVE_PROMPT,
                             gen=SEQ_SERVE_GEN, seed=seed, model=model,
                             scfg=scfg, mesh=mesh, return_logits=True)
     launches = attention_launches()
+    session = collective_totals(COUNTERS.snapshot())
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    uncounted = uncounted_session(lambda: serve_session(
+        cfg, batch=1, prompt_len=SEQ_SERVE_PROMPT, gen=SEQ_SERVE_GEN,
+        seed=seed, model=model, scfg=scfg, mesh=mesh), SEQ_SERVE_GEN)
 
     # one decode step under the profiler, every rank (the collectives
     # need them all): a short prompt prefilled into the same stripes, the
@@ -4614,6 +4664,11 @@ def rank_seq_serve(rank: int, mesh, seed: int) -> dict:
               "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
               "tokens_per_s": out["tokens_per_s"], "launches": launches,
               "measured": measured["n"], "serve_peak_gib": serve_peak,
+              "session": {**session, "collective_calls_per_token":
+                          session["collective_calls"] / SEQ_SERVE_GEN,
+                          "collective_bytes_per_token":
+                          session["collective_bytes"] / SEQ_SERVE_GEN},
+              "uncounted": uncounted,
               "generated": out["generated"].tolist(),
               "profiled_step": {"wall_ms": wall_ms, "combine_ms": combine_ms,
                                 "combine_calls": sum(e.count
@@ -4681,16 +4736,24 @@ def dp_run(cfg, seed: int, mesh=None, compression: str = "none") -> dict:
     from repro_torch.dist.sharding import ShardingConfig
     from repro_torch.launch.train import train_loop
 
+    from repro_torch.dist.collectives import COUNTERS
+
     scfg = ShardingConfig(data_axes=("data",), model_axes=(), remat=True,
                           grad_compression=compression)
     zero_attention_counters()
+    COUNTERS.reset()
     out = train_loop(cfg, steps_total=DP_STEPS, batch=DP_BATCH,
                      seq_len=DP_SEQ, seed=seed, log_every=0, scfg=scfg,
                      mesh=mesh)
     launches = attention_launches()
+    totals = collective_totals(COUNTERS.snapshot())
     result = {"compute_dtype": cfg.compute_dtype, "compression": compression,
               "losses": out["losses"], "step_seconds": out["step_seconds"],
               "allreduce_seconds": out["allreduce_seconds"],
+              "collective_calls_per_step":
+                  totals["collective_calls"] / DP_STEPS,
+              "collective_bytes_per_step":
+                  totals["collective_bytes"] / DP_STEPS,
               "launches": launches}
     del out
     gc.collect()
@@ -4785,6 +4848,26 @@ def counted_step(fn):
                  **collective_totals(counts)}
 
 
+def uncounted_session(fn, gen: int) -> dict:
+    """``fn()``, a ``serve_session`` without ``return_logits``, with no
+    synchronize around its collectives (``COUNTERS.synchronize`` off): the
+    speed a user sees beside the counted run's.  Its tokens/s, prefill
+    and decode seconds, and its collectives' calls and bytes (counted, not
+    timed apart) for the session and a generated token."""
+    from repro_torch.dist.collectives import COUNTERS
+
+    COUNTERS.reset()
+    COUNTERS.synchronize = False
+    out = fn()
+    totals = collective_totals(COUNTERS.snapshot())
+    return {"tokens_per_s": out["tokens_per_s"],
+            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+            "collective_calls": totals["collective_calls"],
+            "collective_bytes": totals["collective_bytes"],
+            "collective_calls_per_token": totals["collective_calls"] / gen,
+            "collective_bytes_per_token": totals["collective_bytes"] / gen}
+
+
 def rank_tp_serve(rank: int, mesh, seed: int, out_dir: str) -> dict:
     """Qwen2.5-3B served over the mesh's model axis through
     ``serve_session`` (launch counters zeroed just before it and read just
@@ -4812,6 +4895,9 @@ def rank_tp_serve(rank: int, mesh, seed: int, out_dir: str) -> dict:
             return_logits=True))
     launches = attention_launches()
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    uncounted = uncounted_session(lambda: serve_session(
+        cfg, batch=TP_BATCH, prompt_len=TP_PROMPT, gen=TP_GEN, seed=seed,
+        model=model, scfg=scfg, mesh=mesh), TP_GEN)
     if rank == 0:
         torch.save(out["logits"], Path(out_dir) / "tp_serve_logits.pt")
     prompt = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -4838,7 +4924,7 @@ def rank_tp_serve(rank: int, mesh, seed: int, out_dir: str) -> dict:
               "measured": measured["n"], "serve_peak_gib": serve_peak,
               "session": {k: v for k, v in session.items()
                           if k != "collectives"},
-              "decode_step": step,
+              "uncounted": uncounted, "decode_step": step,
               "generated": out["generated"].tolist()}
     if rank == 0:
         result["checked"] = summarize_calls(seen, "tp_serve")
@@ -5193,6 +5279,9 @@ def tp_recurrent_part(rank: int, mesh, seed: int, cfg, scfg) -> dict:
             return_logits=True))
     serve_launches = tp_launches()
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    uncounted = uncounted_session(lambda: serve_session(
+        cfg, batch=TPR_BATCH, prompt_len=TPR_PROMPT, gen=TPR_GEN, seed=seed,
+        model=model, scfg=scfg, mesh=mesh), TPR_GEN)
     resident = nbytes(model.parameters())
     prompt = seed_prompt(cfg, seed, TPR_BATCH, TPR_PROMPT)
     tok = torch.as_tensor(out["generated"][:, :2], device="cuda")
@@ -5214,6 +5303,7 @@ def tp_recurrent_part(rank: int, mesh, seed: int, cfg, scfg) -> dict:
               "serve_peak_gib": serve_peak,
               "session": {k: v for k, v in session.items()
                           if k != "collectives"},
+              "uncounted": uncounted,
               "decode_step": step, "calls": call_summary(seen),
               "generated": out["generated"].tolist()}
     del model
@@ -5262,6 +5352,9 @@ def whisper_tp_serve(rank: int, mesh, seed: int, cfg, scfg) -> dict:
            "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "session": session,
            "generated": served["generated"].tolist()}
+    out["uncounted"] = uncounted_session(lambda: serve_session(
+        cfg, batch=TPR_BATCH, prompt_len=WHISPER_FRAMES, gen=TPR_GEN,
+        seed=seed, model=model, scfg=scfg, mesh=mesh), TPR_GEN)
     del model
     if rank == 0:
         whole, _, _, _ = build_timed(cfg, seed)
@@ -5434,6 +5527,379 @@ def phase_tp_recurrent(ranks: list[dict]) -> dict:
             for name in names}
 
 
+# -- A8: the examples' twins on the card -------------------------------------------
+#
+# Each twin (``examples/torch_*.py``) is called in-process through its
+# ``main(argv)`` (``example_elastic`` in the two-rank spawn), its printed
+# lines sent to stderr so standard output stays the JSON lines.  The
+# 100M preset trains at the reference's full shape and length (300 steps)
+# under deterministic algorithms, and a run resumed from its step-250
+# checkpoint must reach the same step-300 parameters bit for bit.
+
+EXAMPLE_RESTART_FROM = 250
+EXAMPLE_SERVE_ARGS = ("--batch", "4", "--prompt-len", "32", "--gen", "24")
+
+
+def example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def release(after: str) -> None:
+    """Drop what the script no longer holds and read what stays allocated
+    on the card after ``after``."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="release", after=after,
+         allocated_gib=torch.cuda.memory_allocated() / 2 ** 30)
+
+
+def phase_example_dna_real() -> dict:
+    """``torch_dna_autotune.real()`` on the card (EM over the 8 chunks,
+    then SAM): its B1/B2 counters zeroed just before and read just after;
+    every measured count against the plain version's on the card, the
+    launches against the measurements (a warm call and a timed one
+    each)."""
+    from repro_torch.kernels.dna_automaton import kernel, ops
+
+    twin = example("torch_dna_autotune")
+    kernel.state_map.launches = 0
+    kernel.count_hits.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        out = twin.real()
+    launches = {"dna_state_map": kernel.state_map.launches,
+                "dna_count_hits": kernel.count_hits.launches}
+    em, sam, measured = out["em"], out["sam"], out["measurements"]
+    want = int(ops.fa_match_plain(out["text"], out["table"], out["accept"]))
+    emit(phase="example_dna_real", ok=True, symbols=out["text"].numel(),
+         motif="ACGTACGT", plain_count=want,
+         em_best_ms=em.best_energy_measured * 1e3,
+         em_best_chunk=em.best_config["chunk"],
+         em_measurements=em.n_experiments,
+         sam_best_ms=sam.best_energy_measured * 1e3,
+         sam_best_chunk=sam.best_config["chunk"],
+         sam_measurements=sam.n_experiments, measured=measured,
+         launches=launches)
+    check(all(m["count"] == want for m in measured),
+          f"example_dna_real: counts {measured}, plain {want}")
+    check(em.n_experiments == len(twin.CHUNKS)
+          and sam.n_experiments <= em.n_experiments,
+          f"example_dna_real: EM {em.n_experiments}, SAM "
+          f"{sam.n_experiments} measurements")
+    n = 2 * len(measured)
+    check(launches == {"dna_state_map": n, "dna_count_hits": n},
+          f"example_dna_real: launches {launches}, want {n} each")
+    del out
+    return launches
+
+
+def phase_example_serve_lm() -> dict:
+    """``torch_serve_lm.main`` (``--smoke`` inserted, batch 4, prompt 32,
+    24 tokens) on the card: exact B3/B4 launches, no configuration
+    measured."""
+    from repro_torch import configs
+
+    twin = example("torch_serve_lm")
+    cfg = configs.get(LM_ARCH).smoke()
+    zero_attention_counters()
+    with counted_measurements() as measured, \
+            contextlib.redirect_stdout(sys.stderr):
+        out = twin.main(list(EXAMPLE_SERVE_ARGS))
+    launches = attention_launches()
+    want = {"flash_attention_fwd": cfg.n_layers,
+            "decode_attention": cfg.n_layers * 23,
+            "flash_attention_bwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
+    emit(phase="example_serve_lm", ok=True, arch=cfg.name,
+         argv=list(EXAMPLE_SERVE_ARGS), prefill_s=out["prefill_s"],
+         decode_s=out["decode_s"], tokens_per_s=out["tokens_per_s"],
+         launches=launches, measured=measured["n"],
+         first_tokens=out["generated"][0][:8].tolist())
+    check(launches == want, f"example_serve_lm: launches {launches}, "
+                            f"want {want}")
+    check(measured["n"] == 0, f"example_serve_lm: measured {measured['n']}")
+    check(tuple(out["generated"].shape) == (4, 24),
+          f"example_serve_lm: tokens {out['generated'].shape}")
+    return launches
+
+
+def phase_example_train_100m(seed: int) -> dict:
+    """``torch_train_lm.main(["--preset", "100m"])``: 300 steps at batch
+    8 x 256, its B3/B5 counters zeroed just before and read just after;
+    then the same command on its directory holding only the step-250
+    checkpoint, which must resume there and end with the step-300
+    parameters bit for bit (both runs under deterministic algorithms);
+    then one more step of the final state under the profiler.  The twin
+    checkpoints every 250 steps here (its ``CKPT_EVERY``, the reference's
+    50 by default): the restart needs the step-250 checkpoint alone, and
+    each 1.3 GB checkpoint costs the host-bound step loop ~1 s.  Each
+    checkpoint's blocking save (the state copied to the host) and each
+    wait for its writer are timed in the run."""
+    import shutil
+    from unittest import mock
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+
+    twin = example("torch_train_lm")
+    twin.CKPT_EVERY = EXAMPLE_RESTART_FROM
+    preset = twin.PRESETS["100m"]
+    cfg = preset["cfg"]()
+    steps, batch, seq = preset["steps"], preset["batch"], preset["seq_len"]
+    timed: dict = {"save": [], "wait": []}
+
+    def timer(kind, real):
+        def wrapped(mgr, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(mgr, *a, **k)
+            finally:
+                timed[kind].append(time.perf_counter() - t0)
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_100m_") as tmp:
+        run_dir = Path(tmp) / "run"
+        argv = ["--preset", "100m"]
+        torch.use_deterministic_algorithms(True)
+        try:
+            zero_attention_counters()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr), \
+                    mock.patch.object(CheckpointManager, "save", timer(
+                        "save", CheckpointManager.save)), \
+                    mock.patch.object(CheckpointManager, "wait", timer(
+                        "wait", CheckpointManager.wait)):
+                out = twin.main([*argv, "--ckpt-dir", str(run_dir)])
+            run_s = time.perf_counter() - t0
+            launches = attention_launches()
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            final = {n: p.detach().clone()
+                     for n, p in out["state"]["params"].items()}
+            # the step-250 checkpoint alone in the run's directory
+            shutil.rmtree(run_dir / f"step_{steps:09d}")
+            zero_attention_counters()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                again = twin.main([*argv, "--ckpt-dir", str(run_dir)])
+            restart_s = time.perf_counter() - t0
+            restart_launches = attention_launches()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [n for n in final
+                  if not torch.equal(again["state"]["params"][n], final[n])]
+        resumed_from, resumed_steps = again["resumed_from"], len(
+            again["losses"])
+        del again
+    # a warm step of the final state under the profiler, outside the
+    # counted run
+    model = build_model(cfg, seed=seed, device="cuda")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(final[n])
+    opt_cfg = AdamWConfig(learning_rate=warmup_cosine(3e-4, 20, steps))
+    split = device_split(lambda: train_step(
+        model, out["state"]["opt"], train_batch(cfg, seed, steps, batch, seq),
+        opt_cfg, remat=False))
+    losses = out["losses"]
+    warm = sorted(out["step_seconds"][1:])
+    warm_s = warm[len(warm) // 2]
+    n = cfg.n_layers
+    want = {"flash_attention_fwd": n * steps, "decode_attention": 0,
+            "flash_attention_bwd": n * steps,
+            "flash_attention_bwd_dq": n * steps,
+            "flash_attention_bwd_dkv": n * steps}
+    extra = steps - EXAMPLE_RESTART_FROM
+    want_restart = {k: v // steps * extra for k, v in want.items()}
+    first20, last20 = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    emit(phase="example_train_100m", ok=True, arch=cfg.name,
+         params=cfg.param_count(), n_layers=n, batch=batch, seq_len=seq,
+         steps=steps, remat=False, ckpt_every=twin.CKPT_EVERY, run_s=run_s,
+         steps_s=sum(out["step_seconds"]),
+         first_step_s=out["step_seconds"][0],
+         losses_every_50={i: losses[i] for i in
+                          (*range(0, steps, 50), steps - 1)},
+         first20_mean=first20, last20_mean=last20,
+         ln_vocab=math.log(cfg.vocab_size), warm_step_s=warm_s,
+         tokens_per_s=batch * seq / warm_s, peak_gib=peak_gib,
+         checkpoint_save_s=timed["save"], checkpoint_wait_s=timed["wait"],
+         launches=launches,
+         restart={"resumed_from": resumed_from, "steps": resumed_steps,
+                  "seconds": restart_s, "launches": restart_launches,
+                  "params_differing": differ, "bit_equal": not differ},
+         profiled_step=split)
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"example_train_100m: losses {losses[:5]}...")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"example_train_100m: first loss {losses[0]}, ln V "
+          f"{math.log(cfg.vocab_size)}")
+    check(last20 < first20, f"example_train_100m: last 20 losses' mean "
+                            f"{last20} not below the first 20's {first20}")
+    check(launches == want, f"example_train_100m: launches {launches}, "
+                            f"want {want}")
+    check(resumed_from == EXAMPLE_RESTART_FROM and resumed_steps == extra,
+          f"example_train_100m: resumed from {resumed_from}, "
+          f"{resumed_steps} steps")
+    check(restart_launches == want_restart,
+          f"example_train_100m: restart launches {restart_launches}, want "
+          f"{want_restart}")
+    check(not differ, f"example_train_100m: the run resumed at "
+                      f"{EXAMPLE_RESTART_FROM} differs at step {steps}: "
+                      f"{differ[:5]}")
+    del model, out, final
+    return launches
+
+
+def rank_example_elastic(rank: int, mesh, seed: int) -> dict:
+    """``torch_elastic_restart.main`` on the spawn's two ranks (gloo on
+    the card; under deterministic algorithms): phase 1 on both, failing at
+    step 7 and resumed from 4, then phase 2 on ``make_host_mesh(1)`` (rank
+    0 resumes at 12; rank 1 takes no part).  Each ``train_loop`` call of
+    the twin has its B3/B5 counters zeroed just before it and read just
+    after, and its collectives counted (no synchronize).  Then the same
+    training uninterrupted on both ranks to step 16, checkpointed at 12,
+    which phase 1 (its step-12 checkpoint) and phase 2 (its losses) are
+    held to."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.dist.collectives import COUNTERS
+
+    t_job = time.perf_counter()
+    twin = example("torch_elastic_restart")
+    calls: list = []
+    real = twin.train_loop
+
+    def counted(cfg, **kw):
+        zero_attention_counters()
+        COUNTERS.reset()
+        call = {"steps_total": kw["steps_total"],
+                "mesh_size": kw["mesh"].size, "member": kw["mesh"].member}
+        try:
+            out = real(cfg, **kw)
+            call.update(losses=out["losses"], resumed_from=out["resumed_from"],
+                        step_seconds=out["step_seconds"])
+            return out
+        except RuntimeError as e:
+            call["failed"] = str(e)
+            raise
+        finally:
+            call.update(launches=attention_launches(),
+                        **collective_totals(COUNTERS.snapshot()))
+            calls.append(call)
+
+    twin.train_loop = counted
+    torch.use_deterministic_algorithms(True)
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            out = twin.main([])
+        whole_dir = twin.shared_tmpdir()
+        whole = real(twin.smoke_cfg(), steps_total=16, ckpt_dir=whole_dir,
+                     ckpt_every=12, mesh=mesh,
+                     scfg=twin.sharding(mesh.size), device="cuda",
+                     **twin.RUN)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        twin.train_loop = real
+    result = {"attempts": out["phase1"].attempts,
+              "failures": out["phase1"].failures,
+              "resumed_from": out["phase1"].result["resumed_from"],
+              "phase2_resumed_from": out["phase2"]["resumed_from"],
+              "phase2_losses": out["phase2"]["losses"],
+              "whole_losses": whole["losses"], "calls": calls}
+    if rank == 0:
+        got = CheckpointManager(out["ckpt_dir"]).restore(step=12)[1]
+        want = CheckpointManager(whole_dir).restore(step=12)[1]
+        result["phase1_params_bit_equal"] = all(
+            torch.equal(got["params"][n], want["params"][n])
+            for n in want["params"])
+        result["phase1_params_max_abs_diff"] = max(
+            float((got["params"][n] - want["params"][n]).abs().max())
+            for n in want["params"])
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(out["ckpt_dir"], ignore_errors=True)
+        shutil.rmtree(whole_dir, ignore_errors=True)
+    result["job_s"] = time.perf_counter() - t_job
+    return result
+
+
+def phase_example_elastic(ranks: list[dict]) -> dict:
+    """``rank_example_elastic``'s results: phase 1 restarted once from
+    step 4 on both ranks, its step-12 parameters those of the
+    uninterrupted run (bit for bit where deterministic, else within
+    2e-4); phase 2 resumed at 12 on rank 0 alone, its losses within 2e-4
+    of the uninterrupted run's; B3/B5 launches exact a call, rank 1
+    launching nothing in phase 2."""
+    from repro_torch import configs
+
+    n = configs.get(LM_ARCH).smoke().n_layers
+
+    def want(steps: int) -> dict:
+        return {"flash_attention_fwd": n * steps, "decode_attention": 0,
+                "flash_attention_bwd": n * steps,
+                "flash_attention_bwd_dq": n * steps,
+                "flash_attention_bwd_dkv": n * steps}
+
+    for r in ranks:
+        per_step = []
+        for call in r["calls"]:
+            # the failed attempt ran steps 0-6 before its failure at 7
+            steps = len(call["losses"]) if "losses" in call else 7
+            per_step.append({
+                "steps": steps, "mesh_size": call["mesh_size"],
+                "member": call["member"],
+                "step_s": (sorted(call["step_seconds"])[
+                    len(call["step_seconds"]) // 2]
+                    if call.get("step_seconds") else None),
+                **{f"{k}_per_step": call[k] / steps if steps else 0
+                   for k in ("collective_calls", "collective_bytes")}})
+        emit(phase="example_elastic", rank=r["rank"], backend=r["backend"],
+             peak_gib=r["peak_gib"], per_call=per_step,
+             **{k: v for k, v in r.items()
+                if k not in ("rank", "backend", "peak_gib")})
+        check(r["attempts"] == 2 and r["resumed_from"] == 4,
+              f"example_elastic: rank {r['rank']} attempts {r['attempts']}, "
+              f"resumed from {r['resumed_from']}")
+        first, second, shrunk = r["calls"]
+        check(first["launches"] == want(7) and second["launches"] == want(8),
+              f"example_elastic: rank {r['rank']} phase 1 launches "
+              f"{first['launches']}, {second['launches']}")
+        if r["rank"] == 0:
+            check(r["phase2_resumed_from"] == 12
+                  and shrunk["launches"] == want(4),
+                  f"example_elastic: phase 2 resumed from "
+                  f"{r['phase2_resumed_from']}, launches {shrunk['launches']}")
+            check(len(r["phase2_losses"]) == 4 and all(
+                abs(a - b) <= 2e-4 * max(1.0, abs(b)) for a, b in
+                zip(r["phase2_losses"], r["whole_losses"][12:])),
+                f"example_elastic: phase 2 losses {r['phase2_losses']} vs "
+                f"{r['whole_losses'][12:]}")
+            check(r["phase1_params_bit_equal"]
+                  or r["phase1_params_max_abs_diff"] <= 2e-4,
+                  f"example_elastic: phase 1 parameters vs the "
+                  f"uninterrupted run: {r['phase1_params_max_abs_diff']}")
+        else:
+            check(not shrunk["member"] and shrunk["launches"] == want(0)
+                  and r["phase2_losses"] == [],
+                  f"example_elastic: rank 1 in phase 2 {shrunk}")
+    return {name: sum(c["launches"][name] for r in ranks for c in r["calls"])
+            for name in want(0)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--t", type=int, default=FULL_T,
@@ -5471,7 +5937,14 @@ def main() -> int:
         # on the same store; its counters start from 0 inside the phase
         stream_launches = phase_stream(text, store_path, args.seed)
     del text
-    torch.cuda.empty_cache()
+    release("stream")
+    # the tune's outcome holds its timer, whose inputs are a text of its
+    # own (``KernelTimer.inputs``)
+    del tuned
+    release("tune_outcome")
+    # A8: the DNA example's --real run (EM and SAM over the chunk)
+    dna_real_launches = phase_example_dna_real()
+    release("example_dna_real")
 
     # the paper's search (A2): no kernel of ours
     phase_paper_search(args.seed)
@@ -5487,18 +5960,26 @@ def main() -> int:
         request_launches = phase_lm_requests(model, args.seed, store_path,
                                              tunes)
     launches.update(lm_launches)
-    del model
-    torch.cuda.empty_cache()
+    # the LM tunes' outcomes hold their timers' inputs (``tunes``)
+    del model, tunes
+    release("lm_requests")
+    # A8: the serving example (the smoke config, as the reference's)
+    serve_example_launches = phase_example_serve_lm()
+    release("example_serve_lm")
 
     # the LM-training path
     backward = phase_train_attention_parity(args.seed)
     model, _ = phase_lm_train_parity(args.seed)
     train_launches = phase_lm_train(model, args.seed)
     del model
-    torch.cuda.empty_cache()
+    release("lm_train")
     # A7: remat="save_dots" at full width, and the dry run against the card
     save_dots = phase_save_dots_train(args.seed)
+    release("save_dots_train")
     phase_train_restart(args.seed)
+    # A8: the training example's 100M preset, 300 steps, and its restart
+    train_100m_launches = phase_example_train_100m(args.seed)
+    release("example_train_100m")
 
     # the other decoders (A4), the VLM and the encoder-decoder (A5): B3, B4
     # and B5 on new paths and shapes
@@ -5507,6 +5988,7 @@ def main() -> int:
                  for phase, arch, n_layers, dtype in DECODER_PHASES}
     new_paths["whisper_serve"] = phase_whisper_serve(args.seed)
     new_paths["whisper_train"] = phase_whisper_train(args.seed)
+    release("whisper_train")
 
     # the recurrent serving paths, then their training paths on the same
     # store (RWKV-6 trains at the serving shape, where B8 is tuned)
@@ -5518,12 +6000,12 @@ def main() -> int:
             RWKV_ARCH, args.seed, store_path, tunes)
         phase_ssm_parity(model, generated, args.seed)
         del model
-        torch.cuda.empty_cache()
+        release("rwkv_parity")
         model, generated, jamba_launches = phase_ssm_serve(
             JAMBA_ARCH, args.seed, store_path, tunes)
         phase_ssm_parity(model, generated, args.seed)
         del model
-        torch.cuda.empty_cache()
+        release("jamba_parity")
 
         bwd_scans = phase_scan_bwd_parity(args.seed)
         tunes.update(phase_ssm_tune(args.seed, store_path, ssm_train_metas(),
@@ -5534,7 +6016,7 @@ def main() -> int:
             train_runs[arch] = phase_ssm_train(model, args.seed, store_path,
                                                tunes)
             del model
-            torch.cuda.empty_cache()
+            release(f"{arch}_train")
     rwkv_train, jamba_train = train_runs[RWKV_ARCH], train_runs[JAMBA_ARCH]
 
     # dist/ (A6): ranks sharing the card, spawned after the build.  The
@@ -5545,6 +6027,7 @@ def main() -> int:
     seed = args.seed
     dp_one = dp_one_process(seed)
     sharded_one = sharded_one_process(seed)
+    release("sharded_one_process")
     data, tp = ((2,), ("data",)), ((1, 2), ("data", "model"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         two = spawn_jobs(2, [
@@ -5554,7 +6037,9 @@ def main() -> int:
             # A6b: the heads split over ranks
             (rank_tp_serve, *tp, (seed, tmp)),
             # A6c: the recurrent mixers and the encoder-decoder over ranks
-            (rank_tp_recurrent, *tp, (seed,))])
+            (rank_tp_recurrent, *tp, (seed,)),
+            # A8: the elastic example, phase 2 on a mesh over rank 0
+            (rank_example_elastic, *data, (seed,))])
         tp_logits = torch.load(Path(tmp) / "tp_serve_logits.pt")
     four = spawn_jobs(4, [
         (rank_seq_decode, (2, 2), ("data", "model"), ("batch_seq", seed,
@@ -5568,15 +6053,20 @@ def main() -> int:
     tp_launches = phase_tp_serve(two[3], tp_logits, seed)
     sharded_launches = phase_sharded_train(sharded_one, four[1])
     recurrent = phase_tp_recurrent(two[4])
+    elastic_launches = phase_example_elastic(two[5])
 
     records += attention + [backward] + scans + bwd_scans
     by_path = {
         "dna_state_map": {"dna_serve": launches["dna_state_map"],
                           **{path: n["dna_state_map"]
-                             for path, n in stream_launches.items()}},
+                             for path, n in stream_launches.items()},
+                          "example_dna_real":
+                              dna_real_launches["dna_state_map"]},
         "dna_count_hits": {"dna_serve": launches["dna_count_hits"],
                            **{path: n["dna_count_hits"]
-                              for path, n in stream_launches.items()}},
+                              for path, n in stream_launches.items()},
+                           "example_dna_real":
+                               dna_real_launches["dna_count_hits"]},
         "flash_attention_fwd": {
             "lm_serve": launches["flash_attention_fwd"],
             "lm_requests": request_launches["flash_attention_fwd"],
@@ -5590,7 +6080,11 @@ def main() -> int:
             "dp_train": dp_launches["flash_attention_fwd"],
             "tp_serve": tp_launches["flash_attention_fwd"],
             "sharded_train": sharded_launches["flash_attention_fwd"],
-            "tp_recurrent": recurrent["flash_attention_fwd"]},
+            "tp_recurrent": recurrent["flash_attention_fwd"],
+            "example_serve_lm": serve_example_launches["flash_attention_fwd"],
+            "example_train_100m":
+                train_100m_launches["flash_attention_fwd"],
+            "example_elastic": elastic_launches["flash_attention_fwd"]},
         "flash_attention_bwd": {
             "lm_train": train_launches["flash_attention_bwd"],
             "save_dots_train": save_dots["flash_attention_bwd"],
@@ -5598,7 +6092,10 @@ def main() -> int:
             "whisper_train": new_paths["whisper_train"]["flash_attention_bwd"],
             "dp_train": dp_launches["flash_attention_bwd"],
             "sharded_train": sharded_launches["flash_attention_bwd"],
-            "tp_recurrent": recurrent["flash_attention_bwd"]},
+            "tp_recurrent": recurrent["flash_attention_bwd"],
+            "example_train_100m":
+                train_100m_launches["flash_attention_bwd"],
+            "example_elastic": elastic_launches["flash_attention_bwd"]},
         "decode_attention": {
             "lm_serve": launches["decode_attention"],
             "lm_requests": request_launches["decode_attention"],
@@ -5607,7 +6104,8 @@ def main() -> int:
                if n["decode_attention"]},
             "seq_serve": seq_launches["decode_attention"],
             "tp_serve": tp_launches["decode_attention"],
-            "tp_recurrent": recurrent["decode_attention"]},
+            "tp_recurrent": recurrent["decode_attention"],
+            "example_serve_lm": serve_example_launches["decode_attention"]},
         "wkv6_fwd": {"rwkv_serve": rwkv_launches["wkv6_fwd"],
                      "rwkv_train": rwkv_train["wkv6_fwd"],
                      "tp_recurrent": recurrent["wkv6_fwd"]},

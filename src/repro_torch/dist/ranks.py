@@ -13,7 +13,9 @@ which is all the rules table (``dist.sharding.MeshRules``) reads:
   process group for every set of axes a collective runs over.  Groups over
   two or more axes (the sequence stripes of ``kv_shard="seq"`` on a
   ("pod", "data") mesh) are built with ``dist.new_group`` on every rank,
-  in the same order, when the mesh is made.
+  in the same order, when the mesh is made.  A mesh over the first ``n``
+  ranks of a larger group (an elastic shrink) builds every group so; a
+  rank outside it is not a ``member`` and takes no part.
 
 The port's collectives are ``dist.all_reduce`` (SUM and MAX) and
 ``dist.broadcast`` only: ``gloo``, the backend of ranks that share one
@@ -70,22 +72,35 @@ def axis_sizes(mesh) -> dict[str, int]:
 
 
 class RankMesh:
-    """A ``DeviceMesh`` over the running process group, with this rank's
-    coordinate along each axis and a process group for every non-empty
-    set of axes (in the mesh's axis order)."""
+    """A mesh of ranks: this rank's coordinate along each axis and a
+    process group for every non-empty set of axes (in the mesh's axis
+    order).
 
-    def __init__(self, device_mesh):
+    ``device_mesh`` is a ``DeviceMesh`` over the whole running group.
+    ``ranks`` (a tensor of global ranks in the mesh's shape) with
+    ``axis_names`` is a mesh over part of the group, as
+    ``launch.mesh.make_host_mesh(n)`` lays one over the first ``n`` ranks;
+    every rank of the group builds it (``dist.new_group`` needs them all),
+    and on a rank outside it ``member`` is False, ``coords`` is ``None``
+    and no group is kept: the entry points return at once there."""
+
+    def __init__(self, device_mesh=None, *, ranks: torch.Tensor | None = None,
+                 axis_names: tuple[str, ...] | None = None):
         self.device_mesh = device_mesh
-        self.axis_names = tuple(device_mesh.mesh_dim_names)
-        self.shape = dict(zip(self.axis_names, device_mesh.mesh.shape))
-        self.coords = dict(zip(self.axis_names,
-                               device_mesh.get_coordinate()))
-        ranks = device_mesh.mesh              # (sizes...) tensor of ranks
+        if device_mesh is not None:
+            ranks = device_mesh.mesh
+            axis_names = device_mesh.mesh_dim_names
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, ranks.shape))
         me = dist.get_rank()
+        where = (ranks == me).nonzero().tolist()
+        self.member = bool(where)
+        self.coords = (dict(zip(self.axis_names, where[0])) if self.member
+                       else None)
         self._groups: dict[tuple[str, ...], object] = {}
         for n in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, n):
-                if n == 1:
+                if n == 1 and device_mesh is not None:
                     self._groups[axes] = device_mesh.get_group(axes[0])
                     continue
                 # every rank calls new_group for every row, in one order
@@ -97,6 +112,20 @@ class RankMesh:
                     g = dist.new_group(row)
                     if me in row:
                         self._groups[axes] = g
+
+    @property
+    def size(self) -> int:
+        """The mesh's rank count."""
+        return self.axes_size(self.axis_names)
+
+    @property
+    def rank(self) -> int:
+        """This rank's place in the mesh (its flattened coordinate)."""
+        return self.index(self.axis_names)
+
+    def all_group(self):
+        """The process group of every rank of the mesh."""
+        return self.group(self.axis_names)
 
     def axes_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in axes)

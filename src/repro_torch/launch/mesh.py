@@ -9,7 +9,11 @@ nothing runs on it.
 ``make_host_mesh`` is a mesh over the ranks of the running
 ``torch.distributed`` group (a ``DeviceMesh`` wrapped as
 ``dist.ranks.RankMesh``), on ``"cuda"`` or ``"cpu"`` as the model's device
-is — the counterpart of the reference's mesh over whatever devices exist.
+is — the counterpart of the reference's mesh over whatever devices exist;
+``make_host_mesh(n)`` with fewer ranks than the group is a mesh over its
+first ``n``, as the reference's is over its first ``n`` devices (every
+rank calls it; on the others ``mesh.member`` is False, and ``train_loop``
+and ``serve_session`` return there at once).
 Under ``torchrun`` (``RANK``/``WORLD_SIZE`` in the environment) it joins
 the group the environment names first.
 """
@@ -41,9 +45,11 @@ def make_host_mesh(n: int | None = None, axes: tuple[str, ...] = ("data",),
                    *, shape: tuple[int, ...] | None = None,
                    device=None) -> RankMesh:
     """A mesh over the running group's ranks: ``(n,)`` along ``axes[0]``
-    (``n`` = every rank), or ``shape`` along ``axes``.  ``device`` is the
-    model's device (``None`` = the card).  Joins the group named by the
-    environment when none is running."""
+    (``n`` = every rank), or ``shape`` along ``axes``.  A mesh of fewer
+    ranks than the group lies over its first ranks (each rank of the group
+    must call this; ``member`` says whether this one is in it); one of
+    more raises.  ``device`` is the model's device (``None`` = the card).
+    Joins the group named by the environment when none is running."""
     dev_type = torch.device("cuda" if device is None else device).type
     if not dist.is_initialized():
         if "WORLD_SIZE" not in os.environ:
@@ -57,10 +63,13 @@ def make_host_mesh(n: int | None = None, axes: tuple[str, ...] = ("data",),
         shape = (n or world,) + (1,) * (len(axes) - 1)
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} for axes {axes}")
-    if torch.Size(shape).numel() != world:
-        raise ValueError(f"a mesh of {tuple(shape)} needs "
-                         f"{torch.Size(shape).numel()} ranks; the group "
-                         f"has {world}")
+    size = torch.Size(shape).numel()
+    if size > world:
+        raise ValueError(f"a mesh of {tuple(shape)} needs {size} ranks; "
+                         f"the group has {world}")
+    if size < world:
+        return RankMesh(ranks=torch.arange(size).reshape(tuple(shape)),
+                        axis_names=tuple(axes))
     from torch.distributed.device_mesh import init_device_mesh
 
     return RankMesh(init_device_mesh(dev_type, tuple(shape),

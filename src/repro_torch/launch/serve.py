@@ -178,8 +178,13 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
     token is broadcast and compared; so must every rank of a model-axes
     group), and ``generated`` holds the whole batch on every rank.
     ``return_logits`` adds ``"logits"``: the prefill's last-position
-    logits and each decode step's, float32, this rank's rows.
+    logits and each decode step's, float32, this rank's rows.  On a rank
+    outside the mesh (``mesh.member`` False) it returns at once, with
+    ``generated`` ``None``, and joins no collective.
     """
+    if mesh is not None and not mesh.member:
+        return {"generated": None, "prefill_s": 0.0, "decode_s": 0.0,
+                "tokens_per_s": 0.0}
     rules = None
     if mesh is not None:
         scfg = scfg or ShardingConfig(
@@ -202,7 +207,7 @@ def serve_session(cfg, *, batch: int, prompt_len: int, gen: int,
                              dtype=torch.int64, device=dev)
     rows = slice(0, batch)
     seq_group = batch_group = None
-    if mesh is not None and dist.get_world_size() > 1:
+    if mesh is not None and mesh.size > 1:
         if not _checksum_agrees(model, mesh):
             raise RuntimeError("serve_session: the ranks' parameters differ "
                                "(each rank builds the model from the seed)")
@@ -680,7 +685,9 @@ def dna_stream_batches(n_batches: int, rows: int, row_len: int, *,
             for i in range(n_batches)]
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict | None:
+    """The serving CLI; returns ``serve_session``'s result when it serves
+    one session (``None`` for ``--stream`` and ``--serve-requests``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b", choices=configs.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
@@ -832,12 +839,13 @@ def main(argv=None) -> None:
                         gen=args.gen, seed=args.seed, device=dev, mesh=mesh,
                         scfg=scfg)
     ranks = ("" if mesh is None else
-             f" on rank {dist.get_rank()} of {dist.get_world_size()}")
+             f" on rank {mesh.rank} of {mesh.size}")
     log.info(f"prefill {out['prefill_s']:.3f}s  decode {out['decode_s']:.3f}s"
              f"  {out['tokens_per_s']:.1f} tok/s on {dev}{ranks}")
     log.info(f"sample tokens: {out['generated'][0, :12]}")
     if mesh is not None:
         dist.destroy_process_group()
+    return out
 
 
 def _main_requests(ap, args) -> None:

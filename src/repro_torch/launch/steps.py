@@ -51,13 +51,13 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
-import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..dist.api import use_rules
 from ..dist.collectives import all_reduce_
 from ..dist.compression import (CompressionConfig, compress_stacked,
                                 init_error_state, stack_groups)
+from ..dist.ranks import RankMesh
 from ..dist.sharding import MeshRules, ShardingConfig, batch_specs
 from ..models import LM, EncDec, build_model
 from ..models.config import ArchConfig
@@ -318,7 +318,7 @@ def shard_for_serving(model: LM | EncDec, scfg: ShardingConfig,
     (``resident="storage"``, as training holds them); otherwise it holds
     its compute blocks, gathered once here."""
     rules = serving_rules(scfg, mesh)
-    if model.layout is None and dist.get_world_size() > 1:
+    if model.layout is None and mesh.size > 1:
         fsdp = tuple(a for a in scfg.fsdp_axes if a in mesh.axis_names)
         model.shard(rules, "storage" if mesh.axes_size(fsdp) > 1
                     else "compute", scfg)
@@ -380,8 +380,7 @@ def state_shapes(cfg: ArchConfig, opt_cfg: AdamWConfig) -> dict:
 
 
 def _over_ranks(mesh) -> bool:
-    return mesh is not None and dist.is_initialized() \
-        and dist.get_world_size() > 1
+    return isinstance(mesh, RankMesh) and mesh.size > 1
 
 
 def make_train_step(cfg: ArchConfig, scfg: ShardingConfig, mesh,

@@ -134,8 +134,13 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
     all-reduce (a synchronize before and after it) on a mesh of several
     ranks.  ``remat``/``microbatches`` default to ``scfg``'s (else off /
     1).  ``mesh`` is a mesh of ranks (``make_host_mesh``); ``scfg``
-    defaults to data parallelism over its first axis.
+    defaults to data parallelism over its first axis.  On a rank outside
+    the mesh (``mesh.member`` False) it returns at once, with no loss and
+    ``state`` ``None``, and joins no collective.
     """
+    if mesh is not None and not mesh.member:
+        return {"losses": [], "resumed_from": None, "final_loss": None,
+                "state": None, "step_seconds": [], "allreduce_seconds": []}
     if scfg is None:
         scfg = ShardingConfig(
             data_axes=mesh.axis_names[:1] if mesh is not None else
@@ -151,10 +156,10 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
             and torch.device(device).type != model.device.type:
         raise ValueError(f"model lies on {model.device}, device={device!r}")
     batch_axes: tuple = ()
-    rank = 0
+    rank, over_ranks = 0, mesh is not None and mesh.size > 1
     if mesh is not None:
         batch_axes = scfg.batch_axes(mesh)
-        rank = dist.get_rank()
+        rank = mesh.rank
     dev = model.device
     # every rank regenerates the global batch of a step (a pure function
     # of seed and step) and keeps its rows, so 1 rank and n ranks see the
@@ -173,11 +178,14 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
                         f"with this model ({type(e).__name__}: {e}); "
                         "starting fresh")
     layout = getattr(model, "layout", None)
-    if mesh is not None and dist.get_world_size() > 1 and layout is None:
-        # one broadcast from rank 0, so no rank's parameters can drift
+    if over_ranks and layout is None:
+        # one broadcast from the mesh's rank 0, so no rank's parameters
+        # can drift
+        group = mesh.all_group()
         with torch.no_grad():
             for p in params.values():
-                dist.broadcast(p.data, src=0)
+                dist.broadcast(p.data, src=dist.get_global_rank(group, 0),
+                               group=group)
         # then each rank keeps its blocks (and its moments' and residual's)
         layout = model.shard(scfg.rules(mesh), "storage", scfg)
         if layout is not None and opt is not None:
@@ -227,10 +235,10 @@ def train_loop(cfg, *, steps_total: int, batch: int, seq_len: int,
         if writer:
             writer.save(step, full, extra=extra)
         del full
-        if mesh is not None and dist.get_world_size() > 1:
+        if over_ranks:
             if writer:
                 writer.wait()            # complete before anyone reads it
-            dist.barrier()
+            dist.barrier(group=mesh.all_group())
 
     losses: list[float] = []
     step_seconds: list[float] = []
@@ -323,7 +331,7 @@ def main(argv=None) -> None:
                      ckpt_every=args.ckpt_every, seed=args.seed, device=dev,
                      scfg=scfg, mesh=mesh)
     ranks = ("" if mesh is None else
-             f" on rank {dist.get_rank()} of {dist.get_world_size()}")
+             f" on rank {mesh.rank} of {mesh.size}")
     log.info(f"final loss: {out['final_loss']:.4f} "
              f"(first: {out['losses'][0]:.4f}) on {dev}{ranks}")
     if mesh is not None:

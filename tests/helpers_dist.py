@@ -407,6 +407,86 @@ def step_counts_rank(rank, world, mesh, jobs, out_dir):
                    Path(out_dir) / f"{tag}_rank{rank}.pt")
 
 
+def mesh_subset_rank(rank, world, mesh, cfg, run, scfg_kw, serve_kw,
+                     out_dir):
+    """On the group's mesh: ``run`` uninterrupted to 12 steps, then 8
+    steps checkpointed at 4 and 8; then ``make_host_mesh(1)`` on every
+    rank, the run resumed to 12 on it, and ``serve_session`` on it; then
+    ``make_host_mesh(world + 1)``, which must raise."""
+    from repro_torch.dist.sharding import ShardingConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_session
+    from repro_torch.launch.train import train_loop
+
+    scfg = ShardingConfig(**scfg_kw)
+    kw = dict(run, scfg=scfg, device="cpu", log_every=0)
+    ckpt = str(Path(out_dir) / "ckpt")
+    whole = train_loop(cfg, steps_total=12, mesh=mesh, **kw)
+    first = train_loop(cfg, steps_total=8, mesh=mesh, ckpt_dir=ckpt,
+                       ckpt_every=4, **kw)
+    sub = make_host_mesh(1, device="cpu")
+    t0 = time.perf_counter()
+    resumed = train_loop(cfg, steps_total=12, mesh=sub, ckpt_dir=ckpt,
+                         ckpt_every=100, **kw)
+    resumed_s = time.perf_counter() - t0
+    served = serve_session(cfg, mesh=sub, device="cpu", **serve_kw)
+    try:
+        make_host_mesh(world + 1, device="cpu")
+        too_large = None
+    except ValueError as e:
+        too_large = str(e)
+    torch.save({"whole": whole["losses"], "first": first["losses"],
+                "member": sub.member, "sub_size": sub.size,
+                "resumed": {k: resumed[k] for k in ("losses", "resumed_from",
+                                                    "final_loss")},
+                "resumed_state": resumed["state"] is not None,
+                "resumed_s": resumed_s,
+                "generated": served["generated"], "too_large": too_large},
+               Path(out_dir) / f"rank{rank}.pt")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def elastic_rank(rank, world, mesh, out_dir):
+    """``examples/torch_elastic_restart.py`` on the CPU on this group's
+    ranks, then (the run it is held to) the same training uninterrupted on
+    every rank to step 16, checkpointed at 12 (whose parameters phase 1
+    must end with)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch.train import train_loop
+
+    example = load_example("torch_elastic_restart")
+    out = example.main(["--device", "cpu"])
+    ckpt = Path(out_dir) / "whole"
+    whole = train_loop(example.smoke_cfg(), steps_total=16,
+                       ckpt_dir=str(ckpt), ckpt_every=12,
+                       mesh=mesh, scfg=example.sharding(world),
+                       device="cpu", **example.RUN)
+    got = {}
+    if rank == 0:
+        want = CheckpointManager(ckpt).restore(step=12, device="cpu")[1]
+        phase1 = CheckpointManager(out["ckpt_dir"]).restore(
+            step=12, device="cpu")[1]
+        got = {"want12": want["params"], "phase1_12": phase1["params"]}
+    report, shrunk = out["phase1"], out["phase2"]
+    torch.save({"attempts": report.attempts,
+                "resumed_from": report.result["resumed_from"],
+                "phase2": None if shrunk is None else {
+                    k: shrunk[k] for k in ("losses", "resumed_from")},
+                "whole": whole["losses"], **got},
+               Path(out_dir) / f"rank{rank}.pt")
+
+
 def step_batch(cfg, batch: int, seq_len: int) -> dict:
     """A seeded global batch of ``batch`` rows of ``seq_len`` tokens
     (int32, as ``launch.shapes.batch_specs_for`` gives them)."""
@@ -428,7 +508,7 @@ def float32(cfg):
 
 __all__ = ["COLLECTIVE_AXES", "COLLECTIVE_ROUTES", "LEAF_SPECS",
            "allreduce_rank", "collectives_rank", "compress_step_rank",
-           "float32", "grads_rank", "load_ranks", "many_rank",
-           "moments_rank", "run_ranks", "seq_decode_rank", "serve_rank",
+           "elastic_rank", "float32", "grads_rank", "load_example",
+           "load_ranks", "many_rank", "mesh_subset_rank", "moments_rank", "run_ranks", "seq_decode_rank", "serve_rank",
            "step_batch", "step_counts_rank", "stripe_rank", "tp_serve_rank",
            "train_rank"]

@@ -134,10 +134,15 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     assert proc.stdout.split() == ["clean", str(len(SUBMODULES))]
 
 
-@pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py"],
-                         ids=["package", "chip_smoke"])
+@pytest.mark.parametrize("path", [PORT, ROOT / "chip_smoke.py",
+                                  ROOT / "examples"],
+                         ids=["package", "chip_smoke", "examples"])
 def test_no_source_imports_jax_or_repro(path):
-    files = [path] if path.is_file() else sorted(path.rglob("*.py"))
+    """The port's sources, and its twins of the examples
+    (``examples/torch_*.py``), import neither JAX nor the reference."""
+    files = [path] if path.is_file() else sorted(path.rglob(
+        "torch_*.py" if path.name == "examples" else "*.py"))
+    assert files
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for f in files:
         assert not pat.search(f.read_text()), f
